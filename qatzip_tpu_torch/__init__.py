@@ -1,0 +1,21 @@
+"""qatzip_tpu_torch: the PyTorch/CUDA port of qatzip-tpu.
+
+A second package beside ``qatzip_tpu`` (the JAX reference, which it is
+tested against).  It runs the DEFLATE device path — the hybrid compressor
+(device match finder + native entropy coder) and the lockstep inflate
+(device entropy decode + native window copies) — on an NVIDIA GPU through
+hand-written CUDA kernels (``csrc/``), and shares the jax-free host layers
+of ``qatzip_tpu`` (constants, sessions, wire formats, the native C++ codec,
+the CPU backend) by import.  Importing it never loads jax.
+"""
+from qatzip_tpu.constants import *  # noqa: F401,F403
+from qatzip_tpu.session import (  # noqa: F401
+    QzSession,
+    QzSessionParams,
+    QzSessionParamsCommon,
+    QzSessionParamsDeflate,
+    QzSessionParamsDeflateExt,
+)
+from qatzip_tpu_torch.api import *  # noqa: F401,F403
+
+__version__ = "0.1.0"

@@ -1,0 +1,114 @@
+"""Build and bind the port's CUDA kernels.
+
+The sources are ``qatzip_tpu_torch/csrc/*.cu`` and ``*.cuh``.  ``nvcc``
+compiles them for Hopper (``sm_90a``) into one shared library with a plain
+C interface, which ``ctypes`` loads; no PyTorch header is compiled, so a
+build takes seconds.  The library goes to ``build/qatzip_tpu_torch/``
+beside the package and is rebuilt at first use whenever a source is newer
+than it (the rule of qatzip_tpu/native/build.py).  A missing ``nvcc`` or a
+failed build raises :class:`KernelError` with the compiler's output:
+nothing falls back.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :class:`Kernel` raises :class:`KernelError` when
+that is not 0 and counts the launches that went through.  The engine's
+device-to-CPU failover lets a ``KernelError`` through, so a kernel that
+cannot be built or launched is an error, never a quiet CPU run.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG), "build", "qatzip_tpu_torch")
+LIB = os.path.join(BUILD_DIR, "libqzkernels.so")
+LOG = os.path.join(BUILD_DIR, "nvcc.log")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+class KernelError(RuntimeError):
+    """A kernel of the port could not be built, loaded or launched, or was
+    handed tensors it cannot take."""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels of qatzip_tpu_torch cannot be built")
+
+
+def build(force: bool = False) -> str:
+    """Compile csrc/*.cu into LIB when it is missing or stale; returns LIB."""
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    deps = srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    if (not force and os.path.exists(LIB)
+            and all(os.path.getmtime(LIB) >= os.path.getmtime(s)
+                    for s in deps)):
+        return LIB
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(LOG, "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, LIB)
+    return LIB
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = build()
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as exc:
+                raise KernelError(f"cannot load {path}: {exc}") from exc
+            lib.qz_cuda_error_string.restype = ctypes.c_char_p
+            lib.qz_cuda_error_string.argtypes = [ctypes.c_int]
+            _lib = lib
+        return _lib
+
+
+class Kernel:
+    """One C entry point of the library, with its launch count.
+
+    Calling it launches the kernel; ``launches`` counts the calls whose
+    launch the CUDA runtime accepted, and nothing else adds to it."""
+
+    def __init__(self, symbol: str, argtypes: list):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            try:
+                fn = getattr(library(), self.symbol)
+            except AttributeError as exc:
+                raise KernelError(f"{self.symbol} is not in {LIB}") from exc
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        rc = self._fn(*args)
+        if rc != 0:
+            msg = library().qz_cuda_error_string(rc).decode()
+            raise KernelError(f"{self.symbol}: CUDA error {rc} ({msg})")
+        self.launches += 1

@@ -1,0 +1,214 @@
+"""Device codec: batch chunks into device tensors, run the kernels, unpack
+results into backend-contract payloads.
+
+Port of ``DeflateDeviceCodec`` from qatzip_tpu/ops/device_codecs.py: the
+hybrid compress path (``_compress_hybrid``, :102-224, without the mesh
+branch and without the packed candidate format) and the lockstep
+decompress path (``decompress_chunks``, :306-362), with the reference's
+per-batch CPU failover and its ``faults``/``health`` hooks.  The failover
+takes injected faults and device errors; a :class:`KernelError` (a kernel
+that cannot be built or launched) passes through it to the caller.  The
+host-only
+helpers (CPU fallbacks, checksums) are the reference's, imported.  LZ4 has
+no device codec in the port yet, so the registry sends it to the CPU.
+"""
+from __future__ import annotations
+
+import os
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from qatzip_tpu.constants import DataFormatInternal
+from qatzip_tpu.engine import faults
+from qatzip_tpu.engine.backend import CompressedChunk, DecompressedChunk
+from qatzip_tpu.engine.cpu_backend import _map_chunks
+from qatzip_tpu.ops.device_codecs import (_checksum_kind, _chunk_checksum,
+                                          _cpu_compress_batch, _cpu_inflate)
+from qatzip_tpu.session import InternalParams
+from qatzip_tpu_torch.engine.health import health
+from qatzip_tpu_torch.ops._build import KernelError
+
+
+def level_params(level: int) -> int:
+    """Compression level -> hash-chain depth (the table of
+    qatzip_tpu/ops/deflate_encode.py:level_params, :68-79)."""
+    if level <= 3:
+        return 8
+    if level <= 6:
+        return 12
+    return 16
+
+
+def _stage_chunks(batch, n: int, device: torch.device):
+    """Build the [len(batch), n+8] uint8 device input for a batch of chunks:
+    one staged host copy, then a non-blocking upload.  Returns (data, lens)
+    on ``device``."""
+    lens = np.zeros((len(batch),), np.int32)
+    data = np.zeros((len(batch), n + 8), np.uint8)
+    for i, c in enumerate(batch):
+        if len(c) > n:
+            raise ValueError("chunk exceeds hw_buff_sz")
+        lens[i] = len(c)
+        data[i, :len(c)] = np.frombuffer(c, np.uint8)
+    return (torch.from_numpy(data).to(device, non_blocking=True),
+            torch.from_numpy(lens).to(device, non_blocking=True))
+
+
+def _unported(env: str, value: str, what: str, item: int) -> None:
+    if os.environ.get(env, "") == value:
+        raise NotImplementedError(f"{env}={value}: {what} is not ported to "
+                                  f"qatzip_tpu_torch yet (ROADMAP queue 1 "
+                                  f"item {item})")
+
+
+class DeflateDeviceCodec:
+    """Batched deflate-block codec running on a torch device."""
+
+    MAX_BATCH = 128        # chunks per device dispatch
+    LOCKSTEP_BATCH = 128   # blocks per inflate round (one per lane)
+
+    def compress_chunks(self, chunks: Sequence[bytes], params: InternalParams,
+                        device: torch.device) -> list[CompressedChunk]:
+        _unported("QATZIP_TPU_ENCODER", "device", "the full-device encoder", 9)
+        _unported("QATZIP_TPU_PACK", "1", "the packed candidate format", 5)
+        return self._compress_hybrid(chunks, params, device)
+
+    def _compress_hybrid(self, chunks: Sequence[bytes],
+                         params: InternalParams,
+                         device: torch.device) -> list[CompressedChunk]:
+        """Hybrid path: the device runs the sort-based LZ77 candidate search
+        (ops/match_finder.py) and the native host code verifies, extends and
+        entropy-codes (qz_deflate_candidates), the split the reference
+        makes between its search engine and its driver."""
+        from qatzip_tpu.native import qzcore as native
+        from qatzip_tpu_torch.ops import match_finder as mf
+
+        n = params.hw_buff_sz
+        depth = level_params(params.comp_lvl)
+        # L1/L2 default: stride-2 indexing at depth >= 16 (the reference's
+        # speed point; the parser's two-sided probes keep the ratio)
+        stride_env = os.environ.get("QATZIP_TPU_MF_STRIDE")
+        if stride_env is not None:
+            stride = int(stride_env)
+        elif params.comp_lvl <= 2:
+            stride = 2
+            depth = max(depth, 16)
+        else:
+            stride = 1
+
+        # submit-all-then-assemble: kernels queue on the device while the
+        # host assembles earlier batches
+        pending: list[tuple] = []
+        for start in range(0, len(chunks), self.MAX_BATCH):
+            batch = list(chunks[start:start + self.MAX_BATCH])
+            try:
+                data, lens = _stage_chunks(batch, n, device)
+                faults.check("submit", "compress")
+                pending.append(
+                    (batch, mf.find_candidates(data, lens, depth,
+                                               stride=stride)))
+            except KernelError:
+                raise
+            except Exception:
+                # per-batch reroute to the CPU (compInSWFallback analog)
+                health.record_failure()
+                pending.append((batch, None))
+
+        out: list[CompressedChunk] = []
+        for batch, cand in pending:
+            if cand is None:
+                out.extend(_cpu_compress_batch(batch, params))
+                continue
+            try:
+                faults.check("death", "compress")
+                cand_np = cand.cpu().numpy()
+            except Exception:
+                health.record_failure()
+                out.extend(_cpu_compress_batch(batch, params))
+                continue
+            health.record_success()
+            if faults.armed() and faults.should_fire("poison", "compress"):
+                # a poisoned candidate array must be HARMLESS: the native
+                # parser verifies every candidate by byte compare
+                rngp = np.random.default_rng(0)
+                cand_np = rngp.integers(
+                    0, int(np.iinfo(cand_np.dtype).max) + 1,
+                    cand_np.shape).astype(cand_np.dtype)
+
+            def assemble(i_c):
+                i, c = i_c
+                payload = native.deflate_candidates(c, cand_np[i],
+                                                    params.comp_lvl)
+                return CompressedChunk(payload, _chunk_checksum(c, params),
+                                       len(c))
+
+            out.extend(_map_chunks(assemble, list(enumerate(batch))))
+        return out
+
+    def decompress_chunks(self, payloads, hints, params: InternalParams,
+                          device: torch.device) -> list[DecompressedChunk]:
+        """Lockstep device inflate with per-chunk CPU failover (the
+        reference's decompOutSWFallback): chunks the kernel flags as
+        unprovable are re-inflated with zlib.  Chunk checksums are computed
+        on the host over each decoded part."""
+        from qatzip_tpu_torch.ops import deflate_decode as dd
+
+        _unported("QATZIP_TPU_INFLATE", "spec", "the speculative decoder", 9)
+        kind = _checksum_kind(params)
+        bsz = self.LOCKSTEP_BATCH
+        out: list[DecompressedChunk] = []
+        for start in range(0, len(payloads), bsz):
+            batch = payloads[start:start + bsz]
+            bh = hints[start:start + bsz]
+            try:
+                faults.check("submit", "decompress")
+                ran: list = []
+                results = dd.inflate_batch(batch, bh, device, kind=kind,
+                                           ran_out=ran)
+                faults.check("death", "decompress")
+                if ran:
+                    # only a round that reached the device is evidence of
+                    # health; an all-pre-failed batch is not
+                    health.record_success()
+            except KernelError:
+                raise
+            except Exception:
+                # device dispatch failure: per-batch reroute to the CPU
+                # (decompInSWFallback analog)
+                health.record_failure()
+                results = [None] * len(batch)
+            for payload, hint, r in zip(batch, bh, results):
+                if r is None:
+                    data, eof = _cpu_inflate(bytes(payload), hint)
+                    ckv = _chunk_checksum(data, params)
+                else:
+                    data, eof, ckv = r
+                    if faults.armed() and data and \
+                            faults.should_fire("poison", "decompress"):
+                        # simulated corruption of decoded output: the
+                        # engine's checksum/size verification must catch it
+                        bad = bytearray(data)
+                        bad[len(bad) // 2] ^= 0x55
+                        data = bytes(bad)
+                        ckv = None
+                    if ckv is None:
+                        ckv = _chunk_checksum(data, params)
+                    if faults.armed() and \
+                            faults.should_fire("checksum", "decompress"):
+                        ckv ^= 0xDEAD  # checksum-engine fault, good payload
+                out.append(DecompressedChunk(data, ckv, eof))
+        return out
+
+
+def register_all() -> None:
+    from qatzip_tpu_torch.ops import registry
+
+    deflate = DeflateDeviceCodec()
+    for fmt in (DataFormatInternal.DEFLATE_4B, DataFormatInternal.DEFLATE_GZIP,
+                DataFormatInternal.DEFLATE_GZIP_EXT,
+                DataFormatInternal.DEFLATE_RAW,
+                DataFormatInternal.DEFLATE_ZLIB):
+        registry.register(fmt, "compress", deflate)
+        registry.register(fmt, "decompress", deflate)

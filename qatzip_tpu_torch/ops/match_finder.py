@@ -1,0 +1,112 @@
+"""Sort-based LZ77 candidate finder: the device half of the hybrid deflate
+pipeline.
+
+Port of qatzip_tpu/ops/match_finder.py (``find_candidates``, lines 48-180).
+Per block of n <= 65536 bytes, batched [B, n]:
+
+  1. 3-byte hash keys  key1 = h15 << 16 | pos16  (elementwise)
+  2. sort 1 by key1, stable, carrying the prefix words b4 (bytes p..p+3)
+     and, with rank8, b4b (bytes p+4..p+7)
+  3. candidate select over the sorted neighbours (ops/select.py, the
+     ported Pallas kernel)
+  4. back to position order: every valid record's distance lands in
+     output column pos, every other column is 0.  The reference does this
+     with a second sort and a stride interleave; one scatter gives the same
+     array.
+
+The candidates are verified only to a 3/4/8-byte prefix; the native parser
+(qz_deflate_candidates, shared with the reference) re-verifies and extends
+them.  Keys are built in int64, because torch on the CPU has no uint32
+shift; the product b3 * 2654435761 stays below 2**56 and is masked to 32
+bits before the shift.  The packed candidate format
+(``find_candidates_packed``) is not ported yet (ROADMAP queue 1 item 5).
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+from qatzip_tpu_torch.ops.select import select_candidates
+
+DEPTH = 4            # hash-chain depth (the level -> depth map is the caller's)
+_INVALID = 0xFFFFFFFF
+_M32 = 0xFFFFFFFF
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding u32 values -> int32 with the same bit pattern."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def find_candidates(data: torch.Tensor, lengths: torch.Tensor,
+                    depth: int = DEPTH, stride: int | None = None,
+                    rank8: bool | None = None) -> torch.Tensor:
+    """data: uint8[B, n+8] zero-padded, n <= 65536; lengths: int32[B], on one
+    device.  Returns uint16[B, n] on that device: per-position candidate
+    distance (0 = none).
+
+    ``stride`` (env QATZIP_TPU_MF_STRIDE, default 1) indexes only every
+    stride-th position; ``rank8`` (env QATZIP_TPU_MF_RANK8, default on)
+    carries the second prefix word through the sort so candidates rank by
+    an 8-byte prefix."""
+    if stride is None:
+        stride = int(os.environ.get("QATZIP_TPU_MF_STRIDE", "1"))
+    if rank8 is None:
+        rank8 = os.environ.get("QATZIP_TPU_MF_RANK8", "1") != "0"
+    if data.dtype != torch.uint8 or data.dim() != 2:
+        raise ValueError("data must be uint8[B, n+8]")
+    n = data.shape[1] - 8
+    if not 0 < n <= 65536:
+        raise ValueError("block width must be 1..65536 bytes")
+    return _find_candidates_impl(data, lengths, int(depth), int(stride),
+                                 bool(rank8))
+
+
+def _find_candidates_impl(data: torch.Tensor, lengths: torch.Tensor,
+                          depth: int, stride: int,
+                          rank8: bool) -> torch.Tensor:
+    B = data.shape[0]
+    n_full = data.shape[1] - 8
+    sk, sb4, sb4b = sorted_records(data, lengths, stride, rank8)
+    dist_sorted = select_candidates(sk, sb4, sb4b, depth)
+    # unscramble (sort 2 + stride interleave): scatter each valid record's
+    # distance to its position; invalid records go to a dropped column
+    col = torch.where(sk != -1, (sk & 0xFFFF).to(torch.int64), n_full)
+    out = torch.zeros((B, n_full + 1), dtype=torch.int32, device=data.device)
+    out.scatter_(1, col, dist_sorted)
+    return out[:, :n_full].to(torch.uint16)
+
+
+def sorted_records(data: torch.Tensor, lengths: torch.Tensor, stride: int,
+                   rank8: bool):
+    """Steps 1-2: hash keys and sort 1.  Returns the hash-sorted (sk, sb4,
+    sb4b) as int32[B, n // stride] u32 bit patterns — the input of the
+    candidate select."""
+    B = data.shape[0]
+    n = data.shape[1] - 8
+    d = data.to(torch.int64)
+    b4 = (d[:, 0:n] | (d[:, 1:n + 1] << 8)
+          | (d[:, 2:n + 2] << 16) | (d[:, 3:n + 3] << 24))
+    h = (((b4 & 0xFFFFFF) * 2654435761) & _M32) >> 17   # 15-bit 3-gram hash
+    pos = torch.arange(n, dtype=torch.int64, device=data.device)[None, :]
+    valid = pos + 2 < lengths.to(torch.int64)[:, None]
+    key1 = torch.where(valid, (h << 16) | pos, _INVALID)
+    b4b = (torch.cat([b4[:, 4:], b4.new_zeros((B, 4))], dim=1)
+           if rank8 else None)
+    if stride > 1:
+        # index only every stride-th position; the native parser's
+        # byte-compare extension recovers most of the lost coverage
+        lim = (n // stride) * stride   # trim the ragged tail
+        key1 = key1[:, :lim:stride]
+        b4 = b4[:, :lim:stride]
+        if rank8:
+            b4b = b4b[:, :lim:stride]
+    # stable sort on the key biased into int32 order, payloads gathered
+    skey, order = torch.sort((key1 - (1 << 31)).to(torch.int32), dim=1,
+                             stable=True)
+    sk = skey ^ torch.iinfo(torch.int32).min       # back to the u32 pattern
+    sb4 = _as_i32(b4).gather(1, order)
+    sb4b = (_as_i32(b4b).gather(1, order) if rank8
+            else torch.zeros_like(sb4))            # eq8 degenerates to eq4
+    return sk, sb4, sb4b

@@ -1,0 +1,113 @@
+"""The port's CUDA kernels on the card, against their plain torch versions.
+
+Marked ``cuda``: each test skips without a CUDA device.  On a CUDA host
+without nvcc the build test fails, naming the gap.  The GPU host has no
+jax, so this file imports none and needs none of conftest.py; run it there
+from the repository root with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import random
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _text(n: int, seed: int) -> bytes:
+    rng = random.Random(seed)
+    words = [b"the", b"quick", b"brown", b"fox", b"jumps", b"over", b"lazy",
+             b"dog", b"compression", b"hardware", b"offload"]
+    out = bytearray()
+    while len(out) < n:
+        out += rng.choice(words) + b" " + bytes([rng.randrange(256)])
+    return bytes(out[:n])
+
+
+def test_kernels_build(dev):
+    from qatzip_tpu_torch.ops import _build
+
+    _build.build()
+    _build.library()
+
+
+@pytest.mark.parametrize("depth,stride", [(16, 2), (8, 1), (4, 3)])
+def test_select_kernel_equals_plain(dev, depth, stride):
+    from qatzip_tpu_torch.ops import match_finder as mf
+    from qatzip_tpu_torch.ops import select as S
+
+    n = 16384
+    datas = [_text(n, 1), bytes(n), _text(5000, 2)]
+    arr = np.zeros((len(datas), n + 8), np.uint8)
+    for i, d in enumerate(datas):
+        arr[i, :len(d)] = np.frombuffer(d, np.uint8)
+    data = torch.from_numpy(arr).to(dev)
+    lens = torch.tensor([len(d) for d in datas], dtype=torch.int32,
+                        device=dev)
+    sk, sb4, sb4b = mf.sorted_records(data, lens, stride, True)
+    before = S.KERNEL.launches
+    got = S.select_candidates(sk, sb4, sb4b, depth)
+    assert S.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, S.select_candidates_ref(sk, sb4, sb4b, depth))
+    cpu = mf.find_candidates(data.cpu(), lens.cpu(), depth, stride=stride)
+    assert torch.equal(mf.find_candidates(data, lens, depth,
+                                          stride=stride).cpu(), cpu)
+
+
+def test_inflate_kernel_equals_plain(dev):
+    from qatzip_tpu.ops.deflate_decode import _parse_one_header, _Stream
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+    from qatzip_tpu_torch.ops import inflate as PI
+    from qatzip_tpu_torch.ops import inflate_kernel as K
+
+    streams = []
+    for i, level in enumerate((1, 6, 9, 1)):
+        data = _text(20000, 10 + i)
+        co = zlib.compressobj(level, zlib.DEFLATED, -15)
+        s = _Stream(co.compress(data) + co.flush(), len(data), i)
+        assert _parse_one_header(s) == "huff"
+        streams.append(s)
+    live, inputs = dd.pack_round(streams)
+    words, bit0, nbits, tll, td, active, max_steps = inputs
+    words = words.copy()
+    words[3, 10:20] ^= 0x5A5A5A5A          # lane 3: corrupted
+    t = PI.upload(words, bit0, nbits, tll, td, active, dev)
+    before = K.KERNEL.launches
+    got = PI.decode_lockstep(*t, max_steps)
+    assert K.KERNEL.launches == before + 1
+    want = PI._decode_ref(*t, max_steps)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not bool(got[1][:3].any())
+
+
+def test_slice_on_cuda(dev, monkeypatch):
+    import gzip
+
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu import constants as C
+    from qatzip_tpu_torch.engine import core
+
+    monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
+    data = _text(300_000, 7)
+    outs = {}
+    for device in (torch.device("cpu"), dev):
+        core.qz_close_engine()
+        sess = qt.QzSession()
+        assert qt.qz_init(sess, device=device) == C.QZ_OK
+        outs[device.type] = qt.compress(data, level=1, hw_buff_sz=16384)
+        assert qt.decompress(outs[device.type], hw_buff_sz=16384) == data
+    core.qz_close_engine()
+    assert outs["cuda"] == outs["cpu"]
+    assert gzip.decompress(outs["cuda"]) == data
