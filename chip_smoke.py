@@ -11,14 +11,26 @@ Run from the repository root:  python3 chip_smoke.py
    (depth 16 / stride 2, the L1 default, and depth 8 / stride 1), and one
    128-lane lockstep inflate round of zlib level-1 payloads.  Outputs must
    be equal; both are timed with CUDA events.
+   The u32 sort kernel, which no path runs yet, on the unsorted sort-1
+   records of the same chunks at stride 2 and 1 ([128, 32768] and
+   [128, 65536]), equal to its plain version and timed the same way.  The
+   LZ4 block decoder (plain torch on the card) on one 128-block group of
+   the corpus's LZ4 blocks: bytes equal to the host decoder, none flagged.
 3. The DEFLATE device path through the public API: gzip-ext level 1 at
    64 KB chunks, compress then decompress the 32 MB corpus.  The launch
    counters are zeroed just before this run and must show both kernels;
    the engine must report device requests only, no lane may fail over to
    the CPU and the health breaker must record no failure; the output must
    be gzip-interoperable and round-trip bit-exactly.
-4. A profiled pass of each direction: device busy time against the
-   unprofiled wall time, and the host functions that take the time.
+4. The LZ4 device path through the public API: an LZ4-frame session at
+   level 1 and 64 KB chunks on the 32 MB corpus, then an LZ4s session
+   (mini match 3) on 8 MB of it.  Each must launch the select kernel once
+   a 128-chunk batch, run on the device only, fail no block over to the
+   CPU, record no health failure, round-trip bit-exactly, and be readable
+   by the software path.
+5. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
+   device busy time against the unprofiled wall time, and the host
+   functions that take the time.
 
 Prints the kernels' JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -91,16 +103,23 @@ def phase_environment(torch):
                 print("  ptxas:", line.strip())
 
 
-def phase_select(torch, corpus: bytes, dev) -> dict:
+def _first_chunks(torch, corpus: bytes, dev):
+    """The match finder's input for the first 128 chunks: uint8[128, 64 K
+    + 8] and their lengths, on the card."""
     import numpy as np
-
-    from qatzip_tpu_torch.ops import match_finder as mf
-    from qatzip_tpu_torch.ops import select as S
 
     arr = np.frombuffer(corpus[:LANES * CHUNK], np.uint8).reshape(LANES, CHUNK)
     data = torch.zeros((LANES, CHUNK + 8), dtype=torch.uint8, device=dev)
     data[:, :CHUNK] = torch.from_numpy(arr.copy()).to(dev)
     lens = torch.full((LANES,), CHUNK, dtype=torch.int32, device=dev)
+    return data, lens
+
+
+def phase_select(torch, corpus: bytes, dev) -> dict:
+    from qatzip_tpu_torch.ops import match_finder as mf
+    from qatzip_tpu_torch.ops import select as S
+
+    data, lens = _first_chunks(torch, corpus, dev)
     rec = None
     for depth, stride in ((16, 2), (8, 1)):
         sk, sb4, sb4b = mf.sorted_records(data, lens, stride, True)
@@ -120,7 +139,8 @@ def phase_select(torch, corpus: bytes, dev) -> dict:
             rec = {"name": "select_candidates", "route": "cuda",
                    "source": "qatzip_tpu_torch/csrc/select.cu",
                    "replaces": "qatzip_tpu/ops/pallas_select.py:89",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                   "path": "deflate", "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms}
     return rec
 
 
@@ -164,7 +184,117 @@ def phase_inflate(torch, corpus: bytes, dev) -> dict:
     return {"name": "inflate_decode", "route": "cuda",
             "source": "qatzip_tpu_torch/csrc/inflate.cu",
             "replaces": "qatzip_tpu/ops/pallas_inflate_kernel.py:228",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "path": "deflate", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def phase_sort(torch, corpus: bytes, dev) -> dict:
+    """The u32 sort kernel on the match finder's sort-1 input.  No path
+    calls it, so its launches are this phase's own checked calls."""
+    from qatzip_tpu_torch.ops import match_finder as mf
+    from qatzip_tpu_torch.ops import sort as S
+
+    data, lens = _first_chunks(torch, corpus, dev)
+    S.KERNEL.launches = 0
+    rec = None
+    for stride in (2, 1):
+        key1, b4, b4b = mf.hash_records(data, lens, stride, True)
+        # payloads need unique keys: the invalid records (0xFFFFFFFF, the
+        # last positions of a chunk) take 0xFFFF0000 | column instead,
+        # which still sorts after every valid key (h15 << 16 | pos16)
+        col = torch.arange(key1.shape[1], dtype=torch.int32, device=dev)
+        keys = torch.where(key1 == -1, col - 65536, key1)
+        ker = S.sort_u32(keys, b4, b4b)
+        ref = S.sort_u32_ref(keys, b4, b4b)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("keys", "b4", "b4b"), ker, ref):
+            _check(torch.equal(a, b),
+                   f"sort kernel != plain in {name} at stride {stride}")
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(ker, ref))
+        launches = S.KERNEL.launches
+        ms = _time_ms(lambda: S.sort_u32(keys, b4, b4b), 20)
+        plain_ms = _time_ms(lambda: S.sort_u32_ref(keys, b4, b4b), 20)
+        S.KERNEL.launches = launches
+        print(f"sort stride {stride} shape {tuple(keys.shape)}, 2 payloads: "
+              f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if rec is None:   # the L1 match finder's sort-1 shape
+            rec = {"name": "sort_u32", "route": "cuda",
+                   "source": "qatzip_tpu_torch/csrc/sort.cu",
+                   "replaces": "qatzip_tpu/ops/pallas_sort.py:113",
+                   "path": None, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms}
+    rec["launches"] = S.KERNEL.launches
+    return rec
+
+
+def phase_lz4_decode(torch, corpus: bytes, dev) -> None:
+    """One 128-block group of the corpus's LZ4 blocks (level 1, 64 KB
+    chunks; the blocks a frame does not store) through the device block
+    decoder, against the host decoder."""
+    import numpy as np
+
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+    from qatzip_tpu_torch.ops import device_codecs as dc
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+
+    chunks, blocks = [], []
+    for i in range(0, len(corpus), CHUNK):
+        chunk = corpus[i:i + CHUNK]
+        blk = dd._native.lz4_compress_block(chunk)
+        if len(blk) < len(chunk):
+            chunks.append(chunk)
+            blocks.append(blk)
+        if len(blocks) == ld.GROUP:
+            break
+    ld.failover_blocks = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ld.decode_blocks(blocks, device=dev)
+    wall = time.perf_counter() - t0
+    _check(ld.failover_blocks == 0,
+           f"the decoder flagged {ld.failover_blocks} of {len(blocks)} blocks")
+    for chunk, blk, g in zip(chunks, blocks, got):
+        _check(g == dc.lz4_block_decompress(blk, CHUNK) == chunk,
+               "device LZ4 decode != host decoder")
+    n = ld._next_pow2(max(len(b) for b in blocks) + 8, 1024)
+    arr = np.zeros((len(blocks), n), np.uint8)
+    for i, b in enumerate(blocks):
+        arr[i, :len(b)] = np.frombuffer(b, np.uint8)
+    b_t = torch.from_numpy(arr).to(dev)
+    l_t = torch.tensor([len(b) for b in blocks], dtype=torch.int32,
+                       device=dev)
+    ms = _time_ms(lambda: ld._decode_blocks_impl(b_t, l_t, n, ld.MAX_OUT,
+                                                 False, 0), 3)
+    out_bytes = sum(len(c) for c in chunks)
+    print(f"lz4 decode: {len(blocks)} blocks, n {n}, outcap {ld.MAX_OUT}, "
+          f"{out_bytes} output bytes: equal to the host decoder, none "
+          f"flagged; device {ms:.4f} ms a group (CUDA events, "
+          f"{out_bytes / ms / 1e6:.4f} GB/s of output), first call "
+          f"{wall * 1e3:.1f} ms with copies")
+
+
+def _run(torch, sess, direction: str, src):
+    """One request through the public API on the device route only;
+    returns (result, seconds)."""
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch.engine import core
+
+    eng = core.engine()
+    hw0, sw0 = eng.hw_requests, eng.sw_requests
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = (qt.qz_compress(sess, src) if direction == "compress"
+           else qt.qz_decompress(sess, src))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _check(res.rc == qt.QZ_OK, f"{direction} rc {res.rc}")
+    _check(not res.ext_rc & qt.QZ_SW_EXECUTION_MASK,
+           f"{direction} ran on the software path")
+    _check(eng.hw_requests > hw0 and eng.sw_requests == sw0,
+           f"{direction}: hw_requests {eng.hw_requests - hw0}, "
+           f"sw_requests {eng.sw_requests - sw0}")
+    return res, dt
 
 
 def phase_slice(torch, corpus: bytes, kernels: list):
@@ -188,30 +318,15 @@ def phase_slice(torch, corpus: bytes, kernels: list):
            "session setup failed")
     print(f"engine: {eng.hw_backend.name} backend on {eng.device_kind}")
 
-    def run(direction, src):
-        hw0, sw0 = eng.hw_requests, eng.sw_requests
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = (qt.qz_compress(sess, src) if direction == "compress"
-               else qt.qz_decompress(sess, src))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        _check(res.rc == qt.QZ_OK, f"{direction} rc {res.rc}")
-        _check(not res.ext_rc & qt.QZ_SW_EXECUTION_MASK,
-               f"{direction} ran on the software path")
-        _check(eng.hw_requests > hw0 and eng.sw_requests == sw0,
-               f"{direction}: hw_requests {eng.hw_requests - hw0}, "
-               f"sw_requests {eng.sw_requests - sw0}")
-        return res, dt
-
-    warm, _ = run("compress", corpus[:LANES * CHUNK])   # warm-up, uncounted
-    run("decompress", warm.data)
+    # warm-up, uncounted
+    warm, _ = _run(torch, sess, "compress", corpus[:LANES * CHUNK])
+    _run(torch, sess, "decompress", warm.data)
 
     S.KERNEL.launches = 0
     K.KERNEL.launches = 0
     dd.failover_lanes = 0
-    comp, t_c = run("compress", corpus)
-    dec, t_d = run("decompress", comp.data)
+    comp, t_c = _run(torch, sess, "compress", corpus)
+    dec, t_d = _run(torch, sess, "decompress", comp.data)
     launches = {"select_candidates": S.KERNEL.launches,
                 "inflate_decode": K.KERNEL.launches}
 
@@ -237,8 +352,8 @@ def phase_slice(torch, corpus: bytes, kernels: list):
           f"health failures 0; gzip interop and round trip exact")
     walls = {"compress": [t_c], "decompress": [t_d]}
     for rep in range(3):
-        _, t_c = run("compress", corpus)
-        _, t_d = run("decompress", comp.data)
+        _, t_c = _run(torch, sess, "compress", corpus)
+        _, t_d = _run(torch, sess, "decompress", comp.data)
         walls["compress"].append(t_c)
         walls["decompress"].append(t_d)
         print(f"repeat {rep}: compress {gb / t_c:.4f} GB/s, decompress "
@@ -247,23 +362,87 @@ def phase_slice(torch, corpus: bytes, kernels: list):
           f"(framed), zlib L1 raw deflate {len(corpus) / zl:.4f} "
           f"(same 64 KB chunks)")
     medians = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
-    return sess, comp.data, medians
+    return "gzip-ext", sess, corpus, comp.data, medians
 
 
-def phase_profile(torch, sess, corpus: bytes, comp: bytes,
-                  walls: dict) -> None:
-    """Device busy time and the host's top functions, one pass each way.
+def phase_lz4(torch, corpus: bytes) -> list:
+    """The LZ4-frame session on the corpus and the LZ4s session on 8 MB of
+    it, through the public API with the device forced (phase_slice set
+    QATZIP_TPU_DEVICE and initialised the engine on the card)."""
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch.engine.health import health
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    from qatzip_tpu_torch.ops import select as S
+
+    def common():
+        return qt.QzSessionParamsCommon(comp_lvl=1, hw_buff_sz=CHUNK)
+
+    runs = []
+    for name, setup, params, src in (
+            ("lz4", qt.qz_setup_session_lz4,
+             qt.QzSessionParamsLZ4(common_params=common()), corpus),
+            ("lz4s", qt.qz_setup_session_lz4s,
+             qt.QzSessionParamsLZ4S(common_params=common(),
+                                    lz4s_mini_match=3), corpus[:8 << 20])):
+        sess = qt.QzSession()
+        _check(setup(sess, params) == qt.QZ_OK, f"{name} session setup")
+        nchunks = -(-len(src) // CHUNK)
+        S.KERNEL.launches = 0
+        ld.failover_blocks = 0
+        comp, t_c = _run(torch, sess, "compress", src)
+        dec, t_d = _run(torch, sess, "decompress", comp.data)
+        launches = S.KERNEL.launches
+        _check(launches >= nchunks // LANES,
+               f"{name}: select launched {launches} times")
+        _check(ld.failover_blocks == 0,
+               f"{name}: {ld.failover_blocks} blocks failed over to the CPU")
+        _check(health.total_failures == 0,
+               f"{name}: health recorded {health.total_failures} failures")
+        _check(dec.data == src, f"{name} round trip is not bit-exact")
+        _check(qt.decompress(comp.data, name, hw_buff_sz=CHUNK,
+                             sw_only=True) == src,
+               f"the software path cannot read the {name} output")
+        gb = len(src) / 1e9
+        print(f"{name}: {len(src)} bytes, {nchunks} chunks, ratio "
+              f"{len(src) / len(comp.data):.4f}; compress {t_c:.4f} s = "
+              f"{gb / t_c:.4f} GB/s, decompress {t_d:.4f} s = "
+              f"{gb / t_d:.4f} GB/s; select launches {launches}; failover "
+              f"blocks 0; health failures 0; round trip exact, software "
+              f"path reads it")
+        walls = {"compress": [t_c], "decompress": [t_d]}
+        for rep in range(2):
+            _, t_c = _run(torch, sess, "compress", src)
+            _, t_d = _run(torch, sess, "decompress", comp.data)
+            walls["compress"].append(t_c)
+            walls["decompress"].append(t_d)
+            print(f"{name} repeat {rep}: compress {gb / t_c:.4f} GB/s, "
+                  f"decompress {gb / t_d:.4f} GB/s")
+        runs.append((name, sess, src, comp.data,
+                     {k: sorted(v)[1] for k, v in walls.items()}))
+    return runs
+
+
+def phase_profile(torch, runs: list) -> None:
+    """Device busy time and the host's top functions, one pass each way of
+    each session.
 
     The idle share is taken against the median unprofiled wall time of the
-    slice phase, since the profiler itself slows the host."""
+    session's phase, since the profiler itself slows the host."""
     import qatzip_tpu_torch as qt
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.cuda.synchronize()   # the first session pays the set-up
-    for direction, fn in (("compress", lambda: qt.qz_compress(sess, corpus)),
-                          ("decompress", lambda: qt.qz_decompress(sess, comp))):
+    passes = [(label, direction, sess, src if direction == "compress" else
+               comp, walls[direction])
+              for label, sess, src, comp, walls in runs
+              for direction in ("compress", "decompress")]
+    for label, direction, sess, data, unprofiled in passes:
+        def fn():
+            return (qt.qz_compress(sess, data) if direction == "compress"
+                    else qt.qz_decompress(sess, data))
+
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
@@ -277,9 +456,9 @@ def phase_profile(torch, sess, corpus: bytes, comp: bytes,
                           key=lambda e: -e.self_device_time_total)
         busy = sum(e.self_device_time_total for e in dev_rows) / 1e6
         _check(busy > 0, f"the profiler saw no device time in {direction}")
-        print(f"profile {direction}: device busy {busy:.6f} s; wall "
-              f"{walls[direction]:.6f} s unprofiled (median), {wall:.4f} s "
-              f"profiled; idle share {1 - busy / walls[direction]:.4f}")
+        print(f"profile {label} {direction}: device busy {busy:.6f} s; wall "
+              f"{unprofiled:.6f} s unprofiled (median), {wall:.4f} s "
+              f"profiled; idle share {1 - busy / unprofiled:.4f}")
         for e in dev_rows[:6]:
             print(f"  device {e.self_device_time_total / 1e3:10.3f} ms "
                   f"x{e.count:<6d} {e.key[:70]}")
@@ -291,7 +470,7 @@ def phase_profile(torch, sess, corpus: bytes, comp: bytes,
         buf = io.StringIO()
         pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(10)
         lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
-        print(f"host {direction}, top self time:")
+        print(f"host {label} {direction}, top self time:")
         for ln in lines[3:16]:
             print("  " + ln[:150])
 
@@ -312,8 +491,12 @@ def main() -> int:
     corpus = build_corpus(32)
     kernels = [phase_select(torch, corpus, dev),
                phase_inflate(torch, corpus, dev)]
-    sess, comp, walls = phase_slice(torch, corpus, kernels)
-    phase_profile(torch, sess, corpus, comp, walls)
+    sort_rec = phase_sort(torch, corpus, dev)
+    phase_lz4_decode(torch, corpus, dev)
+    runs = [phase_slice(torch, corpus, kernels)]
+    runs += phase_lz4(torch, corpus)
+    phase_profile(torch, runs)
+    kernels.append(sort_rec)
     _check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {_gpu_line()}")

@@ -3,10 +3,12 @@
 A second package beside ``qatzip_tpu`` (the JAX reference, which it is
 tested against).  It runs the DEFLATE device path — the hybrid compressor
 (device match finder + native entropy coder) and the lockstep inflate
-(device entropy decode + native window copies) — on an NVIDIA GPU through
-hand-written CUDA kernels (``csrc/``), and shares the jax-free host layers
-of ``qatzip_tpu`` (constants, sessions, wire formats, the native C++ codec,
-the CPU backend) by import.  Importing it never loads jax.
+(device entropy decode + native window copies) — and the LZ4/LZ4s device
+path — the same match finder with native LZ4 emission, and a device block
+decoder — on an NVIDIA GPU through hand-written CUDA kernels (``csrc/``)
+and plain torch, and shares the jax-free host layers of ``qatzip_tpu``
+(constants, sessions, wire formats, the native C++ codec, the CPU backend)
+by import.  Importing it never loads jax.
 """
 from qatzip_tpu.constants import *  # noqa: F401,F403
 from qatzip_tpu.session import (  # noqa: F401
@@ -15,6 +17,8 @@ from qatzip_tpu.session import (  # noqa: F401
     QzSessionParamsCommon,
     QzSessionParamsDeflate,
     QzSessionParamsDeflateExt,
+    QzSessionParamsLZ4,
+    QzSessionParamsLZ4S,
 )
 from qatzip_tpu_torch.api import *  # noqa: F401,F403
 

@@ -1,12 +1,12 @@
 """Public qz-style API of the port.
 
-Port of the entry points of qatzip_tpu/api.py that the DEFLATE device path
-uses: init and session setup, one-shot compress and decompress, status,
-and the ``compress``/``decompress`` helpers.  Names, arguments and status
-codes are the reference's; the sessions, parameters and result types are
-the reference's classes, and the entry points that do not touch the engine
-(``qz_close``, ``qz_teardown_session``, ``qz_max_compressed_length``) are
-the reference's, re-exported.  The remaining qz* functions (CRC variants,
+Port of the entry points of qatzip_tpu/api.py that the DEFLATE and LZ4/LZ4s
+device paths use: init and session setup, one-shot compress and
+decompress, status, and the ``compress``/``decompress`` helpers.  Names,
+arguments and status codes are the reference's; the sessions, parameters
+and result types are the reference's classes, and the entry points that do
+not touch the engine (``qz_close``, ``qz_teardown_session``,
+``qz_max_compressed_length``) are the reference's, re-exported.  The remaining qz* functions (CRC variants,
 defaults, metadata, streaming) are not ported yet (ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
@@ -26,6 +26,8 @@ from qatzip_tpu.session import (
     QzSessionParams,
     QzSessionParamsDeflate,
     QzSessionParamsDeflateExt,
+    QzSessionParamsLZ4,
+    QzSessionParamsLZ4S,
 )
 from qatzip_tpu_torch.engine import core
 from qatzip_tpu_torch.engine.core import OpResult
@@ -34,7 +36,8 @@ __all__ = [
     "QzSession", "OpResult", "QzStatus",
     "qz_init", "qz_close", "qz_teardown_session",
     "qz_setup_session", "qz_setup_session_deflate",
-    "qz_setup_session_deflate_ext",
+    "qz_setup_session_deflate_ext", "qz_setup_session_lz4",
+    "qz_setup_session_lz4s",
     "qz_compress", "qz_compress_ext", "qz_decompress", "qz_decompress_ext",
     "qz_max_compressed_length", "qz_get_status",
     "compress", "decompress",
@@ -42,6 +45,8 @@ __all__ = [
 
 _defaults_deflate = QzSessionParamsDeflate()
 _defaults_deflate_ext = QzSessionParamsDeflateExt()
+_defaults_lz4 = QzSessionParamsLZ4()
+_defaults_lz4s = QzSessionParamsLZ4S()
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +119,22 @@ def qz_setup_session_deflate_ext(
     return _setup(sess, S.deflate_to_internal(
         p.deflate_params, zlib_format=bool(p.zlib_format),
         stop_at_stream_end=p.stop_decompression_stream_end))
+
+
+def qz_setup_session_lz4(sess: QzSession,
+                         params: QzSessionParamsLZ4 | None = None) -> int:
+    p = params or _defaults_lz4
+    if not S.validate_params_lz4(p):
+        return C.QZ_PARAMS
+    return _setup(sess, S.lz4_to_internal(p))
+
+
+def qz_setup_session_lz4s(sess: QzSession,
+                          params: QzSessionParamsLZ4S | None = None) -> int:
+    p = params or _defaults_lz4s
+    if not S.validate_params_lz4s(p):
+        return C.QZ_PARAMS
+    return _setup(sess, S.lz4s_to_internal(p))
 
 
 def _auto_session(sess: QzSession) -> int:
@@ -200,7 +221,8 @@ def qz_get_status(sess: QzSession | None = None) -> QzStatus:
 # Pythonic one-shot helpers
 # ---------------------------------------------------------------------------
 def _session_for(algorithm: str, fmt: QzDataFormat | None, level: int,
-                 hw_buff_sz: int, sw_only: bool = False) -> QzSession:
+                 hw_buff_sz: int, sw_only: bool = False,
+                 mini_match: int = 3) -> QzSession:
     sess = QzSession()
     common = S.QzSessionParamsCommon(comp_lvl=level, hw_buff_sz=hw_buff_sz)
     if sw_only:
@@ -215,8 +237,14 @@ def _session_for(algorithm: str, fmt: QzDataFormat | None, level: int,
             deflate_params=QzSessionParamsDeflate(common_params=common),
             zlib_format=1)
         rc = qz_setup_session_deflate_ext(sess, p)
+    elif algorithm == "lz4":
+        rc = qz_setup_session_lz4(sess,
+                                  QzSessionParamsLZ4(common_params=common))
+    elif algorithm == "lz4s":
+        rc = qz_setup_session_lz4s(sess, QzSessionParamsLZ4S(
+            common_params=common, lz4s_mini_match=mini_match))
     else:
-        raise ValueError(f"unknown or unported algorithm {algorithm}")
+        raise ValueError(f"unknown algorithm {algorithm}")
     if rc != C.QZ_OK:
         raise C.QzError(rc, "session setup failed")
     return sess
@@ -251,6 +279,8 @@ qzTeardownSession = qz_teardown_session
 qzSetupSession = qz_setup_session
 qzSetupSessionDeflate = qz_setup_session_deflate
 qzSetupSessionDeflateExt = qz_setup_session_deflate_ext
+qzSetupSessionLZ4 = qz_setup_session_lz4
+qzSetupSessionLZ4S = qz_setup_session_lz4s
 qzCompress = qz_compress
 qzCompressExt = qz_compress_ext
 qzDecompress = qz_decompress

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
 The sources are ``qatzip_tpu_torch/csrc/*.cu`` and ``*.cuh``.  ``nvcc``
-compiles them for Hopper (``sm_90a``) into one shared library with a plain
-C interface, which ``ctypes`` loads; no PyTorch header is compiled, so a
+compiles them for Hopper (``sm_90a``), one process for each ``.cu`` file,
+all at once, and links them into one shared library with a plain C
+interface, which ``ctypes`` loads; no PyTorch header is compiled, so a
 build takes seconds.  The library goes to ``build/qatzip_tpu_torch/``
 beside the package and is rebuilt at first use whenever a source is newer
 than it (the rule of qatzip_tpu/native/build.py).  A missing ``nvcc`` or a
@@ -29,8 +30,9 @@ CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG), "build", "qatzip_tpu_torch")
 LIB = os.path.join(BUILD_DIR, "libqzkernels.so")
 LOG = os.path.join(BUILD_DIR, "nvcc.log")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -59,13 +61,33 @@ def build(force: bool = False) -> str:
                     for s in deps)):
         return LIB
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc for each source, all started together, then one link
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{os.getpid()}.o")
+            for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", s, "-o", o] for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    runs = []
+    for c, p in zip(cmds, procs):
+        stdout, stderr = p.communicate()
+        runs.append((c, p.returncode, stdout, stderr))
+    if all(r[1] == 0 for r in runs):
+        link = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+        out = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, out.returncode, out.stdout, out.stderr))
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
     with open(LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        for cmd, _, stdout, stderr in runs:
+            f.write(" ".join(cmd) + "\n" + stdout + stderr)
+    failed = [r for r in runs if r[1] != 0]
+    if failed:
+        cmd, rc, _, stderr = failed[0]
+        raise KernelError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{stderr}")
     os.replace(tmp, LIB)
     return LIB
 

@@ -1,20 +1,26 @@
 """Device codec: batch chunks into device tensors, run the kernels, unpack
 results into backend-contract payloads.
 
-Port of ``DeflateDeviceCodec`` from qatzip_tpu/ops/device_codecs.py: the
-hybrid compress path (``_compress_hybrid``, :102-224, without the mesh
-branch and without the packed candidate format) and the lockstep
-decompress path (``decompress_chunks``, :306-362), with the reference's
-per-batch CPU failover and its ``faults``/``health`` hooks.  The failover
-takes injected faults and device errors; a :class:`KernelError` (a kernel
-that cannot be built or launched) passes through it to the caller.  The
-host-only
-helpers (CPU fallbacks, checksums) are the reference's, imported.  LZ4 has
-no device codec in the port yet, so the registry sends it to the CPU.
+Port of the two device codecs of qatzip_tpu/ops/device_codecs.py, with the
+reference's per-batch CPU failover and its ``faults``/``health`` hooks:
+
+* ``DeflateDeviceCodec``: the hybrid compress path (``_compress_hybrid``,
+  :102-224, without the mesh branch and without the packed candidate
+  format) and the lockstep decompress path (``decompress_chunks``,
+  :306-362);
+* ``Lz4DeviceCodec`` (:365-521), for LZ4 frames and LZ4s blocks: the hybrid
+  compress branch and the device block decoder (ops/lz4_decode.py) with
+  per-block CPU failover.
+
+The failover takes injected faults and device errors; a
+:class:`KernelError` (a kernel that cannot be built or launched) passes
+through it to the caller.  The host-only helpers (CPU fallbacks,
+checksums) are the reference's, imported.
 """
 from __future__ import annotations
 
 import os
+import struct
 from typing import Sequence
 
 import numpy as np
@@ -24,6 +30,8 @@ from qatzip_tpu.constants import DataFormatInternal
 from qatzip_tpu.engine import faults
 from qatzip_tpu.engine.backend import CompressedChunk, DecompressedChunk
 from qatzip_tpu.engine.cpu_backend import _map_chunks
+from qatzip_tpu.engine.lz4_block import (lz4_block_decompress,
+                                         lz4s_block_decompress)
 from qatzip_tpu.ops.device_codecs import (_checksum_kind, _chunk_checksum,
                                           _cpu_compress_batch, _cpu_inflate)
 from qatzip_tpu.session import InternalParams
@@ -202,6 +210,144 @@ class DeflateDeviceCodec:
         return out
 
 
+class Lz4DeviceCodec:
+    """LZ4 frame / LZ4s block codec: the deflate match finder and select
+    kernel find candidates, the native host code emits LZ4 sequences, and
+    ops/lz4_decode.py decodes blocks on the device."""
+
+    MAX_BATCH = 128
+
+    def compress_chunks(self, chunks: Sequence[bytes], params: InternalParams,
+                        device: torch.device) -> list[CompressedChunk]:
+        """Hybrid compress (the reference's default branch): device
+        candidates, native ``lz4_candidates``.  Unlike deflate, LZ4 keeps the
+        match finder's stride (QATZIP_TPU_MF_STRIDE, default 1) at every
+        level, as the reference does."""
+        from qatzip_tpu.formats.lz4_fmt import gen_lz4_block_header
+        from qatzip_tpu.native import qzcore as native
+        from qatzip_tpu_torch.ops import match_finder as mf
+
+        _unported("QATZIP_TPU_ENCODER", "device",
+                  "the LZ4 device encoder (_lz4_analyze)", 9)
+        n = params.hw_buff_sz
+        depth = level_params(params.comp_lvl)
+        is_lz4s = params.data_fmt == DataFormatInternal.LZ4S_BK
+        mode = 1 if is_lz4s else 0
+        mini = params.lz4s_mini_match if is_lz4s else 4
+
+        pending: list[tuple] = []
+        for start in range(0, len(chunks), self.MAX_BATCH):
+            batch = list(chunks[start:start + self.MAX_BATCH])
+            try:
+                data, lens = _stage_chunks(batch, n, device)
+                faults.check("submit", "compress")
+                pending.append((batch, mf.find_candidates(data, lens, depth)))
+            except KernelError:
+                raise
+            except Exception:
+                health.record_failure()
+                pending.append((batch, None))
+
+        out: list[CompressedChunk] = []
+        for batch, cand in pending:
+            if cand is None:
+                out.extend(_cpu_compress_batch(batch, params))
+                continue
+            try:
+                cand_np = cand.cpu().numpy()
+            except Exception:
+                health.record_failure()
+                out.extend(_cpu_compress_batch(batch, params))
+                continue
+            health.record_success()
+
+            def assemble(i_c):
+                i, c = i_c
+                payload = native.lz4_candidates(c, cand_np[i, :len(c)], mode,
+                                                mini)
+                ckv = _chunk_checksum(c, params)
+                if is_lz4s:
+                    return CompressedChunk(payload, ckv, len(c))
+                # LZ4 frame block section with the stored-block escape
+                if len(payload) >= len(c):
+                    blk = gen_lz4_block_header(len(c), stored=True) + c
+                else:
+                    blk = gen_lz4_block_header(len(payload),
+                                               stored=False) + payload
+                return CompressedChunk(blk, ckv, len(c))
+
+            out.extend(_map_chunks(assemble, list(enumerate(batch))))
+        return out
+
+    def decompress_chunks(self, payloads, hints, params: InternalParams,
+                          device: torch.device) -> list[DecompressedChunk]:
+        """Host frame-block walk (stored blocks copy through), a batched
+        device decode of every compressed block, and per-block CPU failover
+        for the blocks the decoder flags (``lz4_decode.failover_blocks``)."""
+        from qatzip_tpu_torch.ops import lz4_decode
+
+        is_lz4s = params.data_fmt == DataFormatInternal.LZ4S_BK
+        mini = params.lz4s_mini_match if is_lz4s else None
+
+        plan = []       # per chunk: list of ("raw", bytes) | ("blk", idx)
+        blocks: list[bytes] = []
+        for payload in payloads:
+            pv = memoryview(payload)
+            items = []
+            if is_lz4s:
+                items.append(("blk", len(blocks)))
+                blocks.append(bytes(pv))
+            else:
+                off = 0
+                while off + 4 <= len(pv):
+                    (bsz,) = struct.unpack_from("<I", pv, off)
+                    off += 4
+                    if bsz == 0:
+                        break
+                    stored = bool(bsz & 0x80000000)
+                    bsz &= 0x7FFFFFFF
+                    blk = bytes(pv[off:off + bsz])
+                    off += bsz
+                    if stored:
+                        items.append(("raw", blk))
+                    else:
+                        items.append(("blk", len(blocks)))
+                        blocks.append(blk)
+            plan.append(items)
+
+        decoded = [None] * len(blocks)
+        if blocks:
+            try:
+                faults.check("submit", "decompress")
+                decoded = lz4_decode.decode_blocks(blocks, mini_match=mini,
+                                                   device=device)
+                if any(d is not None for d in decoded):
+                    health.record_success()
+            except KernelError:
+                raise
+            except Exception:
+                health.record_failure()
+
+        out: list[DecompressedChunk] = []
+        for hint, items in zip(hints, plan):
+            data = bytearray()
+            for kind_i, v in items:
+                if kind_i == "raw":
+                    data += v
+                    continue
+                d = decoded[v]
+                if d is None:
+                    maxo = hint if hint and hint > 0 else 1 << 22
+                    d = (lz4s_block_decompress(blocks[v], maxo, mini)
+                         if is_lz4s else
+                         lz4_block_decompress(blocks[v], maxo))
+                data += d
+            data = bytes(data)
+            out.append(DecompressedChunk(data, _chunk_checksum(data, params),
+                                         True))
+        return out
+
+
 def register_all() -> None:
     from qatzip_tpu_torch.ops import registry
 
@@ -212,3 +358,7 @@ def register_all() -> None:
                 DataFormatInternal.DEFLATE_ZLIB):
         registry.register(fmt, "compress", deflate)
         registry.register(fmt, "decompress", deflate)
+    lz4 = Lz4DeviceCodec()
+    for fmt in (DataFormatInternal.LZ4_FH, DataFormatInternal.LZ4S_BK):
+        registry.register(fmt, "compress", lz4)
+        registry.register(fmt, "decompress", lz4)

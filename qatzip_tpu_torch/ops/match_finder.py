@@ -32,6 +32,7 @@ from qatzip_tpu_torch.ops.select import select_candidates
 DEPTH = 4            # hash-chain depth (the level -> depth map is the caller's)
 _INVALID = 0xFFFFFFFF
 _M32 = 0xFFFFFFFF
+_SIGN = torch.iinfo(torch.int32).min   # u32 order <-> int32 order
 
 
 def _as_i32(x: torch.Tensor) -> torch.Tensor:
@@ -78,11 +79,12 @@ def _find_candidates_impl(data: torch.Tensor, lengths: torch.Tensor,
     return out[:, :n_full].to(torch.uint16)
 
 
-def sorted_records(data: torch.Tensor, lengths: torch.Tensor, stride: int,
-                   rank8: bool):
-    """Steps 1-2: hash keys and sort 1.  Returns the hash-sorted (sk, sb4,
-    sb4b) as int32[B, n // stride] u32 bit patterns — the input of the
-    candidate select."""
+def hash_records(data: torch.Tensor, lengths: torch.Tensor, stride: int,
+                 rank8: bool):
+    """Step 1: the records in position order.  Returns (key1, b4, b4b) as
+    int32[B, n // stride] u32 bit patterns: key h15 << 16 | pos16
+    (0xFFFFFFFF where fewer than 3 bytes remain), prefix bytes p..p+3 and,
+    with rank8, p+4..p+7 (zeros without)."""
     B = data.shape[0]
     n = data.shape[1] - 8
     d = data.to(torch.int64)
@@ -93,20 +95,22 @@ def sorted_records(data: torch.Tensor, lengths: torch.Tensor, stride: int,
     valid = pos + 2 < lengths.to(torch.int64)[:, None]
     key1 = torch.where(valid, (h << 16) | pos, _INVALID)
     b4b = (torch.cat([b4[:, 4:], b4.new_zeros((B, 4))], dim=1)
-           if rank8 else None)
+           if rank8 else torch.zeros_like(b4))     # eq8 degenerates to eq4
     if stride > 1:
         # index only every stride-th position; the native parser's
         # byte-compare extension recovers most of the lost coverage
         lim = (n // stride) * stride   # trim the ragged tail
-        key1 = key1[:, :lim:stride]
-        b4 = b4[:, :lim:stride]
-        if rank8:
-            b4b = b4b[:, :lim:stride]
+        key1, b4, b4b = (t[:, :lim:stride] for t in (key1, b4, b4b))
+    return _as_i32(key1), _as_i32(b4), _as_i32(b4b)
+
+
+def sorted_records(data: torch.Tensor, lengths: torch.Tensor, stride: int,
+                   rank8: bool):
+    """Steps 1-2: hash keys and sort 1.  Returns the hash-sorted (sk, sb4,
+    sb4b) as int32[B, n // stride] u32 bit patterns — the input of the
+    candidate select."""
+    key1, b4, b4b = hash_records(data, lengths, stride, rank8)
     # stable sort on the key biased into int32 order, payloads gathered
-    skey, order = torch.sort((key1 - (1 << 31)).to(torch.int32), dim=1,
-                             stable=True)
-    sk = skey ^ torch.iinfo(torch.int32).min       # back to the u32 pattern
-    sb4 = _as_i32(b4).gather(1, order)
-    sb4b = (_as_i32(b4b).gather(1, order) if rank8
-            else torch.zeros_like(sb4))            # eq8 degenerates to eq4
-    return sk, sb4, sb4b
+    skey, order = torch.sort(key1 ^ _SIGN, dim=1, stable=True)
+    return (skey ^ _SIGN, b4.gather(1, order),
+            b4b.gather(1, order) if rank8 else b4b)

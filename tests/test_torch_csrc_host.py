@@ -1,10 +1,11 @@
 """The CUDA kernels' per-record and per-lane logic, built for the host.
 
-``csrc/select.cuh`` and ``csrc/inflate_step.cuh`` hold the logic of the two
-kernels as ``__host__ __device__`` functions.  g++ builds them here (with
-``__host__``/``__device__`` defined away) into a small shim library, and the
-shim is held exactly against the port's plain torch versions on the same
-inputs.  The kernels themselves run only on the card (chip_smoke.py).
+``csrc/select.cuh``, ``csrc/inflate_step.cuh`` and ``csrc/sort.cuh`` hold
+the logic of the kernels as ``__host__ __device__`` functions.  g++ builds
+them here (with ``__host__``/``__device__`` defined away) into a small shim
+library, and the shim is held exactly against the port's plain torch
+versions, or numpy, on the same inputs.  The kernels themselves run only on
+the card (chip_smoke.py).
 """
 import ctypes
 import shutil
@@ -26,6 +27,7 @@ torch.set_num_threads(1)
 _SHIM = r"""
 #include "select.cuh"
 #include "inflate_step.cuh"
+#include "sort.cuh"
 
 extern "C" void shim_select(const uint32_t* sk, const uint32_t* sb4,
                             const uint32_t* sb4b, int32_t* out, int B, int n,
@@ -52,6 +54,30 @@ extern "C" int shim_inflate(const uint32_t* words, int nw,
     nsteps = s > nsteps ? s : nsteps;
   }
   return nsteps;
+}
+
+// The launch schedule of csrc/sort.cu run serially: tile passes on a
+// tile-sized view of the row, global passes on the whole row.
+static void tile_passes(QzSortRow row, uint32_t n, uint32_t k_merge) {
+  for (uint32_t off = 0; off < n; off += QZ_SORT_TILE) {
+    QzSortRow t = qz_sort_slice(row, off);
+    uint32_t k_lo = k_merge ? k_merge : 2u;
+    uint32_t k_hi = k_merge ? k_merge : (uint32_t)QZ_SORT_TILE;
+    for (uint32_t k = k_lo; k <= k_hi; k <<= 1)
+      for (uint32_t j = k_merge ? QZ_SORT_TILE / 2 : k / 2; j >= 1; j >>= 1)
+        for (uint32_t p = 0; p < QZ_SORT_TILE / 2; ++p)
+          qz_bitonic_pair(t, p, j, k);
+  }
+}
+
+extern "C" void shim_sort(uint32_t* key, uint32_t* pay, uint32_t n) {
+  QzSortRow row = {key, {pay, nullptr, nullptr, nullptr}, 1, 0};
+  tile_passes(row, n, 0);
+  for (uint32_t k = 2u * QZ_SORT_TILE; k <= n; k <<= 1) {
+    for (uint32_t j = k / 2; j >= QZ_SORT_TILE; j >>= 1)
+      for (uint32_t p = 0; p < n / 2; ++p) qz_bitonic_pair(row, p, j, k);
+    tile_passes(row, n, k);
+  }
 }
 """
 
@@ -163,6 +189,19 @@ def test_inflate_header_matches_torch_reference(shim, corpus_factory):
     for lane, data in enumerate(datas):
         got = rdd._apply_tokens_py(tokens[:ns, lane], b"", int(outcnt[lane]))
         assert got == data
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_sort_header_network_matches_argsort(shim, n):
+    rng = np.random.default_rng(n)
+    pool = np.unique(rng.integers(0, 1 << 32, 2 * n, dtype=np.uint64))
+    keys = rng.permutation(pool)[:n].astype(np.uint32)
+    pay = np.arange(n, dtype=np.uint32)
+    order = np.argsort(keys, kind="stable")
+    k2, p2 = keys.copy(), pay.copy()
+    shim.shim_sort(_ptr(k2), _ptr(p2), n)
+    assert (k2 == keys[order]).all() and (p2 == pay[order]).all()
+    assert (keys >= 1 << 31).any()
 
 
 def test_kernel_wrapper_counts_accepted_launches_and_raises_on_error(

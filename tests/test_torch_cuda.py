@@ -92,6 +92,61 @@ def test_inflate_kernel_equals_plain(dev):
     assert not bool(got[1][:3].any())
 
 
+@pytest.mark.parametrize("B,n,npay", [(4, 1024, 0), (4, 1024, 2),
+                                      (128, 32768, 2)])
+def test_sort_kernel_equals_plain(dev, B, n, npay):
+    from qatzip_tpu_torch.ops import sort as S
+
+    rng = np.random.default_rng(n + npay)
+    # unique keys across the whole u32 range: a random permutation of the
+    # row's indices in the low bits, random high bits above them
+    lo = np.argsort(rng.random((B, n)), axis=1).astype(np.uint64)
+    hi = rng.integers(0, (1 << 32) // n, (B, n), dtype=np.uint64)
+    keys = (hi * n + lo).astype(np.uint32).view(np.int32)
+    pays = [rng.integers(-2**31, 2**31, (B, n), dtype=np.int64)
+            .astype(np.int32) for _ in range(npay)]
+    t = [torch.from_numpy(a).to(dev) for a in (keys, *pays)]
+    before = S.KERNEL.launches
+    got = S.sort_u32(*t)
+    assert S.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    want = S.sort_u32_ref(*t)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(S.sort_u32_ref(*(x.cpu() for x in t)), want):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("algorithm", ["lz4", "lz4s"])
+def test_lz4_round_trip_on_cuda(dev, monkeypatch, algorithm):
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu import constants as C
+    from qatzip_tpu_torch.engine import core
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    from qatzip_tpu_torch.ops import select as S
+
+    monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
+    data = _text(300_000, 8)
+    outs = {}
+    for device in (torch.device("cpu"), dev):
+        core.qz_close_engine()
+        sess = qt.QzSession()
+        assert qt.qz_init(sess, device=device) == C.QZ_OK
+        hw0, sw0 = core.engine().hw_requests, core.engine().sw_requests
+        fail0, launches0 = ld.failover_blocks, S.KERNEL.launches
+        outs[device.type] = qt.compress(data, algorithm, hw_buff_sz=16384)
+        assert qt.decompress(outs[device.type], algorithm,
+                             hw_buff_sz=16384) == data
+        assert core.engine().hw_requests - hw0 == 2 * -(-len(data) // 16384)
+        assert core.engine().sw_requests == sw0
+        assert ld.failover_blocks == fail0
+    core.qz_close_engine()
+    assert S.KERNEL.launches == launches0 + 1
+    assert outs["cuda"] == outs["cpu"]
+    assert qt.decompress(outs["cuda"], algorithm, hw_buff_sz=16384,
+                         sw_only=True) == data
+
+
 def test_slice_on_cuda(dev, monkeypatch):
     import gzip
 

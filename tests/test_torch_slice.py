@@ -68,6 +68,37 @@ def test_gzipext_bytes_equal_reference_and_round_trip(corpus_factory,
     assert health.total_failures == failures0
 
 
+_FORMATS = {"gzip": ("deflate", QzDataFormat.QZ_DEFLATE_GZIP),
+            "gzip_ext": ("deflate", QzDataFormat.QZ_DEFLATE_GZIP_EXT),
+            "raw": ("deflate", QzDataFormat.QZ_DEFLATE_RAW),
+            "4b": ("deflate", QzDataFormat.QZ_DEFLATE_4B),
+            "zlib": ("zlib", None)}
+
+
+@pytest.mark.parametrize("level", [1, 9])
+@pytest.mark.parametrize("name", list(_FORMATS))
+def test_deflate_formats_bytes_equal_reference(corpus_factory, monkeypatch,
+                                               engine_on, name, level):
+    """Every deflate wire format at L1 and L9, device route forced in both
+    packages: identical bytes, and the port reads them back."""
+    monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
+    engine_on(torch.device("cpu"))
+    eng = core.engine()
+    algorithm, fmt = _FORMATS[name]
+    data = corpus_factory(200_000, "text")
+    hw0, sw0, failures0 = eng.hw_requests, eng.sw_requests, \
+        health.total_failures
+
+    comp = qt.compress(data, algorithm, fmt=fmt, level=level,
+                       hw_buff_sz=HW_BUFF)
+    assert comp == qatzip_tpu.compress(data, algorithm, fmt=fmt, level=level,
+                                       hw_buff_sz=HW_BUFF)
+    assert eng.hw_requests - hw0 == -(-len(data) // HW_BUFF)
+    assert qt.decompress(comp, algorithm, fmt=fmt, hw_buff_sz=HW_BUFF) == data
+    assert eng.sw_requests == sw0
+    assert health.total_failures == failures0
+
+
 def test_no_cuda_default_init_is_labelled_software(corpus_factory,
                                                    monkeypatch, engine_on):
     monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
@@ -102,7 +133,8 @@ def test_unported_options_raise(corpus_factory, monkeypatch, engine_on, env,
             qt.decompress(comp, hw_buff_sz=HW_BUFF)
 
 
-@pytest.mark.parametrize("direction", ["compress", "decompress"])
+@pytest.mark.parametrize("direction", ["compress", "decompress",
+                                       "lz4_compress"])
 def test_kernel_that_cannot_build_raises_instead_of_failing_over(
         corpus_factory, monkeypatch, engine_on, tmp_path, direction):
     """A kernel launch whose build fails must reach the caller: the device
@@ -137,6 +169,8 @@ def test_kernel_that_cannot_build_raises_instead_of_failing_over(
     with pytest.raises(_build.KernelError, match="nvcc not found"):
         if direction == "compress":
             qt.qz_compress(sess, data)
+        elif direction == "lz4_compress":
+            qt.compress(data, "lz4", hw_buff_sz=HW_BUFF)
         else:
             qt.qz_decompress(sess, comp)
     assert (core.engine().hw_requests, core.engine().sw_requests) == (hw0,
@@ -146,15 +180,18 @@ def test_kernel_that_cannot_build_raises_instead_of_failing_over(
 
 
 def test_lz4_is_routed_to_the_cpu(monkeypatch, engine_on):
+    """Named for the routing it pinned before the LZ4 device codec: LZ4 and
+    LZ4s now take the device route, like deflate."""
     monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
     sess, _ = engine_on(torch.device("cpu"))
     st = qt.qz_get_status(sess)
-    assert st.algo_hw == {"deflate": True, "lz4": False, "lz4s": False}
+    assert st.algo_hw == {"deflate": True, "lz4": True, "lz4s": True}
 
 
 def test_import_loads_no_jax():
     code = ("import sys; import qatzip_tpu_torch; "
-            "from qatzip_tpu_torch.ops import device_codecs, inflate_kernel; "
+            "from qatzip_tpu_torch.ops import (device_codecs, inflate_kernel, "
+            "lz4_decode, sort); "
             "sys.exit(1 if any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules) else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
