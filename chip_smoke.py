@@ -13,7 +13,11 @@ Run from the repository root:  python3 chip_smoke.py
    be equal; both are timed with CUDA events.
    The u32 sort kernel, which no path runs yet, on the unsorted sort-1
    records of the same chunks at stride 2 and 1 ([128, 32768] and
-   [128, 65536]), equal to its plain version and timed the same way.  The
+   [128, 65536]), on random unique keys beyond one cluster ([4, 262144])
+   and with 4 payloads ([128, 32768]): equal to its plain version, timed
+   the same way, its device operations a call counted with torch.profiler
+   (one kernel at the two sort-1 shapes) and its clusters' occupancy
+   printed.  The
    LZ4 block decoder (plain torch on the card) on one 128-block group of
    the corpus's LZ4 blocks: bytes equal to the host decoder, none flagged.
 3. The DEFLATE device path through the public API: gzip-ext level 1 at
@@ -188,15 +192,38 @@ def phase_inflate(torch, corpus: bytes, dev) -> dict:
             "plain_ms": plain_ms}
 
 
+def _device_ops(torch, fn) -> dict:
+    """The device operations one call of fn runs, by kind, from
+    torch.profiler: sort kernels, other kernels, memcpys."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {"sort_kernels": 0, "other_kernels": 0, "memcpys": 0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = ("memcpys" if "Memcpy" in e.key or "Memset" in e.key else
+                "sort_kernels" if "qz_sort" in e.key else "other_kernels")
+        ops[kind] += e.count
+    return ops
+
+
 def phase_sort(torch, corpus: bytes, dev) -> dict:
-    """The u32 sort kernel on the match finder's sort-1 input.  No path
-    calls it, so its launches are this phase's own checked calls."""
+    """The u32 sort kernel on the match finder's sort-1 input at stride 2
+    and 1, then on random unique keys at a shape beyond one cluster and
+    with 4 payloads.  No path calls it, so its launches are this phase's
+    own checked calls."""
     from qatzip_tpu_torch.ops import match_finder as mf
     from qatzip_tpu_torch.ops import sort as S
+    from qatzip_tpu_torch.tools import sort_bench as SB
 
     data, lens = _first_chunks(torch, corpus, dev)
-    S.KERNEL.launches = 0
-    rec = None
+    cases = []
     for stride in (2, 1):
         key1, b4, b4b = mf.hash_records(data, lens, stride, True)
         # payloads need unique keys: the invalid records (0xFFFFFFFF, the
@@ -204,26 +231,53 @@ def phase_sort(torch, corpus: bytes, dev) -> dict:
         # which still sorts after every valid key (h15 << 16 | pos16)
         col = torch.arange(key1.shape[1], dtype=torch.int32, device=dev)
         keys = torch.where(key1 == -1, col - 65536, key1)
-        ker = S.sort_u32(keys, b4, b4b)
-        ref = S.sort_u32_ref(keys, b4, b4b)
+        cases.append((f"stride {stride}", [keys, b4, b4b]))
+    cases.append(("beyond one cluster", SB.inputs(4, 262144, 2, 1, dev)))
+    cases.append(("4 payloads", SB.inputs(128, 32768, 4, 2, dev)))
+    S.KERNEL.launches = 0
+    rec = None
+    for label, t in cases:
+        ker = S.sort_u32(*t)
+        ref = S.sort_u32_ref(*t)
         torch.cuda.synchronize()
-        for name, a, b in zip(("keys", "b4", "b4b"), ker, ref):
+        for i, (a, b) in enumerate(zip(ker, ref)):
             _check(torch.equal(a, b),
-                   f"sort kernel != plain in {name} at stride {stride}")
+                   f"sort kernel != plain in array {i} ({label})")
         err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                   for a, b in zip(ker, ref))
         launches = S.KERNEL.launches
-        ms = _time_ms(lambda: S.sort_u32(keys, b4, b4b), 20)
-        plain_ms = _time_ms(lambda: S.sort_u32_ref(keys, b4, b4b), 20)
+        B, n = t[0].shape
+        info = S.cluster_info(n, len(t) - 1)
+        ops = _device_ops(torch, lambda: S.sort_u32(*t))
+        ms = _time_ms(lambda: S.sort_u32(*t), 20)
+        plain_ms = _time_ms(lambda: S.sort_u32_ref(*t), 20)
+        # the kernel alone, in place on one copy (the network does the same
+        # work on sorted rows)
+        outs = [x.clone() for x in t]
+        ptrs = [o.data_ptr() for o in outs[1:]]
+        ptrs += [None] * (S.MAX_PAYLOADS - len(ptrs))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernel_ms = _time_ms(lambda: S.KERNEL(outs[0].data_ptr(), *ptrs, B,
+                                              n, len(t) - 1, stream), 20)
         S.KERNEL.launches = launches
-        print(f"sort stride {stride} shape {tuple(keys.shape)}, 2 payloads: "
-              f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        print(f"sort {label} shape {(B, n)}, {len(t) - 1} payloads: equal; "
+              f"wrapper {ms:.4f} ms (kernel alone {kernel_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms; device ops a call {ops}; cluster "
+              f"{info['cluster_ctas']} CTAs x {info['cta_elems']} elements "
+              f"({info['cta_smem_bytes']} B shared), max active clusters "
+              f"{info['max_active_clusters']}")
+        if label.startswith("stride"):
+            _check(ops["sort_kernels"] == 1,
+                   f"sort at {(B, n)} ran {ops} device operations")
+            _check(info["max_active_clusters"] > 0,
+                   f"no cluster of the sort at {(B, n)} fits the card")
         if rec is None:   # the L1 match finder's sort-1 shape
             rec = {"name": "sort_u32", "route": "cuda",
                    "source": "qatzip_tpu_torch/csrc/sort.cu",
                    "replaces": "qatzip_tpu/ops/pallas_sort.py:113",
                    "path": None, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms}
+                   "plain_ms": plain_ms,
+                   "device_kernels_per_call": ops["sort_kernels"]}
     rec["launches"] = S.KERNEL.launches
     return rec
 

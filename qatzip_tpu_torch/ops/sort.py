@@ -6,8 +6,11 @@ on the CPU).
 
 * :func:`sort_u32_ref` is the plain torch version: keys bias-flipped into
   int32 order, ``torch.sort``, payloads gathered by the same order.
-* :func:`sort_u32` runs it for a tensor on the CPU, and for a CUDA tensor
-  launches the bitonic network of ``csrc/sort.cu`` or raises.
+* :func:`sort_u32` runs it for a tensor on the CPU, for any [B, n] and any
+  number of payloads, as the reference's ``lax.sort`` path does; for a CUDA
+  tensor it launches the bitonic network of ``csrc/sort.cu`` (one
+  thread-block cluster a row) within the kernel's limits
+  (:func:`check_kernel_limits`), or raises.
 
 As in the reference, keys must be unique when payloads are passed: the
 network is not stable, so payloads of equal keys may leave in any order.
@@ -20,9 +23,10 @@ import ctypes
 
 import torch
 
-from qatzip_tpu_torch.ops._build import Kernel, KernelError
+from qatzip_tpu_torch.ops._build import Kernel, KernelError, library
 
 MAX_PAYLOADS = 4
+MIN_N = 1024
 _SIGN = torch.iinfo(torch.int32).min   # u32 order <-> int32 order
 
 KERNEL = Kernel("qz_sort_u32",
@@ -36,24 +40,30 @@ def sort_u32_ref(keys: torch.Tensor, *pays: torch.Tensor) -> tuple:
     return (skey ^ _SIGN, *(p.gather(1, order) for p in pays))
 
 
+def check_kernel_limits(n: int, npay: int) -> None:
+    """Raises ValueError unless the kernel takes rows of n keys with npay
+    payloads: n a power of 2, at least 1024, and at most 4 payloads."""
+    if npay > MAX_PAYLOADS:
+        raise ValueError(f"the sort kernel moves at most {MAX_PAYLOADS} "
+                         f"payloads, got {npay}")
+    if n < MIN_N or n & (n - 1):
+        raise ValueError(f"the sort kernel needs n a power of 2 and at least "
+                         f"{MIN_N}, got {n}")
+
+
 def sort_u32(keys: torch.Tensor, *pays: torch.Tensor) -> tuple:
-    """As :func:`sort_u32_ref`, for n a power of 2 and a multiple of 1024
-    and at most 4 payloads; on a CUDA tensor, the kernel."""
-    if len(pays) > MAX_PAYLOADS:
-        raise ValueError(f"sort_u32 moves at most {MAX_PAYLOADS} payloads")
+    """As :func:`sort_u32_ref`; on a CUDA tensor, the kernel."""
     for t in (keys, *pays):
         if t.dtype != torch.int32 or t.dim() != 2 or t.shape != keys.shape:
             raise ValueError("sort_u32 takes int32[B, n] tensors of one shape")
         if t.device != keys.device:
             raise ValueError("sort_u32 inputs on different devices")
     B, n = keys.shape
-    if n < 1024 or n % 1024 or n & (n - 1):
-        raise ValueError(f"sort_u32 needs n a power of 2 and a multiple of "
-                         f"1024, got {n}")
     if keys.device.type == "cpu":
         return sort_u32_ref(keys, *pays)
     if keys.device.type != "cuda":
         raise KernelError(f"no sort kernel for device {keys.device}")
+    check_kernel_limits(n, len(pays))
     outs = [t.clone(memory_format=torch.contiguous_format)
             for t in (keys, *pays)]
     if B:
@@ -62,3 +72,16 @@ def sort_u32(keys: torch.Tensor, *pays: torch.Tensor) -> tuple:
         KERNEL(outs[0].data_ptr(), *ptrs, B, n, len(pays),
                torch.cuda.current_stream(keys.device).cuda_stream)
     return tuple(outs)
+
+
+def cluster_info(n: int, npay: int) -> dict:
+    """The kernel's launch shape for rows of n keys with npay payloads, and
+    how many of its clusters the current card holds at once."""
+    check_kernel_limits(n, npay)
+    info = (ctypes.c_int * 5)()
+    rc = library().qz_sort_cluster_info(n, npay, info)
+    if rc != 0:
+        msg = library().qz_cuda_error_string(rc).decode()
+        raise KernelError(f"qz_sort_cluster_info: CUDA error {rc} ({msg})")
+    return dict(zip(("cta_elems", "cluster_ctas", "cluster_elems",
+                     "cta_smem_bytes", "max_active_clusters"), info))

@@ -56,28 +56,204 @@ extern "C" int shim_inflate(const uint32_t* words, int nw,
   return nsteps;
 }
 
-// The launch schedule of csrc/sort.cu run serially: tile passes on a
-// tile-sized view of the row, global passes on the whole row.
-static void tile_passes(QzSortRow row, uint32_t n, uint32_t k_merge) {
-  for (uint32_t off = 0; off < n; off += QZ_SORT_TILE) {
-    QzSortRow t = qz_sort_slice(row, off);
-    uint32_t k_lo = k_merge ? k_merge : 2u;
-    uint32_t k_hi = k_merge ? k_merge : (uint32_t)QZ_SORT_TILE;
-    for (uint32_t k = k_lo; k <= k_hi; k <<= 1)
-      for (uint32_t j = k_merge ? QZ_SORT_TILE / 2 : k / 2; j >= 1; j >>= 1)
-        for (uint32_t p = 0; p < QZ_SORT_TILE / 2; ++p)
-          qz_bitonic_pair(t, p, j, k);
+#include <vector>
+
+// The launches of csrc/sort.cu run serially, through sort.cuh's own walkers
+// (qz_sort_launches, qz_sort_walk); only the per-level bodies are the
+// shim's.  Each CTA's shared memory is an array of its own, filled with
+// records at qz_sort_swz's places as the kernel fills it; a register step
+// runs every group of every CTA in turn, and a cluster pass reads a
+// snapshot, as if every slot read before any wrote.
+template <int NPAY, int W>
+static void regs_step(uint32_t* sm, const QzSortPlan& pl, uint32_t cta0,
+                      const QzSortStep& st) {
+  if constexpr (W > 1) {
+    if (st.w < W) {
+      regs_step<NPAY, W - 1>(sm, pl, cta0, st);
+      return;
+    }
+  }
+  const uint32_t rec = qz_sort_rec_words(NPAY);
+  for (uint32_t q = 0; q < (pl.m >> W); ++q) {
+    const uint32_t base = qz_sort_group_base(q, st.g, W);
+    uint32_t p[1 << W];
+    qz_sort_group_slots<W>(base, st.g, p);
+    QzSortRec<NPAY> r[1 << W];
+    for (int s = 0; s < (1 << W); ++s) {
+      r[s].key = sm[rec * p[s]];
+      for (int c = 0; c < NPAY; ++c) r[s].pay[c] = sm[rec * p[s] + 1 + c];
+    }
+    qz_sort_group<NPAY, W>(r, cta0 | base, st);
+    for (int s = 0; s < (1 << W); ++s) {
+      sm[rec * p[s]] = r[s].key;
+      for (int c = 0; c < NPAY; ++c) sm[rec * p[s] + 1 + c] = r[s].pay[c];
+    }
   }
 }
 
-extern "C" void shim_sort(uint32_t* key, uint32_t* pay, uint32_t n) {
-  QzSortRow row = {key, {pay, nullptr, nullptr, nullptr}, 1, 0};
-  tile_passes(row, n, 0);
-  for (uint32_t k = 2u * QZ_SORT_TILE; k <= n; k <<= 1) {
-    for (uint32_t j = k / 2; j >= QZ_SORT_TILE; j >>= 1)
-      for (uint32_t p = 0; p < n / 2; ++p) qz_bitonic_pair(row, p, j, k);
-    tile_passes(row, n, k);
+template <int NPAY>
+static void cluster_launch(uint32_t* const* arr, uint32_t n,
+                           const QzSortPlan& pl, uint32_t k_merge) {
+  const uint32_t rec = qz_sort_rec_words(NPAY);
+  const uint32_t words = rec * pl.m;
+  std::vector<uint32_t> sm(pl.c * words);
+  for (uint32_t seg0 = 0; seg0 < n; seg0 += pl.span) {
+    for (uint32_t r = 0; r < pl.c; ++r)
+      for (int a = 0; a <= NPAY; ++a)
+        for (uint32_t i = 0; i < pl.m; ++i)
+          sm[r * words + rec * qz_sort_swz(i) + a] =
+              arr[a][seg0 + r * pl.m + i];
+    QzSortStep st;
+    for (QzSortWalk w = qz_sort_walk(pl, k_merge); qz_sort_next(&w, &st);) {
+      if (st.level == QZ_SORT_CLUSTER) {
+        const std::vector<uint32_t> old(sm);
+        for (uint32_t r = 0; r < pl.c; ++r) {
+          const uint32_t cta0 = seg0 + r * pl.m;
+          const uint32_t o = r ^ (st.j / pl.m);
+          for (uint32_t i = 0; i < pl.m; ++i) {
+            const uint32_t p = rec * qz_sort_swz(i);
+            if (qz_sort_take(old[r * words + p], old[o * words + p],
+                             (cta0 & st.j) != 0u,
+                             qz_bitonic_ascending(cta0, st.k)))
+              for (int a = 0; a <= NPAY; ++a)
+                sm[r * words + p + a] = old[o * words + p + a];
+          }
+        }
+      } else {
+        for (uint32_t r = 0; r < pl.c; ++r) {
+          uint32_t* s = &sm[r * words];
+          const uint32_t cta0 = seg0 + r * pl.m;
+          regs_step<NPAY, QZ_SORT_LOG_E>(s, pl, cta0, st);
+        }
+      }
+    }
+    for (uint32_t r = 0; r < pl.c; ++r)
+      for (int a = 0; a <= NPAY; ++a)
+        for (uint32_t i = 0; i < pl.m; ++i)
+          arr[a][seg0 + r * pl.m + i] =
+              sm[r * words + rec * qz_sort_swz(i) + a];
   }
+}
+
+template <int NPAY>
+static void sort_row(uint32_t* key, uint32_t* pays, uint32_t n) {
+  uint32_t* arr[1 + QZ_SORT_MAX_PAYLOADS] = {key};
+  QzSortRow row = {key, {nullptr, nullptr, nullptr, nullptr}, NPAY};
+  for (int a = 0; a < NPAY; ++a) arr[1 + a] = row.pay[a] = pays + a * n;
+  const QzSortPlan pl = qz_sort_plan(n, NPAY);
+  qz_sort_launches(
+      n, pl,
+      [&](uint32_t k_merge) {
+        cluster_launch<NPAY>(arr, n, pl, k_merge);
+        return true;
+      },
+      [&](uint32_t k, uint32_t j) {
+        for (uint32_t p = 0; p < n / 2; ++p) qz_bitonic_pair(row, p, j, k);
+        return true;
+      });
+}
+
+extern "C" void shim_sort(uint32_t* key, uint32_t* pays, int npay,
+                          uint32_t n) {
+  switch (npay) {
+    case 0: sort_row<0>(key, pays, n); break;
+    case 1: sort_row<1>(key, pays, n); break;
+    case 2: sort_row<2>(key, pays, n); break;
+    case 3: sort_row<3>(key, pays, n); break;
+    default: sort_row<4>(key, pays, n); break;
+  }
+}
+
+// The passes the launches of one row run, in order: (k, j, level) each, and
+// the steps at each level.  Returns the number of passes.
+extern "C" int shim_schedule(uint32_t n, int npay, uint32_t* out,
+                             int* steps) {
+  const QzSortPlan pl = qz_sort_plan(n, npay);
+  int np = 0;
+  auto pass = [&](uint32_t k, uint32_t j, int level) {
+    out[3 * np] = k;
+    out[3 * np + 1] = j;
+    out[3 * np + 2] = (uint32_t)level;
+    ++np;
+  };
+  qz_sort_launches(
+      n, pl,
+      [&](uint32_t k_merge) {
+        QzSortStep st;
+        QzSortWalk w = qz_sort_walk(pl, k_merge);
+        for (uint32_t k = w.k, j = w.j; qz_sort_next(&w, &st);) {
+          ++steps[st.level];
+          while (k != w.k || j != w.j) {   // the step's passes
+            pass(k, j, st.level);
+            if (j == 1u) { k <<= 1; j = k >> 1; } else { j >>= 1; }
+          }
+        }
+        return true;
+      },
+      [&](uint32_t k, uint32_t j) {
+        pass(k, j, QZ_SORT_GLOBAL);
+        ++steps[QZ_SORT_GLOBAL];
+        return true;
+      });
+  return np;
+}
+
+// The most threads of one warp that reach one shared-memory bank at once,
+// over every access of a row's cluster launch: each register step's group
+// slots (a warp's lanes take consecutive groups), the cluster passes (32
+// consecutive elements) and the 16-byte copies (32 consecutive vectors).
+static int ways(const uint32_t* word) {
+  int most = 0;
+  for (int b = 0; b < 32; ++b) {
+    int c = 0;
+    for (int t = 0; t < 32; ++t) c += (word[t] & 31u) == (uint32_t)b;
+    most = c > most ? c : most;
+  }
+  return most;
+}
+
+template <int W>
+static int group_ways(uint32_t m, int g, int w, uint32_t rec) {
+  if constexpr (W > 1) {
+    if (w < W) return group_ways<W - 1>(m, g, w, rec);
+  }
+  int most = 0;
+  for (uint32_t q0 = 0; q0 < (m >> W); q0 += 32) {
+    uint32_t p[32][1 << W];
+    for (int t = 0; t < 32; ++t)
+      qz_sort_group_slots<W>(qz_sort_group_base(q0 + t, g, W), g, p[t]);
+    for (int s = 0; s < (1 << W); ++s) {
+      uint32_t word[32];
+      for (int t = 0; t < 32; ++t) word[t] = rec * p[t][s];
+      most = ways(word) > most ? ways(word) : most;
+    }
+  }
+  return most;
+}
+
+extern "C" int shim_bank_ways(uint32_t n, int npay) {
+  const QzSortPlan pl = qz_sort_plan(n, npay);
+  const uint32_t rec = qz_sort_rec_words(npay);
+  int most = 0;
+  QzSortStep st;
+  for (QzSortWalk walk = qz_sort_walk(pl, 0u); qz_sort_next(&walk, &st);) {
+    int w = 0;
+    if (st.level == QZ_SORT_REGS)
+      w = group_ways<QZ_SORT_LOG_E>(pl.m, st.g, st.w, rec);
+    most = w > most ? w : most;
+  }
+  for (uint32_t i0 = 0; i0 < pl.m; i0 += 32) {
+    uint32_t word[32], copy[4][32];
+    for (uint32_t t = 0; t < 32; ++t) {
+      word[t] = rec * qz_sort_swz(i0 + t);
+      for (uint32_t e = 0; e < 4; ++e)
+        copy[e][t] = rec * qz_sort_swz((4 * (i0 + t) + e) % pl.m);
+    }
+    most = ways(word) > most ? ways(word) : most;
+    for (int e = 0; e < 4; ++e)
+      most = ways(copy[e]) > most ? ways(copy[e]) : most;
+  }
+  return most;
 }
 """
 
@@ -96,6 +272,11 @@ def shim(tmp_path_factory):
                     str(lib)], check=True, capture_output=True, text=True)
     so = ctypes.CDLL(str(lib))
     so.shim_inflate.restype = ctypes.c_int
+    so.shim_sort.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_uint32]
+    so.shim_schedule.argtypes = [ctypes.c_uint32, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p]
+    so.shim_bank_ways.argtypes = [ctypes.c_uint32, ctypes.c_int]
     return so
 
 
@@ -191,17 +372,68 @@ def test_inflate_header_matches_torch_reference(shim, corpus_factory):
         assert got == data
 
 
-@pytest.mark.parametrize("n", [1024, 4096])
-def test_sort_header_network_matches_argsort(shim, n):
-    rng = np.random.default_rng(n)
-    pool = np.unique(rng.integers(0, 1 << 32, 2 * n, dtype=np.uint64))
-    keys = rng.permutation(pool)[:n].astype(np.uint32)
-    pay = np.arange(n, dtype=np.uint32)
-    order = np.argsort(keys, kind="stable")
-    k2, p2 = keys.copy(), pay.copy()
-    shim.shim_sort(_ptr(k2), _ptr(p2), n)
-    assert (k2 == keys[order]).all() and (p2 == pay[order]).all()
+def _sort_inputs(n: int, npay: int, seed: int):
+    """Unique u32 keys across the whole range (ties when keys go alone) and
+    npay payload rows."""
+    rng = np.random.default_rng(seed)
+    if npay:
+        lo = rng.permutation(n).astype(np.uint64)
+        keys = (rng.integers(0, (1 << 32) // n, n, dtype=np.uint64) * n
+                + lo).astype(np.uint32)
+    else:
+        keys = (rng.integers(0, 64, n, dtype=np.uint64) * 0x05F5E1
+                + (1 << 31)).astype(np.uint32)
+    pays = rng.integers(0, 1 << 32, (max(npay, 1), n),
+                        dtype=np.uint64).astype(np.uint32)
+    return keys, pays
+
+
+# CTAs a cluster: 1 (1024, 4096), 2 (32768 with 2 payloads), 4 (32768 with
+# 3, 65536 with 1-2), 8 (65536 with 4); beyond one cluster: 262144 with 2
+# payloads, 131072 with 4
+@pytest.mark.parametrize("n,npay", [
+    (1024, 0), (4096, 2), (32768, 0), (32768, 2), (65536, 2), (65536, 4),
+    (262144, 2), (131072, 4), (65536, 1), (32768, 3)])
+def test_sort_header_network_matches_argsort(shim, n, npay):
+    keys, pays = _sort_inputs(n, npay, seed=n + npay)
+    k2, p2 = keys.copy(), pays.copy()
+    shim.shim_sort(_ptr(k2), _ptr(p2), npay, n)
     assert (keys >= 1 << 31).any()
+    if not npay:
+        assert (k2 == np.sort(keys)).all()
+        return
+    order = np.argsort(keys, kind="stable")
+    assert (k2 == keys[order]).all()
+    assert (p2[:npay] == pays[:npay][:, order]).all()
+
+
+def _network(n: int):
+    return [(k, j) for s in range(1, n.bit_length())
+            for k in [1 << s] for j in (k >> c for c in range(1, s + 1))]
+
+
+# (n, npay): the steps at each level (registers, cluster, global)
+@pytest.mark.parametrize("n,npay,steps", [
+    (1024, 2, [15, 0, 0]), (32768, 2, [33, 1, 0]), (65536, 2, [37, 3, 0]),
+    (65536, 4, [37, 6, 0]), (262144, 2, [45, 9, 1])])
+def test_sort_schedule_runs_the_network_in_order(shim, n, npay, steps):
+    out = np.zeros((n.bit_length() ** 2, 3), np.uint32)
+    got = np.zeros(3, np.int32)
+    np_ = shim.shim_schedule(n, npay, _ptr(out), _ptr(got))
+    assert [tuple(map(int, r[:2])) for r in out[:np_]] == _network(n)
+    m = {2: 16384, 4: 8192}[npay]
+    span = min(n, 8 * m)
+    for k, j, level in out[:np_]:
+        assert level == (2 if j >= span else 1 if j >= m else 0)
+    assert list(got) == steps
+
+
+# records of 1, 3 and 5 words, and of 2 and 4 padded to 3 and 5, in CTAs of
+# 1024, 8192 and as many elements as fit
+@pytest.mark.parametrize("n", [1024, 8192, 65536])
+@pytest.mark.parametrize("npay", [0, 1, 2, 3, 4])
+def test_sort_shared_memory_has_no_bank_conflicts(shim, n, npay):
+    assert shim.shim_bank_ways(n, npay) == 1
 
 
 def test_kernel_wrapper_counts_accepted_launches_and_raises_on_error(

@@ -92,8 +92,11 @@ def test_inflate_kernel_equals_plain(dev):
     assert not bool(got[1][:3].any())
 
 
+# one CTA (1024); clusters of 2 CTAs (32768 with 2 payloads, 16384 with 4)
+# and of 4 (65536); a row beyond one cluster (262144 with 2 payloads)
 @pytest.mark.parametrize("B,n,npay", [(4, 1024, 0), (4, 1024, 2),
-                                      (128, 32768, 2)])
+                                      (128, 32768, 2), (128, 65536, 2),
+                                      (4, 16384, 4), (2, 262144, 2)])
 def test_sort_kernel_equals_plain(dev, B, n, npay):
     from qatzip_tpu_torch.ops import sort as S
 

@@ -4,7 +4,8 @@ The reference runs through ``force_xla=True`` (``lax.sort``), its own
 path off the TPU: its Pallas kernel does not trace in interpret mode with
 the installed jax, which refuses the captured ``_SIGN`` constant
 (pallas_sort.py:92).  The port's ``sort_u32`` takes its plain version,
-``sort_u32_ref``, for CPU tensors.  Inputs are made with numpy from a seed:
+``sort_u32_ref``, for CPU tensors of any shape; the kernel's limits apply
+to CUDA tensors only.  Inputs are made with numpy from a seed:
 unique u32 keys, with high bits set, when payloads are passed, and keys
 with ties when none are.
 """
@@ -44,9 +45,40 @@ def test_sort_equals_reference(n, npay):
             >= 0).all()
 
 
-@pytest.mark.parametrize("shape,npay", [((2, 1000), 0), ((2, 3072), 0),
-                                        ((2, 1024), 5)])
-def test_sort_rejects_what_the_kernel_cannot_take(shape, npay):
-    keys = torch.zeros(shape, dtype=torch.int32)
+@pytest.mark.parametrize("n,npay", [(1000, 0), (3072, 2), (1024, 5)])
+def test_sort_on_the_cpu_takes_any_shape_as_the_reference(n, npay):
+    """Shapes and payload counts the kernel does not take: on CPU tensors
+    the port sorts them as the reference's lax.sort path does."""
+    import jax.numpy as jnp
+
+    arrs = _inputs(n, npay, seed=7 * n + npay)
+    want = rps.sort_u32(*(jnp.asarray(a) for a in arrs), force_xla=True)
+    got = S.sort_u32(*(torch.from_numpy(a.view(np.int32)) for a in arrs))
+    assert len(got) == len(want) == 1 + npay
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy().view(np.uint32), np.asarray(w))
+
+
+def test_timing_inputs_have_unique_keys_the_reference_sorts():
+    """The card's sort inputs (tools/sort_bench.py, chip_smoke.py): keys
+    unique in each row, across the u32 range, sorted as the reference
+    sorts them."""
+    import jax.numpy as jnp
+
+    from qatzip_tpu_torch.tools import sort_bench
+
+    t = sort_bench.inputs(2, 2048, 2, seed=3, dev="cpu")
+    keys = t[0].numpy().view(np.uint32)
+    assert all(len(np.unique(r)) == r.size for r in keys)
+    assert (keys >= 1 << 31).any() and (keys < 1 << 31).any()
+    want = rps.sort_u32(*(jnp.asarray(a.numpy().view(np.uint32)) for a in t),
+                        force_xla=True)
+    for g, w in zip(S.sort_u32(*t), want):
+        assert np.array_equal(g.numpy().view(np.uint32), np.asarray(w))
+
+
+@pytest.mark.parametrize("n,npay", [(1000, 0), (3072, 0), (1024, 5)])
+def test_kernel_limits_reject_what_the_kernel_cannot_take(n, npay):
     with pytest.raises(ValueError):
-        S.sort_u32(keys, *[keys] * npay)
+        S.check_kernel_limits(n, npay)
+    S.check_kernel_limits(1 << (n - 1).bit_length(), min(npay, 4))
