@@ -6,11 +6,15 @@ Run from the repository root:  python3 chip_smoke.py
 1. Environment: torch/CUDA versions, the card's name and power limit, the
    native host codec (libqzcore.so) and the CUDA kernel build, timed.
 2. Each kernel against its plain torch version, on the card, at the shapes
-   the main path gives it, on the pinned 32 MB corpus (bench.build_corpus):
+   the main path gives it, on the pinned 32 MB corpus
+   (qatzip_tpu_torch/tools/corpus.py, a copy of bench.build_corpus):
    candidate select on the sorted records of the first 128 chunks of 64 KB
-   (depth 16 / stride 2, the L1 default, and depth 8 / stride 1), and one
-   128-lane lockstep inflate round of zlib level-1 payloads.  Outputs must
-   be equal; both are timed with CUDA events.
+   (depth 16 / stride 2, the L1 default, and depth 8 / stride 1), and the
+   lockstep inflate on zlib level-1 payloads in one round of 128 lanes (the
+   reference's width) and one of 512 (the port's, every chunk of the
+   request).  Outputs must be equal; both are timed with CUDA events and
+   printed beside their bound (bytes moved at the HBM rate, operations at
+   the float32 rate), the inflate also beside its dependent-chain floor.
    The u32 sort kernel, which no path runs yet, on the unsorted sort-1
    records of the same chunks at stride 2 and 1 ([128, 32768] and
    [128, 65536]), on random unique keys beyond one cluster ([4, 262144])
@@ -22,10 +26,11 @@ Run from the repository root:  python3 chip_smoke.py
    the corpus's LZ4 blocks: bytes equal to the host decoder, none flagged.
 3. The DEFLATE device path through the public API: gzip-ext level 1 at
    64 KB chunks, compress then decompress the 32 MB corpus.  The launch
-   counters are zeroed just before this run and must show both kernels;
-   the engine must report device requests only, no lane may fail over to
-   the CPU and the health breaker must record no failure; the output must
-   be gzip-interoperable and round-trip bit-exactly.
+   counters are zeroed just before this run and must show both kernels,
+   the decompress in fewer than the 16 inflate launches of 128-lane
+   rounds; the engine must report device requests only, no lane may fail
+   over to the CPU and the health breaker must record no failure; the
+   output must be gzip-interoperable and round-trip bit-exactly.
 4. The LZ4 device path through the public API: an LZ4-frame session at
    level 1 and 64 KB chunks on the 32 MB corpus, then an LZ4s session
    (mini match 3) on 8 MB of it.  Each must launch the select kernel once
@@ -33,8 +38,9 @@ Run from the repository root:  python3 chip_smoke.py
    CPU, record no health failure, round-trip bit-exactly, and be readable
    by the software path.
 5. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
-   device busy time against the unprofiled wall time, and the host
-   functions that take the time.
+   device busy time against the unprofiled wall time, the inflate kernel's
+   share of the gzip-ext decompress, and the host functions that take the
+   time.
 
 Prints the kernels' JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -55,7 +61,15 @@ import time
 import zlib
 
 CHUNK = 64 << 10
-LANES = 128
+LANES = 128            # the reference's lanes a round and chunks a batch
+# H100 SXM peaks (NVIDIA's datasheet): HBM bytes/s, float32 outside
+# the tensor cores (the rate taken for 32-bit integer operations)
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+# an inflate step's dependent chain in csrc/inflate_step.cuh (a literal's,
+# as the kernel's SASS has it): 2 shared-memory loads of ~30 clocks and
+# ~22 integer operations of ~4, branches taken as free
+CHAIN_CLOCKS = 2 * 30 + 22 * 4
 
 
 def _check(cond: bool, what: str) -> None:
@@ -139,30 +153,49 @@ def phase_select(torch, corpus: bytes, dev) -> dict:
         print(f"select depth {depth} stride {stride} shape "
               f"{tuple(sk.shape)}: equal, kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, nonzero {int((ker > 0).sum())}")
+        # bound: three int32 inputs read once, one written; ~4 integer
+        # operations a neighbour and record at the float32 rate
+        bytes_ms = 4 * 4 * sk.numel() / HBM_BYTES_S * 1e3
+        ops_ms = 4 * depth * sk.numel() / FP32_OPS_S * 1e3
+        print(f"  select bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+              f"{bytes_ms:.4f}, operations {ops_ms:.4f})")
         if rec is None:   # the L1 main path's shape
             rec = {"name": "select_candidates", "route": "cuda",
                    "source": "qatzip_tpu_torch/csrc/select.cu",
                    "replaces": "qatzip_tpu/ops/pallas_select.py:89",
                    "path": "deflate", "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms}
+                   "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                else "operations"),
+                   "library_ms": None}
     return rec
 
 
-def phase_inflate(torch, corpus: bytes, dev) -> dict:
+def _sm_clock_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+
+
+def _inflate_round(torch, corpus: bytes, dev, lanes: int) -> dict:
+    """One lockstep round over the first block of each of the first
+    ``lanes`` chunks at zlib level 1: the kernel against the plain version
+    (once, it takes ~30 s) on all five outputs, then timed."""
     from qatzip_tpu_torch.ops import deflate_decode as dd
     from qatzip_tpu_torch.ops import inflate as PI
 
     streams = []
-    for i in range(LANES):
+    for i in range(lanes):
         chunk = corpus[i * CHUNK:(i + 1) * CHUNK]
         co = zlib.compressobj(1, zlib.DEFLATED, -15)
         s = dd._Stream(co.compress(chunk) + co.flush(), len(chunk), i)
         _check(dd._parse_one_header(s) == "huff", "expected a Huffman block")
         streams.append(s)
     live, inputs = dd.pack_round(streams)
-    _check(len(live) == LANES, "every lane must take part in the round")
-    max_steps = inputs[-1]
-    t = PI.upload(*inputs[:-1], dev)
+    _check(len(live) == lanes, "every lane must take part in the round")
+    words, bit0, nbits, tll, td, active, max_steps = inputs
+    t = PI.upload(words, bit0, nbits, tll, td, active, dev)
     ker = PI.decode_lockstep(*t, max_steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -171,25 +204,61 @@ def phase_inflate(torch, corpus: bytes, dev) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     names = ("tokens", "err", "outcnt", "end_bit", "nsteps")
     for name, a, b in zip(names, ker, ref):
-        _check(torch.equal(a, b), f"inflate kernel != plain in {name}")
+        _check(torch.equal(a, b),
+               f"inflate kernel != plain in {name} at {lanes} lanes")
     ns = int(ker[4][0])
     _check(not bool(ker[1].any()), "a lane of the round errored")
     err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
               for a, b in zip(ker, ref))
     ms = _time_ms(lambda: PI.decode_lockstep(*t, max_steps), 5)
+    # the tables' staging and one step: the launch's fixed cost
+    ms1 = _time_ms(lambda: PI.decode_lockstep(*t, 1), 20)
     lane_steps = ker[0][:ns].ne(0).sum(0)
-    util = float(lane_steps.sum()) / (ns * LANES)
+    util = float(lane_steps.sum()) / (ns * lanes)
     out_bytes = int(ker[2].sum())
-    print(f"inflate round: {LANES} lanes, max_steps {max_steps}, nsteps "
-          f"{ns}, {out_bytes} output bytes: equal, kernel {ms:.4f} ms "
-          f"({out_bytes / ms / 1e6:.4f} GB/s), plain {plain_ms:.1f} ms "
-          f"(one run), lane utilisation {util:.4f} (token steps / "
-          f"(nsteps x lanes))")
+    # bound: each input read once (the stream bytes, the tables), each
+    # output written once (the ns token rows the host reads, err, outcnt,
+    # end_bit); ~60 integer operations a lane step at the float32 rate
+    nbytes = (int(nbits.sum()) // 8 + tll.nbytes + td.nbytes
+              + ns * lanes * 4 + 3 * lanes * 4)
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = float(lane_steps.sum()) * 60 / FP32_OPS_S * 1e3
+    # dependent-chain floor, a model printed beside the measurements: the
+    # longest lane's steps x one step's chain at the card's highest SM clock
+    chain_ns = CHAIN_CLOCKS / _sm_clock_mhz() * 1e3
+    floor_ms = ns * chain_ns / 1e6
+    print(f"inflate round: {lanes} lanes, max_steps {max_steps}, nsteps "
+          f"{ns}, {out_bytes} output bytes: equal on all five outputs; "
+          f"kernel {ms:.4f} ms ({ms / ns * 1e6:.1f} ns a step, "
+          f"{out_bytes / ms / 1e6:.4f} GB/s), staging + 1 step {ms1:.4f} ms, "
+          f"plain {plain_ms:.1f} ms (one run); lane utilisation {util:.4f} "
+          f"(token steps / (nsteps x lanes)); bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes; operations "
+          f"{ops_ms:.4f} ms); dependent-chain floor, a model, "
+          f"{floor_ms:.4f} ms ({chain_ns:.1f} ns a step)")
     return {"name": "inflate_decode", "route": "cuda",
             "source": "qatzip_tpu_torch/csrc/inflate.cu",
             "replaces": "qatzip_tpu/ops/pallas_inflate_kernel.py:228",
             "path": "deflate", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "lanes": lanes, "nsteps": ns,
+            "lane_utilisation": util}
+
+
+def phase_inflate(torch, corpus: bytes, dev) -> dict:
+    """The inflate kernel at the reference's 128 lanes and at the port's
+    round width, which takes every chunk of the 32 MB request at once;
+    returns the record at the port's width (the main path's shape)."""
+    from qatzip_tpu_torch.ops import device_codecs as dc
+
+    width = dc.DeflateDeviceCodec.LOCKSTEP_BATCH
+    _check(width * CHUNK <= len(corpus), "the corpus is narrower than a round")
+    rec128 = _inflate_round(torch, corpus, dev, LANES)
+    rec = _inflate_round(torch, corpus, dev, width)
+    print(f"inflate: {width} lanes a round take {rec['ms']:.4f} ms, "
+          f"{LANES} lanes {rec128['ms']:.4f} ms")
+    return rec
 
 
 def _device_ops(torch, fn) -> dict:
@@ -272,13 +341,30 @@ def phase_sort(torch, corpus: bytes, dev) -> dict:
             _check(info["max_active_clusters"] > 0,
                    f"no cluster of the sort at {(B, n)} fits the card")
         if rec is None:   # the L1 match finder's sort-1 shape
+            # bound: keys and payloads read once and written once; the
+            # network's n/2 x log n (log n + 1)/2 compare-exchanges a row,
+            # ~3 operations a word they move, at the float32 rate
+            words = len(t) * B * n
+            lg = n.bit_length() - 1
+            cx = B * n // 2 * lg * (lg + 1) // 2
+            bytes_ms = 2 * 4 * words / HBM_BYTES_S * 1e3
+            ops_ms = 3 * len(t) * cx / FP32_OPS_S * 1e3
+            # the library's sort with the payloads gathered after it is the
+            # plain version; timed again as the library's figure
+            lib_ms = _time_ms(lambda: S.sort_u32_ref(*t), 20)
             rec = {"name": "sort_u32", "route": "cuda",
                    "source": "qatzip_tpu_torch/csrc/sort.cu",
                    "replaces": "qatzip_tpu/ops/pallas_sort.py:113",
                    "path": None, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms,
+                   "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                else "operations"),
+                   "library_ms": lib_ms,
                    "device_kernels_per_call": ops["sort_kernels"]}
-    rec["launches"] = S.KERNEL.launches
+            print(f"  sort bound {rec['bound_ms']:.4f} ms (bytes "
+                  f"{bytes_ms:.4f}, operations {ops_ms:.4f}); torch.sort + "
+                  f"gathers {lib_ms:.4f} ms")
+    rec["checked_calls"] = S.KERNEL.launches
     return rec
 
 
@@ -351,13 +437,14 @@ def _run(torch, sess, direction: str, src):
     return res, dt
 
 
-def phase_slice(torch, corpus: bytes, kernels: list):
+def phase_slice(torch, corpus: bytes, kernels: list, sort_rec: dict):
     import qatzip_tpu_torch as qt
     from qatzip_tpu_torch.engine import core
     from qatzip_tpu_torch.engine.health import health
     from qatzip_tpu_torch.ops import deflate_decode as dd
     from qatzip_tpu_torch.ops import inflate_kernel as K
     from qatzip_tpu_torch.ops import select as S
+    from qatzip_tpu_torch.ops import sort as SO
 
     os.environ["QATZIP_TPU_DEVICE"] = "1"
     sess = qt.QzSession()
@@ -378,17 +465,27 @@ def phase_slice(torch, corpus: bytes, kernels: list):
 
     S.KERNEL.launches = 0
     K.KERNEL.launches = 0
+    SO.KERNEL.launches = 0
     dd.failover_lanes = 0
     comp, t_c = _run(torch, sess, "compress", corpus)
+    select_launches = S.KERNEL.launches
     dec, t_d = _run(torch, sess, "decompress", comp.data)
     launches = {"select_candidates": S.KERNEL.launches,
-                "inflate_decode": K.KERNEL.launches}
+                "inflate_decode": K.KERNEL.launches,
+                "sort_u32": SO.KERNEL.launches}
 
     nchunks = -(-len(corpus) // CHUNK)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        _check(k["launches"] >= nchunks // LANES,
-               f"{k['name']} launched {k['launches']} times on the main path")
+    sort_rec["launches"] = launches["sort_u32"]
+    _check(launches["select_candidates"] >= nchunks // LANES,
+           f"select launched {select_launches} times on the main path")
+    # one launch a round: the reference's 128-lane rounds took 16 here
+    _check(1 <= launches["inflate_decode"] < 16,
+           f"the decompress ran {launches['inflate_decode']} inflate launches")
+    print(f"gzip-ext decompress of {nchunks} chunks: "
+          f"{launches['inflate_decode']} inflate launches (the reference's "
+          f"128-lane rounds: 16)")
     _check(dd.failover_lanes == 0,
            f"{dd.failover_lanes} lanes failed over to the CPU")
     _check(health.total_failures == 0,
@@ -516,6 +613,11 @@ def phase_profile(torch, runs: list) -> None:
         for e in dev_rows[:6]:
             print(f"  device {e.self_device_time_total / 1e3:10.3f} ms "
                   f"x{e.count:<6d} {e.key[:70]}")
+        inflate = [e for e in dev_rows if "qz_inflate" in e.key]
+        if inflate:
+            print(f"  inflate kernel in the request: "
+                  f"{sum(e.self_device_time_total for e in inflate) / 1e3:.4f}"
+                  f" ms over {sum(e.count for e in inflate)} launches")
         pr = cProfile.Profile()
         pr.enable()
         fn()
@@ -539,7 +641,7 @@ def main() -> int:
     import qatzip_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     phase_environment(torch)
-    from bench import build_corpus
+    from qatzip_tpu_torch.tools.corpus import build_corpus
 
     dev = torch.device("cuda", 0)
     corpus = build_corpus(32)
@@ -547,7 +649,7 @@ def main() -> int:
                phase_inflate(torch, corpus, dev)]
     sort_rec = phase_sort(torch, corpus, dev)
     phase_lz4_decode(torch, corpus, dev)
-    runs = [phase_slice(torch, corpus, kernels)]
+    runs = [phase_slice(torch, corpus, kernels, sort_rec)]
     runs += phase_lz4(torch, corpus)
     phase_profile(torch, runs)
     kernels.append(sort_rec)

@@ -6,12 +6,13 @@ tested against).  It runs the DEFLATE device path — the hybrid compressor
 (device entropy decode + native window copies) — and the LZ4/LZ4s device
 path — the same match finder with native LZ4 emission, and a device block
 decoder — on an NVIDIA GPU through hand-written CUDA kernels (``csrc/``)
-and plain torch, and shares the jax-free host layers of ``qatzip_tpu``
-(constants, sessions, wire formats, the native C++ codec, the CPU backend)
-by import.  Importing it never loads jax.
+and plain torch.  It imports nothing of ``qatzip_tpu``: the host layers it
+shares with the reference (constants, sessions, wire formats, the native
+C++ codec, the CPU backend) are its own copies, and its native codec builds
+under ``build/qatzip_tpu_torch/``.  Importing it never loads jax.
 """
-from qatzip_tpu.constants import *  # noqa: F401,F403
-from qatzip_tpu.session import (  # noqa: F401
+from qatzip_tpu_torch.constants import *  # noqa: F401,F403
+from qatzip_tpu_torch.session import (  # noqa: F401
     QzSession,
     QzSessionParams,
     QzSessionParamsCommon,

@@ -4,9 +4,10 @@ Port of the entry points of qatzip_tpu/api.py that the DEFLATE and LZ4/LZ4s
 device paths use: init and session setup, one-shot compress and
 decompress, status, and the ``compress``/``decompress`` helpers.  Names,
 arguments and status codes are the reference's; the sessions, parameters
-and result types are the reference's classes, and the entry points that do
-not touch the engine (``qz_close``, ``qz_teardown_session``,
-``qz_max_compressed_length``) are the reference's, re-exported.  The remaining qz* functions (CRC variants,
+and result types are the port's copies of the reference's classes, and the
+entry points that do not touch the engine (``qz_close``,
+``qz_teardown_session``, ``qz_max_compressed_length``) and ``QzStatus`` are
+copies of the reference's.  The remaining qz* functions (CRC variants,
 defaults, metadata, streaming) are not ported yet (ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
@@ -15,12 +16,12 @@ import dataclasses
 
 import torch
 
-from qatzip_tpu import constants as C
-from qatzip_tpu import session as S
-from qatzip_tpu.api import (QzStatus, qz_close, qz_max_compressed_length,
-                            qz_teardown_session)
-from qatzip_tpu.constants import QzDataFormat, QzDirection
-from qatzip_tpu.session import (
+from qatzip_tpu_torch import constants as C
+from qatzip_tpu_torch import memory as _mem
+from qatzip_tpu_torch import session as S
+from qatzip_tpu_torch.constants import QzDataFormat, QzDirection
+from qatzip_tpu_torch.engine import framing
+from qatzip_tpu_torch.session import (
     InternalParams,
     QzSession,
     QzSessionParams,
@@ -67,6 +68,23 @@ def qz_init(sess: QzSession, sw_backup: int = C.QZ_SW_BACKUP_DEFAULT,
         return C.QZ_DUPLICATE
     sess.hw_session_stat = (C.QZ_OK if rc == C.QZ_OK else rc)
     return C.QZ_OK if rc in (C.QZ_OK, C.QZ_NO_HW) else rc
+
+
+def qz_close(sess: QzSession) -> int:
+    """qzClose analog: end the session, free session state."""
+    if not isinstance(sess, QzSession):
+        return C.QZ_PARAMS
+    sess.params = None
+    sess.stream_state = None
+    if sess.async_ctrl is not None:
+        sess.async_ctrl.shutdown()
+        sess.async_ctrl = None
+    sess.hw_session_stat = C.QZ_NONE
+    return C.QZ_OK
+
+
+def qz_teardown_session(sess: QzSession) -> int:
+    return qz_close(sess)
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +209,41 @@ def qz_decompress(sess: QzSession, src,
 # ---------------------------------------------------------------------------
 # Introspection
 # ---------------------------------------------------------------------------
+def qz_max_compressed_length(src_sz: int, sess: QzSession | None = None) -> int:
+    """qzMaxCompressedLength analog (reference src/qatzip.c:3022-3069)."""
+    if src_sz == 0:
+        return C.QZ_COMPRESSED_SZ_OF_EMPTY_FILE
+    if sess is None or sess.params is None:
+        hw_buff_sz = C.QZ_HW_BUFF_SZ
+        fmt = C.DataFormatInternal.DEFLATE_GZIP_EXT
+    else:
+        hw_buff_sz = sess.params.hw_buff_sz
+        fmt = sess.params.data_fmt
+    chunk_cnt = (src_sz + hw_buff_sz - 1) // hw_buff_sz
+    bound = C.qz_dest_sz(src_sz)
+    bound += chunk_cnt * (framing.header_sz(fmt) + framing.footer_sz(fmt))
+    if bound >= 1 << 32:
+        return 0
+    return bound
+
+
+@dataclasses.dataclass
+class QzStatus:
+    """qzGetStatus analog (reference include/qatzip.h:699-720)."""
+
+    qat_hw_count: int = 0
+    qat_service_init: bool = False
+    qat_mem_drvr: int = 0
+    qat_instance_attach: bool = False
+    memory_alloced: int = 0
+    using_huge_pages: bool = False
+    hw_session_status: int = C.QZ_NONE
+    algo_sw: dict = dataclasses.field(default_factory=dict)
+    algo_hw: dict = dataclasses.field(default_factory=dict)
+    device_kind: str = ""
+
+
 def qz_get_status(sess: QzSession | None = None) -> QzStatus:
-    from qatzip_tpu import memory as _mem
     from qatzip_tpu_torch.ops import registry
 
     eng = core.engine()

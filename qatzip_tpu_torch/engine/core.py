@@ -4,9 +4,8 @@ decompress funnels.
 Port of qatzip_tpu/engine/core.py (the role of src/qatzip.c in QATzip):
 device bring-up, per-request chunking, ordered reassembly, software
 failover, sticky force-SW mode and the latency-sensitive-mode router.  The
-port keeps its own engine state, flow counters and health breaker; the
-framing walk (``_parse_member``) and the other host-only helpers are the
-reference's, imported.
+engine state, result type, framing walk (``_parse_member``) and the other
+host-only helpers are copies of the reference's.
 
 Bring-up finds the first CUDA device through torch.  Without one, init
 reports QZ_NO_HW and every request runs on the shared ``CpuBackend`` with
@@ -16,36 +15,64 @@ device request fails over to the CPU on a device error, never on a
 """
 from __future__ import annotations
 
+import dataclasses
 import os
+import struct
 import threading
 import time
+import zlib
 
 import torch
 
-from qatzip_tpu import constants as C
-from qatzip_tpu.constants import DataFormatInternal, QzDirection
-from qatzip_tpu.engine import framing
-from qatzip_tpu.engine.backend import Backend
-from qatzip_tpu.engine.core import (_BATCH_FMT_CODE, EngineState, OpResult,
-                                    _as_view, _inflate_stream, _parse_member,
-                                    _session_crc_update)
-from qatzip_tpu.engine.flow import FlowTracker
-from qatzip_tpu.formats import gzip_fmt, zlib_fmt
-from qatzip_tpu.session import InternalParams, QzSession
-from qatzip_tpu.utils import checksum as ck
-from qatzip_tpu.utils.logging import QZ_ERROR, QZ_WARN
-from qatzip_tpu_torch.engine import devcal
+from qatzip_tpu_torch import constants as C
+from qatzip_tpu_torch.constants import DataFormatInternal, QzDirection
+from qatzip_tpu_torch.engine import devcal, framing
+from qatzip_tpu_torch.engine.backend import Backend
+from qatzip_tpu_torch.engine.cpu_backend import CpuBackend
+from qatzip_tpu_torch.engine.flow import FlowTracker
 from qatzip_tpu_torch.engine.gpu_backend import GpuBackend
 from qatzip_tpu_torch.engine.health import health
+from qatzip_tpu_torch.formats import gzip_fmt, lz4_fmt, zlib_fmt
 from qatzip_tpu_torch.ops._build import KernelError
+from qatzip_tpu_torch.session import InternalParams, QzSession
+from qatzip_tpu_torch.utils import checksum as ck
+from qatzip_tpu_torch.utils.logging import QZ_ERROR, QZ_WARN
 
-try:  # native whole-request funnel (qatzip_tpu/native/qzbatch.cpp)
-    from qatzip_tpu.native import qzcore as _native
+try:  # native whole-request funnel (qatzip_tpu_torch/native/qzbatch.cpp)
+    from qatzip_tpu_torch.native import qzcore as _native
 except ImportError:  # pragma: no cover - native build optional
     _native = None
 
+# wire-format codes shared with the native batch funnel (qzbatch.cpp enum Fmt)
+_BATCH_FMT_CODE = {
+    DataFormatInternal.DEFLATE_4B: 0,
+    DataFormatInternal.DEFLATE_GZIP: 1,
+    DataFormatInternal.DEFLATE_GZIP_EXT: 2,
+    DataFormatInternal.DEFLATE_RAW: 3,
+    DataFormatInternal.DEFLATE_ZLIB: 4,
+}
+
 __all__ = ["OpResult", "_parse_member", "choose_backend", "compress_ext",
            "decompress_ext", "engine", "qz_init_engine", "qz_close_engine"]
+
+
+# ---------------------------------------------------------------------------
+# Engine state (analog of the processData_T global, reference
+# src/qatzip_internal.h:210-236) and init (qzInit, src/qatzip.c:630-840)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class EngineState:
+    initialized: bool = False
+    init_status: int = C.QZ_NONE
+    hw_present: bool = False
+    device_kind: str = ""
+    num_devices: int = 0
+    cpu_backend: CpuBackend = dataclasses.field(default_factory=CpuBackend)
+    hw_backend: Backend | None = None
+    # counters (analog of per-thread HW/SW counters, src/qatzip_utils.c:55-183)
+    hw_requests: int = 0
+    sw_requests: int = 0
+
 
 _engine = EngineState()
 _engine_lock = threading.Lock()
@@ -166,6 +193,47 @@ def choose_backend(sess: QzSession, src_len: int,
 # ---------------------------------------------------------------------------
 # Compress funnel (qzCompressCrcExt analog, reference src/qatzip.c:1874-2097)
 # ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class OpResult:
+    rc: int = C.QZ_OK
+    data: bytes = b""
+    consumed: int = 0
+    crc: int = 0
+    ext_rc: int = 0
+
+
+def _session_crc_update(kind: str, crc: int, chunk_crc: int, chunk_len: int,
+                        first: bool) -> int:
+    if kind == "crc32":
+        return chunk_crc if first else ck.crc32_combine(crc, chunk_crc, chunk_len)
+    if kind == "adler32":
+        return chunk_crc if first else ck.adler32_combine(crc, chunk_crc, chunk_len)
+    # xxh32 is not combinable from chunk digests; the funnels overwrite the
+    # session value with a whole-request digest after reassembly (below)
+    return chunk_crc
+
+
+def _as_view(src) -> memoryview:
+    """Zero-copy byte view of any contiguous buffer-protocol object — the
+    pinned-buffer fast path (reference decompBufferSetup zero-copy branch,
+    src/qatzip_utils.c:1350-1427).  Bytearrays, numpy arrays and
+    memoryview slices flow through without a memcpy; only non-buffer
+    iterables fall back to a copy."""
+    if isinstance(src, memoryview):
+        mv = src
+    else:
+        try:
+            mv = memoryview(src)
+        except TypeError:
+            return memoryview(bytes(src))
+    if mv.ndim != 1 or mv.itemsize != 1 or not mv.contiguous:
+        try:
+            mv = mv.cast("B")
+        except TypeError:
+            return memoryview(mv.tobytes())
+    return mv
+
+
 def compress_ext(sess: QzSession, src, last: int = 1,
                  dest_limit: int | None = None, crc_init: int = 0) -> OpResult:
     p = sess.params
@@ -319,6 +387,21 @@ def compress_ext(sess: QzSession, src, last: int = 1,
         sess.total_out += len(data)
     sess.last_ext_rc = res.ext_rc
     return res
+
+
+# ---------------------------------------------------------------------------
+# Decompress funnel (qzDecompressExt analog, reference
+# src/qatzip.c:2446-2671; header walk = checkHeader,
+# src/qatzip_utils.c:1232-1345)
+# ---------------------------------------------------------------------------
+def _inflate_stream(buf: memoryview, off: int) -> tuple[bytes, int, bool]:
+    """Inflate one raw-deflate stream starting at off; returns
+    (data, compressed_len, stream_complete)."""
+    do = zlib.decompressobj(-15)
+    data = do.decompress(bytes(buf[off:]))
+    data += do.flush()
+    used = len(buf) - off - len(do.unused_data)
+    return data, used, do.eof
 
 
 def _batch_inflate_fast(sess: QzSession, buf: memoryview, p: InternalParams,
@@ -579,3 +662,100 @@ def decompress_ext(sess: QzSession, src, dest_limit: int | None = None) -> OpRes
         sess.total_out += len(out)
     sess.last_ext_rc = res.ext_rc
     return res
+
+
+def _parse_member(buf: memoryview, pos: int, p: InternalParams,
+                  sess: QzSession):
+    """Parse one member's framing at pos.
+
+    Returns (payload_off, payload_len, out_size_hint, expected_checksum,
+    member_total_len, inline_decode) or None when no further member can be
+    parsed.  ``inline_decode`` means the member boundary is only discoverable
+    by inflating (foreign gzip headers, raw deflate).
+    """
+    fmt = p.data_fmt
+    n = len(buf)
+    avail = n - pos
+
+    if fmt == DataFormatInternal.DEFLATE_4B:
+        if avail < 4:
+            return None
+        (blk,) = struct.unpack_from("<I", buf, pos)
+        if blk > avail - 4:
+            return None
+        # oversized chunk forces sticky SW mode (reference
+        # src/qatzip_utils.c:1320-1332)
+        if blk > C.qz_dest_sz(p.hw_buff_sz):
+            sess.force_sw = True
+        return (pos + 4, blk, -1, None, 4 + blk, False)
+
+    if fmt in (DataFormatInternal.DEFLATE_GZIP, DataFormatInternal.DEFLATE_GZIP_EXT):
+        ext = gzip_fmt.parse_gzipext_header(buf, pos)
+        if ext is not None:
+            ho = pos + gzip_fmt.GZIPEXT_HEADER_SIZE
+            if ext.dest_sz > avail - gzip_fmt.GZIPEXT_HEADER_SIZE:
+                return None
+            fo = ho + ext.dest_sz
+            expected = None
+            if fo + 8 <= n:
+                fcrc, _ = gzip_fmt.parse_std_gzip_footer(buf, fo)
+                expected = fcrc
+            if ext.src_sz > p.hw_buff_sz or ext.dest_sz > C.qz_dest_sz(p.hw_buff_sz):
+                sess.force_sw = True
+            total = gzip_fmt.GZIPEXT_HEADER_SIZE + ext.dest_sz + 8
+            return (ho, ext.dest_sz, ext.src_sz, expected, total, False)
+        if gzip_fmt.is_std_gzip_header(buf, pos):
+            # plain member: find footer by scanning for the next plain header
+            foot = gzip_fmt.find_std_gzip_footer(buf, pos, avail)
+            ho = pos + gzip_fmt.STD_GZIP_HEADER_SIZE
+            plen = foot - ho
+            if plen < 0:
+                return None
+            fcrc, fisize = gzip_fmt.parse_std_gzip_footer(buf, foot)
+            if fisize > p.hw_buff_sz or plen > C.qz_dest_sz(p.hw_buff_sz):
+                sess.force_sw = True
+            return (ho, plen, fisize, fcrc, foot + 8 - pos, False)
+        hdr = gzip_fmt.parse_any_gzip_header(buf, pos)
+        if hdr is not None:
+            # foreign gzip flags: decode inline (the reference forces SW here)
+            sess.force_sw = True
+            return (pos + hdr[0], -1, -1, None, -1, True)
+        return None
+
+    if fmt == DataFormatInternal.DEFLATE_RAW:
+        if avail <= 0:
+            return None
+        return (pos, -1, -1, None, -1, True)
+
+    if fmt == DataFormatInternal.DEFLATE_ZLIB:
+        if not zlib_fmt.verify_zlib_header(buf, pos):
+            return None
+        return (pos + zlib_fmt.STD_ZLIB_HEADER_SIZE, -1, -1, None, -1, True)
+
+    if fmt == DataFormatInternal.LZ4_FH:
+        if avail < lz4_fmt.LZ4_HEADER_SIZE:
+            return None
+        try:
+            hlen, hdr = lz4_fmt.parse_lz4_frame_header(buf, pos)
+        except ValueError:
+            return None
+        foot = lz4_fmt.find_lz4_footer(buf, pos, avail)
+        if foot is None:
+            return None
+        expected = struct.unpack_from("<I", buf, foot + 4)[0]
+        payload_len = foot - (pos + hlen)
+        total = (foot + lz4_fmt.LZ4_FOOTER_SIZE) - pos
+        if (hdr.content_size > p.hw_buff_sz
+                or payload_len > C.qz_dest_sz(p.hw_buff_sz)):
+            sess.force_sw = True
+        return (pos + hlen, payload_len, hdr.content_size, expected, total, False)
+
+    if fmt == DataFormatInternal.LZ4S_BK:
+        if avail < 4:
+            return None
+        (blk,) = struct.unpack_from("<I", buf, pos)
+        if blk > avail - 4:
+            return None
+        return (pos + 4, blk, -1, None, 4 + blk, False)
+
+    return None

@@ -19,7 +19,7 @@ from __future__ import annotations
 import json
 import os
 
-from qatzip_tpu.constants import QzDirection
+from qatzip_tpu_torch.constants import QzDirection
 
 _CAL_ENV = "QATZIP_TPU_DEVCAL_PATH"
 _FORCE_ENV = "QATZIP_TPU_DEVICE"

@@ -12,11 +12,12 @@ from typing import Sequence
 
 import torch
 
-from qatzip_tpu.constants import QzDirection
-from qatzip_tpu.engine.backend import Backend, CompressedChunk, DecompressedChunk
-from qatzip_tpu.engine.instances import InstancePool
-from qatzip_tpu.session import InternalParams
+from qatzip_tpu_torch.constants import QzDirection
+from qatzip_tpu_torch.engine.backend import (Backend, CompressedChunk,
+                                             DecompressedChunk)
+from qatzip_tpu_torch.engine.instances import InstancePool
 from qatzip_tpu_torch.ops import registry
+from qatzip_tpu_torch.session import InternalParams
 
 # the port's own instance pool (cross-session admission control)
 pool = InstancePool()

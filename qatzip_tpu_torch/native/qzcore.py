@@ -1,0 +1,301 @@
+"""ctypes binding for the port's libqzcore.so (built on demand from the
+sources beside it): the part of qatzip_tpu/native/qzcore.py the port calls."""
+from __future__ import annotations
+
+import ctypes
+
+from qatzip_tpu_torch.native.build import build
+
+_path = build()
+if _path is None:
+    raise ImportError("libqzcore.so unavailable")
+
+_lib = ctypes.CDLL(_path)
+
+_lib.qz_lz4_compress_block.restype = ctypes.c_int64
+_lib.qz_lz4_compress_block.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                       ctypes.c_void_p, ctypes.c_int64]
+_lib.qz_lz4s_compress_block.restype = ctypes.c_int64
+_lib.qz_lz4s_compress_block.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                        ctypes.c_void_p, ctypes.c_int64,
+                                        ctypes.c_int]
+_lib.qz_lz4_decompress_block.restype = ctypes.c_int64
+_lib.qz_lz4_decompress_block.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                         ctypes.c_void_p, ctypes.c_int64]
+_lib.qz_crc32_combine.restype = ctypes.c_uint32
+_lib.qz_crc32_combine.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
+                                  ctypes.c_int64]
+_lib.qz_deflate_compress.restype = ctypes.c_int64
+_lib.qz_deflate_compress.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int]
+_lib.qz_deflate_candidates.restype = ctypes.c_int64
+_lib.qz_deflate_candidates.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                       ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int64, ctypes.c_int]
+_lib.qz_inflate.restype = ctypes.c_int64
+_lib.qz_inflate.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                            ctypes.c_void_p, ctypes.c_int64,
+                            ctypes.POINTER(ctypes.c_int64),
+                            ctypes.POINTER(ctypes.c_int32)]
+_lib.qz_batch_deflate_compress.restype = ctypes.c_int64
+_lib.qz_batch_deflate_compress.argtypes = [
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32)]
+_lib.qz_batch_inflate.restype = ctypes.c_int64
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_lib.qz_batch_inflate.argtypes = [
+    ctypes.c_void_p, _I64P, _I64P, _I64P, _I64P, _I64P,
+    ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+    ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32)]
+_lib.qz_xxh32.restype = ctypes.c_uint32
+_lib.qz_xxh32.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
+_lib.qz_lz4_candidates.restype = ctypes.c_int64
+_lib.qz_lz4_candidates.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int64, ctypes.c_int,
+                                   ctypes.c_int]
+_lib.qz_apply_tokens.restype = ctypes.c_int64
+_lib.qz_apply_tokens.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_int64, ctypes.c_void_p,
+                                 ctypes.c_int64, ctypes.c_void_p,
+                                 ctypes.c_int64]
+
+
+def _addr(data):
+    """(c_void_p, length, keepalive) for any contiguous bytes-like object,
+    zero-copy whenever the buffer protocol allows it.  This is the pinned-
+    buffer fast path of the reference (qzMemFindAddr -> zero-copy DMA,
+    src/qatzip_utils.c:1350-1427): qz_malloc buffers, bytearrays, numpy
+    arrays and memoryview slices feed the native funnels without a memcpy.
+    """
+    if isinstance(data, bytes):
+        return ctypes.cast(data, ctypes.c_void_p), len(data), data
+    mv = data if isinstance(data, memoryview) else memoryview(data)
+    if mv.ndim != 1 or mv.itemsize != 1:
+        mv = mv.cast("B")
+    if not mv.contiguous:
+        b = mv.tobytes()
+        return ctypes.cast(b, ctypes.c_void_p), len(b), b
+    n = mv.nbytes
+    if n == 0:
+        return ctypes.c_void_p(0), 0, mv
+    if mv.readonly:
+        # readonly view over bytes: address the underlying object directly
+        obj = getattr(mv, "obj", None)
+        if isinstance(obj, bytes) and len(obj) == n:
+            return ctypes.cast(obj, ctypes.c_void_p), n, obj
+        arr = (ctypes.c_char * n).from_buffer_copy(mv)
+        return ctypes.cast(arr, ctypes.c_void_p), n, arr
+    arr = (ctypes.c_char * n).from_buffer(mv)
+    return ctypes.cast(arr, ctypes.c_void_p), n, (mv, arr)
+
+
+# thread-local output arena for the batch funnels: reused pages stay
+# faulted+cached across calls (the reference's pinned-buffer pool role,
+# src/qatzip_mem.c); ctypes.create_string_buffer would zero-fill 30MB+
+# per request and fresh np.empty pays page faults inside the C call
+import threading
+
+_tls = threading.local()
+
+
+def _arena(n: int):
+    import numpy as np
+
+    buf = getattr(_tls, "buf", None)
+    if buf is None or buf.size < n:
+        buf = np.empty(max(n, 1 << 20), np.uint8)
+        _tls.buf = buf
+    return buf
+
+
+# header/footer sizes by qzbatch.cpp wire-format code (enum Fmt)
+_BATCH_HDR = {0: 4, 1: 10, 2: 24, 3: 0, 4: 2}
+_BATCH_FTR = {0: 0, 1: 8, 2: 8, 3: 0, 4: 4}
+
+
+def xxh32(data, seed: int = 0) -> int:
+    """Vendored XXH32 (the reference vendors src/xxhash.c)."""
+    p, n, keep = _addr(data)
+    return _lib.qz_xxh32(p, n, seed & 0xFFFFFFFF)
+
+
+def lz4_candidates(data, cand_u16, mode: int = 0,
+                   mini_match: int = 3) -> bytes:
+    """Hybrid LZ4/LZ4s: device candidate distances -> native verify/extend/
+    parse/emit (qz_lz4_candidates in qzcore.cpp)."""
+    import numpy as np
+
+    p, dn, keep = _addr(data)
+    cand = np.ascontiguousarray(cand_u16, np.uint16)
+    if cand.size < dn:
+        raise ValueError("candidate array shorter than data")
+    cap = dn + dn // 255 + 64
+    buf = _arena(cap)
+    m = _lib.qz_lz4_candidates(p, dn, cand.ctypes.data_as(ctypes.c_void_p),
+                               buf.ctypes.data_as(ctypes.c_void_p), cap,
+                               mode, mini_match)
+    if m < 0:
+        raise ValueError("lz4_candidates failed")
+    return buf[:m].tobytes()
+
+
+def lz4_compress_block(data) -> bytes:
+    p, dn, keep = _addr(data)
+    cap = dn + dn // 255 + 64
+    buf = _arena(cap)
+    n = _lib.qz_lz4_compress_block(p, dn, buf.ctypes.data_as(ctypes.c_void_p), cap)
+    if n < 0:
+        raise ValueError("lz4 compress failed")
+    return buf[:n].tobytes()
+
+
+def lz4s_compress_block(data, mini_match: int = 3) -> bytes:
+    p, dn, keep = _addr(data)
+    cap = dn + dn // 255 + 64
+    buf = _arena(cap)
+    n = _lib.qz_lz4s_compress_block(p, dn, buf.ctypes.data_as(ctypes.c_void_p), cap, mini_match)
+    if n < 0:
+        raise ValueError("lz4s compress failed")
+    return buf[:n].tobytes()
+
+
+def lz4_decompress_block(block: bytes, max_out: int) -> bytes:
+    # LZ4 frame blocks decode to <= 4MB by spec; 64MB bounds the arena
+    cap = min(max_out, 1 << 26) if max_out > 0 else 1 << 26
+    buf = _arena(cap)
+    p, bn, keep = _addr(block)
+    n = _lib.qz_lz4_decompress_block(p, bn, buf.ctypes.data_as(ctypes.c_void_p), cap)
+    if n < 0:
+        raise ValueError("corrupt lz4 block")
+    return buf[:n].tobytes()
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    return _lib.qz_crc32_combine(crc1 & 0xFFFFFFFF, crc2 & 0xFFFFFFFF, len2)
+
+
+def deflate_compress(data, level: int = 1) -> bytes:
+    """Raw-deflate compress (complete stream, BFINAL set)."""
+    p, dn, keep = _addr(data)
+    cap = dn + (dn >> 3) + 1024
+    buf = _arena(cap)
+    n = _lib.qz_deflate_compress(p, dn, buf.ctypes.data_as(ctypes.c_void_p), cap, level)
+    if n < 0:
+        raise ValueError("deflate compress failed")
+    return buf[:n].tobytes()
+
+
+def deflate_candidates(data, cand_u16, level: int = 1) -> bytes:
+    """Hybrid deflate: device-found candidate distances -> native verify/
+    extend/parse/entropy-code (qz_deflate_candidates in qzdeflate.cpp)."""
+    import numpy as np
+
+    p, dn, keep = _addr(data)
+    cand = np.ascontiguousarray(cand_u16, np.uint16)
+    if cand.size < dn:
+        raise ValueError("candidate array shorter than data")
+    cap = dn + (dn >> 3) + 1024
+    buf = _arena(cap)
+    n = _lib.qz_deflate_candidates(p, dn,
+                                   cand.ctypes.data_as(ctypes.c_void_p),
+                                   buf.ctypes.data_as(ctypes.c_void_p),
+                                   cap, level)
+    if n < 0:
+        raise ValueError("deflate_candidates failed")
+    return buf[:n].tobytes()
+
+
+def batch_deflate_compress(data, chunk_sz: int, level: int,
+                           fmt_code: int, ck_kind: int) -> tuple[bytes, int]:
+    """Whole-request compress: chunk, deflate, frame, checksum, reassemble —
+    one native call on a worker pool.  Returns (framed_bytes, combined_crc).
+    Accepts any contiguous bytes-like object zero-copy (pinned path).
+    """
+    p, n, keep = _addr(data)
+    nchunks = (n + chunk_sz - 1) // chunk_sz
+    slot = (_BATCH_HDR[fmt_code] + _BATCH_FTR[fmt_code]
+            + chunk_sz + (chunk_sz >> 3) + 1024)
+    cap = nchunks * slot
+    buf = _arena(cap)
+    crc = ctypes.c_uint32(0)
+    total = _lib.qz_batch_deflate_compress(
+        p, n, chunk_sz, level, fmt_code, ck_kind,
+        buf.ctypes.data_as(ctypes.c_void_p), cap, slot, ctypes.byref(crc))
+    if total < 0:
+        raise ValueError("batch compress failed")
+    return buf[:total].tobytes(), crc.value
+
+
+def batch_inflate(comp, offs: list[int], plens: list[int],
+                  hints: list[int], expected: list[int],
+                  ck_kind: int) -> tuple[bytes, int, bool]:
+    """Batch-inflate independent members at known output sizes.
+
+    expected[i] < 0 skips that member's checksum verification.  Returns
+    (output, combined_crc, last_member_bfinal).  Raises ValueError on any
+    corrupt/mismatching member (caller falls back to the generic path).
+    """
+    nm = len(offs)
+    out_offs, acc = [], 0
+    for h in hints:
+        out_offs.append(acc)
+        acc += h
+    buf = _arena(acc)
+    arr = ctypes.c_int64 * nm
+    crc = ctypes.c_uint32(0)
+    eof = ctypes.c_int32(0)
+    cp, _cn, keep = _addr(comp)
+    total = _lib.qz_batch_inflate(cp, arr(*offs), arr(*plens),
+                                  arr(*out_offs), arr(*hints), arr(*expected),
+                                  nm, ck_kind,
+                                  buf.ctypes.data_as(ctypes.c_void_p),
+                                  ctypes.byref(crc), ctypes.byref(eof))
+    if total < 0:
+        raise ValueError(f"batch inflate failed ({total})")
+    return buf[:total].tobytes(), crc.value, bool(eof.value)
+
+
+def inflate(data, max_out: int) -> tuple[bytes, int, bool]:
+    """Inflate one raw-deflate stream.
+
+    Returns (output, compressed_bytes_consumed, reached_final_block).
+    Raises ValueError on corrupt input, OverflowError when max_out is too
+    small (caller may retry with a larger buffer).
+    """
+    cap = max(max_out, 1)
+    buf = _arena(cap)
+    used = ctypes.c_int64(0)
+    eof = ctypes.c_int32(0)
+    p, dn, keep = _addr(data)
+    n = _lib.qz_inflate(p, dn, buf.ctypes.data_as(ctypes.c_void_p), cap,
+                        ctypes.byref(used), ctypes.byref(eof))
+    if n == -2:
+        raise OverflowError("inflate output exceeds max_out")
+    if n < 0:
+        raise ValueError("corrupt deflate stream")
+    return buf[:n].tobytes(), used.value, bool(eof.value)
+
+
+def apply_tokens(tokens_np, lane: int, window, wlen: int,
+                 cap: int) -> bytes:
+    """Apply one lane's token column from the lockstep inflate
+    (ops/inflate.py) — the host LZ77 window-copy half.
+
+    tokens_np: uint32 C-contiguous [nsteps, nlanes]; lane selects the
+    column.  Raises ValueError on a malformed token stream.
+    """
+    import numpy as np
+
+    assert tokens_np.dtype == np.uint32 and tokens_np.flags.c_contiguous
+    nsteps, nlanes = tokens_np.shape
+    buf = _arena(cap)
+    wp, wn, wkeep = _addr(window) if wlen else (ctypes.c_void_p(0), 0, None)
+    base = tokens_np.ctypes.data + 4 * lane
+    n = _lib.qz_apply_tokens(ctypes.c_void_p(base), nsteps, nlanes,
+                             wp, wlen, buf.ctypes.data_as(ctypes.c_void_p), cap)
+    if n < 0:
+        raise ValueError(f"token apply failed ({n})")
+    return buf[:n].tobytes()

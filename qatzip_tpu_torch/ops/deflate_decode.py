@@ -1,13 +1,16 @@
 """Host orchestration of the lockstep inflate rounds.
 
 Port of the lockstep half of qatzip_tpu/ops/deflate_decode.py:
-``inflate_batch`` (:463-522), ``_run_device_round`` (:562-575),
-``_lockstep_regions`` (:582-595) and ``_run_device_round_lockstep``
-(:633-699).  The host parses block headers and builds table regions, the
-device decodes tokens (ops/inflate.py), and the native ``apply_tokens``
-(shared with the reference) does the LZ77 window copies.  The stream
-state (``_Stream``, with its 32 KB history window) and the header parser
-are the reference's, imported.
+``inflate_batch`` (:463-522), ``_lockstep_regions`` (:582-595) and
+``_run_device_round_lockstep`` (:633-699).  The reference's
+``_run_device_round`` (:562-575) sorts a batch and cuts it into launches of
+128 lanes; here one launch takes the whole batch (the caller bounds the
+width: DeflateDeviceCodec.LOCKSTEP_BATCH), a lane a CTA that waits for no
+other lane, so nothing is sorted.  The host parses block headers and builds
+table regions, the device decodes tokens (ops/inflate.py), and the native ``apply_tokens``
+does the LZ77 window copies.  The stream state (``_Stream``, with its 32 KB
+history window), the bit reader, the header parsers and the Python token
+applier are copies of the reference's.
 
 A stream the device cannot prove correct comes back as None and the
 caller inflates it on the CPU; ``failover_lanes`` counts them.
@@ -17,15 +20,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qatzip_tpu.ops.deflate_decode import (MAX_OUTCAP, MAX_PAYLOAD, _Stream,
-                                           _apply_tokens_py,
-                                           _parse_one_header)
+from qatzip_tpu_torch.ops import deflate_tables as T
 from qatzip_tpu_torch.ops import inflate as PI
 
 try:  # native token applier (qz_apply_tokens); python fallback below
-    from qatzip_tpu.native import qzcore as _native
+    from qatzip_tpu_torch.native import qzcore as _native
 except ImportError:  # pragma: no cover - native build optional
     _native = None
+
+MAX_PAYLOAD = 1 << 20     # payloads larger than 1 MB route to the CPU path
+MAX_OUTCAP = 1 << 20
 
 _LOCKSTEP_NW = (1024, 4096, 16896)       # stream words per lane (buckets)
 _LOCKSTEP_STEPS = (1024, 4096, 16384, 65664)
@@ -34,6 +38,195 @@ _LOCKSTEP_STEPS = (1024, 4096, 16384, 65664)
 failover_lanes = 0
 
 
+# ---------------------------------------------------------------------------
+# Host side: bit reader, header parsing, stream state (copies of the
+# reference's)
+# ---------------------------------------------------------------------------
+class _Bits:
+    """LSB-first bit reader over bytes (deflate bit order, RFC1951 3.1.1)."""
+
+    __slots__ = ("data", "pos")
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data = data
+        self.pos = pos  # absolute bit position
+
+    def read(self, n: int) -> int:
+        v = 0
+        for i in range(n):
+            p = self.pos + i
+            byi = p >> 3
+            if byi >= len(self.data):
+                raise EOFError("deflate stream truncated")
+            v |= ((self.data[byi] >> (p & 7)) & 1) << i
+        self.pos += n
+        return v
+
+
+def parse_dynamic_header(br: _Bits) -> tuple[np.ndarray, np.ndarray]:
+    """Parse the BTYPE=10 code-length section (RFC1951 3.2.7).  Returns
+    (litlen lens[hlit], dist lens[hdist])."""
+    hlit = br.read(5) + 257
+    hdist = br.read(5) + 1
+    hclen = br.read(4) + 4
+    cl_lens = np.zeros(19, np.int32)
+    for i in range(hclen):
+        cl_lens[T.CLCODE_ORDER[i]] = br.read(3)
+    cl_codes = T.canonical_codes(cl_lens)
+    # host decode of the ~300 code lengths via a dict keyed by (len, code)
+    dec = {}
+    for s in range(19):
+        if cl_lens[s]:
+            dec[(int(cl_lens[s]), int(cl_codes[s]))] = s
+    lens = np.zeros(hlit + hdist, np.int32)
+    i = 0
+    while i < hlit + hdist:
+        code = 0
+        clen = 0
+        while True:
+            code = (code << 1) | br.read(1)
+            clen += 1
+            if clen > 15:
+                raise ValueError("bad code-length code")
+            if (clen, code) in dec:
+                sym = dec[(clen, code)]
+                break
+        if sym < 16:
+            lens[i] = sym
+            i += 1
+        elif sym == 16:
+            if i == 0:
+                raise ValueError("repeat with no previous length")
+            rep = 3 + br.read(2)
+            lens[i:i + rep] = lens[i - 1]
+            i += rep
+        elif sym == 17:
+            i += 3 + br.read(3)
+        else:
+            i += 11 + br.read(7)
+    if i != hlit + hdist:
+        raise ValueError("code-length overrun")
+    return lens[:hlit], lens[hlit:]
+
+
+class _Stream:
+    __slots__ = ("payload", "hint", "bits", "out", "window", "done", "failed",
+                 "final_block", "index", "_lens", "kind", "crc", "crc_len")
+
+    def __init__(self, payload: bytes, hint: int, index: int,
+                 kind: str = "crc32"):
+        self.payload = payload
+        self.hint = hint
+        self.bits = _Bits(payload)
+        self.out = bytearray()
+        self.window = b""
+        self.done = False
+        self.failed = False
+        self.final_block = False
+        self.index = index
+        self.kind = kind
+        self.crc: int | None = None  # running checksum of self.out
+        self.crc_len = 0
+
+    def push(self, data: bytes, part_crc: int | None = None) -> None:
+        """Append decoded bytes; fold ``part_crc`` (device-computed checksum
+        of this part) into the running stream checksum.  Host computes the
+        part only for host-handled stored blocks."""
+        import zlib as _z
+
+        from qatzip_tpu_torch.utils import checksum as _ck
+
+        if self.kind:
+            if part_crc is None:
+                part_crc = (_z.adler32(data) if self.kind == "adler32"
+                            else _z.crc32(data)) & 0xFFFFFFFF
+            if self.crc is None or self.crc_len == 0:
+                self.crc = part_crc
+            elif self.kind == "adler32":
+                self.crc = _ck.adler32_combine(self.crc, part_crc, len(data))
+            else:
+                self.crc = _ck.crc32_combine(self.crc, part_crc, len(data))
+            self.crc_len += len(data)
+        self.out += data
+        w = self.window + data
+        self.window = w[-32768:] if len(w) > 32768 else w
+
+
+def _parse_one_header(s: _Stream) -> str:
+    """Advance past one block header.  Returns 'huff' (device decode needed;
+    tables stashed on the stream), or handles a stored block / stream end
+    inline and returns 'stored' / 'end'."""
+    br = s.bits
+    bfinal = br.read(1)
+    btype = br.read(2)
+    s.final_block = bool(bfinal)
+    if btype == 0:
+        br.pos = (br.pos + 7) & ~7  # byte-align
+        byi = br.pos >> 3
+        if byi + 4 > len(s.payload):
+            raise EOFError("truncated stored block")
+        ln = int.from_bytes(s.payload[byi:byi + 2], "little")
+        nlen = int.from_bytes(s.payload[byi + 2:byi + 4], "little")
+        if ln != (~nlen & 0xFFFF):
+            raise ValueError("stored block LEN/NLEN mismatch")
+        data = s.payload[byi + 4:byi + 4 + ln]
+        if len(data) != ln:
+            raise EOFError("truncated stored block data")
+        s.push(data)
+        br.pos = (byi + 4 + ln) << 3
+        if bfinal:
+            s.done = True
+            return "end"
+        return "stored"
+    if btype == 1:
+        s._lens = None  # static tables; engines cache their builds
+        return "huff"
+    if btype == 2:
+        # stash the code lengths; each decode engine (lockstep regions /
+        # speculative flat tables) builds its own table form at round time
+        s._lens = parse_dynamic_header(br)  # type: ignore[attr-defined]
+        return "huff"
+    raise ValueError("reserved BTYPE")
+
+
+def _apply_tokens_py(lane_tokens: np.ndarray, window: bytes,
+                     cap: int) -> bytes:
+    """Python fallback for qz_apply_tokens (native absent)."""
+    out = bytearray()
+    wl = len(window)
+    for t in lane_tokens:
+        t = int(t)
+        if t == 0:
+            continue
+        if t & 1:
+            if len(out) >= cap:
+                raise ValueError("token overflow")
+            out.append((t >> 1) & 0xFF)
+            if t & 0x200:  # paired second literal (bits 10..17)
+                if len(out) >= cap:
+                    raise ValueError("token overflow")
+                out.append((t >> 10) & 0xFF)
+            continue
+        if not t & 2:
+            raise ValueError("bad token")
+        ln = (t >> 2) & 0x1FF
+        d = ((t >> 11) & 0x7FFF) + 1
+        if ln < 3 or ln > 258 or len(out) + ln > cap:
+            raise ValueError("bad token")
+        for _ in range(ln):
+            p = len(out) - d
+            if p >= 0:
+                out.append(out[p])
+            elif wl + p >= 0:
+                out.append(window[wl + p])
+            else:
+                raise ValueError("window underrun")
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# Rounds
+# ---------------------------------------------------------------------------
 def inflate_batch(payloads, hints, device: torch.device,
                   max_rounds: int = 64, kind: str | None = None,
                   ran_out: list | None = None):
@@ -74,7 +267,7 @@ def inflate_batch(payloads, hints, device: torch.device,
             break
         if ran_out is not None and not ran_out:
             ran_out.append(True)  # at least one real device round executed
-        _run_device_round(batch, device)
+        _run_device_round_lockstep(batch, device)
 
     results = []
     for s in streams:
@@ -89,15 +282,6 @@ def inflate_batch(payloads, hints, device: torch.device,
     return results
 
 
-def _run_device_round(batch, device: torch.device) -> None:
-    """Dispatch one device decode round.  Rounds take up to LANES blocks,
-    sorted by remaining payload so similar-sized blocks share a round
-    (lockstep runs to the slowest lane)."""
-    order = sorted(batch, key=lambda s: len(s.payload) - (s.bits.pos >> 3))
-    for i in range(0, len(order), PI.LANES):
-        _run_device_round_lockstep(order[i:i + PI.LANES], device)
-
-
 def _lockstep_regions(s):
     """Packed 9-bit table regions for one block (ops/inflate.py layout)."""
     if getattr(s, "_lens", None) is None:
@@ -110,9 +294,11 @@ def pack_round(batch):
     """Lay out one lockstep round: per-lane stream words, start bits, bit
     counts, table regions and active flags, and the step bound.  Streams
     the round cannot take are marked failed.  Returns (live, inputs) with
-    inputs = (stream_words u32[LANES, NW], bit0, nbits, tll, td, active,
-    max_steps), or (live, None) when no stream is left."""
-    B = PI.LANES
+    inputs = (stream_words u32[lanes, NW], bit0, nbits, tll, td, active,
+    max_steps), or (live, None) when no stream is left.  A round has one
+    lane a live stream, in batch order, so every lane is active: ``active``
+    is kept for the reference's interface (an inactive lane decodes
+    nothing), and only the tests clear it."""
     live: list[tuple] = []
     for s in batch:
         try:
@@ -131,6 +317,7 @@ def pack_round(batch):
     if not live:
         return live, None
 
+    B = len(live)
     NW = next(b for b in _LOCKSTEP_NW if b >= max(t[4] for t in live))
     need = min(65537, max(t[3] for t in live) + 2)
     MS = next(b for b in _LOCKSTEP_STEPS if b >= need)

@@ -15,28 +15,28 @@ reference's per-batch CPU failover and its ``faults``/``health`` hooks:
 The failover takes injected faults and device errors; a
 :class:`KernelError` (a kernel that cannot be built or launched) passes
 through it to the caller.  The host-only helpers (CPU fallbacks,
-checksums) are the reference's, imported.
+checksums) are copies of the reference's.
 """
 from __future__ import annotations
 
 import os
 import struct
+import zlib
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from qatzip_tpu.constants import DataFormatInternal
-from qatzip_tpu.engine import faults
-from qatzip_tpu.engine.backend import CompressedChunk, DecompressedChunk
-from qatzip_tpu.engine.cpu_backend import _map_chunks
-from qatzip_tpu.engine.lz4_block import (lz4_block_decompress,
-                                         lz4s_block_decompress)
-from qatzip_tpu.ops.device_codecs import (_checksum_kind, _chunk_checksum,
-                                          _cpu_compress_batch, _cpu_inflate)
-from qatzip_tpu.session import InternalParams
+from qatzip_tpu_torch.constants import DataFormatInternal
+from qatzip_tpu_torch.engine import faults
+from qatzip_tpu_torch.engine.backend import CompressedChunk, DecompressedChunk
+from qatzip_tpu_torch.engine.cpu_backend import CpuBackend, _map_chunks
 from qatzip_tpu_torch.engine.health import health
+from qatzip_tpu_torch.engine.lz4_block import (lz4_block_decompress,
+                                               lz4s_block_decompress)
 from qatzip_tpu_torch.ops._build import KernelError
+from qatzip_tpu_torch.session import InternalParams
+from qatzip_tpu_torch.utils import checksum as _ck
 
 
 def level_params(level: int) -> int:
@@ -75,7 +75,10 @@ class DeflateDeviceCodec:
     """Batched deflate-block codec running on a torch device."""
 
     MAX_BATCH = 128        # chunks per device dispatch
-    LOCKSTEP_BATCH = 128   # blocks per inflate round (one per lane)
+    # blocks per inflate round, one lane each and one launch a round; the
+    # reference's 128 (a TPU vreg's lanes) cut a 32 MB request's 512 chunks
+    # into 4 launches a round (PERF.md, the inflate kernel's redesign)
+    LOCKSTEP_BATCH = 512
 
     def compress_chunks(self, chunks: Sequence[bytes], params: InternalParams,
                         device: torch.device) -> list[CompressedChunk]:
@@ -90,7 +93,7 @@ class DeflateDeviceCodec:
         (ops/match_finder.py) and the native host code verifies, extends and
         entropy-codes (qz_deflate_candidates), the split the reference
         makes between its search engine and its driver."""
-        from qatzip_tpu.native import qzcore as native
+        from qatzip_tpu_torch.native import qzcore as native
         from qatzip_tpu_torch.ops import match_finder as mf
 
         n = params.hw_buff_sz
@@ -223,8 +226,8 @@ class Lz4DeviceCodec:
         candidates, native ``lz4_candidates``.  Unlike deflate, LZ4 keeps the
         match finder's stride (QATZIP_TPU_MF_STRIDE, default 1) at every
         level, as the reference does."""
-        from qatzip_tpu.formats.lz4_fmt import gen_lz4_block_header
-        from qatzip_tpu.native import qzcore as native
+        from qatzip_tpu_torch.formats.lz4_fmt import gen_lz4_block_header
+        from qatzip_tpu_torch.native import qzcore as native
         from qatzip_tpu_torch.ops import match_finder as mf
 
         _unported("QATZIP_TPU_ENCODER", "device",
@@ -346,6 +349,37 @@ class Lz4DeviceCodec:
             out.append(DecompressedChunk(data, _chunk_checksum(data, params),
                                          True))
         return out
+
+
+# CPU fallbacks and checksums: copies of the helpers of
+# qatzip_tpu/ops/device_codecs.py
+def _cpu_inflate(payload: bytes, hint: int) -> tuple[bytes, bool]:
+    do = zlib.decompressobj(-15)
+    data = do.decompress(payload) + do.flush()
+    return data, do.eof
+
+
+def _cpu_compress_batch(batch, params) -> list[CompressedChunk]:
+    """CPU fallback for one failed device batch (same wire contract)."""
+    return CpuBackend().compress_chunks(batch, params)
+
+
+def _checksum_kind(params: InternalParams) -> str:
+    fmt = params.data_fmt
+    if fmt == DataFormatInternal.DEFLATE_ZLIB:
+        return "adler32"
+    if fmt in (DataFormatInternal.LZ4_FH, DataFormatInternal.LZ4S_BK):
+        return "xxh32"
+    return "crc32"
+
+
+def _chunk_checksum(chunk: bytes, params: InternalParams) -> int:
+    kind = _checksum_kind(params)
+    if kind == "adler32":
+        return zlib.adler32(chunk) & 0xFFFFFFFF
+    if kind == "xxh32":
+        return _ck.xxh32(chunk, 0)
+    return zlib.crc32(chunk) & 0xFFFFFFFF
 
 
 def register_all() -> None:

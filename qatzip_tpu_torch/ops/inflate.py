@@ -2,10 +2,10 @@
 pipeline.
 
 Port of qatzip_tpu/ops/pallas_inflate.py.  The device decodes the serial
-Huffman half of DEFLATE for up to LANES independent blocks, one block per
-lane, and emits one fixed-width token per (step, lane); the host applies
-the tokens (native qz_apply_tokens, shared with the reference) and carries
-the 32 KB history between rounds.
+Huffman half of DEFLATE for any number of independent blocks in one
+launch, one block per lane, and emits one fixed-width token per (step,
+lane); the host applies the tokens (native qz_apply_tokens, a copy of the
+reference's) and carries the 32 KB history between rounds.
 
 Region layout.  The port uses the reference's 9-bit/9-bit layout
 (``region_spec(False)``) for both its plain version and its kernel: per lane
@@ -23,7 +23,7 @@ layout the port's tokens equal the reference XLA driver's exactly.
   dist u16:    clen[0:4] kind[4:6] payload[6:11] = dist symbol 0..29
   u16 == 0 -> invalid (corrupt stream; the lane errors)
 
-Token format (shared with qz_apply_tokens, qatzip_tpu/native/qzcore.cpp):
+Token format (shared with qz_apply_tokens, qatzip_tpu_torch/native/qzcore.cpp):
   0                  inactive (lane done / padding)
   bit0=1             literal, byte in bits 1..8; bit9=1 marks a paired
                      second literal, byte in bits 10..17
@@ -45,9 +45,8 @@ import functools
 import numpy as np
 import torch
 
-from qatzip_tpu.ops import deflate_tables as T
+from qatzip_tpu_torch.ops import deflate_tables as T
 
-LANES = 128          # blocks decoded per round
 CELLS = 512          # u32 cells per region (root 256 + sub 256)
 ROOT_BITS = 9
 SUB_ENTRIES = 512    # sub-area entries (256 cells)

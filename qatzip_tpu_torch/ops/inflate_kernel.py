@@ -1,7 +1,8 @@
 """Launch wrapper of the lockstep inflate kernel (``csrc/inflate.cu``).
 
-Counterpart of qatzip_tpu/ops/pallas_inflate_kernel.py.  The kernel runs
-one thread per lane, one lane per thread block; the step itself lives in
+Counterpart of qatzip_tpu/ops/pallas_inflate_kernel.py.  One launch takes
+every lane of a round, a thread block a lane: its warp stages the lane's
+tables in shared memory and one thread decodes; the work lives in
 ``csrc/inflate_step.cuh``.  The plain torch version it is held against is
 ``qatzip_tpu_torch.ops.inflate._decode_ref``.
 """

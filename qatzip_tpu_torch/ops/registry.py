@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from qatzip_tpu.constants import DataFormatInternal, QzDirection
-from qatzip_tpu.session import InternalParams
+from qatzip_tpu_torch.constants import DataFormatInternal, QzDirection
+from qatzip_tpu_torch.session import InternalParams
 
 _CODECS: dict[tuple[DataFormatInternal, str], object] = {}
 _registered = False

@@ -4,8 +4,9 @@
 the logic of the kernels as ``__host__ __device__`` functions.  g++ builds
 them here (with ``__host__``/``__device__`` defined away) into a small shim
 library, and the shim is held exactly against the port's plain torch
-versions, or numpy, on the same inputs.  The kernels themselves run only on
-the card (chip_smoke.py).
+versions, or numpy, on the same inputs; the inflate shim also against the
+reference's XLA driver.  The kernels themselves run only on the card
+(chip_smoke.py).
 """
 import ctypes
 import shutil
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from qatzip_tpu.ops import deflate_decode as rdd
+from qatzip_tpu.ops import pallas_inflate as RPI
 from qatzip_tpu_torch.ops import _build
 from qatzip_tpu_torch.ops import inflate as PI
 from qatzip_tpu_torch.ops import match_finder as mf
@@ -38,25 +40,31 @@ extern "C" void shim_select(const uint32_t* sk, const uint32_t* sb4,
                                      j, depth);
 }
 
+#include <vector>
+
+// The launch of csrc/inflate.cu run serially, through the kernel's own
+// qz_stage_tables and qz_inflate_lane (lane loop, stream window, refills):
+// every thread of a lane's CTA stages its share of the tables into the
+// CTA's shared memory, which starts as garbage, before the lane decodes.
 extern "C" int shim_inflate(const uint32_t* words, int nw,
                             const int32_t* bit0, const int32_t* nbits,
                             const uint32_t* tll, const uint32_t* td,
                             const int32_t* active, int lanes, int max_steps,
                             uint32_t* tokens, int32_t* err, int32_t* outcnt,
                             int32_t* end_bit) {
+  const QzInflateArgs a = {words, nw, bit0, nbits, tll, td, active, lanes,
+                           max_steps, tokens, err, outcnt, end_bit};
+  std::vector<uint32_t> smem(QZ_SMEM_WORDS);
   int nsteps = 0;
   for (int lane = 0; lane < lanes; ++lane) {
-    QzLane L = {words + lane * nw, nw, tll + lane * QZ_CELLS,
-                td + lane * QZ_CELLS};
-    int s = qz_inflate_lane(L, bit0[lane], nbits[lane], active[lane] != 0,
-                            max_steps, tokens, lanes, lane, err + lane,
-                            outcnt + lane, end_bit + lane);
+    for (uint32_t& w : smem) w = 0xA5A5A5A5u;
+    for (int t = 0; t < QZ_CTA_THREADS; ++t)
+      qz_stage_tables(a, lane, t, smem.data());
+    const int s = qz_inflate_lane(a, lane, smem.data());
     nsteps = s > nsteps ? s : nsteps;
   }
   return nsteps;
 }
-
-#include <vector>
 
 // The launches of csrc/sort.cu run serially, through sort.cuh's own walkers
 // (qz_sort_launches, qz_sort_walk); only the per-level bodies are the
@@ -313,40 +321,66 @@ def _raw(data: bytes, level: int, strategy=zlib.Z_DEFAULT_STRATEGY) -> bytes:
     return co.compress(data) + co.flush()
 
 
-def _lanes(corpus_factory):
-    """Three single-block streams (dynamic, static and a corrupt one) laid
-    out as the lockstep round lays them out, on 4 lanes (one idle)."""
-    lanes, NW = 4, 1024
-    datas = [corpus_factory(1500, "text"), corpus_factory(700, "iterative")]
-    payloads = [_raw(datas[0], 6), _raw(datas[1], 1, zlib.Z_FIXED)]
-    stream8 = np.zeros((lanes, NW * 4), np.uint8)
+def _layout(streams, lanes: int, nw: int, corrupt=(), idle=()):
+    """Lay out single-block streams (rdd._Stream after their header) over
+    ``lanes`` lanes as the lockstep round does, stream i on lane i modulo
+    len(streams); ``corrupt`` lanes get bytes 40..79 flipped and ``idle``
+    lanes stay inactive."""
+    stream8 = np.zeros((lanes, nw * 4), np.uint8)
     bit0 = np.zeros(lanes, np.int32)
     nbits = np.zeros(lanes, np.int32)
     tll = np.zeros((lanes, PI.CELLS), np.uint32)
     td = np.zeros((lanes, PI.CELLS), np.uint32)
     active = np.zeros(lanes, np.int32)
-    for i, p in enumerate(payloads + [payloads[0]]):
-        s = rdd._Stream(p, 0, i)
-        assert rdd._parse_one_header(s) == "huff"
+    for i in range(lanes):
+        s, pv = streams[i % len(streams)]
         if s._lens is None:
             tll[i], td[i] = PI.static_regions()
         else:
             tll[i] = PI.build_ll_region(s._lens[0])
             td[i] = PI.build_d_region(s._lens[1])
-        byte0 = s.bits.pos >> 3
-        pv = np.frombuffer(p, np.uint8)[byte0:]
         stream8[i, :len(pv)] = pv
         bit0[i] = s.bits.pos & 7
         nbits[i] = len(pv) * 8
-        active[i] = 1
-    stream8[2, 40:80] ^= 0xA5       # lane 2: a corrupted copy of lane 0
-    return stream8.view("<u4"), bit0, nbits, tll, td, active, datas
+        active[i] = i not in idle
+    for i in corrupt:
+        stream8[i, 40:80] ^= 0xA5
+    return stream8.view("<u4"), bit0, nbits, tll, td, active
 
 
-def test_inflate_header_matches_torch_reference(shim, corpus_factory):
-    words, bit0, nbits, tll, td, active, datas = _lanes(corpus_factory)
+def _block(payload: bytes, keep: int | None = None):
+    """The stream after its first block header and its bytes from there
+    (the first ``keep`` of them, when given)."""
+    s = rdd._Stream(payload, 0, 0)
+    assert rdd._parse_one_header(s) == "huff"
+    pv = np.frombuffer(payload, np.uint8)[s.bits.pos >> 3:]
+    return s, pv[:keep]
+
+
+def _xla_ref(inputs, max_steps: int):
+    """The reference's XLA driver on the same round, padded with inactive
+    lanes to its 128: (tokens[:nsteps], err, outcnt, end_bit, nsteps) of
+    the round's own lanes."""
+    words, bit0, nbits, tll, td, active = inputs
+    lanes = words.shape[0]
+    pad = max(0, RPI.LANES - lanes)
+
+    def padded(a):
+        return np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+
+    tokens, err, outcnt, end_bit, ns = RPI.decode_blocks(
+        padded(words), padded(bit0), padded(nbits), padded(tll), padded(td),
+        padded(active) != 0, max_steps, use_pallas=False)
+    return (tokens[:, :lanes], err[:lanes], outcnt[:lanes], end_bit[:lanes],
+            ns)
+
+
+def _shim_vs_ref(shim, inputs, max_steps: int):
+    """Run the shim, the plain torch driver and the reference's XLA driver
+    on one round; assert the five outputs equal and return the shim's
+    (tokens, err, outcnt, end_bit, nsteps)."""
+    words, bit0, nbits, tll, td, active = inputs
     lanes, nw = words.shape
-    max_steps = 4096
     want = PI._decode_ref(
         torch.from_numpy(words.view(np.int32)), torch.from_numpy(bit0),
         torch.from_numpy(nbits), torch.from_numpy(tll.view(np.int32)),
@@ -365,11 +399,71 @@ def test_inflate_header_matches_torch_reference(shim, corpus_factory):
     assert ((err != 0) == want[1].numpy()).all()
     assert (outcnt == want[2].numpy()).all()
     assert (end_bit == want[3].numpy()).all()
-    # lanes 0/1 decode their data, lane 3 is idle
-    assert list(err[:2]) == [0, 0] and outcnt[3] == 0 and end_bit[3] == -1
-    for lane, data in enumerate(datas):
-        got = rdd._apply_tokens_py(tokens[:ns, lane], b"", int(outcnt[lane]))
-        assert got == data
+    ref = _xla_ref(inputs, max_steps)
+    assert ns == ref[4]
+    assert (tokens[:ns] == ref[0]).all()
+    assert ((err != 0) == ref[1]).all()
+    assert (outcnt == ref[2]).all()
+    assert (end_bit == ref[3]).all()
+    return tokens, err, outcnt, end_bit, ns
+
+
+# a few lanes, one idle; more lanes than a warp has, not a multiple of 32
+@pytest.mark.parametrize("lanes", [4, 37])
+def test_inflate_header_matches_torch_reference(shim, corpus_factory, lanes):
+    """Dynamic, static and corrupted lanes, every fourth lane idle."""
+    datas = [corpus_factory(1500, "text"), corpus_factory(700, "iterative")]
+    streams = [_block(_raw(datas[0], 6)), _block(_raw(datas[1], 1,
+                                                      zlib.Z_FIXED))]
+    streams += [streams[0], streams[0]]
+    inputs = _layout(streams, lanes, 1024,
+                     corrupt=range(2, lanes, 4), idle=range(3, lanes, 4))
+    tokens, err, outcnt, end_bit, ns = _shim_vs_ref(shim, inputs, 4096)
+    for lane in range(lanes):
+        if lane % 4 == 3:
+            assert (err[lane], outcnt[lane], end_bit[lane]) == (0, 0, -1)
+        elif lane % 4 < 2:
+            data = datas[lane % 4]
+            assert not err[lane]
+            assert rdd._apply_tokens_py(tokens[:ns, lane], b"",
+                                        int(outcnt[lane])) == data
+
+
+def test_inflate_header_lanes_past_their_stream(shim, corpus_factory):
+    """Lanes cut short inside their block decode past the end of their
+    stream; with the words a lane tight, the window reaches the driver's
+    clamp (word index nw - 3), where the peek re-reads the last words.  The
+    kernel's window must give the plain driver's and the reference XLA
+    driver's tokens there too, and the
+    same lanes decode differently with room to spare (so the clamp ran)."""
+    payload = _raw(corpus_factory(3000, "text"), 6)
+    keeps = [97, 98, 99, 100, 150, 151, 152, 153]
+    streams = [_block(payload, k) for k in keeps]
+    tight = (max(keeps) + 3) // 4 + 2
+    runs = [_shim_vs_ref(shim, _layout(streams, len(keeps), nw), 512)
+            for nw in (tight, tight + 8)]
+    for tokens, err, *_ in runs:
+        assert err.all()
+    assert not np.array_equal(runs[0][0], runs[1][0])
+
+
+def test_inflate_header_random_tables(shim):
+    """Random table cells and stream words: entries of every kind and
+    field (subtable pointers past the subtable area, distance symbols 30
+    and 31), so the kernel's widened entries, lookups and clamps must give
+    the plain driver's and the reference XLA driver's result for any input,
+    not only for a builder's."""
+    rng = np.random.default_rng(5)
+    lanes, nw = 24, 64
+    words = rng.integers(0, 1 << 32, (lanes, nw), dtype=np.uint64)
+    tll, td = (rng.integers(0, 1 << 32, (lanes, PI.CELLS), dtype=np.uint64)
+               .astype(np.uint32) for _ in range(2))
+    bit0 = rng.integers(0, 8, lanes).astype(np.int32)
+    nbits = np.full(lanes, (nw - 2) * 32, np.int32)
+    inputs = (words.astype(np.uint32), bit0, nbits, tll, td,
+              np.ones(lanes, np.int32))
+    tokens, err, *_ = _shim_vs_ref(shim, inputs, 64)
+    assert (tokens != 0).any() and err.any()
 
 
 def _sort_inputs(n: int, npay: int, seed: int):

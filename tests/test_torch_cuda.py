@@ -65,23 +65,27 @@ def test_select_kernel_equals_plain(dev, depth, stride):
                                           stride=stride).cpu(), cpu)
 
 
-def test_inflate_kernel_equals_plain(dev):
-    from qatzip_tpu.ops.deflate_decode import _parse_one_header, _Stream
+# one lane; more lanes than a warp has; the reference's round; the port's
+# round (DeflateDeviceCodec.LOCKSTEP_BATCH)
+@pytest.mark.parametrize("lanes", [1, 33, 128, 512])
+def test_inflate_kernel_equals_plain(dev, lanes):
     from qatzip_tpu_torch.ops import deflate_decode as dd
+    from qatzip_tpu_torch.ops import device_codecs as dc
     from qatzip_tpu_torch.ops import inflate as PI
     from qatzip_tpu_torch.ops import inflate_kernel as K
 
+    assert dc.DeflateDeviceCodec.LOCKSTEP_BATCH == 512
     streams = []
-    for i, level in enumerate((1, 6, 9, 1)):
-        data = _text(20000, 10 + i)
-        co = zlib.compressobj(level, zlib.DEFLATED, -15)
-        s = _Stream(co.compress(data) + co.flush(), len(data), i)
-        assert _parse_one_header(s) == "huff"
+    for i in range(lanes):
+        data = _text(2000 + 97 * (i % 13), 10 + i % 7)
+        co = zlib.compressobj(1 + i % 9, zlib.DEFLATED, -15)
+        s = dd._Stream(co.compress(data) + co.flush(), len(data), i)
+        assert dd._parse_one_header(s) == "huff"
         streams.append(s)
     live, inputs = dd.pack_round(streams)
     words, bit0, nbits, tll, td, active, max_steps = inputs
     words = words.copy()
-    words[3, 10:20] ^= 0x5A5A5A5A          # lane 3: corrupted
+    words[lanes // 2, 10:20] ^= 0x5A5A5A5A     # one lane corrupted
     t = PI.upload(words, bit0, nbits, tll, td, active, dev)
     before = K.KERNEL.launches
     got = PI.decode_lockstep(*t, max_steps)
@@ -89,7 +93,7 @@ def test_inflate_kernel_equals_plain(dev):
     want = PI._decode_ref(*t, max_steps)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert not bool(got[1][:3].any())
+    assert int(got[1].sum()) <= 1
 
 
 # one CTA (1024); clusters of 2 CTAs (32768 with 2 payloads, 16384 with 4)
@@ -123,7 +127,7 @@ def test_sort_kernel_equals_plain(dev, B, n, npay):
 @pytest.mark.parametrize("algorithm", ["lz4", "lz4s"])
 def test_lz4_round_trip_on_cuda(dev, monkeypatch, algorithm):
     import qatzip_tpu_torch as qt
-    from qatzip_tpu import constants as C
+    from qatzip_tpu_torch import constants as C
     from qatzip_tpu_torch.engine import core
     from qatzip_tpu_torch.ops import lz4_decode as ld
     from qatzip_tpu_torch.ops import select as S
@@ -154,7 +158,7 @@ def test_slice_on_cuda(dev, monkeypatch):
     import gzip
 
     import qatzip_tpu_torch as qt
-    from qatzip_tpu import constants as C
+    from qatzip_tpu_torch import constants as C
     from qatzip_tpu_torch.engine import core
 
     monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")

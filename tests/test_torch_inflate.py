@@ -34,7 +34,7 @@ def _round(payloads, NW=4096, max_steps=16384):
         s = rdd._Stream(p, 0, i)
         assert rdd._parse_one_header(s) == "huff"
         streams.append(s)
-    B = PI.LANES
+    B = RPI.LANES
     stream8 = np.zeros((B, NW * 4), np.uint8)
     bit0 = np.zeros(B, np.int32)
     nbits = np.zeros(B, np.int32)
@@ -128,8 +128,8 @@ def test_outcnt_end_bit_match_pallas_driver_interpret(corpus_factory):
     s = rdd._Stream(payload, 0, 0)
     rdd._parse_one_header(s)
     spec = RPI.region_spec(True)
-    tll = np.zeros((PI.LANES, spec[2]), np.uint32)
-    td = np.zeros((PI.LANES, spec[3]), np.uint32)
+    tll = np.zeros((RPI.LANES, spec[2]), np.uint32)
+    td = np.zeros((RPI.LANES, spec[3]), np.uint32)
     tll[0], td[0] = rdd._lockstep_regions(s, spec)
     words, bit0, nbits, _, _, active, ms = inputs
     pal = K.decode_pallas(words, bit0, nbits, tll, td, active, ms,
@@ -223,3 +223,35 @@ def test_inflate_batch_equals_zlib_and_counts_failover(corpus_factory):
     assert [r[2] for r in res[:3]] == [zlib.crc32(d) for d in datas]
     assert res[3] is None
     assert dd.failover_lanes == before + 1
+
+
+def test_inflate_batch_width_does_not_change_results(corpus_factory):
+    """The codec's inflate at the reference's 128 lanes a launch and at the
+    port's width: the same bytes, checksums and failover lanes (a lane's
+    result depends on its stream alone, since every round's step bound
+    covers its largest hint)."""
+    from qatzip_tpu_torch.engine.backend import DecompressedChunk
+    from qatzip_tpu_torch.ops import device_codecs as dc
+    from qatzip_tpu_torch.session import InternalParams
+
+    kinds = ("text", "iterative", "constant", "random")
+    datas = [corpus_factory(60 + 37 * (i % 9), kinds[i % 4])
+             for i in range(150)]
+    payloads = [_raw(d, 1 + i % 9) for i, d in enumerate(datas)]
+    hints = [len(d) for d in datas]
+    for i in (4, 76, 140):      # output beyond the hint: CPU inflates it
+        hints[i] = len(datas[i]) // 2
+    assert dc.DeflateDeviceCodec.LOCKSTEP_BATCH > 128
+    outs = []
+    for width in (128, dc.DeflateDeviceCodec.LOCKSTEP_BATCH):
+        codec = dc.DeflateDeviceCodec()
+        codec.LOCKSTEP_BATCH = width
+        before = dd.failover_lanes
+        outs.append((codec.decompress_chunks(payloads, hints,
+                                             InternalParams(), CPU),
+                     dd.failover_lanes - before))
+    assert outs[0] == outs[1]
+    chunks, failed = outs[0]
+    assert failed == 3
+    assert chunks == [DecompressedChunk(d, zlib.crc32(d), True)
+                      for d in datas]
