@@ -7,40 +7,55 @@ Run from the repository root:  python3 chip_smoke.py
    native host codec (libqzcore.so) and the CUDA kernel build, timed.
 2. Each kernel against its plain torch version, on the card, at the shapes
    the main path gives it, on the pinned 32 MB corpus
-   (qatzip_tpu_torch/tools/corpus.py, a copy of bench.build_corpus):
-   candidate select on the sorted records of the first 128 chunks of 64 KB
-   (depth 16 / stride 2, the L1 default, and depth 8 / stride 1), and the
-   lockstep inflate on zlib level-1 payloads in one round of 128 lanes (the
-   reference's width) and one of 512 (the port's, every chunk of the
-   request).  Outputs must be equal; both are timed with CUDA events and
-   printed beside their bound (bytes moved at the HBM rate, operations at
-   the float32 rate), the inflate also beside its dependent-chain floor.
-   The u32 sort kernel, which no path runs yet, on the unsorted sort-1
-   records of the same chunks at stride 2 and 1 ([128, 32768] and
-   [128, 65536]), on random unique keys beyond one cluster ([4, 262144])
-   and with 4 payloads ([128, 32768]): equal to its plain version, timed
-   the same way, its device operations a call counted with torch.profiler
-   (one kernel at the two sort-1 shapes) and its clusters' occupancy
-   printed.  The
-   LZ4 block decoder (plain torch on the card) on one 128-block group of
-   the corpus's LZ4 blocks: bytes equal to the host decoder, none flagged.
-3. The DEFLATE device path through the public API: gzip-ext level 1 at
+   (qatzip_tpu_torch/tools/corpus.py, a copy of bench.build_corpus): both
+   entries of the candidate select (sorted order, and position order, the
+   one the match finder runs) on the sorted records of the first 128 chunks
+   of 64 KB (depth 16 / stride 2, the L1 default, and depth 8 / stride 1),
+   timed beside the chain the position-order entry replaces (the sorted
+   select, then a where, a scatter and a cast); and the lockstep inflate on
+   zlib level-1 payloads in one round of 128 lanes (the reference's width)
+   and one of 512 (the port's, every chunk of the request).  Outputs must be
+   equal; both are timed with CUDA events and printed beside their bound
+   (bytes moved at the HBM rate, operations at the float32 rate: for the
+   select, the look-back steps these rows need), the inflate also beside
+   its dependent-chain floor.  The u32 sort kernel, which no path runs yet,
+   on the unsorted sort-1 records of the same chunks at stride 2 and 1
+   ([128, 32768] and [128, 65536]), on random unique keys beyond one
+   cluster ([4, 262144]) and with 4 payloads ([128, 32768]): equal to its
+   plain version, timed the same way, its device operations a call counted
+   with torch.profiler (one kernel at the two sort-1 shapes) and its
+   clusters' occupancy printed.  The LZ4 block decoder (plain torch on the
+   card) on one 128-block group of the corpus's LZ4 blocks: bytes equal to
+   the host decoder, none flagged.
+3. Calibration (engine/devcal.calibrate, 8 MB, into a record of its own):
+   the CPU funnel, the device codec's raw and packed compress and its
+   decompress, the inflate kernel and the match finder alone.  No device or
+   probe error, and every device rate above 0.
+4. The DEFLATE device path through the public API: gzip-ext level 1 at
    64 KB chunks, compress then decompress the 32 MB corpus.  The launch
-   counters are zeroed just before this run and must show both kernels,
-   the decompress in fewer than the 16 inflate launches of 128-lane
-   rounds; the engine must report device requests only, no lane may fail
-   over to the CPU and the health breaker must record no failure; the
-   output must be gzip-interoperable and round-trip bit-exactly.
-4. The LZ4 device path through the public API: an LZ4-frame session at
+   counters are zeroed just before this run and must show both kernels of
+   the path (the position-order select, the inflate), the decompress in
+   fewer than the 16 inflate launches of 128-lane rounds; the engine must
+   report device requests only, no lane may fail over to the CPU and the
+   health breaker must record no failure; the output must be
+   gzip-interoperable and round-trip bit-exactly; the raw candidate format
+   (QATZIP_TPU_PACK=0), whatever the record of step 3 says.  Then the corpus
+   once more with the packed candidate format (QATZIP_TPU_PACK=1): bytes that
+   round-trip and gzip reads, GB/s and candidate D2H bytes beside the raw
+   format's.
+5. The LZ4 device path through the public API: an LZ4-frame session at
    level 1 and 64 KB chunks on the 32 MB corpus, then an LZ4s session
    (mini match 3) on 8 MB of it.  Each must launch the select kernel once
    a 128-chunk batch, run on the device only, fail no block over to the
    CPU, record no health failure, round-trip bit-exactly, and be readable
    by the software path.
-5. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
+6. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
    device busy time against the unprofiled wall time, the inflate kernel's
    share of the gzip-ext decompress, and the host functions that take the
    time.
+7. Routing: one gzip-ext request each way with QATZIP_TPU_DEVICE unset,
+   routed by the record of step 3; prints which backend took each
+   direction, which must be the one the record names.
 
 Prints the kernels' JSON line and the card's line before the last line,
 which is {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -57,6 +72,7 @@ import os
 import pstats
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -133,42 +149,71 @@ def _first_chunks(torch, corpus: bytes, dev):
     return data, lens
 
 
-def phase_select(torch, corpus: bytes, dev) -> dict:
+def phase_select(torch, corpus: bytes, dev) -> list:
+    """Both entries of the select kernel against their plain versions on the
+    sorted records of the first 128 chunks, at depth 16 / stride 2 (the L1
+    path) and depth 8 / stride 1; timed beside the chain the position-order
+    entry replaces and their bounds.  Returns the records of the
+    position-order entry (the main path's) and the sorted-order one at the
+    L1 shape."""
     from qatzip_tpu_torch.ops import match_finder as mf
     from qatzip_tpu_torch.ops import select as S
+    from qatzip_tpu_torch.tools import select_bench as SB
 
     data, lens = _first_chunks(torch, corpus, dev)
-    rec = None
+    recs = {}
     for depth, stride in ((16, 2), (8, 1)):
-        sk, sb4, sb4b = mf.sorted_records(data, lens, stride, True)
-        ker = S.select_candidates(sk, sb4, sb4b, depth)
-        ref = S.select_candidates_ref(sk, sb4, sb4b, depth)
+        t = mf.sorted_records(data, lens, stride, True)
+        ker = S.select_candidates(*t, depth)
+        ref = S.select_candidates_ref(*t, depth)
+        pos = S.select_to_positions(*t, depth, CHUNK).view(torch.int16)
+        pos_ref = S.select_to_positions_ref(*t, depth, CHUNK).view(torch.int16)
         torch.cuda.synchronize()
-        err = int((ker.to(torch.int64) - ref).abs().max())
         _check(torch.equal(ker, ref),
                f"select kernel != plain at depth {depth} stride {stride}")
-        ms = _time_ms(lambda: S.select_candidates(sk, sb4, sb4b, depth), 50)
-        plain_ms = _time_ms(
-            lambda: S.select_candidates_ref(sk, sb4, sb4b, depth), 10)
-        print(f"select depth {depth} stride {stride} shape "
-              f"{tuple(sk.shape)}: equal, kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, nonzero {int((ker > 0).sum())}")
-        # bound: three int32 inputs read once, one written; ~4 integer
-        # operations a neighbour and record at the float32 rate
-        bytes_ms = 4 * 4 * sk.numel() / HBM_BYTES_S * 1e3
-        ops_ms = 4 * depth * sk.numel() / FP32_OPS_S * 1e3
-        print(f"  select bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
-              f"{bytes_ms:.4f}, operations {ops_ms:.4f})")
-        if rec is None:   # the L1 main path's shape
-            rec = {"name": "select_candidates", "route": "cuda",
-                   "source": "qatzip_tpu_torch/csrc/select.cu",
-                   "replaces": "qatzip_tpu/ops/pallas_select.py:89",
-                   "path": "deflate", "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": ("bytes" if bytes_ms >= ops_ms
-                                else "operations"),
-                   "library_ms": None}
-    return rec
+        _check(torch.equal(pos, pos_ref),
+               f"select_to_positions != plain at depth {depth} stride "
+               f"{stride}")
+        err = int((ker.to(torch.int64) - ref).abs().max())
+        pos_err = int((pos.to(torch.int32) - pos_ref).abs().max())
+        ms = _time_ms(lambda: S.select_candidates(*t, depth), 50)
+        pos_ms = _time_ms(lambda: S.select_to_positions(*t, depth, CHUNK), 50)
+        # what the position-order entry replaces: the sorted-order select,
+        # then the where, scatter and cast of to_positions
+        chain_ms = _time_ms(lambda: S.to_positions(
+            t[0], S.select_candidates(*t, depth), CHUNK), 50)
+        plain_ms = _time_ms(lambda: S.select_candidates_ref(*t, depth), 10)
+        pos_plain_ms = _time_ms(
+            lambda: S.select_to_positions_ref(*t, depth, CHUNK), 10)
+        # bound: inputs read once, outputs written once, the look-back's
+        # operations on these rows (the steps its early exits leave)
+        w = SB.work(*t, depth)
+        wp = SB.work(*t, depth, CHUNK)
+        print(f"select depth {depth} stride {stride} records "
+              f"{tuple(t[0].shape)}: both entries equal to plain; sorted "
+              f"order {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+              f"{w['bound_ms']:.4f} {w['bound_by']}); position order "
+              f"{pos_ms:.4f} ms with its memset (plain {pos_plain_ms:.4f}, "
+              f"bound {wp['bound_ms']:.4f} {wp['bound_by']}), the chain it "
+              f"replaces (select + where, zeros, scatter_, cast) "
+              f"{chain_ms:.4f} ms; look-back steps {w['steps']} "
+              f"({w['steps'] / t[0].numel():.3f} a record), nonzero "
+              f"{int((ker > 0).sum())}")
+        if not recs:   # the L1 main path's shape
+            common = {"route": "cuda",
+                      "source": "qatzip_tpu_torch/csrc/select.cu",
+                      "replaces": "qatzip_tpu/ops/pallas_select.py:89",
+                      "library_ms": None}
+            recs["select_to_positions"] = {
+                "name": "select_to_positions", **common, "path": "deflate",
+                "max_abs_err": pos_err, "ms": pos_ms,
+                "plain_ms": pos_plain_ms, "bound_ms": wp["bound_ms"],
+                "bound_by": wp["bound_by"], "chain_ms": chain_ms}
+            recs["select_candidates"] = {
+                "name": "select_candidates", **common, "path": None,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": w["bound_ms"], "bound_by": w["bound_by"]}
+    return [recs["select_to_positions"], recs["select_candidates"]]
 
 
 def _sm_clock_mhz() -> float:
@@ -446,7 +491,10 @@ def phase_slice(torch, corpus: bytes, kernels: list, sort_rec: dict):
     from qatzip_tpu_torch.ops import select as S
     from qatzip_tpu_torch.ops import sort as SO
 
+    # the device route and the raw candidate format, whatever the
+    # calibration record says (phase_routing follows the record)
     os.environ["QATZIP_TPU_DEVICE"] = "1"
+    os.environ["QATZIP_TPU_PACK"] = "0"
     sess = qt.QzSession()
     _check(qt.qz_init(sess) == qt.QZ_OK, "qz_init did not return QZ_OK")
     eng = core.engine()
@@ -464,13 +512,15 @@ def phase_slice(torch, corpus: bytes, kernels: list, sort_rec: dict):
     _run(torch, sess, "decompress", warm.data)
 
     S.KERNEL.launches = 0
+    S.POS_KERNEL.launches = 0
     K.KERNEL.launches = 0
     SO.KERNEL.launches = 0
     dd.failover_lanes = 0
     comp, t_c = _run(torch, sess, "compress", corpus)
-    select_launches = S.KERNEL.launches
+    select_launches = S.POS_KERNEL.launches
     dec, t_d = _run(torch, sess, "decompress", comp.data)
-    launches = {"select_candidates": S.KERNEL.launches,
+    launches = {"select_to_positions": S.POS_KERNEL.launches,
+                "select_candidates": S.KERNEL.launches,
                 "inflate_decode": K.KERNEL.launches,
                 "sort_u32": SO.KERNEL.launches}
 
@@ -478,8 +528,11 @@ def phase_slice(torch, corpus: bytes, kernels: list, sort_rec: dict):
     for k in kernels:
         k["launches"] = launches[k["name"]]
     sort_rec["launches"] = launches["sort_u32"]
-    _check(launches["select_candidates"] >= nchunks // LANES,
+    _check(launches["select_to_positions"] >= nchunks // LANES,
            f"select launched {select_launches} times on the main path")
+    print(f"gzip-ext compress of {nchunks} chunks: {select_launches} "
+          f"launches of the position-order select, "
+          f"{launches['select_candidates']} of the sorted-order entry")
     # one launch a round: the reference's 128-lane rounds took 16 here
     _check(1 <= launches["inflate_decode"] < 16,
            f"the decompress ran {launches['inflate_decode']} inflate launches")
@@ -513,7 +566,116 @@ def phase_slice(torch, corpus: bytes, kernels: list, sort_rec: dict):
           f"(framed), zlib L1 raw deflate {len(corpus) / zl:.4f} "
           f"(same 64 KB chunks)")
     medians = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    _packed_pass(torch, sess, corpus, len(comp.data), medians["compress"])
     return "gzip-ext", sess, corpus, comp.data, medians
+
+
+def _packed_pass(torch, sess, corpus: bytes, raw_len: int,
+                 raw_s: float) -> None:
+    """The 32 MB corpus once more with the packed candidate format
+    (QATZIP_TPU_PACK=1): the bytes must round-trip and gzip must read them.
+    The candidate D2H bytes are the arrays' sizes (uint16 a position, or
+    3/4 of a byte)."""
+    from qatzip_tpu_torch.engine.health import health
+    from qatzip_tpu_torch.ops import device_codecs as dc
+    from qatzip_tpu_torch.ops import match_finder as mf
+
+    sizes = []
+    packed_fn = mf.find_candidates_packed
+
+    def packed(*args):
+        out = packed_fn(*args)
+        sizes.append(out.numel() * out.element_size())
+        return out
+
+    os.environ["QATZIP_TPU_PACK"] = "1"
+    mf.find_candidates_packed = packed
+    try:
+        comp, t_p = _run(torch, sess, "compress", corpus)
+    finally:
+        mf.find_candidates_packed = packed_fn
+        os.environ["QATZIP_TPU_PACK"] = "0"
+    batches = -(-len(corpus) // (CHUNK * dc.DeflateDeviceCodec.MAX_BATCH))
+    _check(len(sizes) == batches,
+           f"packed compress ran {len(sizes)} packed batches, not {batches}")
+    _check(health.total_failures == 0, "packed compress recorded failures")
+    _check(gzip.decompress(comp.data) == corpus,
+           "gzip cannot read the packed output")
+    dec, _ = _run(torch, sess, "decompress", comp.data)
+    _check(dec.data == corpus, "packed round trip is not bit-exact")
+    gb = len(corpus) / 1e9
+    raw_d2h = len(corpus) * 2
+    print(f"packed compress (QATZIP_TPU_PACK=1): {t_p:.4f} s = "
+          f"{gb / t_p:.4f} GB/s (raw format, median: {gb / raw_s:.4f}); "
+          f"candidate D2H {sum(sizes)} bytes (raw: {raw_d2h}); ratio "
+          f"{len(corpus) / len(comp.data):.4f} (raw: "
+          f"{len(corpus) / raw_len:.4f}); round trip exact, gzip reads it")
+
+
+def phase_calibrate(tmpdir: str) -> dict:
+    """devcal.calibrate on the card (8 MB sample) into a record of its own;
+    returns the record.  No device or probe error, and every device rate
+    above 0."""
+    from qatzip_tpu_torch.engine import devcal
+
+    os.environ["QATZIP_TPU_DEVCAL_PATH"] = os.path.join(tmpdir, "devcal.json")
+    devcal.invalidate()
+    t0 = time.perf_counter()
+    rec = devcal.calibrate(sample_bytes=8 << 20)
+    print(f"calibration ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(rec, sort_keys=True)}")
+    for key in ("device_error", "compute_probe_error"):
+        _check(key not in rec, f"calibration recorded {key}: {rec.get(key)}")
+    for key, value in rec.items():
+        if key.startswith("dev_") and key.endswith("_gbps"):
+            _check(value > 0, f"calibration measured {key} = {value}")
+    _check(devcal._load() == rec, "the record was not saved")
+    return rec
+
+
+def phase_routing(torch, corpus: bytes, rec: dict) -> None:
+    """One gzip-ext request each way through the public API with
+    QATZIP_TPU_DEVICE unset: the measured record routes each direction."""
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch.engine import core
+    from qatzip_tpu_torch.engine.health import health
+
+    os.environ.pop("QATZIP_TPU_DEVICE", None)
+    os.environ.pop("QATZIP_TPU_PACK", None)
+    sess = qt.QzSession()
+    params = qt.QzSessionParamsDeflate(
+        common_params=qt.QzSessionParamsCommon(comp_lvl=1, hw_buff_sz=CHUNK),
+        data_fmt=qt.QzDataFormat.QZ_DEFLATE_GZIP_EXT)
+    _check(qt.qz_setup_session_deflate(sess, params) == qt.QZ_OK,
+           "session setup failed")
+    eng = core.engine()
+    routes = {}
+    data = corpus
+    for direction in ("compress", "decompress"):
+        hw0, sw0 = eng.hw_requests, eng.sw_requests
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = (qt.qz_compress(sess, data) if direction == "compress"
+               else qt.qz_decompress(sess, data))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _check(res.rc == qt.QZ_OK, f"routed {direction} rc {res.rc}")
+        hw, sw = eng.hw_requests - hw0, eng.sw_requests - sw0
+        routes[direction] = ("device" if hw and not sw else
+                             "cpu" if sw and not hw else "mixed")
+        wins = rec[("comp" if direction == "compress" else "decomp")
+                   + "_device_wins"]
+        _check(routes[direction] == ("device" if wins else "cpu"),
+               f"{direction} took {routes[direction]}, the record says "
+               f"device wins: {wins}")
+        print(f"routing, QATZIP_TPU_DEVICE unset: {direction} took the "
+              f"{routes[direction]} ({hw} device, {sw} software chunk "
+              f"requests; record: device wins {wins}, pack_wins "
+              f"{rec['pack_wins']}), {dt:.4f} s = "
+              f"{len(corpus) / 1e9 / dt:.4f} GB/s")
+        data = res.data
+    _check(data == corpus, "routed round trip is not bit-exact")
+    _check(health.total_failures == 0, "routing recorded device failures")
 
 
 def phase_lz4(torch, corpus: bytes) -> list:
@@ -538,11 +700,11 @@ def phase_lz4(torch, corpus: bytes) -> list:
         sess = qt.QzSession()
         _check(setup(sess, params) == qt.QZ_OK, f"{name} session setup")
         nchunks = -(-len(src) // CHUNK)
-        S.KERNEL.launches = 0
+        S.POS_KERNEL.launches = 0
         ld.failover_blocks = 0
         comp, t_c = _run(torch, sess, "compress", src)
         dec, t_d = _run(torch, sess, "decompress", comp.data)
-        launches = S.KERNEL.launches
+        launches = S.POS_KERNEL.launches
         _check(launches >= nchunks // LANES,
                f"{name}: select launched {launches} times")
         _check(ld.failover_blocks == 0,
@@ -645,13 +807,16 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     corpus = build_corpus(32)
-    kernels = [phase_select(torch, corpus, dev),
-               phase_inflate(torch, corpus, dev)]
+    kernels = phase_select(torch, corpus, dev)
+    kernels.insert(1, phase_inflate(torch, corpus, dev))
     sort_rec = phase_sort(torch, corpus, dev)
     phase_lz4_decode(torch, corpus, dev)
-    runs = [phase_slice(torch, corpus, kernels, sort_rec)]
-    runs += phase_lz4(torch, corpus)
-    phase_profile(torch, runs)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        rec = phase_calibrate(tmpdir)
+        runs = [phase_slice(torch, corpus, kernels, sort_rec)]
+        runs += phase_lz4(torch, corpus)
+        phase_profile(torch, runs)
+        phase_routing(torch, corpus, rec)
     kernels.append(sort_rec)
     _check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": kernels}))

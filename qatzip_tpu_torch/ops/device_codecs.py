@@ -5,8 +5,8 @@ Port of the two device codecs of qatzip_tpu/ops/device_codecs.py, with the
 reference's per-batch CPU failover and its ``faults``/``health`` hooks:
 
 * ``DeflateDeviceCodec``: the hybrid compress path (``_compress_hybrid``,
-  :102-224, without the mesh branch and without the packed candidate
-  format) and the lockstep decompress path (``decompress_chunks``,
+  :102-224, without the mesh branch), with the raw and the packed candidate
+  format, and the lockstep decompress path (``decompress_chunks``,
   :306-362);
 * ``Lz4DeviceCodec`` (:365-521), for LZ4 frames and LZ4s blocks: the hybrid
   compress branch and the device block decoder (ops/lz4_decode.py) with
@@ -83,7 +83,6 @@ class DeflateDeviceCodec:
     def compress_chunks(self, chunks: Sequence[bytes], params: InternalParams,
                         device: torch.device) -> list[CompressedChunk]:
         _unported("QATZIP_TPU_ENCODER", "device", "the full-device encoder", 9)
-        _unported("QATZIP_TPU_PACK", "1", "the packed candidate format", 5)
         return self._compress_hybrid(chunks, params, device)
 
     def _compress_hybrid(self, chunks: Sequence[bytes],
@@ -93,15 +92,31 @@ class DeflateDeviceCodec:
         (ops/match_finder.py) and the native host code verifies, extends and
         entropy-codes (qz_deflate_candidates), the split the reference
         makes between its search engine and its driver."""
+        from qatzip_tpu_torch.engine import devcal
         from qatzip_tpu_torch.native import qzcore as native
         from qatzip_tpu_torch.ops import match_finder as mf
 
         n = params.hw_buff_sz
         depth = level_params(params.comp_lvl)
+        # Packed candidate D2H (0.75 bytes an input byte against 2):
+        # exceptions above the side stream's budget degrade to guesses, so
+        # packing trades a few % of compressed size for 2.7x less D2H.
+        # QATZIP_TPU_PACK=1/0 overrides; otherwise the calibration record's
+        # measured winner decides (engine/devcal.py).
+        env_pack = os.environ.get("QATZIP_TPU_PACK", "")
+        if env_pack in ("0", "1"):
+            use_packed = env_pack == "1"
+        else:
+            use_packed = bool(devcal._load().get("pack_wins", False))
+        use_packed = use_packed and int(
+            os.environ.get("QATZIP_TPU_MF_STRIDE", "1")) == 1
         # L1/L2 default: stride-2 indexing at depth >= 16 (the reference's
-        # speed point; the parser's two-sided probes keep the ratio)
+        # speed point; the parser's two-sided probes keep the ratio).  The
+        # packed format keeps stride 1 (its classes assume dense candidates).
         stride_env = os.environ.get("QATZIP_TPU_MF_STRIDE")
-        if stride_env is not None:
+        if use_packed:
+            stride = 1
+        elif stride_env is not None:
             stride = int(stride_env)
         elif params.comp_lvl <= 2:
             stride = 2
@@ -118,8 +133,9 @@ class DeflateDeviceCodec:
                 data, lens = _stage_chunks(batch, n, device)
                 faults.check("submit", "compress")
                 pending.append(
-                    (batch, mf.find_candidates(data, lens, depth,
-                                               stride=stride)))
+                    (batch, mf.find_candidates_packed(data, lens, depth)
+                     if use_packed else
+                     mf.find_candidates(data, lens, depth, stride=stride)))
             except KernelError:
                 raise
             except Exception:
@@ -150,8 +166,12 @@ class DeflateDeviceCodec:
 
             def assemble(i_c):
                 i, c = i_c
-                payload = native.deflate_candidates(c, cand_np[i],
-                                                    params.comp_lvl)
+                if use_packed:
+                    payload = native.deflate_candidates_packed(
+                        c, cand_np[i], params.comp_lvl)
+                else:
+                    payload = native.deflate_candidates(c, cand_np[i],
+                                                        params.comp_lvl)
                 return CompressedChunk(payload, _chunk_checksum(c, params),
                                        len(c))
 

@@ -310,12 +310,15 @@ def decode_lockstep(stream_words, bit0, nbits, tll, td, active,
                     max_steps: int):
     """Tensor-level dispatch: the plain version for tensors on the CPU, the
     kernel (ops/inflate_kernel.py) for CUDA tensors."""
+    from qatzip_tpu_torch.ops import inflate_kernel as K
+
+    if K._capture is not None:
+        K._capture.append((stream_words, bit0, nbits, tll, td, active,
+                           max_steps))
     dev = stream_words.device
     if dev.type == "cpu":
         return _decode_ref(stream_words, bit0, nbits, tll, td, active,
                            max_steps)
-    from qatzip_tpu_torch.ops import inflate_kernel as K
-
     if dev.type != "cuda":
         raise K.KernelError(f"no inflate kernel for device {dev}")
 

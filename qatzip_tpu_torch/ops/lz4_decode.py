@@ -207,14 +207,14 @@ def _decode_blocks_impl(b: torch.Tensor, blk_len: torch.Tensor, n: int,
 def decode_blocks(blocks, mini_match: int | None = None,
                   device: torch.device | None = None) -> list:
     """Decode a batch of LZ4 (mini_match=None) or LZ4s blocks on ``device``
-    (default: the CPU).
+    (default: ``cuda:0``; ``torch.device("cpu")`` runs on the CPU).
 
     blocks: list of bytes.  Returns a list of bytes-or-None (None = this
     block needs the CPU path: empty, oversize, deep length extensions, or
     any malformed construct the decoder flags); ``failover_blocks`` counts
     the Nones."""
     global failover_blocks
-    device = device if device is not None else torch.device("cpu")
+    device = device if device is not None else torch.device("cuda", 0)
     results: list = [None] * len(blocks)
     idxs = [i for i, blk in enumerate(blocks) if 0 < len(blk) <= MAX_BLOCK]
     lz4s = mini_match is not None

@@ -8,18 +8,17 @@ Per block of n <= 65536 bytes, batched [B, n]:
   2. sort 1 by key1, stable, carrying the prefix words b4 (bytes p..p+3)
      and, with rank8, b4b (bytes p+4..p+7)
   3. candidate select over the sorted neighbours (ops/select.py, the
-     ported Pallas kernel)
-  4. back to position order: every valid record's distance lands in
-     output column pos, every other column is 0.  The reference does this
-     with a second sort and a stride interleave; one scatter gives the same
-     array.
+     ported Pallas kernel), straight into position order: every valid
+     record's distance lands in output column pos, every other column is
+     0.  The reference does this with a second sort and a stride
+     interleave; the kernel's stores give the same array.
 
 The candidates are verified only to a 3/4/8-byte prefix; the native parser
 (qz_deflate_candidates, shared with the reference) re-verifies and extends
 them.  Keys are built in int64, because torch on the CPU has no uint32
 shift; the product b3 * 2654435761 stays below 2**56 and is masked to 32
-bits before the shift.  The packed candidate format
-(``find_candidates_packed``) is not ported yet (ROADMAP queue 1 item 5).
+bits before the shift.  ``find_candidates_packed`` packs the candidates
+into the reference's 0.75-byte-a-position format (lines 183-247).
 """
 from __future__ import annotations
 
@@ -27,7 +26,7 @@ import os
 
 import torch
 
-from qatzip_tpu_torch.ops.select import select_candidates
+from qatzip_tpu_torch.ops.select import select_to_positions
 
 DEPTH = 4            # hash-chain depth (the level -> depth map is the caller's)
 _INVALID = 0xFFFFFFFF
@@ -67,16 +66,10 @@ def find_candidates(data: torch.Tensor, lengths: torch.Tensor,
 def _find_candidates_impl(data: torch.Tensor, lengths: torch.Tensor,
                           depth: int, stride: int,
                           rank8: bool) -> torch.Tensor:
-    B = data.shape[0]
-    n_full = data.shape[1] - 8
     sk, sb4, sb4b = sorted_records(data, lengths, stride, rank8)
-    dist_sorted = select_candidates(sk, sb4, sb4b, depth)
-    # unscramble (sort 2 + stride interleave): scatter each valid record's
-    # distance to its position; invalid records go to a dropped column
-    col = torch.where(sk != -1, (sk & 0xFFFF).to(torch.int64), n_full)
-    out = torch.zeros((B, n_full + 1), dtype=torch.int32, device=data.device)
-    out.scatter_(1, col, dist_sorted)
-    return out[:, :n_full].to(torch.uint16)
+    # select, then sort 2 + stride interleave: each valid record's distance
+    # goes to its position
+    return select_to_positions(sk, sb4, sb4b, depth, data.shape[1] - 8)
 
 
 def hash_records(data: torch.Tensor, lengths: torch.Tensor, stride: int,
@@ -114,3 +107,58 @@ def sorted_records(data: torch.Tensor, lengths: torch.Tensor, stride: int,
     skey, order = torch.sort(key1 ^ _SIGN, dim=1, stable=True)
     return (skey ^ _SIGN, b4.gather(1, order),
             b4b.gather(1, order) if rank8 else b4b)
+
+
+# Packed candidate format (the reference's round-4 D2H cut): the uint16 a
+# position costs 2 bytes of device-to-host traffic an input byte; this packs
+# to a fixed 0.75:
+#   2-bit class a position (n/4 bytes): 0 = no candidate; 1 = the same
+#     distance as the previous position; 2 = exception (distance in the side
+#     stream); 3 = distance 1
+#   exception stream (n/2 bytes): for each 64-position chunk, up to 16 uint16
+#     distances in position order, little-endian; exceptions beyond 16 become
+#     class 1, a stale guess the parser's byte-compare verification makes
+#     safe.
+# Decoded by qz_deflate_candidates_packed (native/qzdeflate.cpp).
+EXC_PER_CHUNK = 16
+CHUNK_P = 64
+
+
+def _find_candidates_packed_impl(data: torch.Tensor, lengths: torch.Tensor,
+                                 depth: int, stride: int) -> torch.Tensor:
+    d = _find_candidates_impl(data, lengths, depth, stride,
+                              True).to(torch.int32)
+    B, n = d.shape
+    prev = torch.cat([d.new_zeros((B, 1)), d[:, :-1]], dim=1)
+    isrep = (d == prev) & (d != 0)
+    cls = torch.where(d == 0, 0,
+                      torch.where(isrep, 1, torch.where(d == 1, 3, 2)))
+    nc = n // CHUNK_P
+    f3 = (cls == 2).reshape(B, nc, CHUNK_P)
+    lidx = torch.cumsum(f3.to(torch.int32), dim=-1) - 1
+    keep3 = f3 & (lidx < EXC_PER_CHUNK)
+    # overflowed exceptions degrade to "repeat previous" rather than "none":
+    # the native parser verifies candidates by byte compare, so a stale
+    # guess can only recover matches, never corrupt
+    cls = torch.where((cls == 2) & ~keep3.reshape(B, n), 1, cls)
+    d3 = d.reshape(B, nc, CHUNK_P)
+    exc = torch.stack([torch.where(keep3 & (lidx == s), d3, 0).sum(dim=-1)
+                       for s in range(EXC_PER_CHUNK)], dim=-1)
+    two = (cls[:, 0::4] | (cls[:, 1::4] << 2) | (cls[:, 2::4] << 4)
+           | (cls[:, 3::4] << 6))
+    exc = exc.reshape(B, nc * EXC_PER_CHUNK)
+    exc8 = torch.stack([exc & 0xFF, exc >> 8], dim=-1).reshape(B, -1)
+    return torch.cat([two, exc8], dim=1).to(torch.uint8)  # u8 [B, 3n/4]
+
+
+def find_candidates_packed(data: torch.Tensor, lengths: torch.Tensor,
+                           depth: int = DEPTH) -> torch.Tensor:
+    """Packed variant of :func:`find_candidates`: uint8[B, 3n/4] in the
+    format above, n a multiple of 64 (stride mode is not packed: the stride
+    knob already trades ratio)."""
+    if data.dtype != torch.uint8 or data.dim() != 2:
+        raise ValueError("data must be uint8[B, n+8]")
+    n = data.shape[1] - 8
+    if not 0 < n <= 65536 or n % CHUNK_P:
+        raise ValueError("block width must be a multiple of 64 up to 65536")
+    return _find_candidates_packed_impl(data, lengths, int(depth), 1)

@@ -31,16 +31,62 @@ _SHIM = r"""
 #include "inflate_step.cuh"
 #include "sort.cuh"
 
-extern "C" void shim_select(const uint32_t* sk, const uint32_t* sb4,
-                            const uint32_t* sb4b, int32_t* out, int B, int n,
-                            int depth) {
-  for (int b = 0; b < B; ++b)
-    for (int j = 0; j < n; ++j)
-      out[b * n + j] = qz_select_one(sk + b * n, sb4 + b * n, sb4b + b * n,
-                                     j, depth);
+#include <algorithm>
+#include <vector>
+
+// The launch of csrc/select.cu run serially, the kernel's schedule through
+// select.cuh's own functions: each CTA (its QZ_SELECT_CTA_TILES tiles of a
+// row) starts from two shared-memory buffers full of garbage and stages its
+// first tile; then, a tile at a time, every thread stages its share of the
+// next tile into the other buffer and every thread selects over the current
+// one, as between the kernel's barriers.
+template <int DEPTH, bool TO_POS>
+static void select_launch(const QzSelectArgs& a, int B) {
+  std::vector<qz_u4> buf(2 * QZ_SELECT_SMEM_WORDS / 4);
+  uint32_t* sm[2] = {(uint32_t*)buf.data(),
+                     (uint32_t*)buf.data() + QZ_SELECT_SMEM_WORDS};
+  const int tiles = qz_select_tiles(a.n);
+  for (int row = 0; row < B; ++row)
+    for (int first = 0; first < tiles; first += QZ_SELECT_CTA_TILES) {
+      const int end = std::min(first + QZ_SELECT_CTA_TILES, tiles);
+      for (int w = 0; w < 2 * QZ_SELECT_SMEM_WORDS; ++w)
+        sm[0][w] = 0xA5A5A5A5u;
+      for (int t = 0; t < QZ_SELECT_THREADS; ++t)
+        qz_select_stage(a, row, first, t, sm[0]);
+      for (int tile = first; tile < end; ++tile) {
+        const int p = (tile - first) & 1;
+        for (int t = 0; t < QZ_SELECT_THREADS && tile + 1 < end; ++t)
+          qz_select_stage(a, row, tile + 1, t, sm[p ^ 1]);
+        for (int t = 0; t < QZ_SELECT_THREADS; ++t)
+          qz_select_tile<DEPTH, TO_POS>(a, row, tile, t, sm[p]);
+      }
+    }
 }
 
-#include <vector>
+template <int DEPTH>
+static int select_order(const QzSelectArgs& a, int B, int to_pos) {
+  if (to_pos)
+    select_launch<DEPTH, true>(a, B);
+  else
+    select_launch<DEPTH, false>(a, B);
+  return 0;
+}
+
+// out: int32 [B, n] (to_pos 0) or zeroed uint16 [B, n_full] (to_pos 1).
+// The kernel takes depths 8, 12 and 16; 4 is the header's too.  Returns 0,
+// or -1 for another depth.
+extern "C" int shim_select(const uint32_t* sk, const uint32_t* sb4,
+                           const uint32_t* sb4b, void* out, int B, int n,
+                           int n_full, int depth, int to_pos, int vec) {
+  const QzSelectArgs a = {sk, sb4, sb4b, out, n, n_full, vec};
+  switch (depth) {
+    case 4: return select_order<4>(a, B, to_pos);
+    case 8: return select_order<8>(a, B, to_pos);
+    case 12: return select_order<12>(a, B, to_pos);
+    case 16: return select_order<16>(a, B, to_pos);
+  }
+  return -1;
+}
 
 // The launch of csrc/inflate.cu run serially, through the kernel's own
 // qz_stage_tables and qz_inflate_lane (lane loop, stream window, refills):
@@ -280,6 +326,7 @@ def shim(tmp_path_factory):
                     str(lib)], check=True, capture_output=True, text=True)
     so = ctypes.CDLL(str(lib))
     so.shim_inflate.restype = ctypes.c_int
+    so.shim_select.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     so.shim_sort.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_uint32]
     so.shim_schedule.argtypes = [ctypes.c_uint32, ctypes.c_int,
@@ -304,16 +351,98 @@ def _sorted_arrays(corpus_factory):
     return mf.sorted_records(torch.from_numpy(arr), lens, 1, True)
 
 
+def _shim_select(shim, sk, sb4, sb4b, depth: int, n_full: int | None = None,
+                 vec: bool | None = None) -> np.ndarray:
+    """The select launch through the shim: sorted order, or position order
+    in a uint16 [B, n_full] row.  ``vec`` (16-byte staging) defaults to
+    what the kernel's entry takes for these arrays."""
+    B, n = sk.shape
+    args = [np.ascontiguousarray(t.numpy()) for t in (sk, sb4, sb4b)]
+    if vec is None:
+        vec = n % 4 == 0 and all(a.ctypes.data % 16 == 0 for a in args)
+    out = (np.zeros((B, n), np.int32) if n_full is None
+           else np.zeros((B, n_full), np.uint16))
+    rc = shim.shim_select(*(_ptr(a) for a in args), _ptr(out), B, n,
+                          n_full or n, depth, n_full is not None, int(vec))
+    assert rc == 0
+    return out
+
+
 @pytest.mark.parametrize("depth", [4, 16])
 def test_select_header_matches_torch_reference(shim, corpus_factory, depth):
     sk, sb4, sb4b = _sorted_arrays(corpus_factory)
     want = SEL.select_candidates_ref(sk, sb4, sb4b, depth).numpy()
-    B, n = sk.shape
-    out = np.zeros((B, n), np.int32)
-    args = [np.ascontiguousarray(t.numpy()) for t in (sk, sb4, sb4b)]
-    shim.shim_select(*(_ptr(a) for a in args), _ptr(out), B, n, depth)
-    assert (out == want).all()
+    for vec in (True, False):
+        assert (_shim_select(shim, sk, sb4, sb4b, depth, vec=vec)
+                == want).all()
     assert (want > 0).any()
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("depth", [8, 12, 16])
+def test_select_header_to_positions_matches_torch_reference(
+        shim, corpus_factory, depth, stride):
+    """The position-order entry: 4 KB blocks (4 CTAs of 2 tiles at stride
+    1, 2 at stride 2; 1365 records at stride 3, staged word by word), with a
+    short block whose invalid tail sorts last."""
+    n = 4096
+    datas = [corpus_factory(n, k)
+             for k in ("text", "constant", "iterative", "random")]
+    datas.append(corpus_factory(1500, "text"))
+    arr = np.zeros((len(datas), n + 8), np.uint8)
+    for i, d in enumerate(datas):
+        arr[i, :len(d)] = np.frombuffer(d, np.uint8)
+    data = torch.from_numpy(arr)
+    lens = torch.tensor([len(d) for d in datas], dtype=torch.int32)
+    sk, sb4, sb4b = mf.sorted_records(data, lens, stride, True)
+    want = SEL.select_to_positions_ref(sk, sb4, sb4b, depth, n).numpy()
+    assert (want == mf.find_candidates(data, lens, depth,
+                                       stride=stride).numpy()).all()
+    got = _shim_select(shim, sk, sb4, sb4b, depth, n_full=n)
+    assert (got == want).all()
+    assert (want > 0).sum() > n // stride
+
+
+def _runs(seed: int, B: int = 3, n: int = 5000, run: int = 40):
+    """Sorted rows of hash runs longer than the look-back (``run`` records
+    a hash), positions spread over 64 K so that distances pass 32767 inside
+    a run, prefix words from a small set so that 3-, 4- and 8-byte matches
+    mix, and invalid tails of 0, 100 and 1000 records.  5000 records a row
+    take 5 CTAs, the last of one tile; all but the first start on a halo of
+    real records."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for b, tail in zip(range(B), (0, 100, 1000)):
+        valid = n - tail
+        pos = np.sort(rng.choice(65536, valid, replace=False))
+        h = np.sort(rng.integers(0, 1 << 15, -(-valid // run)))
+        hs = np.repeat(h, run)[:valid]
+        key = (hs.astype(np.uint64) << 16) | pos.astype(np.uint64)
+        lo3 = rng.integers(0, 3, valid).astype(np.uint64)
+        b4 = (rng.integers(0, 2, valid).astype(np.uint64) << 24) | lo3
+        b4b = rng.integers(0, 2, valid).astype(np.uint64)
+        order = np.argsort(key, kind="stable")
+        pad = np.full(tail, 0xFFFFFFFF, np.uint64)
+        rows.append([np.concatenate([a[order], pad if i == 0 else pad * 0])
+                     for i, a in enumerate((key, b4, b4b))])
+    return [torch.from_numpy(np.stack([r[i] for r in rows])
+                             .astype(np.uint32).view(np.int32))
+            for i in range(3)]
+
+
+@pytest.mark.parametrize("depth", [8, 12, 16])
+def test_select_header_long_runs_and_invalid_tails(shim, depth):
+    """Rows whose hash runs outlast the look-back and cross the tiles'
+    halos, with distances past the window and invalid tails: the early
+    exits equal the plain version, in both orders."""
+    sk, sb4, sb4b = _runs(depth)
+    want = SEL.select_candidates_ref(sk, sb4, sb4b, depth).numpy()
+    assert (_shim_select(shim, sk, sb4, sb4b, depth) == want).all()
+    assert (want > 0).sum() > 1000 and (want == 0).sum() > 1000
+    want_pos = SEL.select_to_positions_ref(sk, sb4, sb4b, depth,
+                                           65536).numpy()
+    assert (_shim_select(shim, sk, sb4, sb4b, depth, n_full=65536)
+            == want_pos).all()
 
 
 def _raw(data: bytes, level: int, strategy=zlib.Z_DEFAULT_STRATEGY) -> bytes:

@@ -41,7 +41,13 @@ def test_kernels_build(dev):
     _build.library()
 
 
-@pytest.mark.parametrize("depth,stride", [(16, 2), (8, 1), (4, 3)])
+def _u16(t: torch.Tensor) -> torch.Tensor:
+    """uint16 bits as int16, which every torch operation takes."""
+    return t.view(torch.int16)
+
+
+# stride 3 gives rows of n % 4 != 0 records, staged word by word
+@pytest.mark.parametrize("depth,stride", [(16, 2), (8, 1), (12, 3)])
 def test_select_kernel_equals_plain(dev, depth, stride):
     from qatzip_tpu_torch.ops import match_finder as mf
     from qatzip_tpu_torch.ops import select as S
@@ -55,14 +61,94 @@ def test_select_kernel_equals_plain(dev, depth, stride):
     lens = torch.tensor([len(d) for d in datas], dtype=torch.int32,
                         device=dev)
     sk, sb4, sb4b = mf.sorted_records(data, lens, stride, True)
-    before = S.KERNEL.launches
+    before = S.KERNEL.launches, S.POS_KERNEL.launches
     got = S.select_candidates(sk, sb4, sb4b, depth)
-    assert S.KERNEL.launches == before + 1
+    pos = S.select_to_positions(sk, sb4, sb4b, depth, n)
+    assert (S.KERNEL.launches, S.POS_KERNEL.launches) == (before[0] + 1,
+                                                          before[1] + 1)
     torch.cuda.synchronize()
     assert torch.equal(got, S.select_candidates_ref(sk, sb4, sb4b, depth))
+    assert torch.equal(_u16(pos), _u16(S.select_to_positions_ref(
+        sk, sb4, sb4b, depth, n)))
     cpu = mf.find_candidates(data.cpu(), lens.cpu(), depth, stride=stride)
-    assert torch.equal(mf.find_candidates(data, lens, depth,
-                                          stride=stride).cpu(), cpu)
+    assert torch.equal(_u16(mf.find_candidates(data, lens, depth,
+                                               stride=stride).cpu()),
+                       _u16(cpu))
+    assert S.POS_KERNEL.launches == before[1] + 2
+
+
+def test_select_kernel_refuses_other_depths(dev):
+    from qatzip_tpu_torch.ops import select as S
+
+    a = torch.full((2, 1024), -1, dtype=torch.int32, device=dev)
+    before = S.KERNEL.launches, S.POS_KERNEL.launches
+    for depth in (4, 17):
+        with pytest.raises(ValueError, match="depth"):
+            S.select_candidates(a, a, a, depth)
+        with pytest.raises(ValueError, match="depth"):
+            S.select_to_positions(a, a, a, depth, 1024)
+    assert (S.KERNEL.launches, S.POS_KERNEL.launches) == before
+
+
+@pytest.mark.parametrize("depth", [8, 12, 16])
+def test_select_kernel_long_runs_and_invalid_tails(dev, depth):
+    """Sorted rows of 40-record hash runs, positions over 64 K, invalid
+    tails (the rows of the g++ shim's test, built here without numpy's
+    help from the reference)."""
+    from qatzip_tpu_torch.ops import select as S
+
+    g = torch.Generator().manual_seed(depth)
+    rows = []
+    for tail in (0, 100, 1000):
+        valid = 4096 - tail
+        pos = torch.randperm(65536, generator=g)[:valid].sort().values
+        h = torch.randint(0, 1 << 15, (-(-valid // 40),), generator=g)
+        key = (h.sort().values.repeat_interleave(40)[:valid] << 16) | pos
+        key = key.sort().values
+        b4 = (torch.randint(0, 2, (valid,), generator=g) << 24) \
+            | torch.randint(0, 3, (valid,), generator=g)
+        b4b = torch.randint(0, 2, (valid,), generator=g)
+        pad = torch.full((tail,), -1, dtype=torch.int64)
+        rows.append([torch.cat([key, pad]), torch.cat([b4, pad * 0]),
+                     torch.cat([b4b, pad * 0])])
+    sk, sb4, sb4b = (torch.stack([r[i] for r in rows]).to(torch.int32)
+                     .to(dev) for i in range(3))
+    got = S.select_candidates(sk, sb4, sb4b, depth)
+    pos = S.select_to_positions(sk, sb4, sb4b, depth, 65536)
+    torch.cuda.synchronize()
+    assert torch.equal(got, S.select_candidates_ref(sk, sb4, sb4b, depth))
+    assert torch.equal(_u16(pos), _u16(S.select_to_positions_ref(
+        sk, sb4, sb4b, depth, 65536)))
+    assert int((got > 0).sum()) > 1000
+
+
+def test_packed_candidates_on_cuda_equal_cpu(dev):
+    from qatzip_tpu_torch.ops import match_finder as mf
+
+    n = 16384
+    datas = [_text(n, 3), bytes(n), _text(7000, 4)]
+    arr = np.zeros((len(datas), n + 8), np.uint8)
+    for i, d in enumerate(datas):
+        arr[i, :len(d)] = np.frombuffer(d, np.uint8)
+    data = torch.from_numpy(arr)
+    lens = torch.tensor([len(d) for d in datas], dtype=torch.int32)
+    for depth in (8, 16):
+        got = mf.find_candidates_packed(data.to(dev), lens.to(dev), depth)
+        assert torch.equal(got.cpu(), mf.find_candidates_packed(data, lens,
+                                                                depth))
+
+
+def test_calibrate_on_cuda(dev, monkeypatch, tmp_path):
+    from qatzip_tpu_torch.engine import devcal
+
+    monkeypatch.setenv("QATZIP_TPU_DEVCAL_PATH", str(tmp_path / "cal.json"))
+    rec = devcal.calibrate(sample_bytes=1 << 20)
+    assert "device_error" not in rec and "compute_probe_error" not in rec
+    for k in ("dev_comp_gbps", "dev_comp_raw_gbps", "dev_comp_packed_gbps",
+              "dev_decomp_gbps", "dev_decomp_compute_gbps",
+              "dev_comp_compute_gbps"):
+        assert rec[k] > 0, k
+    assert devcal._load() == rec
 
 
 # one lane; more lanes than a warp has; the reference's round; the port's
@@ -140,7 +226,7 @@ def test_lz4_round_trip_on_cuda(dev, monkeypatch, algorithm):
         sess = qt.QzSession()
         assert qt.qz_init(sess, device=device) == C.QZ_OK
         hw0, sw0 = core.engine().hw_requests, core.engine().sw_requests
-        fail0, launches0 = ld.failover_blocks, S.KERNEL.launches
+        fail0, launches0 = ld.failover_blocks, S.POS_KERNEL.launches
         outs[device.type] = qt.compress(data, algorithm, hw_buff_sz=16384)
         assert qt.decompress(outs[device.type], algorithm,
                              hw_buff_sz=16384) == data
@@ -148,7 +234,7 @@ def test_lz4_round_trip_on_cuda(dev, monkeypatch, algorithm):
         assert core.engine().sw_requests == sw0
         assert ld.failover_blocks == fail0
     core.qz_close_engine()
-    assert S.KERNEL.launches == launches0 + 1
+    assert S.POS_KERNEL.launches == launches0 + 1
     assert outs["cuda"] == outs["cpu"]
     assert qt.decompress(outs["cuda"], algorithm, hw_buff_sz=16384,
                          sw_only=True) == data

@@ -25,6 +25,7 @@ from qatzip_tpu_torch.ops import lz4_decode as ld
 torch.set_num_threads(1)
 
 HW_BUFF = 16 << 10
+CPU = torch.device("cpu")
 
 
 @pytest.fixture
@@ -87,7 +88,7 @@ def test_decode_blocks_equal_reference(corpus_factory):
     """The cases of test_device_lz4.py: LZ4s blocks, a zero offset, a
     60 KB run, plus an empty and an oversize block."""
     blocks, datas = _lz4s_blocks(corpus_factory)
-    got = ld.decode_blocks(blocks, mini_match=3)
+    got = ld.decode_blocks(blocks, mini_match=3, device=CPU)
     assert got == rld.decode_blocks(blocks, mini_match=3)
     assert got == datas
 
@@ -96,7 +97,7 @@ def test_decode_blocks_equal_reference(corpus_factory):
     run = lz4_block_compress(b"A" * 60000)
     lz4 = [good, bad_zero_off, run, b""]
     fail0 = ld.failover_blocks
-    got = ld.decode_blocks(lz4)
+    got = ld.decode_blocks(lz4, device=CPU)
     assert got == rld.decode_blocks(lz4)
     assert got[0] == b"abcdeabcdeabcXYZWQ" and got[2] == b"A" * 60000
     assert [g is None for g in got] == [False, True, False, True]
@@ -112,13 +113,14 @@ def test_decode_takes_blocks_above_64k_unlike_reference(corpus_factory):
     assert rld.MAX_BLOCK < len(blk) <= ld.MAX_BLOCK
     assert rld.decode_blocks([blk], mini_match=3) == [None]
     assert ld.decode_blocks([blk, bytes(ld.MAX_BLOCK + 1)],
-                            mini_match=3) == [data, None]
+                            mini_match=3, device=CPU) == [data, None]
 
 
 def test_decode_groups_do_not_change_bytes(corpus_factory, monkeypatch):
     blocks, datas = _lz4s_blocks(corpus_factory)
     monkeypatch.setattr(ld, "GROUP", 3)
-    assert ld.decode_blocks(blocks, mini_match=3) == datas
+    assert ld.decode_blocks(blocks, mini_match=3,
+                            device=CPU) == datas
 
 
 @pytest.mark.parametrize("lz4s", [False, True])

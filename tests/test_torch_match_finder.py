@@ -4,6 +4,7 @@ On the four conftest corpus kinds at n = 4096, the port's uint16
 candidates must equal the reference's ``find_candidates(use_pallas=False)``
 for every depth, stride and rank8 setting the knobs reach, and the native
 parser (shared by both) must turn them into a stream zlib inflates back.
+The packed candidate format must equal the reference's byte for byte.
 """
 import zlib
 
@@ -64,3 +65,36 @@ def test_knobs_read_the_reference_env_names(corpus_factory, monkeypatch):
                        mf.find_candidates(*args, stride=2, rank8=False))
     assert not torch.equal(mf.find_candidates(*args),
                            mf.find_candidates(*args, stride=1, rank8=True))
+
+
+@pytest.mark.parametrize("depth", [8, 16])
+@pytest.mark.parametrize("kind", ["text", "random", "constant"])
+def test_packed_candidates_match_reference(corpus_factory, kind, depth):
+    """u8 [B, 3n/4] equal to the reference's _find_candidates_packed_impl
+    (its XLA path, stride 1), and the port's native unpacker turns them into
+    a stream zlib inflates back."""
+    from qatzip_tpu_torch.native import qzcore as tnative
+
+    datas = [corpus_factory(N, kind), corpus_factory(3000, kind), b""]
+    arr = np.zeros((len(datas), N + 8), np.uint8)
+    lens = np.zeros(len(datas), np.int32)
+    for i, d in enumerate(datas):
+        arr[i, :len(d)] = np.frombuffer(d, np.uint8)
+        lens[i] = len(d)
+    want = np.asarray(rmf._find_candidates_packed_impl(
+        jnp.asarray(arr), jnp.asarray(lens), depth, False, 1))
+    got = mf.find_candidates_packed(torch.from_numpy(arr),
+                                    torch.from_numpy(lens), depth)
+    assert got.dtype == torch.uint8 and got.shape == (len(datas), 3 * N // 4)
+    assert (got.numpy() == want).all()
+    for i, d in enumerate(datas):
+        payload = tnative.deflate_candidates_packed(d, got[i].numpy(), 1)
+        assert payload == native.deflate_candidates_packed(d, want[i], 1)
+        assert zlib.decompress(payload, -15) == d
+
+
+def test_packed_candidates_refuse_widths_off_the_chunk_grid():
+    data = torch.zeros((1, 1000 + 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        mf.find_candidates_packed(data, torch.tensor([1000],
+                                                     dtype=torch.int32))

@@ -3,7 +3,8 @@
 The same hash-sorted records, sorted with numpy, go through the port's
 plain torch version, the reference Pallas kernel in interpret mode and the
 reference XLA branch (read back through ``find_candidates(use_pallas=
-False)``); the int32 distances must be identical.
+False)``); the int32 distances must be identical.  The position-order plain
+version must equal the reference's candidates.
 """
 import numpy as np
 import pytest
@@ -78,3 +79,33 @@ def test_select_rejects_mismatched_inputs():
         S.select_candidates(a, a.to(torch.int64), a, 4)
     with pytest.raises(ValueError):
         S.select_candidates(a, a[:, :128], a, 4)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("depth", [8, 16])
+def test_select_to_positions_ref_matches_reference(corpus_factory, depth,
+                                                   stride):
+    from qatzip_tpu_torch.ops import match_finder as mf
+
+    arr, lens = _blocks(corpus_factory)
+    sk, sb4, sb4b = mf.sorted_records(torch.from_numpy(arr),
+                                      torch.from_numpy(lens), stride, True)
+    got = S.select_to_positions_ref(sk, sb4, sb4b, depth, N)
+    assert got.dtype == torch.uint16 and got.shape == (len(arr), N)
+    want = np.asarray(rmf.find_candidates(
+        jnp.asarray(arr), jnp.asarray(lens), depth, use_pallas=False,
+        stride=stride, rank8=True))
+    assert (got.numpy() == want).all()
+    assert (want > 0).sum() > N // stride
+    # the CPU wrapper is the plain version, at any depth
+    assert torch.equal(S.select_to_positions(sk, sb4, sb4b, depth, N), got)
+    assert torch.equal(S.select_to_positions(sk, sb4, sb4b, 5, N),
+                       S.select_to_positions_ref(sk, sb4, sb4b, 5, N))
+
+
+def test_select_to_positions_rejects_mismatched_inputs():
+    a = torch.zeros((2, 256), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        S.select_to_positions(a, a.to(torch.int64), a, 8, 512)
+    with pytest.raises(ValueError):
+        S.select_to_positions(a, a, a[:, :128], 8, 512)

@@ -116,7 +116,6 @@ def test_no_cuda_default_init_is_labelled_software(corpus_factory,
 
 @pytest.mark.parametrize("env,value,direction", [
     ("QATZIP_TPU_ENCODER", "device", "compress"),
-    ("QATZIP_TPU_PACK", "1", "compress"),
     ("QATZIP_TPU_INFLATE", "spec", "decompress"),
 ])
 def test_unported_options_raise(corpus_factory, monkeypatch, engine_on, env,
@@ -157,15 +156,15 @@ def test_kernel_that_cannot_build_raises_instead_of_failing_over(
     monkeypatch.setattr(_build, "_nvcc", no_nvcc)
     monkeypatch.setattr(_build, "LIB", str(tmp_path / "libqzkernels.so"))
     monkeypatch.setattr(_build, "_lib", None)
-    for kern in (S.KERNEL, K.KERNEL):
+    for kern in (S.POS_KERNEL, K.KERNEL):
         monkeypatch.setattr(kern, "_fn", None)
-    monkeypatch.setattr(mf, "select_candidates",
-                        lambda *a: S.KERNEL(*[0] * 8))
+    monkeypatch.setattr(mf, "select_to_positions",
+                        lambda *a: S.POS_KERNEL(*[0] * 9))
     monkeypatch.setattr(PI, "decode_lockstep",
                         lambda *a: K.KERNEL(*[0] * 15))
     hw0, sw0, failures0 = (core.engine().hw_requests,
                            core.engine().sw_requests, health.total_failures)
-    launches0 = S.KERNEL.launches, K.KERNEL.launches
+    launches0 = S.POS_KERNEL.launches, K.KERNEL.launches
     with pytest.raises(_build.KernelError, match="nvcc not found"):
         if direction == "compress":
             qt.qz_compress(sess, data)
@@ -176,7 +175,73 @@ def test_kernel_that_cannot_build_raises_instead_of_failing_over(
     assert (core.engine().hw_requests, core.engine().sw_requests) == (hw0,
                                                                       sw0)
     assert health.total_failures == failures0
-    assert (S.KERNEL.launches, K.KERNEL.launches) == launches0
+    assert (S.POS_KERNEL.launches, K.KERNEL.launches) == launches0
+
+
+@pytest.mark.parametrize("level", [1, 6])
+def test_packed_bytes_equal_reference(corpus_factory, monkeypatch, engine_on,
+                                      level):
+    """QATZIP_TPU_PACK=1: the packed candidate format through the API gives
+    the reference's bytes, which differ from the raw format's, and reads
+    back."""
+    from qatzip_tpu_torch.ops import match_finder as mf
+
+    monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
+    engine_on(torch.device("cpu"))
+    data = corpus_factory(200_000, "text")
+    fmt = QzDataFormat.QZ_DEFLATE_GZIP_EXT
+    raw = qt.compress(data, fmt=fmt, level=level, hw_buff_sz=HW_BUFF)
+    monkeypatch.setenv("QATZIP_TPU_PACK", "1")
+    calls = []
+    packed_fn = mf.find_candidates_packed
+    monkeypatch.setattr(mf, "find_candidates_packed",
+                        lambda *a: calls.append(1) or packed_fn(*a))
+    comp = qt.compress(data, fmt=fmt, level=level, hw_buff_sz=HW_BUFF)
+    assert calls
+    assert comp == qatzip_tpu.compress(data, fmt=fmt, level=level,
+                                       hw_buff_sz=HW_BUFF)
+    assert comp != raw
+    assert gzip.decompress(comp) == data
+    assert qt.decompress(comp, hw_buff_sz=HW_BUFF) == data
+
+
+@pytest.mark.parametrize("pack_wins", [True, False])
+def test_pack_wins_in_the_record_picks_the_format(corpus_factory, monkeypatch,
+                                                  engine_on, tmp_path,
+                                                  pack_wins):
+    """With QATZIP_TPU_DEVICE and QATZIP_TPU_PACK unset, the calibration
+    record routes compress to the device and its pack_wins picks the
+    candidate format, as the reference's codec does; QATZIP_TPU_PACK still
+    overrides the record."""
+    import json
+
+    from qatzip_tpu_torch.engine import devcal
+
+    cal = tmp_path / "cal.json"
+    cal.write_text(json.dumps({"comp_device_wins": True,
+                               "decomp_device_wins": False,
+                               "pack_wins": pack_wins}))
+    monkeypatch.setenv("QATZIP_TPU_DEVCAL_PATH", str(cal))
+    monkeypatch.delenv("QATZIP_TPU_DEVICE", raising=False)
+    monkeypatch.delenv("QATZIP_TPU_PACK", raising=False)
+    devcal.invalidate()
+    engine_on(torch.device("cpu"))
+    eng = core.engine()
+    data = corpus_factory(100_000, "text")
+    fmt = QzDataFormat.QZ_DEFLATE_GZIP_EXT
+    hw0 = eng.hw_requests
+    comp = qt.compress(data, fmt=fmt, level=1, hw_buff_sz=HW_BUFF)
+    assert eng.hw_requests > hw0
+    monkeypatch.setenv("QATZIP_TPU_PACK", "1" if pack_wins else "0")
+    want = qt.compress(data, fmt=fmt, level=1, hw_buff_sz=HW_BUFF)
+    monkeypatch.setenv("QATZIP_TPU_PACK", "0" if pack_wins else "1")
+    other = qt.compress(data, fmt=fmt, level=1, hw_buff_sz=HW_BUFF)
+    assert comp == want and comp != other
+    # decompress stays on the CPU: the record says the device loses there
+    sw0 = eng.sw_requests
+    assert qt.decompress(comp, hw_buff_sz=HW_BUFF) == data
+    assert eng.sw_requests > sw0
+    devcal.invalidate()
 
 
 def test_lz4_is_routed_to_the_cpu(monkeypatch, engine_on):
