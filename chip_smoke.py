@@ -18,9 +18,10 @@ Run from the repository root:  python3 chip_smoke.py
    equal; both are timed with CUDA events and printed beside their bound
    (bytes moved at the HBM rate, operations at the float32 rate: for the
    select, the look-back steps these rows need), the inflate also beside
-   its dependent-chain floor.  The u32 sort kernel, which no path runs yet,
-   on the unsorted sort-1 records of the same chunks at stride 2 and 1
-   ([128, 32768] and [128, 65536]), on random unique keys beyond one
+   the probes' measured STEP5 skeleton and dependent load (below).  The
+   u32 sort kernel, which no path runs yet, on the unsorted sort-1 records
+   of the same chunks at stride 2 and 1 ([128, 32768] and [128, 65536]),
+   on random unique keys beyond one
    cluster ([4, 262144]) and with 4 payloads ([128, 32768]): equal to its
    plain version, timed the same way, its device operations a call counted
    with torch.profiler (one kernel at the two sort-1 shapes) and its
@@ -78,14 +79,6 @@ import zlib
 
 CHUNK = 64 << 10
 LANES = 128            # the reference's lanes a round and chunks a batch
-# H100 SXM peaks (NVIDIA's datasheet): HBM bytes/s, float32 outside
-# the tensor cores (the rate taken for 32-bit integer operations)
-HBM_BYTES_S = 3.35e12
-FP32_OPS_S = 67e12
-# an inflate step's dependent chain in csrc/inflate_step.cuh (a literal's,
-# as the kernel's SASS has it): 2 shared-memory loads of ~30 clocks and
-# ~22 integer operations of ~4, branches taken as free
-CHAIN_CLOCKS = 2 * 30 + 22 * 4
 
 
 def _check(cond: bool, what: str) -> None:
@@ -127,11 +120,10 @@ def phase_environment(torch):
     print(f"native host codec: {dd._native._path}")
 
     t0 = time.perf_counter()
-    _build.build(force=True)
+    path = _build.build(force=True)
     _build.library()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"({_build.LIB})")
-    with open(_build.LOG) as f:
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s ({path})")
+    with open(_build.log_path()) as f:
         for line in f:
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
@@ -216,19 +208,35 @@ def phase_select(torch, corpus: bytes, dev) -> list:
     return [recs["select_to_positions"], recs["select_candidates"]]
 
 
-def _sm_clock_mhz() -> float:
-    return float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], check=True, capture_output=True,
-        text=True).stdout.split()[0])
+def phase_probes(torch, dev) -> list:
+    """The construct probes' library built, then every case of
+    tools/probe_bench.py: the kernel equal to its plain version, timed and
+    slope-timed.  Returns the cases' records."""
+    from qatzip_tpu_torch.ops import _build
+    from qatzip_tpu_torch.tools import probe_bench as PB
+
+    t0 = time.perf_counter()
+    path = _build.build(force=True, name=_build.PROBES)
+    _build.library(_build.PROBES)
+    print(f"probe build: {time.perf_counter() - t0:.2f} s ({path})")
+    t0 = time.perf_counter()
+    recs = PB.run(dev)
+    print(f"probes: {len(recs)} cases equal to their plain versions in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return recs
 
 
-def _inflate_round(torch, corpus: bytes, dev, lanes: int) -> dict:
+def _inflate_round(torch, corpus: bytes, dev, lanes: int,
+                   probes: list) -> dict:
     """One lockstep round over the first block of each of the first
     ``lanes`` chunks at zlib level 1: the kernel against the plain version
-    (once, it takes ~30 s) on all five outputs, then timed."""
+    (once, it takes ~30 s) on all five outputs, then timed; beside it the
+    STEP5 probe's measured ns a step (at these lanes, one lane a CTA) and
+    the DEP probe's dependent shared-memory load."""
     from qatzip_tpu_torch.ops import deflate_decode as dd
     from qatzip_tpu_torch.ops import inflate as PI
+    from qatzip_tpu_torch.tools import probe_bench as PB
+    from qatzip_tpu_torch.tools.h100 import FP32_OPS_S, HBM_BYTES_S
 
     streams = []
     for i in range(lanes):
@@ -268,10 +276,8 @@ def _inflate_round(torch, corpus: bytes, dev, lanes: int) -> dict:
               + ns * lanes * 4 + 3 * lanes * 4)
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = float(lane_steps.sum()) * 60 / FP32_OPS_S * 1e3
-    # dependent-chain floor, a model printed beside the measurements: the
-    # longest lane's steps x one step's chain at the card's highest SM clock
-    chain_ns = CHAIN_CLOCKS / _sm_clock_mhz() * 1e3
-    floor_ms = ns * chain_ns / 1e6
+    step_ns = PB.step_skeleton_ns(probes, lanes)
+    dep_ns = PB.dep_load_ns(probes)
     print(f"inflate round: {lanes} lanes, max_steps {max_steps}, nsteps "
           f"{ns}, {out_bytes} output bytes: equal on all five outputs; "
           f"kernel {ms:.4f} ms ({ms / ns * 1e6:.1f} ns a step, "
@@ -279,8 +285,10 @@ def _inflate_round(torch, corpus: bytes, dev, lanes: int) -> dict:
           f"plain {plain_ms:.1f} ms (one run); lane utilisation {util:.4f} "
           f"(token steps / (nsteps x lanes)); bound "
           f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes; operations "
-          f"{ops_ms:.4f} ms); dependent-chain floor, a model, "
-          f"{floor_ms:.4f} ms ({chain_ns:.1f} ns a step)")
+          f"{ops_ms:.4f} ms); measured primitives: the TPU's STEP5 "
+          f"skeleton {step_ns:.3f} ns a step (not a floor: it does work "
+          f"this step does not), a dependent shared-memory load "
+          f"{dep_ns:.3f} ns")
     return {"name": "inflate_decode", "route": "cuda",
             "source": "qatzip_tpu_torch/csrc/inflate.cu",
             "replaces": "qatzip_tpu/ops/pallas_inflate_kernel.py:228",
@@ -291,16 +299,18 @@ def _inflate_round(torch, corpus: bytes, dev, lanes: int) -> dict:
             "lane_utilisation": util}
 
 
-def phase_inflate(torch, corpus: bytes, dev) -> dict:
+def phase_inflate(torch, corpus: bytes, dev, probes: list) -> dict:
     """The inflate kernel at the reference's 128 lanes and at the port's
     round width, which takes every chunk of the 32 MB request at once;
     returns the record at the port's width (the main path's shape)."""
     from qatzip_tpu_torch.ops import device_codecs as dc
+    from qatzip_tpu_torch.tools import probe_bench as PB
 
     width = dc.DeflateDeviceCodec.LOCKSTEP_BATCH
     _check(width * CHUNK <= len(corpus), "the corpus is narrower than a round")
-    rec128 = _inflate_round(torch, corpus, dev, LANES)
-    rec = _inflate_round(torch, corpus, dev, width)
+    _check(width == PB.INFLATE_LANES, "the probes time another round width")
+    rec128 = _inflate_round(torch, corpus, dev, LANES, probes)
+    rec = _inflate_round(torch, corpus, dev, width, probes)
     print(f"inflate: {width} lanes a round take {rec['ms']:.4f} ms, "
           f"{LANES} lanes {rec128['ms']:.4f} ms")
     return rec
@@ -335,6 +345,7 @@ def phase_sort(torch, corpus: bytes, dev) -> dict:
     from qatzip_tpu_torch.ops import match_finder as mf
     from qatzip_tpu_torch.ops import sort as S
     from qatzip_tpu_torch.tools import sort_bench as SB
+    from qatzip_tpu_torch.tools.h100 import FP32_OPS_S, HBM_BYTES_S
 
     data, lens = _first_chunks(torch, corpus, dev)
     cases = []
@@ -482,7 +493,8 @@ def _run(torch, sess, direction: str, src):
     return res, dt
 
 
-def phase_slice(torch, corpus: bytes, kernels: list, sort_rec: dict):
+def phase_slice(torch, corpus: bytes, kernels: list, sort_rec: dict,
+                probes: list):
     import qatzip_tpu_torch as qt
     from qatzip_tpu_torch.engine import core
     from qatzip_tpu_torch.engine.health import health
@@ -490,6 +502,7 @@ def phase_slice(torch, corpus: bytes, kernels: list, sort_rec: dict):
     from qatzip_tpu_torch.ops import inflate_kernel as K
     from qatzip_tpu_torch.ops import select as S
     from qatzip_tpu_torch.ops import sort as SO
+    from qatzip_tpu_torch.tools import probes as PR
 
     # the device route and the raw candidate format, whatever the
     # calibration record says (phase_routing follows the record)
@@ -515,6 +528,8 @@ def phase_slice(torch, corpus: bytes, kernels: list, sort_rec: dict):
     S.POS_KERNEL.launches = 0
     K.KERNEL.launches = 0
     SO.KERNEL.launches = 0
+    for k in PR.KERNELS.values():
+        k.launches = 0
     dd.failover_lanes = 0
     comp, t_c = _run(torch, sess, "compress", corpus)
     select_launches = S.POS_KERNEL.launches
@@ -523,11 +538,15 @@ def phase_slice(torch, corpus: bytes, kernels: list, sort_rec: dict):
                 "select_candidates": S.KERNEL.launches,
                 "inflate_decode": K.KERNEL.launches,
                 "sort_u32": SO.KERNEL.launches}
+    launches.update({name: k.launches for name, k in PR.KERNELS.items()})
 
     nchunks = -(-len(corpus) // CHUNK)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     sort_rec["launches"] = launches["sort_u32"]
+    for rec in probes:   # no path runs a probe
+        rec["launches"] = launches[rec["kernel"]]
+        _check(rec["launches"] == 0, f"the main path ran {rec['kernel']}")
     _check(launches["select_to_positions"] >= nchunks // LANES,
            f"select launched {select_launches} times on the main path")
     print(f"gzip-ext compress of {nchunks} chunks: {select_launches} "
@@ -808,16 +827,18 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     corpus = build_corpus(32)
     kernels = phase_select(torch, corpus, dev)
-    kernels.insert(1, phase_inflate(torch, corpus, dev))
+    probes = phase_probes(torch, dev)
+    kernels.insert(1, phase_inflate(torch, corpus, dev, probes))
     sort_rec = phase_sort(torch, corpus, dev)
     phase_lz4_decode(torch, corpus, dev)
     with tempfile.TemporaryDirectory() as tmpdir:
         rec = phase_calibrate(tmpdir)
-        runs = [phase_slice(torch, corpus, kernels, sort_rec)]
+        runs = [phase_slice(torch, corpus, kernels, sort_rec, probes)]
         runs += phase_lz4(torch, corpus)
         phase_profile(torch, runs)
         phase_routing(torch, corpus, rec)
     kernels.append(sort_rec)
+    kernels += probes
     _check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {_gpu_line()}")

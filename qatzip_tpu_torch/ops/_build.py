@@ -1,13 +1,17 @@
 """Build and bind the port's CUDA kernels.
 
-The sources are ``qatzip_tpu_torch/csrc/*.cu`` and ``*.cuh``.  ``nvcc``
-compiles them for Hopper (``sm_90a``), one process for each ``.cu`` file,
-all at once, and links them into one shared library with a plain C
-interface, which ``ctypes`` loads; no PyTorch header is compiled, so a
-build takes seconds.  The library goes to ``build/qatzip_tpu_torch/``
-beside the package and is rebuilt at first use whenever a source is newer
-than it (the rule of qatzip_tpu/native/build.py).  A missing ``nvcc`` or a
-failed build raises :class:`KernelError` with the compiler's output:
+Two libraries, each named in ``LIBRARIES`` with its sources: the path's
+kernels, ``libqzkernels.so`` from ``qatzip_tpu_torch/csrc/*.cu`` and
+``*.cuh``, and the construct probes (qatzip_tpu_torch/tools/probes.py),
+``libqzprobes.so`` from ``tools/probes.cu`` and ``probes.cuh``, apart so
+that a probe that does not compile cannot stop the codec.  ``nvcc``
+compiles a library's sources for Hopper (``sm_90a``), one process for each
+``.cu`` file, all at once, and links them into one shared library with a
+plain C interface, which ``ctypes`` loads; no PyTorch header is compiled,
+so a build takes seconds.  The libraries go to ``build/qatzip_tpu_torch/``
+beside the package and are rebuilt at first use whenever a source is newer
+than them (the rule of qatzip_tpu/native/build.py).  A missing ``nvcc`` or
+a failed build raises :class:`KernelError` with the compiler's output:
 nothing falls back.
 
 Each C entry point launches on the stream it is given and returns
@@ -27,15 +31,19 @@ import threading
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
+TOOLS = os.path.join(PKG, "tools")
 BUILD_DIR = os.path.join(os.path.dirname(PKG), "build", "qatzip_tpu_torch")
-LIB = os.path.join(BUILD_DIR, "libqzkernels.so")
-LOG = os.path.join(BUILD_DIR, "nvcc.log")
+KERNELS = "libqzkernels.so"
+PROBES = "libqzprobes.so"
+# library name -> (its directory, the glob of its .cu sources); the glob
+# with a "*" after it names every file the library depends on
+LIBRARIES = {KERNELS: (CSRC, "*.cu"), PROBES: (TOOLS, "probes.cu")}
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v"]
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 class KernelError(RuntimeError):
@@ -52,17 +60,25 @@ def _nvcc() -> str:
                        "the CUDA kernels of qatzip_tpu_torch cannot be built")
 
 
-def build(force: bool = False) -> str:
-    """Compile csrc/*.cu into LIB when it is missing or stale; returns LIB."""
-    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    deps = srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-    if (not force and os.path.exists(LIB)
-            and all(os.path.getmtime(LIB) >= os.path.getmtime(s)
+def log_path(name: str = KERNELS) -> str:
+    """The compiler's output of the last build of library ``name``."""
+    return os.path.join(BUILD_DIR, f"{name}.nvcc.log")
+
+
+def build(force: bool = False, name: str = KERNELS) -> str:
+    """Compile library ``name`` of LIBRARIES into BUILD_DIR when it is
+    missing or stale; returns its path."""
+    where, pattern = LIBRARIES[name]
+    srcs = sorted(glob.glob(os.path.join(where, pattern)))
+    deps = glob.glob(os.path.join(where, pattern + "*"))
+    lib = os.path.join(BUILD_DIR, name)
+    if (not force and os.path.exists(lib)
+            and all(os.path.getmtime(lib) >= os.path.getmtime(s)
                     for s in deps)):
-        return LIB
+        return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    tmp = f"{LIB}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{os.getpid()}.tmp"
     # one nvcc for each source, all started together, then one link
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{os.getpid()}.o")
             for s in srcs]
@@ -81,56 +97,58 @@ def build(force: bool = False) -> str:
     for o in objs:
         if os.path.exists(o):
             os.remove(o)
-    with open(LOG, "w") as f:
+    with open(log_path(name), "w") as f:
         for cmd, _, stdout, stderr in runs:
             f.write(" ".join(cmd) + "\n" + stdout + stderr)
     failed = [r for r in runs if r[1] != 0]
     if failed:
         cmd, rc, _, stderr = failed[0]
         raise KernelError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{stderr}")
-    os.replace(tmp, LIB)
-    return LIB
+    os.replace(tmp, lib)
+    return lib
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
+def library(name: str = KERNELS) -> ctypes.CDLL:
+    """Library ``name`` of LIBRARIES, loaded, built on first use."""
     with _lock:
-        if _lib is None:
-            path = build()
+        if name not in _libs:
+            path = build(name=name)
             try:
                 lib = ctypes.CDLL(path)
             except OSError as exc:
                 raise KernelError(f"cannot load {path}: {exc}") from exc
             lib.qz_cuda_error_string.restype = ctypes.c_char_p
             lib.qz_cuda_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]
 
 
 class Kernel:
-    """One C entry point of the library, with its launch count.
+    """One C entry point of a library (the path's unless ``lib`` names
+    another of LIBRARIES), with its launch count.
 
     Calling it launches the kernel; ``launches`` counts the calls whose
     launch the CUDA runtime accepted, and nothing else adds to it."""
 
-    def __init__(self, symbol: str, argtypes: list):
+    def __init__(self, symbol: str, argtypes: list, lib: str = KERNELS):
         self.symbol = symbol
         self.argtypes = argtypes
+        self.lib = lib
         self.launches = 0
         self._fn = None
 
     def __call__(self, *args) -> None:
         if self._fn is None:
             try:
-                fn = getattr(library(), self.symbol)
+                fn = getattr(library(self.lib), self.symbol)
             except AttributeError as exc:
-                raise KernelError(f"{self.symbol} is not in {LIB}") from exc
+                raise KernelError(f"{self.symbol} is not in "
+                                  f"{self.lib}") from exc
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         rc = self._fn(*args)
         if rc != 0:
-            msg = library().qz_cuda_error_string(rc).decode()
+            msg = library(self.lib).qz_cuda_error_string(rc).decode()
             raise KernelError(f"{self.symbol}: CUDA error {rc} ({msg})")
         self.launches += 1

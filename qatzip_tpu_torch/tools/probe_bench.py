@@ -1,0 +1,510 @@
+"""Check and time the construct probes' Hopper kernels on a CUDA card.
+
+    python3 -m qatzip_tpu_torch.tools.probe_bench
+
+Builds ``libqzprobes.so`` (qatzip_tpu_torch/tools/probes.cu), then runs
+every case of ``CASES``: the probes at the TPU probes' own shapes, and the
+chain, step, token and refill probes also at the inflate path's (512
+lanes, one round of a 32 MB request; 8 KB of tables a lane).  A case first
+holds its kernel against the plain version on the same inputs at a small
+trip count K (equal, or AssertionError), timing both there with CUDA
+events, beside one PyTorch call that computes the same where there is one;
+then it times the kernel at two trip counts and prints the slope, ns a
+unit = (t(K_hi) - t(K_lo)) / (K_hi - K_lo) (the TPU probes' own method,
+tools/probe_inflate_step5.py:53), beside the clock64() ticks a unit of one
+thread.  The inputs come from a torch.Generator seeded per case.
+chip_smoke.py runs the same cases (``run``) and puts their records in its
+kernels line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from qatzip_tpu_torch.ops import _build
+from qatzip_tpu_torch.ops import sort as SO
+from qatzip_tpu_torch.tools import probes as P
+from qatzip_tpu_torch.tools.h100 import FP32_OPS_S, HBM_BYTES_S
+
+SRC = "qatzip_tpu_torch/tools/probes.cu"
+INFLATE_LANES = 512     # DeflateDeviceCodec.LOCKSTEP_BATCH: a round's lanes
+INFLATE_WORDS = 2048    # QZ_SMEM_WORDS: a lane's widened tables, 8 KB
+
+
+@dataclass
+class Case:
+    """One probe at one shape.  ``make(gen)`` gives CPU inputs; ``run(x,
+    K, clk)`` calls the wrapper (the kernel for CUDA inputs); ``plain(x,
+    K)`` the plain version; ``units`` what one K is; ``work(x, K)`` the
+    (bytes, integer operations) the function needs; ``library(x)`` one
+    PyTorch call computing the same at K = k (or None)."""
+    name: str
+    kernel: str
+    replaces: str
+    shape: str
+    units: str
+    make: Callable
+    run: Callable
+    plain: Callable
+    k: int
+    k_lo: int | None
+    k_hi: int | None
+    work: Callable
+    library: Callable | None = None
+    source: str = SRC
+
+
+def _u32(gen, shape) -> torch.Tensor:
+    return P._i32(torch.randint(0, 1 << 32, shape, generator=gen,
+                                dtype=torch.int64))
+
+
+def _ints(gen, lo, hi, shape) -> torch.Tensor:
+    return torch.randint(lo, hi, shape, generator=gen,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * 4 for t in ts if isinstance(t, torch.Tensor))
+
+
+def _elementwise(ops_per_step: int):
+    """work of K steps over every element of the last input: the inputs
+    read once, an output like the last input written once."""
+    def work(x, K):
+        return _nbytes(*x) + _nbytes(x[-1]), K * x[-1].numel() * ops_per_step
+    return work
+
+
+def _chain_case(name, mode, replaces, shape, t_shape, i_shape, k, k_lo, k_hi,
+                *, smem=True, hi=1 << 20, post=None, ops=2,
+                units="dependent load a lane", library=None):
+    """Tables of values in [0, hi), indexes in range of the table."""
+    def make(gen):
+        n = t_shape[0] if mode == "column" else t_shape[-1]
+        return _ints(gen, 0, hi, t_shape), _ints(gen, 0, n, i_shape)
+
+    return Case(name, "qz_probe_chain", replaces, shape, units, make,
+                lambda x, K, clk=None: P.probe_chain(mode, x[0], x[1], K,
+                                                     smem=smem, post=post,
+                                                     clk=clk),
+                lambda x, K: _PLAIN_CHAIN[mode](x, K, post), k, k_lo, k_hi,
+                _elementwise(ops), library)
+
+
+_PLAIN_CHAIN = {
+    "dep": lambda x, K, post: P.dep_gather_loop(x[0], x[1], K),
+    "indep4": lambda x, K, post: P.indep_gather_loop(x[0], x[1], K, 4),
+    "indep8": lambda x, K, post: P.indep_gather_loop(x[0], x[1], K, 8),
+    "column": lambda x, K, post: P._column(
+        x[0], x[1], K, x[0].shape[0] - 1 if post is None else post),
+}
+
+
+def _walk_case():
+    def make(gen):
+        return (_u32(gen, (8, 128)),)
+
+    return Case("probe_chain_walk", "qz_probe_chain",
+                "tools/probe_pallas.py:107",
+                "[8, 128], one thread", "serial step", make,
+                lambda x, K, clk=None: P.probe_chain("walk", x[0], None, K,
+                                                     clk=clk),
+                lambda x, K: P.scalar_walk(x[0], K), 512, 4096, 16384,
+                lambda x, K: (_nbytes(x[0]) + 4, K * 5))
+
+
+def _alu_case(name, mode, replaces, plain, shape, k, library=None):
+    def make(gen):
+        return (_u32(gen, shape),)
+
+    return Case(name, "qz_probe_alu", replaces, str(list(shape)),
+                "step a lane", make,
+                lambda x, K, clk=None: P.probe_alu(mode, x[0], K, clk),
+                lambda x, K: plain(x[0], K), k, 16384, 131072,
+                _elementwise({"hash": 6, "ew": 3, "double": 1}[mode]),
+                library)
+
+
+def _step3_case(lpc):
+    def make(gen):
+        return tuple(_u32(gen, (128, 128)) for _ in range(3)) + (
+            _ints(gen, 0, 1 << 12, (128, 128)),)
+
+    return Case(f"probe_step_step3_lpc{lpc}", "qz_probe_step",
+                "tools/probe_inflate_step3.py:81",
+                f"[128, 128], {lpc} lanes a CTA",
+                "step a lane", make,
+                lambda x, K, clk=None: P.probe_step(
+                    "step3", "none", *x, K, lanes_per_cta=lpc, clk=clk)[0],
+                lambda x, K: P.step_loop(*x, K), 4, 1024, 4096,
+                _elementwise(30))
+
+
+def _step5_case(lanes, rc, lpc, store="none"):
+    W, sc = 128, 256
+
+    def make(gen):
+        return (_u32(gen, (W, lanes)), _u32(gen, (rc + sc, lanes)),
+                _u32(gen, (rc + sc, lanes)), _ints(gen, 0, 1000, (1, lanes)))
+
+    def run(x, K, clk=None):
+        out, toks = P.probe_step("step5", store, *x, K, lanes_per_cta=lpc,
+                                 root_cells=rc, sub_cells=sc, clk=clk)
+        return (out, toks) if store != "none" else out
+
+    def plain(x, K):
+        bp, toks = P.lane_major_step(*x, K, rc, sc)
+        return (bp, toks) if store != "none" else bp
+
+    def work(x, K):
+        return (_nbytes(*x) + _nbytes(x[-1])
+                + (K * lanes * 4 if store != "none" else 0), K * lanes * 70)
+
+    where = "the inflate round" if lanes == INFLATE_LANES else "TPU probe"
+    return Case(f"probe_step_step5_{lanes}l_root{rc}_lpc{lpc}"
+                + ("" if store == "none" else f"_{store}"), "qz_probe_step",
+                "tools/probe_inflate_step5.py:249",
+                f"{lanes} lanes ({where}), W {W}, root {rc} + sub {sc} cells, "
+                f"{lpc} lanes a CTA, tokens {store}", "step a lane", make,
+                run, plain, 4, 512, 2048, work)
+
+
+def _tokens_case(lanes, lpc, store):
+    tile = 256
+
+    def make(gen):
+        return (_ints(gen, 0, 3, (lanes // 128, 128)),
+                _ints(gen, 0, 128, (lanes // 128, 128)))
+
+    return Case(f"probe_step_tokens_{lanes}l_lpc{lpc}_{store}",
+                "qz_probe_step", "tools/probe_inflate_step4.py:92",
+                f"{lanes} lanes, {lpc} lanes a CTA, tile {tile}, store "
+                f"{store}",
+                "step a lane (a token stored)", make,
+                lambda x, K, clk=None: P.probe_step(
+                    "tokens", store, None, x[0], None, x[1], K,
+                    lanes_per_cta=lpc, tile=tile, clk=clk)[1],
+                lambda x, K: P.tokens_dma(x[0], x[1], K)[0], tile, 1024,
+                4096, lambda x, K: (_nbytes(*x) + K * lanes * 4,
+                                    K * lanes * 3))
+
+
+def _roll_case(S, shift, axis, replaces):
+    def make(gen):
+        return (_ints(gen, 0, 1 << 30, (S, 128)),)
+
+    return Case(f"probe_tile_roll_{S}x128_axis{axis}", "qz_probe_tile",
+                replaces, f"[{S}, 128], shift {shift}, axis {axis}",
+                "call", make,
+                lambda x, K, clk=None: P.probe_roll(x[0], shift, axis),
+                lambda x, K: P.roll(x[0], shift, axis), 1, None, None,
+                lambda x, K: (2 * _nbytes(x[0]), 0),
+                lambda x: torch.roll(x[0], shift, axis))
+
+
+def _transpose_case():
+    def make(gen):
+        return (_u32(gen, (128, 128)),)
+
+    return Case("probe_tile_transpose", "qz_probe_tile",
+                "tools/probe_inflate_step5.py:63 (mk_transpose)",
+                "[128, 128]", "transpose + 1", make,
+                lambda x, K, clk=None: P.probe_transpose(x[0], K, clk),
+                lambda x, K: P.transpose(x[0], K), 1, 64, 512,
+                lambda x, K: (2 * _nbytes(x[0]), K * x[0].numel()),
+                lambda x: x[0].t() + 1)
+
+
+def _refill_case(name, replaces, B, NW, win, how, alt=0, blocks=False,
+                 k=1, k_lo=256, k_hi=2048):
+    def make(gen):
+        stream = _u32(gen, (B, NW))
+        if blocks:   # a block index a lane, blocks of alt words
+            off = _ints(gen, 0, NW // alt - 2, (B,)) * alt
+        else:
+            off = _ints(gen, 0, NW - win - alt, (B,))
+        return stream, off
+
+    def work(x, K):
+        """the offsets and the windows read (two when odd refills move by
+        alt), the last windows written"""
+        reads = 2 if alt and K > 1 else 1
+        return B * 4 + (reads + 1) * B * win * 4, 0
+
+    def library(x):   # the last window of each lane, one gather
+        o = x[1].to(torch.int64).reshape(-1, 1) + ((k - 1) & 1) * alt
+        return torch.gather(x[0], 1, o + torch.arange(win, device=o.device))
+
+    return Case(f"probe_tile_{name}_{B}l_{how}", "qz_probe_tile", replaces,
+                f"{B} lanes, stream {NW} words, window {win}"
+                + (f", blocks of {alt}" if blocks else ""),
+                "refill a lane", make,
+                lambda x, K, clk=None: P.probe_refill(x[0], x[1], win, K,
+                                                      alt=alt, how=how,
+                                                      clk=clk),
+                lambda x, K: P._refill(x[0], x[1], win, K, alt), k, k_lo,
+                k_hi, work, library)
+
+
+def _bitonic_case(segment, replaces):
+    def make(gen):
+        return (_u32(gen, (8, 128)),)
+
+    n = {"flat": 1024, "rows": 128, "cols": 8}[segment]
+    lg = n.bit_length() - 1
+
+    def library(x):
+        if segment == "flat":
+            return torch.sort(x[0].reshape(-1)).values
+        return torch.sort(x[0], dim=1 if segment == "rows" else 0).values
+
+    return Case(f"probe_tile_bitonic_{segment}", "qz_probe_tile", replaces,
+                f"[8, 128], segments of {n}", "sort of the tile", make,
+                lambda x, K, clk=None: P.probe_bitonic(x[0], segment, K, clk),
+                lambda x, K: P.bitonic(x[0], segment), 1, 16, 64,
+                lambda x, K: (2 * _nbytes(x[0]),
+                              K * 3 * 512 * lg * (lg + 1) // 2),
+                library)
+
+
+def _sort_case(B):
+    def make(gen):
+        return (_ints(gen, 0, 1 << 30, (B, 65536)),)
+
+    lg = 16
+    return Case(f"probe_sort_{B}x65536", "sort_u32",
+                "tools/probe_pallas.py:154" if B == 1 else
+                "tools/probe_pallas.py:186,225", f"[{B}, 65536] keys < 2^30",
+                "call", make, lambda x, K, clk=None: SO.sort_u32(x[0])[0],
+                lambda x, K: SO.sort_u32_ref(x[0])[0], 1, None, None,
+                lambda x, K: (2 * _nbytes(x[0]),
+                              3 * B * 65536 // 2 * lg * (lg + 1) // 2),
+                lambda x: torch.sort(x[0], dim=1).values,
+                source="qatzip_tpu_torch/csrc/sort.cu")
+
+
+_DEP = ("tools/probe_inflate_step.py:53, tools/probe_inflate_step3.py:44, "
+        "tools/probe_pallas4.py:48,124")
+_COLUMN = ("tools/probe_inflate_step5.py:63 (mk_subshuf, mk_onehot, "
+           "mk_groupsel)")
+_REFILL_D = "tools/probe_inflate_step.py:121"
+
+
+def _cases() -> list:
+    IL, IW = INFLATE_LANES, INFLATE_WORDS
+    cases = [
+        _chain_case("probe_chain_dep", "dep", _DEP, "[128, 128] rows of 128",
+                    (128, 128), (128, 128), 8, 4096, 16384),
+        _chain_case("probe_chain_dep_ldg", "dep", _DEP,
+                    "[128, 128] rows of 128, table through __ldg",
+                    (128, 128), (128, 128), 8, 4096, 16384, smem=False),
+        _chain_case("probe_chain_indep4", "indep4",
+                    "tools/probe_inflate_step.py:74", "[128, 128], W 4",
+                    (128, 128), (128, 128), 4, 2048, 8192, ops=13,
+                    units="step of 4 independent loads a lane"),
+        _chain_case("probe_chain_indep8", "indep8",
+                    "tools/probe_inflate_step.py:74", "[128, 128], W 8",
+                    (128, 128), (128, 128), 4, 2048, 8192, ops=25,
+                    units="step of 8 independent loads a lane"),
+        _chain_case("probe_chain_dep_grid32", "dep", _DEP,
+                    "[32 x 512, 128] (p_chain_grid)", (16384, 128),
+                    (16384, 128), 16, 16, 64),
+        *(_chain_case(f"probe_chain_gather{w}", "dep",
+                      "tools/probe_pallas.py:82",
+                      f"[8, {w}] table, [8, {w}] idx (p_gather)", (8, w),
+                      (8, w), 1, 1024, 4096,
+                      library=lambda x: torch.gather(x[0], 1, x[1].long()))
+          for w in (128, 1024)),
+        _chain_case("probe_chain_tbl1024", "dep", "tools/probe_pallas4.py:79",
+                    "[512, 128] indexes, one 1024-entry table", (1, 1024),
+                    (512, 128), 1, 1024, 4096,
+                    library=lambda x: torch.take(x[0], x[1].to(torch.int64))),
+        _chain_case(f"probe_chain_dep_{IL}l_{IW}w", "dep", _DEP,
+                    f"{IL} lanes a thread each, {IW}-word tables (8 KB)",
+                    (IL, IW), (IL, 1), 8, 4096, 16384),
+        _chain_case(f"probe_chain_dep_{IL}l_{IW}w_ldg", "dep", _DEP,
+                    f"{IL} lanes a thread each, {IW}-word tables through "
+                    "__ldg", (IL, IW), (IL, 1), 8, 4096, 16384, smem=False),
+        _chain_case("probe_chain_column_onehot128", "column", _COLUMN,
+                    "[128, 128] columns, [1, 128] idx (C)", (128, 128),
+                    (1, 128), 8, 1024, 4096, hi=128, ops=4,
+                    units="dependent column load a lane"),
+        _chain_case("probe_chain_column_groupsel512", "column", _COLUMN,
+                    "[512, 128] columns, [8, 128] idx (C2)", (512, 128),
+                    (8, 128), 8, 1024, 4096, hi=512, ops=4,
+                    units="dependent column load a lane"),
+        _chain_case("probe_chain_column_subshuf", "column", _COLUMN,
+                    "[8, 128] columns, [8, 128] idx (B)", (8, 128), (8, 128),
+                    8, 1024, 4096, hi=8, post=0xFFFFFFFF, ops=4,
+                    units="dependent column load a lane"),
+        _walk_case(),
+        _alu_case("probe_alu_hash", "hash", "tools/probe_inflate_step.py:92",
+                  P.elemwise_loop, (128, 128), 8),
+        _alu_case("probe_alu_ew", "ew",
+                  "tools/probe_inflate_step5.py:63 (mk_ew)",
+                  P.ew, (128, 128), 8),
+        _alu_case("probe_alu_double", "double", "tools/probe_pallas.py:53",
+                  P.double, (8, 128), 1, library=lambda x: x[0] * 2),
+        _step3_case(32),
+        _step3_case(1),
+        _step5_case(128, 256, 1),
+        _step5_case(128, 128, 1),
+        _step5_case(128, 256, 8),
+        _step5_case(128, 256, 32),
+        _step5_case(IL, 256, 1),
+        _step5_case(IL, 256, 8),
+        _step5_case(IL, 256, 32),
+        _step5_case(IL, 256, 1, "lone"),
+        _tokens_case(128, 1, "lone"),
+        _tokens_case(128, 32, "lone"),
+        _tokens_case(128, 32, "tile"),
+        _tokens_case(IL, 1, "lone"),
+        _tokens_case(IL, 32, "lone"),
+        _tokens_case(IL, 32, "tile"),
+        _roll_case(512, 64, 0, "tools/probe_pallas3.py:26"),
+        _roll_case(8, 1, 1, "tools/probe_pallas.py:68, "
+                   "tools/probe_pallas3.py:26"),
+        _transpose_case(),
+    ]
+    for how in ("ld", "cp", "tma"):
+        cases.append(_refill_case("refill_dma", _REFILL_D, 128, 4096, 128,
+                                  how))
+        cases.append(_refill_case("refill_dma", _REFILL_D, IL, 4096, 128,
+                                  how))
+    cases += [
+        _refill_case("refill_vmem", "tools/probe_inflate_step3.py:104", 128,
+                     4096, 64, "ld"),
+        _refill_case("refill3d", "tools/probe_inflate_step4.py:53", 128,
+                     256 * 64, 128, "ld", alt=64, blocks=True, k=2, k_lo=256,
+                     k_hi=2048),
+        _refill_case("refill3d", "tools/probe_inflate_step4.py:53", 128,
+                     256 * 64, 128, "tma", alt=64, blocks=True, k=2,
+                     k_lo=256, k_hi=2048),
+        _bitonic_case("flat", "tools/probe_pallas3.py:77"),
+        _bitonic_case("rows", "tools/probe_pallas3.py:113"),
+        _bitonic_case("cols", "tools/probe_pallas3.py:145"),
+        _sort_case(1),
+        _sort_case(32),
+    ]
+    return cases
+
+
+CASES = _cases()
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean ms a call of fn on the current stream, after one warm call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _tuple(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+def run_case(case: Case, dev, seed: int) -> dict:
+    """Check, time and slope-time one case; returns its record."""
+    gen = torch.Generator().manual_seed(seed)
+    x = tuple(t.to(dev) for t in case.make(gen))
+    got = _tuple(case.run(x, case.k))
+    want = _tuple(case.plain(x, case.k))
+    torch.cuda.synchronize()
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{case.name}: kernel != plain")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                           .abs().max()) if g.numel() else 0)
+    ms = _time_ms(lambda: case.run(x, case.k), 5)
+    t0 = time.perf_counter()
+    case.plain(x, case.k)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    nbytes, ops = case.work(x, case.k)
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = ops / FP32_OPS_S * 1e3
+    lib_ms = (_time_ms(lambda: case.library(x), 5) if case.library
+              else None)
+    rec = {"name": case.name, "kernel": case.kernel, "route": "cuda",
+           "source": case.source,
+           "replaces": case.replaces, "path": None, "shape": case.shape,
+           "k": case.k, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": lib_ms, "unit": case.units}
+    if case.k_lo is not None:
+        clk = torch.zeros(1, dtype=torch.int64, device=dev)
+        t_lo = _time_ms(lambda: case.run(x, case.k_lo, clk), 5)
+        c_lo = int(clk[0])
+        t_hi = _time_ms(lambda: case.run(x, case.k_hi, clk), 5)
+        c_hi = int(clk[0])
+        dk = case.k_hi - case.k_lo
+        rec.update(k_lo=case.k_lo, k_hi=case.k_hi,
+                   ns_per_unit=(t_hi - t_lo) / dk * 1e6,
+                   clocks_per_unit=(c_hi - c_lo) / dk)
+    return rec
+
+
+def line(rec: dict) -> str:
+    s = (f"probe {rec['name']} ({rec['shape']}): equal to plain at K "
+         f"{rec['k']}; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+         f" ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    if rec["library_ms"] is not None:
+        s += f", library call {rec['library_ms']:.4f} ms"
+    if "ns_per_unit" in rec:
+        s += (f"; slope K {rec['k_lo']}..{rec['k_hi']}: "
+              f"{rec['ns_per_unit']:.3f} ns and "
+              f"{rec['clocks_per_unit']:.2f} clocks a {rec['unit']}")
+    return s
+
+
+def run(dev=torch.device("cuda", 0), log=print) -> list:
+    """Every case on dev (the card unless given); returns their records,
+    printing a line each."""
+    recs = []
+    for i, case in enumerate(CASES):
+        recs.append(run_case(case, dev, seed=i))
+        log(line(recs[-1]))
+    return recs
+
+
+def step_skeleton_ns(recs: list, lanes: int) -> float:
+    """The measured STEP5 skeleton at one lane a CTA, ns a step, over the
+    inflate's region layout (root 256 + sub 256 cells) at ``lanes``."""
+    return next(r["ns_per_unit"] for r in recs
+                if r["name"] == f"probe_step_step5_{lanes}l_root256_lpc1")
+
+
+def dep_load_ns(recs: list) -> float:
+    """The measured dependent shared-memory load at the inflate's shape
+    (512 lanes, a thread a CTA, 8 KB tables), ns."""
+    return next(r["ns_per_unit"] for r in recs if r["name"] ==
+                f"probe_chain_dep_{INFLATE_LANES}l_{INFLATE_WORDS}w")
+
+
+def main() -> None:
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    t0 = time.perf_counter()
+    _build.build(force=True, name=_build.PROBES)
+    print(f"probe build: {time.perf_counter() - t0:.2f} s")
+    recs = run()
+    print(json.dumps(recs))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,630 @@
+// Hopper counterparts of the Mosaic construct probes (sm_90a).
+//
+// Replaces the 25 pl.pallas_call sites of tools/probe_pallas.py,
+// probe_pallas3.py, probe_pallas4.py and probe_inflate_step{,3,4,5}.py
+// (each kernel's C entry point names the sites it covers).  The TPU probes
+// measured what a lockstep decoder can be built from under Mosaic: lane
+// gathers, elementwise chains, a decode-step skeleton, refills, token
+// tiles, rolls, transposes, small sorts.  Each kernel here computes the
+// same function, and times it on this card: a thread an element or lane,
+// a trip count K, so that the slope over two values of K is the cost of one
+// unit (chip_smoke.py, tools/probe_bench.py).  What bounds each is latency:
+// one dependent load or integer operation after another; none moves enough
+// bytes to reach the memory rate, so the bounds chip_smoke.py prints are
+// far below the times, and the time a step is the number to read.
+//
+// Four kernels, each a template over what it probes:
+//   qz_probe_chain  table lookups: dependent (DEP), W independent (INDEP),
+//                   down a lane's column (COLUMN), one thread's serial walk
+//                   (WALK); the table in shared memory or read with __ldg.
+//   qz_probe_alu    register-only integer chains (HASH, EW, DOUBLE).
+//   qz_probe_step   a decode step (STEP3, STEP5, TOKENS) with per-lane
+//                   window and tables in shared memory, 1-32 lanes a CTA,
+//                   tokens stored not at all, one 4-byte store a step
+//                   (LONE), or staged TILE steps and flushed 16 bytes a
+//                   thread (TILE).
+//   qz_probe_tile   a tile through one CTA: ROLL on either axis,
+//                   TRANSPOSE, a window REFILL by loads, cp.async or a TMA
+//                   bulk copy, BITONIC sorts of its segments.
+// Each C entry launches on the given stream and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a mode it does not have).  A non-null clk
+// receives the clock64() ticks of thread 0 of block 0 around its loop.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "probes.cuh"
+
+#define QZP_MAX_SMEM (227 * 1024)
+
+template <class F>
+static int qzp_smem(F* kernel, size_t bytes) {
+  if (bytes > QZP_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return 0;
+}
+
+__device__ inline bool qzp_timer_thread() {
+  return threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0;
+}
+
+// -- qz_probe_chain -----------------------------------------------------------
+
+enum { QZP_DEP = 0, QZP_INDEP4 = 1, QZP_INDEP8 = 2, QZP_COLUMN = 3,
+       QZP_WALK = 4 };
+
+struct QzpChain {
+  const uint32_t* t;  // DEP/INDEP/WALK: [t_rows, t_cols] rows (t_rows 1 or
+                      // rows); COLUMN: [t_rows, t_cols], a column a lane
+  int t_rows, t_cols;
+  const uint32_t* idx;  // [rows, cols]
+  uint32_t* out;        // [rows, cols]; WALK: [1]
+  int rows, cols, K;
+  uint32_t mask, post;
+  long long* clk;
+};
+
+// DEP / INDEP: block (x, y) takes elements x * blockDim.x ... of row y and
+// reads the row's table (row y, or row 0 of a one-row table).
+template <int MODE, bool SMEM>
+__global__ void qzp_chain_rows(QzpChain a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int r = blockIdx.y;
+  const uint32_t* g = a.t + (int64_t)(a.t_rows == 1 ? 0 : r) * a.t_cols;
+  const uint32_t* row = g;
+  if (SMEM) {
+    for (int c = threadIdx.x; c < a.t_cols; c += blockDim.x) sm[c] = g[c];
+    __syncthreads();
+    row = sm;
+  }
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= a.cols) return;
+  uint32_t v = a.idx[(int64_t)r * a.cols + j];
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k) {
+    if (MODE == QZP_DEP)
+      v = SMEM ? qzp_dep_step(row, v, a.mask) : __ldg(row + (v & a.mask));
+    else if (SMEM)
+      v = qzp_indep_step<MODE == QZP_INDEP4 ? 4 : 8>(row, v, a.mask);
+    else {
+      uint32_t acc = v;
+#pragma unroll
+      for (int w = 0; w < (MODE == QZP_INDEP4 ? 4 : 8); ++w)
+        acc += __ldg(row + ((v + (uint32_t)w) & a.mask));
+      v = acc & a.mask;
+    }
+  }
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  a.out[(int64_t)r * a.cols + j] = v;
+}
+
+// COLUMN: block x takes 32 lanes (columns) and every row of idx, thread
+// (row, lane); in shared memory the block's columns lie [n][32], so that a
+// warp's 32 lanes read 32 banks whatever their rows.
+template <bool SMEM>
+__global__ void qzp_chain_column(QzpChain a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int c0 = blockIdx.x * 32;
+  if (SMEM) {
+    for (int i = threadIdx.x; i < a.t_rows * 32; i += blockDim.x)
+      sm[i] = a.t[(int64_t)(i >> 5) * a.t_cols + c0 + (i & 31)];
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31, r = threadIdx.x >> 5;
+  uint32_t v = a.idx[(int64_t)r * a.cols + c0 + lane];
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k)
+    v = SMEM ? qzp_column_step(sm + lane, 32, v, a.mask, a.post)
+             : (v + __ldg(a.t + (int64_t)(v & a.mask) * a.t_cols + c0 + lane))
+                   & a.post;
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  a.out[(int64_t)r * a.cols + c0 + lane] = v;
+}
+
+// WALK: one thread walks K steps over the [t_rows, t_cols] tile.
+template <bool SMEM>
+__global__ void qzp_chain_walk(QzpChain a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int n = a.t_rows * a.t_cols;
+  const uint32_t* x = a.t;
+  if (SMEM) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) sm[i] = a.t[i];
+    __syncthreads();
+    x = sm;
+  }
+  if (threadIdx.x) return;
+  uint32_t acc = 0;
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k)
+    acc = SMEM ? qzp_walk_step(x, a.t_rows, a.t_cols, acc, k)
+               : acc + __ldg(x + (acc & (a.t_rows - 1)) * a.t_cols +
+                             (k & (a.t_cols - 1)));
+  if (a.clk) *a.clk = clock64() - t0;
+  a.out[0] = acc;
+}
+
+template <int MODE, bool SMEM>
+static int qzp_launch_rows(const QzpChain& a, cudaStream_t s) {
+  const size_t bytes = SMEM ? (size_t)a.t_cols * 4 : 0;
+  const int rc = qzp_smem(qzp_chain_rows<MODE, SMEM>, bytes);
+  if (rc) return rc;
+  const int threads = a.cols < 128 ? ((a.cols + 31) & ~31) : 128;
+  const dim3 grid((a.cols + threads - 1) / threads, a.rows);
+  qzp_chain_rows<MODE, SMEM><<<grid, threads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// probe_inflate_step.py:53 dep_gather_loop, :74 indep_gather_loop;
+// probe_inflate_step3.py:44 dep_loop; probe_pallas.py:82 p_gather,
+// :107 p_walk; probe_pallas4.py:48 p_chain, :79 p_tbl, :124 p_chain_grid;
+// probe_inflate_step5.py:63 pallas1 for mk_subshuf, mk_onehot, mk_groupsel.
+extern "C" int qz_probe_chain(int mode, int smem, const void* t, int t_rows,
+                              int t_cols, const void* idx, void* out,
+                              int rows, int cols, int K, unsigned mask,
+                              unsigned post, void* clk, void* stream) {
+  const QzpChain a = {(const uint32_t*)t, t_rows, t_cols,
+                      (const uint32_t*)idx, (uint32_t*)out, rows, cols, K,
+                      mask, post, (long long*)clk};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (mode * 2 + (smem ? 1 : 0)) {
+    case QZP_DEP * 2: return qzp_launch_rows<QZP_DEP, false>(a, s);
+    case QZP_DEP * 2 + 1: return qzp_launch_rows<QZP_DEP, true>(a, s);
+    case QZP_INDEP4 * 2: return qzp_launch_rows<QZP_INDEP4, false>(a, s);
+    case QZP_INDEP4 * 2 + 1: return qzp_launch_rows<QZP_INDEP4, true>(a, s);
+    case QZP_INDEP8 * 2: return qzp_launch_rows<QZP_INDEP8, false>(a, s);
+    case QZP_INDEP8 * 2 + 1: return qzp_launch_rows<QZP_INDEP8, true>(a, s);
+  }
+  if (mode == QZP_COLUMN) {
+    if (cols % 32 || rows * 32 > 1024) return (int)cudaErrorInvalidValue;
+    const size_t bytes = smem ? (size_t)t_rows * 32 * 4 : 0;
+    int rc = smem ? qzp_smem(qzp_chain_column<true>, bytes)
+                  : qzp_smem(qzp_chain_column<false>, bytes);
+    if (rc) return rc;
+    if (smem)
+      qzp_chain_column<true><<<cols / 32, rows * 32, bytes, s>>>(a);
+    else
+      qzp_chain_column<false><<<cols / 32, rows * 32, bytes, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (mode == QZP_WALK) {
+    const size_t bytes = smem ? (size_t)t_rows * t_cols * 4 : 0;
+    int rc = smem ? qzp_smem(qzp_chain_walk<true>, bytes)
+                  : qzp_smem(qzp_chain_walk<false>, bytes);
+    if (rc) return rc;
+    if (smem)
+      qzp_chain_walk<true><<<1, 128, bytes, s>>>(a);
+    else
+      qzp_chain_walk<false><<<1, 128, bytes, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// -- qz_probe_alu -------------------------------------------------------------
+
+enum { QZP_HASH = 0, QZP_EW = 1, QZP_DOUBLE = 2 };
+
+template <int MODE>
+__global__ void qzp_alu(const uint32_t* __restrict__ x,
+                        uint32_t* __restrict__ out, int n, int K,
+                        long long* clk) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t v = x[i];
+  const long long t0 = clock64();
+  for (int k = 0; k < K; ++k) {
+    if (MODE == QZP_HASH) v = qzp_hash_step(v);
+    if (MODE == QZP_EW) v = qzp_ew_step(v);
+    if (MODE == QZP_DOUBLE) {
+      v = qzp_double_step(v);
+      asm volatile("" : "+r"(v));  // one multiply a step, not a shift by K
+    }
+  }
+  if (clk && qzp_timer_thread()) *clk = clock64() - t0;
+  out[i] = v;
+}
+
+// probe_inflate_step.py:92 elemwise_loop (HASH); probe_inflate_step5.py:63
+// pallas1 for mk_ew (EW); probe_pallas.py:53 p_double (DOUBLE).
+extern "C" int qz_probe_alu(int mode, const void* x, void* out, int n, int K,
+                            void* clk, void* stream) {
+  const int threads = 128, blocks = (n + threads - 1) / threads;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t* xi = (const uint32_t*)x;
+  uint32_t* o = (uint32_t*)out;
+  long long* c = (long long*)clk;
+  switch (mode) {
+    case QZP_HASH: qzp_alu<QZP_HASH><<<blocks, threads, 0, s>>>(xi, o, n, K, c); break;
+    case QZP_EW: qzp_alu<QZP_EW><<<blocks, threads, 0, s>>>(xi, o, n, K, c); break;
+    case QZP_DOUBLE: qzp_alu<QZP_DOUBLE><<<blocks, threads, 0, s>>>(xi, o, n, K, c); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// -- qz_probe_step ------------------------------------------------------------
+
+enum { QZP_STEP3 = 0, QZP_STEP5 = 1, QZP_TOKENS = 2 };
+enum { QZP_STORE_NONE = 0, QZP_STORE_LONE = 1, QZP_STORE_TILE = 2 };
+
+struct QzpStepArgs {
+  // STEP3 / TOKENS: [lanes / 128, 128] row arrays, a lane an element, its
+  // row's window and tables shared with the row's other lanes (TOKENS
+  // reads only tll).  STEP5: win [W, lanes], tll and td [rc + sc, lanes], a
+  // column a lane.
+  const uint32_t* win;
+  const uint32_t* tll;
+  const uint32_t* td;
+  const int32_t* state;  // bitpos (STEP3, STEP5) or idx (TOKENS), [lanes]
+  int32_t* out;          // [lanes]
+  uint32_t* tokens;      // [K, lanes]
+  int lanes, lpc, K, tile;
+  QzpStep5 p;
+  long long* clk;
+};
+
+// A CTA takes lpc consecutive lanes (lpc divides 128 and lanes), a lane a
+// thread.  Row arrays: the CTA stages its row's 128-word arrays.  Column
+// arrays: it stages its lanes' columns [row][lpc].  TILE: a [tile][lpc]
+// token tile after them, flushed every tile steps with 16-byte stores.
+template <int MODE, int STORE>
+__global__ void qzp_step(QzpStepArgs a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int l0 = blockIdx.x * a.lpc, t = threadIdx.x, lane = l0 + t;
+  const int lpc = a.lpc;
+  uint32_t* tile_buf;
+  if (MODE == QZP_STEP5) {
+    const int rows = a.p.W + 2 * (a.p.rc + a.p.sc);
+    for (int i = t; i < rows * lpc; i += lpc) {
+      const int r = i / lpc, c = i - r * lpc;
+      const uint32_t* g =
+          r < a.p.W ? a.win + (int64_t)r * a.lanes
+          : r < a.p.W + a.p.rc + a.p.sc
+              ? a.tll + (int64_t)(r - a.p.W) * a.lanes
+              : a.td + (int64_t)(r - a.p.W - a.p.rc - a.p.sc) * a.lanes;
+      sm[i] = g[l0 + c];
+    }
+    tile_buf = sm + rows * lpc;
+  } else {
+    const int64_t row0 = (int64_t)(l0 >> 7) << 7;
+    for (int i = t; i < 3 * 128; i += lpc) {
+      const uint32_t* g = i < 128 ? a.win : i < 256 ? a.tll : a.td;
+      if (MODE == QZP_STEP3 || (i >= 128 && i < 256))
+        sm[i] = g[row0 + (i & 127)];
+    }
+    tile_buf = sm + 3 * 128;
+  }
+  __syncthreads();
+  int32_t s = a.state[lane], acc = 0;
+  uint32_t* tok = a.tokens + lane;
+  int kt = 0;  // TILE: the step's row of the tile
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k) {
+    uint32_t v = 0;
+    if (MODE == QZP_STEP3)
+      qzp_step3((const int32_t*)sm, (const int32_t*)sm + 128,
+                (const int32_t*)sm + 256, 1, s, acc);
+    if (MODE == QZP_STEP5) {
+      const int base = a.p.W * lpc;
+      v = qzp_step5(sm + t, sm + base + t,
+                    sm + base + (a.p.rc + a.p.sc) * lpc + t, lpc, a.p, s);
+    }
+    if (MODE == QZP_TOKENS) {
+      v = sm[128 + ((uint32_t)s & 127u)];
+      s = (int32_t)((uint32_t)s + v);
+    }
+    if (STORE == QZP_STORE_LONE) {
+      *tok = v;
+      tok += a.lanes;
+    }
+    if (STORE == QZP_STORE_TILE) {
+      tile_buf[kt * lpc + t] = v;
+      if (++kt == a.tile) {
+        // thread t flushes 16 bytes at a time: lpc / 4 vectors a row
+        __syncthreads();
+        const int k0 = k + 1 - a.tile, per_row = lpc >> 2;
+        for (int r = t / per_row; r < a.tile; r += 4) {
+          const int c = (t % per_row) << 2;
+          *(uint4*)(a.tokens + (int64_t)(k0 + r) * a.lanes + l0 + c) =
+              *(const uint4*)(tile_buf + r * lpc + c);
+        }
+        kt = 0;
+        __syncthreads();
+      }
+    }
+  }
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  a.out[lane] = MODE == QZP_STEP3    ? (int32_t)((uint32_t)acc + (uint32_t)s)
+                : MODE == QZP_TOKENS ? a.K
+                                     : s;
+}
+
+template <int MODE, int STORE>
+static int qzp_launch_step(const QzpStepArgs& a, cudaStream_t s) {
+  // STEP5: lpc columns of its rows; else one row of 3 x 128 words.  TILE
+  // adds a [tile][lpc] token tile.
+  const size_t words =
+      (MODE == QZP_STEP5 ? (size_t)(a.p.W + 2 * (a.p.rc + a.p.sc)) * a.lpc
+                         : 384) +
+      (STORE == QZP_STORE_TILE ? (size_t)a.tile * a.lpc : 0);
+  const size_t bytes = words * 4;
+  const int rc = qzp_smem(qzp_step<MODE, STORE>, bytes);
+  if (rc) return rc;
+  qzp_step<MODE, STORE><<<a.lanes / a.lpc, a.lpc, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// probe_inflate_step3.py:81 step_loop (STEP3); probe_inflate_step5.py:249
+// mk_lane_major_step (STEP5); probe_inflate_step4.py:92 tokens_dma
+// (TOKENS).
+extern "C" int qz_probe_step(int mode, int store, const void* win,
+                             const void* tll, const void* td,
+                             const void* state, void* out, void* tokens,
+                             int lanes, int lpc, int K, int W, int rc, int sc,
+                             int rbits, int tile, void* clk, void* stream) {
+  const QzpStepArgs a = {(const uint32_t*)win, (const uint32_t*)tll,
+                         (const uint32_t*)td, (const int32_t*)state,
+                         (int32_t*)out, (uint32_t*)tokens, lanes, lpc, K,
+                         tile, {W, rc, sc, rbits}, (long long*)clk};
+  if (lpc < 1 || lpc > 128 || 128 % lpc || lanes % lpc)
+    return (int)cudaErrorInvalidValue;
+  if (store == QZP_STORE_TILE && (lpc % 4 || tile < 1 || K % tile))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (mode * 3 + store) {
+    case QZP_STEP3 * 3 + QZP_STORE_NONE:
+      return qzp_launch_step<QZP_STEP3, QZP_STORE_NONE>(a, s);
+    case QZP_STEP5 * 3 + QZP_STORE_NONE:
+      return qzp_launch_step<QZP_STEP5, QZP_STORE_NONE>(a, s);
+    case QZP_STEP5 * 3 + QZP_STORE_LONE:
+      return qzp_launch_step<QZP_STEP5, QZP_STORE_LONE>(a, s);
+    case QZP_TOKENS * 3 + QZP_STORE_LONE:
+      return qzp_launch_step<QZP_TOKENS, QZP_STORE_LONE>(a, s);
+    case QZP_TOKENS * 3 + QZP_STORE_TILE:
+      return qzp_launch_step<QZP_TOKENS, QZP_STORE_TILE>(a, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// -- qz_probe_tile ------------------------------------------------------------
+
+enum { QZP_ROLL_ROWS = 0, QZP_ROLL_LANES = 1, QZP_TRANSPOSE = 2,
+       QZP_REFILL_LD = 3, QZP_REFILL_CP = 4, QZP_REFILL_TMA = 5,
+       QZP_BITONIC = 6 };
+
+struct QzpTile {
+  const uint32_t* x;  // ROLL, TRANSPOSE, BITONIC: [rows, cols] tiles;
+                      // REFILL: the streams [rows, cols]
+  uint32_t* out;
+  int rows, cols;
+  int shift;           // ROLL, in [0, size)
+  int K;               // TRANSPOSE, REFILL, BITONIC: trip count
+  const int32_t* off;  // REFILL: [rows] word offsets
+  int alt;             // REFILL: words added to off on odd refills
+  int win;             // REFILL: window words
+  QzpSegments seg;     // BITONIC: segments of a tile
+  int tiles;           // BITONIC: tiles of [rows, cols]
+  long long* clk;
+};
+
+// ROLL on the lane axis of [rows, 128]: a warp a row, 4 words a thread;
+// output word 4t + j is input word (4t + j - shift) & 127, which thread
+// ((4t + j - shift) & 127) >> 2 holds as its word (j - shift) & 3, the
+// same word for every thread.
+__global__ void qzp_roll_lanes(QzpTile a) {
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int t = threadIdx.x & 31;
+  if (r >= a.rows) return;
+  const uint4 v = *(const uint4*)(a.x + (int64_t)r * 128 + 4 * t);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int src = (4 * t + j - a.shift) & 127, e = (j - a.shift) & 3;
+    const uint32_t mine = e == 0 ? w[0] : e == 1 ? w[1] : e == 2 ? w[2] : w[3];
+    o[j] = __shfl_sync(0xFFFFFFFFu, mine, src >> 2);
+  }
+  *(uint4*)(a.out + (int64_t)r * 128 + 4 * t) = make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// ROLL on the row axis: a CTA stages 8 rows in shared memory and writes
+// row i to row (i + shift) mod rows.
+__global__ void qzp_roll_rows(QzpTile a) {
+  __shared__ uint32_t sm[8 * 128];
+  const int r0 = blockIdx.x * 8;
+  const int n = (a.rows - r0 < 8 ? a.rows - r0 : 8) * a.cols;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    sm[i] = a.x[(int64_t)r0 * a.cols + i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = (r0 + i / a.cols + a.shift) % a.rows;
+    a.out[(int64_t)r * a.cols + i % a.cols] = sm[i];
+  }
+}
+
+// TRANSPOSE K times (x = x.T + 1) of an [n, n] tile, n <= 128 a power of
+// 2, between two shared-memory buffers with rows padded to n + 1 words (no
+// bank conflict on either side).
+__global__ void qzp_transpose(QzpTile a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int n = a.rows, p = n + 1, lg = (int)qzp_log2((uint32_t)n);
+  uint32_t* src = sm;
+  uint32_t* dst = sm + n * p;
+  for (int i = threadIdx.x; i < n * n; i += blockDim.x)
+    src[(i >> lg) * p + (i & (n - 1))] = a.x[i];
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k) {
+    for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
+      const int r = i >> lg, c = i & (n - 1);
+      dst[c * p + r] = src[r * p + c] + 1u;
+    }
+    __syncthreads();
+    uint32_t* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  for (int i = threadIdx.x; i < n * n; i += blockDim.x)
+    a.out[i] = src[(i >> lg) * p + (i & (n - 1))];
+}
+
+// REFILL: a CTA (a warp) a lane; K times it copies the lane's window of
+// win words at off (+ alt on odd refills) from its stream into shared
+// memory, then writes the last window out.  LD: plain loads.  CP and TMA
+// copy the 16-byte-aligned span around the window (the stream rows are
+// 16-byte aligned, cols % 4 == 0): CP with cp.async 16 bytes a thread,
+// TMA with one cp.async.bulk that completes on an mbarrier.
+template <int MODE>
+__global__ void qzp_refill(QzpTile a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  __shared__ __align__(8) uint64_t bar;
+  const int b = blockIdx.x, t = threadIdx.x;
+  const uint32_t* row = a.x + (int64_t)b * a.cols;
+  const unsigned bar_a = (unsigned)__cvta_generic_to_shared(&bar);
+  if (MODE == QZP_REFILL_TMA && t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_a));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int head = 0;
+  unsigned phase = 0;
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k) {
+    const int o = a.off[b] + (k & 1) * a.alt;
+    if (MODE == QZP_REFILL_LD) {
+      for (int w = t; w < a.win; w += blockDim.x) sm[w] = __ldg(row + o + w);
+    } else {
+      const int base = o & ~3;
+      const int nvec = ((o & 3) + a.win + 3) >> 2;
+      head = o & 3;
+      if (MODE == QZP_REFILL_CP) {
+        for (int v = t; v < nvec; v += blockDim.x) {
+          const unsigned d = (unsigned)__cvta_generic_to_shared(sm + 4 * v);
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                       "l"(row + base + 4 * v));
+        }
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+      } else {
+        if (t == 0) {
+          const unsigned d = (unsigned)__cvta_generic_to_shared(sm);
+          asm volatile(
+              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                  bar_a),
+              "r"(nvec * 16)
+              : "memory");
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+              "bytes [%0], [%1], %2, [%3];\n" ::"r"(d),
+              "l"(row + base), "r"(nvec * 16), "r"(bar_a)
+              : "memory");
+        }
+        unsigned done = 0;
+        while (!done)
+          asm volatile(
+              "{\n .reg .pred p;\n"
+              " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+              " selp.u32 %0, 1, 0, p;\n}\n"
+              : "=r"(done)
+              : "r"(bar_a), "r"(phase)
+              : "memory");
+        phase ^= 1u;
+      }
+    }
+    __syncthreads();
+  }
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  for (int w = t; w < a.win; w += blockDim.x)
+    a.out[(int64_t)b * a.win + w] = sm[head + w];
+}
+
+// BITONIC: a CTA a tile of [rows, cols] int32; K times, every segment
+// sorted ascending by the network in shared memory, a thread a
+// compare-exchange pair at a time.
+__global__ void qzp_bitonic(QzpTile a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  int32_t* x = (int32_t*)sm;
+  const int n = a.rows * a.cols;
+  const uint32_t* src = a.x + (int64_t)blockIdx.x * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) x[i] = (int32_t)src[i];
+  __syncthreads();
+  const uint32_t pairs = (uint32_t)n >> 1;
+  const long long t0 = clock64();
+  for (int rep = 0; rep < a.K; ++rep)
+    for (uint32_t k = 2; k <= a.seg.n; k <<= 1)
+      for (uint32_t j = k >> 1; j > 0; j >>= 1) {
+        for (uint32_t p = threadIdx.x; p < pairs; p += blockDim.x) {
+          uint32_t lo, hi;
+          bool asc;
+          qzp_bitonic_pair(a.seg, p, k, j, &lo, &hi, &asc);
+          qzp_compare_exchange(x, lo, hi, asc);
+        }
+        __syncthreads();
+      }
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    a.out[(int64_t)blockIdx.x * n + i] = (uint32_t)x[i];
+}
+
+template <class F>
+static int qzp_launch(F* kernel, int blocks, int threads, size_t bytes,
+                      const QzpTile& a, cudaStream_t s) {
+  const int rc = qzp_smem(kernel, bytes);
+  if (rc) return rc;
+  kernel<<<blocks, threads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// probe_pallas.py:68 p_roll, probe_pallas3.py:26 pallas_roll (ROLL);
+// probe_inflate_step5.py:63 pallas1 for mk_transpose (TRANSPOSE);
+// probe_inflate_step.py:121 refill_dma, probe_inflate_step3.py:104
+// refill_vmem, probe_inflate_step4.py:53 refill3d (REFILL);
+// probe_pallas3.py:77 p_bitonic, :113 p_rows, :145 p_cols (BITONIC).
+extern "C" int qz_probe_tile(int mode, const void* x, void* out, int rows,
+                             int cols, int shift, int K, const void* off,
+                             int alt, int win, int seg_n, int seg_stride,
+                             int elem_stride, int tiles, void* clk,
+                             void* stream) {
+  const QzpTile a = {(const uint32_t*)x, (uint32_t*)out, rows, cols, shift,
+                     K, (const int32_t*)off, alt, win,
+                     {(uint32_t)seg_n, (uint32_t)seg_stride,
+                      (uint32_t)elem_stride},
+                     tiles, (long long*)clk};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t refill_bytes = ((size_t)win + 8) * 4;
+  switch (mode) {
+    case QZP_ROLL_LANES:
+      if (cols != 128) return (int)cudaErrorInvalidValue;
+      return qzp_launch(qzp_roll_lanes, (rows + 3) / 4, 128, 0, a, s);
+    case QZP_ROLL_ROWS:
+      if (cols > 128) return (int)cudaErrorInvalidValue;
+      return qzp_launch(qzp_roll_rows, (rows + 7) / 8, 128, 0, a, s);
+    case QZP_TRANSPOSE:
+      if (rows != cols || rows > 128 || rows & (rows - 1))
+        return (int)cudaErrorInvalidValue;
+      return qzp_launch(qzp_transpose, 1, 1024,
+                        (size_t)2 * rows * (rows + 1) * 4, a, s);
+    case QZP_REFILL_LD:
+      return qzp_launch(qzp_refill<QZP_REFILL_LD>, rows, 32, refill_bytes, a,
+                        s);
+    case QZP_REFILL_CP:
+    case QZP_REFILL_TMA:
+      if (cols % 4) return (int)cudaErrorInvalidValue;
+      return mode == QZP_REFILL_CP
+                 ? qzp_launch(qzp_refill<QZP_REFILL_CP>, rows, 32,
+                              refill_bytes, a, s)
+                 : qzp_launch(qzp_refill<QZP_REFILL_TMA>, rows, 32,
+                              refill_bytes, a, s);
+    case QZP_BITONIC: {
+      const int n = rows * cols;
+      return qzp_launch(qzp_bitonic, tiles, n / 2 < 1024 ? n / 2 : 1024,
+                        (size_t)n * 4, a, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* qz_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

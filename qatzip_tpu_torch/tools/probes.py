@@ -1,0 +1,601 @@
+"""The Mosaic construct probes, ported: plain versions and kernel wrappers.
+
+``tools/probe_pallas*.py`` and ``tools/probe_inflate_step*.py`` of the JAX
+package measured, on the TPU, what a lockstep decoder can be built from
+under Mosaic.  Each of their ``pl.pallas_call`` kernels has here
+
+* a plain torch version, named after the TPU function (``dep_gather_loop``,
+  ``step_loop``, ``lane_major_step`` ...), which computes what it returns
+  from the same int32 / uint32 inputs (uint32 data travels as int32 tensors
+  of the same bits; the arithmetic runs on int64 and wraps to 32 bits, as
+  torch has no uint32 shift on the CPU);
+* a counterpart among the four Hopper kernels of ``probes.cu``
+  (``libqzprobes.so``, built apart from the path's kernels by
+  ``ops/_build``), launched by :func:`probe_chain`, :func:`probe_alu`,
+  :func:`probe_step` and the ``probe_*`` tile wrappers below.
+
+A wrapper given tensors on the CPU runs the plain version; given CUDA
+tensors it launches the kernel or raises :class:`KernelError`.  The two
+64K-element sorts of probe_pallas.py go through ``ops/sort.sort_u32``.
+Nothing on the codec's path calls this module: ``tools/probe_bench.py``
+and chip_smoke.py time it, the tests hold it against the TPU probes.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from qatzip_tpu_torch.ops._build import PROBES, Kernel, KernelError
+
+_M32 = 0xFFFFFFFF
+HASH_MUL = 2654435761
+_I, _P, _U = ctypes.c_int, ctypes.c_void_p, ctypes.c_uint
+
+CHAIN = Kernel("qz_probe_chain", [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _U,
+                                  _U, _P, _P], lib=PROBES)
+ALU = Kernel("qz_probe_alu", [_I, _P, _P, _I, _I, _P, _P], lib=PROBES)
+STEP = Kernel("qz_probe_step", [_I, _I] + [_P] * 6 + [_I] * 8 + [_P] * 2,
+              lib=PROBES)
+TILE = Kernel("qz_probe_tile", [_I, _P, _P, _I, _I, _I, _I, _P] + [_I] * 6
+              + [_P, _P], lib=PROBES)
+KERNELS = {"qz_probe_chain": CHAIN, "qz_probe_alu": ALU,
+           "qz_probe_step": STEP, "qz_probe_tile": TILE}
+
+# -- 32-bit arithmetic on int64 ----------------------------------------------
+
+
+def _s(t: torch.Tensor) -> torch.Tensor:
+    """int32 values, signed, as int64."""
+    return t.to(torch.int64)
+
+
+def _u(t: torch.Tensor) -> torch.Tensor:
+    """The uint32 value of int32 bits, as int64."""
+    return t.to(torch.int64) & _M32
+
+
+def _i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 wrapped to the int32 range, as int32."""
+    return (((v + (1 << 31)) & _M32) - (1 << 31)).to(torch.int32)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for uint32 values a and c, without leaving int64."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _ones_below(n: torch.Tensor) -> torch.Tensor:
+    """(1 << n) - 1 elementwise, n <= 32."""
+    return (torch.ones_like(n) << n) - 1
+
+
+def _high_part(hi: torch.Tensor, sh: torch.Tensor) -> torch.Tensor:
+    """((hi << (31 - sh)) << 1) mod 2^32 for uint32 hi, sh < 32."""
+    return (hi & _ones_below(sh)) << (32 - sh)
+
+
+def _rows(t: torch.Tensor, n_rows: int) -> torch.Tensor:
+    return t.expand(n_rows, -1) if t.shape[0] == 1 else t
+
+
+# -- plain versions of the TPU probe functions -------------------------------
+
+
+def dep_gather_loop(t: torch.Tensor, i: torch.Tensor, K: int) -> torch.Tensor:
+    """probe_inflate_step.py:dep_gather_loop (and probe_inflate_step3.py's
+    dep_loop): K dependent lane gathers ``idx = t[r, idx & (w - 1)]`` over an
+    int32 [R, n] index and an int32 [R, w] or [1, w] table, w a power of 2
+    (the TPU's take_along_axis with its index kept in range).  Leading dims
+    of a grid (probe_pallas4.py:p_chain_grid) fold into R."""
+    shape, w = i.shape, t.shape[-1]
+    idx = _s(i).reshape(-1, shape[-1])
+    tt = _rows(_s(t).reshape(-1, w), idx.shape[0])
+    for _ in range(K):
+        idx = torch.gather(tt, 1, idx & (w - 1))
+    return idx.to(torch.int32).reshape(shape)
+
+
+def chain16(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """probe_pallas4.py:p_chain (and p_chain_grid over a leading grid dim):
+    16 dependent row gathers ``idx = x[r, idx & 127]``."""
+    return dep_gather_loop(x, i, 16)
+
+
+def tbl1024(tbl: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """probe_pallas4.py:p_tbl: ``tbl.flat[idx]`` for an [8, 128] table and
+    idx in [0, 1024)."""
+    return dep_gather_loop(tbl.reshape(1, -1), i, 1)
+
+
+def indep_gather_loop(t: torch.Tensor, i: torch.Tensor, K: int,
+                      W: int) -> torch.Tensor:
+    """probe_inflate_step.py:indep_gather_loop: K times, W gathers of
+    ``t[r, (idx + w) & (w_t - 1)]`` summed onto idx, then masked."""
+    m = t.shape[-1] - 1
+    idx = _s(i)
+    tt = _rows(_s(t), idx.shape[0])
+    for _ in range(K):
+        acc = idx
+        for w in range(W):
+            acc = acc + torch.gather(tt, 1, (idx + w) & m)
+        idx = acc & m
+    return idx.to(torch.int32)
+
+
+def elemwise_loop(i: torch.Tensor, K: int) -> torch.Tensor:
+    """probe_inflate_step.py:elemwise_loop, its int32 body with 32-bit wrap
+    (``v = (x * 2654435761 + 12345) & 0x7FFFFFFF; x = (v ^ v >> 7) &
+    0xFFFF``), which the JAX function itself refuses to trace: 2654435761
+    does not fit in int32."""
+    x = _u(i)
+    for _ in range(K):
+        v = (_mul32(x, HASH_MUL) + 12345) & 0x7FFFFFFF
+        x = (v ^ (v >> 7)) & 0xFFFF
+    return x.to(torch.int32)
+
+
+def ew(x: torch.Tensor, K: int) -> torch.Tensor:
+    """probe_inflate_step5.py:mk_ew (A): K times ``x = (x * 2654435761) ^
+    (x >> 7)`` in uint32."""
+    v = _u(x)
+    for _ in range(K):
+        v = _mul32(v, HASH_MUL) ^ (v >> 7)
+    return _i32(v)
+
+
+def double(x: torch.Tensor, K: int = 1) -> torch.Tensor:
+    """probe_pallas.py:p_double: ``x * 2`` (K times), int32."""
+    v = _u(x)
+    for _ in range(K):
+        v = (v * 2) & _M32
+    return _i32(v)
+
+
+def scalar_walk(x: torch.Tensor, K: int = 4096) -> torch.Tensor:
+    """probe_pallas.py:p_walk: ``acc += x[acc % rows, i % cols]`` for i < K
+    over an int32 [rows, cols] tile (powers of 2), from acc = 0; [1, 1]."""
+    rows, cols = x.shape
+    flat = _s(x).reshape(-1)
+    acc = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(K):
+        at = (acc & (rows - 1)) * cols + (i & (cols - 1))
+        acc = _s(_i32(acc + flat[at]))
+    return acc.to(torch.int32).reshape(1, 1)
+
+
+def _column(t: torch.Tensor, i: torch.Tensor, K: int, post: int):
+    """K steps of ``idx = (idx + t[idx & (N - 1), lane]) & post`` over int32
+    [N, L] columns and [R, L] indexes."""
+    n = t.shape[0]
+    tt = _s(t)
+    idx = _s(i)
+    for _ in range(K):
+        idx = (idx + torch.gather(tt, 0, idx & (n - 1))) & post
+    return _i32(idx)
+
+
+def subshuf(t: torch.Tensor, i: torch.Tensor, K: int) -> torch.Tensor:
+    """probe_inflate_step5.py:mk_subshuf (B): the [8, 128] sublane shuffle
+    chain ``idx += t[idx & 7, lane]``, int32."""
+    return _column(t, i, K, _M32)
+
+
+def onehot(t: torch.Tensor, i: torch.Tensor, K: int) -> torch.Tensor:
+    """probe_inflate_step5.py:mk_onehot (C): ``idx = (idx + t[idx, lane]) &
+    (N - 1)`` over [N, 128] columns and a [1, 128] idx in [0, N)."""
+    return _column(t, i, K, t.shape[0] - 1)
+
+
+def groupsel(t: torch.Tensor, i: torch.Tensor, K: int) -> torch.Tensor:
+    """probe_inflate_step5.py:mk_groupsel (C2): the function of onehot over
+    an [8, 128] idx (a row-group select, then the sublane shuffle)."""
+    return _column(t, i, K, t.shape[0] - 1)
+
+
+def transpose(x: torch.Tensor, K: int) -> torch.Tensor:
+    """probe_inflate_step5.py:mk_transpose (D): K times ``x = x.T + 1``."""
+    v = _s(x)
+    for _ in range(K):
+        v = v.t() + 1
+    return _i32(v.contiguous())
+
+
+def roll(x: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
+    """probe_pallas3.py:pallas_roll, probe_pallas.py:p_roll: np.roll."""
+    n = x.shape[axis]
+    src = torch.remainder(torch.arange(n, device=x.device) - shift, n)
+    return x.index_select(axis, src)
+
+
+def bitonic(x: torch.Tensor, segment: str) -> torch.Tensor:
+    """probe_pallas3.py p_bitonic ("flat"), p_rows ("rows"), p_cols
+    ("cols"): each segment of an int32 [..., S, L] tile sorted ascending by
+    the bitonic network of the TPU kernels (partner ``lin ^ j``, ascending
+    where ``lin & k == 0``)."""
+    S, L = x.shape[-2:]
+    v = x.reshape(-1, S, L)
+    v = (v.reshape(v.shape[0], 1, S * L) if segment == "flat"
+         else v.transpose(1, 2) if segment == "cols" else v)
+    n = v.shape[-1]
+    lin = torch.arange(n, device=x.device)
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            pv = v[..., lin ^ j]
+            take_min = ((lin & j) == 0) == ((lin & k) == 0)
+            v = torch.where(take_min, torch.minimum(v, pv),
+                            torch.maximum(v, pv))
+            j //= 2
+        k *= 2
+    v = v.transpose(1, 2) if segment == "cols" else v
+    return v.reshape(x.shape).contiguous()
+
+
+def _refill(stream: torch.Tensor, off: torch.Tensor, win: int, K: int = 1,
+            alt: int = 0) -> torch.Tensor:
+    """The window of win words at off (+ alt after an odd number of earlier
+    refills) of each row of stream, as the K-th refill leaves it."""
+    o = _s(off).reshape(-1, 1) + ((K - 1) & 1) * alt
+    idx = o + torch.arange(win, device=stream.device)
+    return torch.gather(stream, 1, idx)
+
+
+def refill_dma(off: torch.Tensor, stream: torch.Tensor,
+               WIN: int) -> torch.Tensor:
+    """probe_inflate_step.py:refill_dma: ``win[i] = stream[i, off[0, i]:
+    off[0, i] + WIN]``."""
+    return _refill(stream, off, WIN)
+
+
+def refill_vmem(off: torch.Tensor, stream: torch.Tensor,
+                WIN: int) -> torch.Tensor:
+    """probe_inflate_step3.py:refill_vmem: ``win[i] = stream[i, off[i]:
+    off[i] + WIN]``."""
+    return _refill(stream, off, WIN)
+
+
+def refill3d(stream: torch.Tensor, blkv: torch.Tensor,
+             nrefills: int) -> torch.Tensor:
+    """probe_inflate_step4.py:refill3d: nrefills times, rows blk and blk + 1
+    of lane i's [NB, 64] blocks, blk = blkv[0, i] + (refill & 1); returns
+    the last refill's [R, 2, 64]."""
+    R, NB, B = stream.shape
+    flat = stream.reshape(R, NB * B)
+    return _refill(flat, blkv * B, 2 * B, nrefills, B).reshape(R, 2, B)
+
+
+def step_loop(win: torch.Tensor, tll: torch.Tensor, td: torch.Tensor,
+              i: torch.Tensor, K: int) -> torch.Tensor:
+    """probe_inflate_step3.py:step_loop: the decode-step skeleton over
+    int32 [R, 128] (an element a lane, its row's window and tables): two
+    window words, root and sub litlen, root and sub distance, the bit
+    arithmetic between; returns ``acc + bitpos``."""
+    w_, ll, dd = _s(win), _s(tll), _s(td)
+    bp = _s(i)
+    acc = torch.zeros_like(bp)
+    for _ in range(K):
+        wi = (bp >> 5) & 63
+        sh = bp & 31
+        w0 = torch.gather(w_, 1, wi)
+        w1 = torch.gather(w_, 1, (wi + 1) & 63)
+        bits = (((w0 >> sh) & _M32) | _high_part(w1 & _M32, sh)) & 0x7FFFFFFF
+        e = torch.gather(ll, 1, bits & 127)
+        e2 = torch.gather(ll, 1, ((e >> 8) + (bits >> 9)) & 127)
+        e = torch.where((e & 48) == 48, e2, e)
+        clen = e & 15
+        bits2 = (bits >> clen) & 0x3FFFFFF
+        ed = torch.gather(dd, 1, bits2 & 127)
+        ed2 = torch.gather(dd, 1, ((ed >> 8) + (bits2 >> 9)) & 127)
+        ed = torch.where((ed & 48) == 48, ed2, ed)
+        adv = clen + (ed & 15) + 1
+        bp = _s(_i32(bp + (adv & 31)))
+        acc = acc ^ bits
+    return _i32(acc + bp)
+
+
+def lane_major_step(win: torch.Tensor, tll: torch.Tensor, td: torch.Tensor,
+                    bp: torch.Tensor, K: int, root_cells: int,
+                    sub_cells: int) -> tuple:
+    """probe_inflate_step5.py:mk_lane_major_step, "onehot" mode: the
+    lane-major decode step over uint32 columns (win [W, L], tll and td
+    [root_cells + sub_cells, L], u16 entries two a cell) and an int32
+    bitpos [R0, L] whose element (r, l) reads column l.  Returns the bitpos
+    after K steps (the TPU function's output) and the tokens, int32
+    [K, R0 * L]."""
+    W, rc, sc = win.shape[0], root_cells, sub_cells
+    rbits = (2 * rc).bit_length() - 1
+    w_, ll, dd = _u(win), _u(tll), _u(td)
+    lroot, lsub, droot, dsub = ll[:rc], ll[rc:rc + sc], dd[:rc], dd[rc:rc + sc]
+    bitpos = _s(bp)
+    tokens = []
+
+    def fetch(t, idx, n):
+        return torch.gather(t, 0, idx & (n - 1))
+
+    def half(cell, i):
+        return (cell >> ((i & 1) << 4)) & 0xFFFF
+
+    for _ in range(K):
+        wi = torch.remainder(bitpos >> 5, W - 2)
+        sh = bitpos & 31
+        w0, w1, w2 = (fetch(w_, wi + d, W) for d in range(3))
+        b0 = ((w0 >> sh) | _high_part(w1, sh)) & _M32
+        b1 = ((w1 >> sh) | _high_part(w2, sh)) & _M32
+        idxr = b0 & ((1 << rbits) - 1)
+        e = half(fetch(lroot, idxr >> 1, rc), idxr)
+        sidx = (((e >> 6) & 0xFF) << 1) + ((b0 >> rbits) & _ones_below(e & 15))
+        e2 = half(fetch(lsub, sidx >> 1, sc), sidx)
+        e = torch.where(((e >> 4) & 3) == 3, e2, e)
+        clen, kind, sym = e & 15, (e >> 4) & 3, (e >> 6) & 0xFF
+        e_len = torch.clamp(torch.clamp(sym - 4, min=0) >> 2, max=5)
+        lbase = torch.where(sym < 4, sym + 3, ((4 + (sym & 3)) << e_len) + 3)
+        e_len = torch.where(sym >= 28, 0, e_len)
+        lbase = torch.where(sym >= 28, 258, lbase)
+        eb = torch.where(kind == 1, e_len, 0)
+        mlen = lbase + ((b0 >> clen) & _ones_below(eb))
+        used1 = clen + eb
+        bits2 = ((b0 >> used1) | _high_part(b1, used1)) & _M32
+        didx = bits2 & ((1 << rbits) - 1)
+        ed = half(fetch(droot, didx >> 1, rc), didx)
+        dsidx = (((ed >> 6) & 0xFF) << 1) + ((bits2 >> rbits)
+                                             & _ones_below(ed & 15))
+        ed2 = half(fetch(dsub, dsidx >> 1, sc), dsidx)
+        ed = torch.where(((ed >> 4) & 3) == 3, ed2, ed)
+        dclen, ds = ed & 15, (ed >> 6) & 31
+        e_d = torch.clamp(ds - 2, min=0) >> 1
+        dbase1 = torch.where(ds < 4, ds, (2 + (ds & 1)) << e_d)
+        deb = torch.where(ds < 4, 0, e_d)
+        dist1 = dbase1 + ((bits2 >> dclen) & _ones_below(deb))
+        adv = used1 + torch.where(kind == 1, dclen + deb, 0)
+        tok = (2 | (mlen << 2) | (dist1 << 11)) & _M32
+        bitpos = _s(_i32(bitpos + (adv & 15) + (tok & 1)))
+        tokens.append(tok.reshape(-1))
+    toks = (torch.stack(tokens) if tokens else
+            torch.zeros((0, bitpos.numel()), dtype=torch.int64,
+                        device=bp.device))
+    return bitpos.to(torch.int32), _i32(toks)
+
+
+def tokens_dma(t: torch.Tensor, i: torch.Tensor, K: int) -> tuple:
+    """probe_inflate_step4.py:tokens_dma: K steps of ``g = t[r, idx & 127];
+    idx += g`` over int32 [R, 128], each step's g a token.  Returns the
+    tokens of every lane given, [K, R * 128], and the step count.  The TPU
+    kernel keeps row 0's tokens ([K, 128]): this function on ``t[:1],
+    i[:1]``."""
+    tt = _s(t)
+    idx = _s(i)
+    out = []
+    for _ in range(K):
+        g = torch.gather(tt, 1, idx & 127)
+        out.append(g.reshape(-1))
+        idx = _s(_i32(idx + g))
+    toks = (torch.stack(out) if out else
+            torch.zeros((0, idx.numel()), dtype=torch.int64, device=t.device))
+    return toks.to(torch.int32), K
+
+
+# -- kernel wrappers ---------------------------------------------------------
+
+
+def _on(*ts: torch.Tensor) -> torch.device:
+    """The one device of ts: the CPU, or a CUDA device; else KernelError."""
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            raise ValueError("probe inputs on different devices")
+        if t.dtype != torch.int32:
+            raise ValueError(f"probe inputs are int32, got {t.dtype}")
+    if dev.type not in ("cpu", "cuda"):
+        raise KernelError(f"no probe kernel for device {dev}")
+    return dev
+
+
+def _args(dev: torch.device, clk):
+    return (None if clk is None else clk.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
+_CHAIN_MODES = {"dep": 0, "indep4": 1, "indep8": 2, "column": 3, "walk": 4}
+
+
+def probe_chain(mode: str, t: torch.Tensor, idx: torch.Tensor | None, K: int,
+                *, smem: bool = True, post: int | None = None,
+                clk: torch.Tensor | None = None) -> torch.Tensor:
+    """Table lookups, K a lane (qz_probe_chain): ``dep`` and ``indep4`` /
+    ``indep8`` as :func:`dep_gather_loop` / :func:`indep_gather_loop`
+    (tables of 1 or R rows), ``column`` as :func:`_column` (post: the mask
+    after each sum, default N - 1), ``walk`` as :func:`scalar_walk` (idx
+    unused).  smem: the table staged in shared memory, else read with
+    __ldg."""
+    if mode == "walk":
+        dev = _on(t)
+    else:
+        dev = _on(t, idx)
+    w = t.shape[-1]
+    if post is None:
+        post = t.shape[0] - 1
+    if dev.type == "cpu":
+        if mode == "dep":
+            return dep_gather_loop(t, idx, K)
+        if mode in ("indep4", "indep8"):
+            return indep_gather_loop(t, idx, K, int(mode[-1]))
+        if mode == "column":
+            return _column(t, idx, K, post)
+        if mode == "walk":
+            return scalar_walk(t, K)
+        raise ValueError(f"no chain mode {mode}")
+    if w & (w - 1) or (mode == "walk" and t.shape[0] & (t.shape[0] - 1)):
+        raise ValueError("probe tables are a power of 2 wide")
+    if mode == "walk":   # no index array: idx points at the table, unread
+        tt = ii = t.contiguous()
+        out = torch.empty((1, 1), dtype=torch.int32, device=dev)
+        rows = cols = 1
+    else:
+        shape = idx.shape
+        ii = idx.contiguous().reshape(-1, shape[-1])
+        tt = t.contiguous().reshape(-1, w)
+        rows, cols = ii.shape
+        if mode == "column":
+            if tt.shape[1] != cols:
+                raise ValueError("column tables have a column a lane")
+        elif tt.shape[0] not in (1, rows):
+            raise ValueError("a chain table has 1 row or a row an index row")
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+    mask = (t.shape[0] if mode == "column" else w) - 1
+    CHAIN(_CHAIN_MODES[mode], int(smem), tt.data_ptr(), tt.shape[0],
+          tt.shape[1], ii.data_ptr(), out.data_ptr(), rows, cols, K, mask,
+          post & _M32, *_args(dev, clk))
+    return out
+
+
+_ALU_MODES = {"hash": 0, "ew": 1, "double": 2}
+_ALU_PLAIN = {"hash": elemwise_loop, "ew": ew, "double": double}
+
+
+def probe_alu(mode: str, x: torch.Tensor, K: int,
+              clk: torch.Tensor | None = None) -> torch.Tensor:
+    """Register-only integer chains, K a lane (qz_probe_alu): ``hash`` as
+    :func:`elemwise_loop`, ``ew`` as :func:`ew`, ``double`` as
+    :func:`double`."""
+    dev = _on(x)
+    if dev.type == "cpu":
+        return _ALU_PLAIN[mode](x, K)
+    xx = x.contiguous()
+    out = torch.empty_like(xx)
+    ALU(_ALU_MODES[mode], xx.data_ptr(), out.data_ptr(), xx.numel(), K,
+        *_args(dev, clk))
+    return out
+
+
+_STEP_MODES = {"step3": 0, "step5": 1, "tokens": 2}
+_STORES = {"none": 0, "lone": 1, "tile": 2}
+
+
+def probe_step(mode: str, store: str, win, tll, td, state: torch.Tensor,
+               K: int, *, lanes_per_cta: int = 1, tile: int = 0,
+               root_cells: int = 0, sub_cells: int = 0,
+               clk: torch.Tensor | None = None) -> tuple:
+    """A decode-step skeleton, K steps a lane (qz_probe_step), lanes_per_cta
+    lanes (threads) a CTA.  Returns (out, tokens): ``step3`` as
+    :func:`step_loop` (win, tll, td, state [R, 128]; tokens None);
+    ``step5`` as :func:`lane_major_step` (state [1, L]; tokens [K, L] with
+    store ``lone``, else None); ``tokens`` as :func:`tokens_dma` (tll is
+    its t, win and td unused; out the step count a lane), store ``lone``
+    (a 4-byte store a step) or ``tile`` (tile steps staged, then flushed)."""
+    arrays = [a for a in (win, tll, td, state) if a is not None]
+    dev = _on(*arrays)
+    if dev.type == "cpu":
+        if mode == "step3":
+            return step_loop(win, tll, td, state, K), None
+        if mode == "step5":
+            bp, toks = lane_major_step(win, tll, td, state, K, root_cells,
+                                       sub_cells)
+            return bp, (toks if store != "none" else None)
+        if mode == "tokens":
+            toks, steps = tokens_dma(tll, state, K)
+            return torch.full(state.shape, steps, dtype=torch.int32), toks
+        raise ValueError(f"no step mode {mode}")
+    lanes = state.numel()
+    rbits = (2 * root_cells).bit_length() - 1 if root_cells else 0
+    W = win.shape[0] if mode == "step5" else 0
+    if mode == "step5":
+        if state.shape[0] != 1 or any(a.shape[1] != lanes
+                                      for a in (win, tll, td)):
+            raise ValueError("step5 takes one row of lanes and a column of "
+                             "each array a lane")
+    elif state.shape[-1] != 128 or tll.shape != state.shape:
+        raise ValueError(f"{mode} takes [R, 128] arrays")
+    ins = [a.contiguous() if a is not None else None
+           for a in (win, tll, td, state)]
+    out = torch.empty(state.shape, dtype=torch.int32, device=dev)
+    toks = (torch.empty((K, lanes), dtype=torch.int32, device=dev)
+            if store != "none" else None)
+    STEP(_STEP_MODES[mode], _STORES[store],
+         *(a.data_ptr() if a is not None else None for a in ins),
+         out.data_ptr(), toks.data_ptr() if toks is not None else None,
+         lanes, lanes_per_cta, K, W, root_cells, sub_cells, rbits, tile,
+         *_args(dev, clk))
+    return out, toks
+
+
+_TILE = {"roll_rows": 0, "roll_lanes": 1, "transpose": 2, "refill_ld": 3,
+         "refill_cp": 4, "refill_tma": 5, "bitonic": 6}
+
+
+def _tile(mode: str, x, out, rows, cols, *, shift=0, K=1, off=None, alt=0,
+          win=0, seg=(0, 0, 0), tiles=1, clk=None) -> torch.Tensor:
+    TILE(_TILE[mode], x.data_ptr(), out.data_ptr(), rows, cols, shift, K,
+         None if off is None else off.data_ptr(), alt, win, *seg, tiles,
+         *_args(x.device, clk))
+    return out
+
+
+def probe_roll(x: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
+    """:func:`roll` of an int32 [S, C] tile (qz_probe_tile ROLL): the lane
+    axis (C = 128) by warp shuffles, the row axis (C <= 128) through shared
+    memory."""
+    if _on(x).type == "cpu":
+        return roll(x, shift, axis)
+    if x.dim() != 2:
+        raise ValueError("probe_roll takes an [S, C] tile")
+    xx = x.contiguous()
+    rows, cols = xx.shape
+    return _tile("roll_lanes" if axis in (1, -1) else "roll_rows", xx,
+                 torch.empty_like(xx), rows, cols,
+                 shift=shift % xx.shape[axis])
+
+
+def probe_transpose(x: torch.Tensor, K: int,
+                    clk: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`transpose` of an int32 [n, n] tile, n <= 128, in one CTA's
+    shared memory (qz_probe_tile TRANSPOSE)."""
+    if _on(x).type == "cpu":
+        return transpose(x, K)
+    xx = x.contiguous()
+    return _tile("transpose", xx, torch.empty_like(xx), xx.shape[0],
+                 xx.shape[1], K=K, clk=clk)
+
+
+def probe_refill(stream: torch.Tensor, off: torch.Tensor, win: int,
+                 K: int = 1, *, alt: int = 0, how: str = "ld",
+                 clk: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`_refill`: K refills of each lane's window of win words at
+    off (+ alt on odd refills) from its row of stream into shared memory
+    (qz_probe_tile REFILL), a warp a lane, by plain loads (``ld``),
+    cp.async (``cp``) or a TMA bulk copy (``tma``); returns the last
+    window of each lane, [B, win]."""
+    dev = _on(stream, off)
+    if dev.type == "cpu":
+        return _refill(stream, off, win, K, alt)
+    ss, oo = stream.contiguous(), off.contiguous().reshape(-1)
+    B, NW = ss.shape
+    if oo.numel() != B:
+        raise ValueError("a refill takes an offset a lane")
+    hi = int(oo.max()) + (alt if K > 1 else 0) + win
+    if int(oo.min()) < 0 or hi > NW:
+        raise ValueError("a refill window lies outside its stream")
+    if how != "ld" and (NW % 4 or ss.data_ptr() % 16):
+        raise ValueError("cp.async and TMA refills need 16-byte rows")
+    out = torch.empty((B, win), dtype=torch.int32, device=dev)
+    return _tile(f"refill_{how}", ss, out, B, NW, K=K, off=oo, alt=alt,
+                 win=win, clk=clk)
+
+
+def probe_bitonic(x: torch.Tensor, segment: str, K: int = 1,
+                  clk: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`bitonic`: each segment (``flat``, ``rows`` or ``cols``) of
+    each int32 [S, L] tile of x sorted by the network in one CTA's shared
+    memory (qz_probe_tile BITONIC), K times."""
+    if _on(x).type == "cpu":
+        return bitonic(x, segment)
+    S, L = x.shape[-2:]
+    if S & (S - 1) or L & (L - 1):
+        raise ValueError("bitonic tiles are powers of 2 on both axes")
+    seg = {"flat": (S * L, 0, 1), "rows": (L, L, 1),
+           "cols": (S, 1, L)}[segment]
+    xx = x.contiguous()
+    return _tile("bitonic", xx, torch.empty_like(xx), S, L, K=K, seg=seg,
+                 tiles=xx.numel() // (S * L), clk=clk)

@@ -37,13 +37,12 @@ import torch
 
 from qatzip_tpu_torch.ops import _build
 from qatzip_tpu_torch.ops import select as S
+from qatzip_tpu_torch.tools.h100 import FP32_OPS_S, HBM_BYTES_S
 
 OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "select_bench")
 L1_SRC = os.path.join(_build.PKG, "tools", "select_l1.cu")
 CHUNK = 64 << 10
 CASES = ((16, 2), (8, 1))          # (depth, stride)
-HBM_BYTES_S = 3.35e12              # H100 SXM (NVIDIA's datasheet)
-FP32_OPS_S = 67e12                 # the rate taken for integer operations
 OPS_A_STEP = 12                    # integer operations a neighbour visited
 
 

@@ -1,7 +1,8 @@
 """The CUDA kernels' per-record and per-lane logic, built for the host.
 
-``csrc/select.cuh``, ``csrc/inflate_step.cuh`` and ``csrc/sort.cuh`` hold
-the logic of the kernels as ``__host__ __device__`` functions.  g++ builds
+``csrc/select.cuh``, ``csrc/inflate_step.cuh``, ``csrc/sort.cuh`` and
+``tools/probes.cuh`` hold the logic of the kernels as ``__host__
+__device__`` functions.  g++ builds
 them here (with ``__host__``/``__device__`` defined away) into a small shim
 library, and the shim is held exactly against the port's plain torch
 versions, or numpy, on the same inputs; the inflate shim also against the
@@ -23,6 +24,7 @@ from qatzip_tpu_torch.ops import _build
 from qatzip_tpu_torch.ops import inflate as PI
 from qatzip_tpu_torch.ops import match_finder as mf
 from qatzip_tpu_torch.ops import select as SEL
+from qatzip_tpu_torch.tools import probes as PR
 
 torch.set_num_threads(1)
 
@@ -30,6 +32,7 @@ _SHIM = r"""
 #include "select.cuh"
 #include "inflate_step.cuh"
 #include "sort.cuh"
+#include "probes.cuh"
 
 #include <algorithm>
 #include <vector>
@@ -309,6 +312,100 @@ extern "C" int shim_bank_ways(uint32_t n, int npay) {
   }
   return most;
 }
+
+// The construct probes' loops (tools/probes.cu) run serially over host
+// arrays through probes.cuh's steps: a lane at a time, K steps.
+extern "C" void shim_alu(int mode, uint32_t* x, int n, int K) {
+  for (int i = 0; i < n; ++i)
+    for (int k = 0; k < K; ++k)
+      x[i] = mode == 0 ? qzp_hash_step(x[i])
+             : mode == 1 ? qzp_ew_step(x[i]) : qzp_double_step(x[i]);
+}
+
+// DEP (W 0) or INDEP<W> over [rows, cols] indexes, a [t_rows, w] table
+extern "C" void shim_rows(int W, const uint32_t* t, int t_rows, int w,
+                          uint32_t* idx, int rows, int cols, int K) {
+  for (int r = 0; r < rows; ++r) {
+    const uint32_t* row = t + (t_rows == 1 ? 0 : r) * w;
+    for (int j = 0; j < cols; ++j) {
+      uint32_t v = idx[r * cols + j];
+      for (int k = 0; k < K; ++k)
+        v = W == 0 ? qzp_dep_step(row, v, w - 1)
+            : W == 4 ? qzp_indep_step<4>(row, v, w - 1)
+                     : qzp_indep_step<8>(row, v, w - 1);
+      idx[r * cols + j] = v;
+    }
+  }
+}
+
+// COLUMN over an [n, L] table and [rows, L] indexes
+extern "C" void shim_column(const uint32_t* t, int n, int L, uint32_t* idx,
+                            int rows, int K, uint32_t post) {
+  for (int i = 0; i < rows * L; ++i)
+    for (int k = 0; k < K; ++k)
+      idx[i] = qzp_column_step(t + i % L, L, idx[i], n - 1, post);
+}
+
+extern "C" uint32_t shim_walk(const uint32_t* x, int rows, int cols, int K) {
+  uint32_t acc = 0;
+  for (int k = 0; k < K; ++k) acc = qzp_walk_step(x, rows, cols, acc, k);
+  return acc;
+}
+
+// STEP3 over [lanes / 128, 128] row arrays; state becomes acc + bitpos
+extern "C" void shim_step3(const int32_t* win, const int32_t* tll,
+                           const int32_t* td, int32_t* state, int lanes,
+                           int K) {
+  for (int l = 0; l < lanes; ++l) {
+    const int row = (l >> 7) << 7;
+    int32_t bp = state[l], acc = 0;
+    for (int k = 0; k < K; ++k)
+      qzp_step3(win + row, tll + row, td + row, 1, bp, acc);
+    state[l] = (int32_t)((uint32_t)acc + (uint32_t)bp);
+  }
+}
+
+// STEP5 over columns (win [W, lanes], tll and td [rc + sc, lanes]); bp
+// advances, the tokens go to toks [K, lanes]
+extern "C" void shim_step5(const uint32_t* win, const uint32_t* tll,
+                           const uint32_t* td, int32_t* bp, uint32_t* toks,
+                           int lanes, int K, int W, int rc, int sc,
+                           int rbits) {
+  const QzpStep5 p = {W, rc, sc, rbits};
+  for (int l = 0; l < lanes; ++l)
+    for (int k = 0; k < K; ++k)
+      toks[k * lanes + l] =
+          qzp_step5(win + l, tll + l, td + l, lanes, p, bp[l]);
+}
+
+// The places a stage (k, j) of the BITONIC network touches: lo, hi and
+// asc of each of a tile's n / 2 pairs, and the network run on each tile of
+// x, a pair at a time
+extern "C" void shim_bitonic_stage(uint32_t n, uint32_t seg_n,
+                                   uint32_t seg_stride, uint32_t elem_stride,
+                                   uint32_t k, uint32_t j, uint32_t* out) {
+  const QzpSegments g = {seg_n, seg_stride, elem_stride};
+  for (uint32_t p = 0; p < n / 2; ++p) {
+    bool asc;
+    qzp_bitonic_pair(g, p, k, j, out + 3 * p, out + 3 * p + 1, &asc);
+    out[3 * p + 2] = asc;
+  }
+}
+
+extern "C" void shim_bitonic(int32_t* x, int tiles, uint32_t n,
+                             uint32_t seg_n, uint32_t seg_stride,
+                             uint32_t elem_stride) {
+  const QzpSegments g = {seg_n, seg_stride, elem_stride};
+  for (int t = 0; t < tiles; ++t)
+    for (uint32_t k = 2; k <= seg_n; k <<= 1)
+      for (uint32_t j = k >> 1; j > 0; j >>= 1)
+        for (uint32_t p = 0; p < n / 2; ++p) {
+          uint32_t lo, hi;
+          bool asc;
+          qzp_bitonic_pair(g, p, k, j, &lo, &hi, &asc);
+          qzp_compare_exchange(x + t * n, lo, hi, asc);
+        }
+}
 """
 
 
@@ -322,8 +419,9 @@ def shim(tmp_path_factory):
     lib = d / "libshim.so"
     subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O2", "-shared",
                     "-fPIC", "-Wall", "-Werror", "-D__host__=",
-                    "-D__device__=", f"-I{_build.CSRC}", str(src), "-o",
-                    str(lib)], check=True, capture_output=True, text=True)
+                    "-D__device__=", f"-I{_build.CSRC}", f"-I{_build.TOOLS}",
+                    str(src), "-o", str(lib)], check=True,
+                   capture_output=True, text=True)
     so = ctypes.CDLL(str(lib))
     so.shim_inflate.restype = ctypes.c_int
     so.shim_select.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
@@ -332,6 +430,19 @@ def shim(tmp_path_factory):
     so.shim_schedule.argtypes = [ctypes.c_uint32, ctypes.c_int,
                                  ctypes.c_void_p, ctypes.c_void_p]
     so.shim_bank_ways.argtypes = [ctypes.c_uint32, ctypes.c_int]
+    so.shim_alu.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2
+    so.shim_rows.argtypes = [ctypes.c_int, ctypes.c_void_p] + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 3
+    so.shim_column.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_uint32]
+    so.shim_walk.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
+    so.shim_walk.restype = ctypes.c_uint32
+    so.shim_step3.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    so.shim_step5.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    so.shim_bitonic_stage.argtypes = [ctypes.c_uint32] * 6 + [
+        ctypes.c_void_p]
+    so.shim_bitonic.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_uint32] * 4
     return so
 
 
@@ -670,10 +781,126 @@ def test_kernel_wrapper_counts_accepted_launches_and_raises_on_error(
 
     rcs = [0, 9]
     kern = _build.Kernel("qz_test_entry", [])
-    monkeypatch.setattr(_build, "library", lambda: Lib)
+    monkeypatch.setattr(_build, "library", lambda name=_build.KERNELS: Lib)
     monkeypatch.setattr(kern, "_fn", lambda *a: rcs.pop(0))
     kern()
     assert kern.launches == 1
     with pytest.raises(_build.KernelError, match="CUDA error 9"):
         kern()
     assert kern.launches == 1
+
+
+def _u32s(rng, shape) -> np.ndarray:
+    return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _ti(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+@pytest.mark.parametrize("mode,plain", [(0, PR.elemwise_loop), (1, PR.ew),
+                                        (2, PR.double)])
+def test_probe_alu_steps_match_plain(shim, mode, plain):
+    x = _u32s(np.random.default_rng(mode), 4096)
+    got = x.copy()
+    shim.shim_alu(mode, _ptr(got), x.size, 9)
+    assert (got.view(np.int32) == plain(_ti(x), 9).numpy()).all()
+
+
+# dependent and independent lookups; a row a lane's index row, and one
+# 2048-word table (the inflate's 8 KB a lane) for every row
+@pytest.mark.parametrize("W", [0, 4, 8])
+@pytest.mark.parametrize("w,t_rows", [(128, 6), (2048, 1)])
+def test_probe_row_chains_match_plain(shim, W, w, t_rows):
+    rng = np.random.default_rng(w + W)
+    t, idx = _u32s(rng, (t_rows, w)), _u32s(rng, (6, 40))
+    got = idx.copy()
+    shim.shim_rows(W, _ptr(t), t_rows, w, _ptr(got), 6, 40, 7)
+    want = (PR.dep_gather_loop(_ti(t), _ti(idx), 7) if W == 0 else
+            PR.indep_gather_loop(_ti(t), _ti(idx), 7, W))
+    assert (got.view(np.int32) == want.numpy()).all()
+
+
+@pytest.mark.parametrize("n,post", [(8, 0xFFFFFFFF), (512, 511)])
+def test_probe_column_and_walk_match_plain(shim, n, post):
+    rng = np.random.default_rng(n)
+    t, idx = _u32s(rng, (n, 64)), _u32s(rng, (8, 64))
+    got = idx.copy()
+    shim.shim_column(_ptr(t), n, 64, _ptr(got), 8, 11, post)
+    want = PR._column(_ti(t), _ti(idx), 11, post)
+    assert (got.view(np.int32) == want.numpy()).all()
+    x = _u32s(rng, (8, 128))
+    acc = shim.shim_walk(_ptr(x), 8, 128, 500)
+    assert np.uint32(acc).view(np.int32) == int(PR.scalar_walk(_ti(x), 500))
+
+
+def test_probe_step3_matches_plain(shim):
+    """The step_loop skeleton on random tables and windows over the whole
+    int32 range, 3 rows of 128 lanes."""
+    rng = np.random.default_rng(3)
+    win, tll, td = (_u32s(rng, (3, 128)).view(np.int32) for _ in range(3))
+    state = rng.integers(0, 1 << 20, (3, 128)).astype(np.int32)
+    got = state.copy()
+    shim.shim_step3(_ptr(win), _ptr(tll), _ptr(td), _ptr(got), 384, 20)
+    want = PR.step_loop(*map(_ti, (win, tll, td, state)), 20)
+    assert (got == want.numpy()).all()
+
+
+@pytest.mark.parametrize("rc", [128, 256])
+def test_probe_step5_matches_plain(shim, rc):
+    """The lane-major skeleton on random cells: bitpos and every token."""
+    rng = np.random.default_rng(rc)
+    W, sc, lanes, K = 128, 256, 64, 12
+    win = _u32s(rng, (W, lanes))
+    tll, td = _u32s(rng, (rc + sc, lanes)), _u32s(rng, (rc + sc, lanes))
+    bp = rng.integers(-2000, 1 << 20, (1, lanes)).astype(np.int32)
+    got, toks = bp.copy(), np.zeros((K, lanes), np.uint32)
+    rbits = (2 * rc).bit_length() - 1
+    shim.shim_step5(_ptr(win), _ptr(tll), _ptr(td), _ptr(got), _ptr(toks),
+                    lanes, K, W, rc, sc, rbits)
+    want_bp, want_toks = PR.lane_major_step(*map(_ti, (win, tll, td, bp)), K,
+                                            rc, sc)
+    assert (got == want_bp.numpy()).all()
+    assert (toks.view(np.int32) == want_toks.numpy()).all()
+    assert len(np.unique(toks)) > K * lanes // 4
+
+
+_SEGMENTS = {"flat": lambda S, L: (S * L, 0, 1),
+             "rows": lambda S, L: (L, L, 1),
+             "cols": lambda S, L: (S, 1, L)}
+
+
+# the TPU probes' three [8, 128] cases and two other tile shapes
+@pytest.mark.parametrize("S,L,segment", [
+    (8, 128, "flat"), (8, 128, "rows"), (8, 128, "cols"), (4, 8, "flat"),
+    (16, 64, "cols")])
+def test_probe_bitonic_schedule_sorts_each_segment(shim, S, L, segment):
+    """Every stage of the network touches each place of the tile once (its
+    pairs may run in parallel), pairs one segment apart never mix, and the
+    whole schedule sorts each segment as the plain version and np.sort."""
+    seg = _SEGMENTS[segment](S, L)
+    n = S * L
+    k = 2
+    while k <= seg[0]:
+        j = k // 2
+        while j >= 1:
+            out = np.zeros((n // 2, 3), np.uint32)
+            shim.shim_bitonic_stage(n, *seg, k, j, _ptr(out))
+            assert sorted(out[:, :2].reshape(-1)) == list(range(n))
+            lo, hi = out[:, 0], out[:, 1]
+            if segment == "rows":
+                assert (lo // L == hi // L).all()
+            if segment == "cols":
+                assert (lo % L == hi % L).all()
+            j //= 2
+        k *= 2
+    x = np.random.default_rng(n).integers(-2**31, 2**31, (3, S, L)).astype(
+        np.int32)
+    got = x.copy()
+    shim.shim_bitonic(_ptr(got), 3, n, *seg)
+    want = PR.bitonic(torch.from_numpy(x), segment).numpy()
+    assert (got == want).all()
+    ref = (np.sort(x.reshape(3, -1), axis=1).reshape(x.shape)
+           if segment == "flat" else np.sort(x, axis=2 if segment == "rows"
+                                             else 1))
+    assert (want == ref).all()

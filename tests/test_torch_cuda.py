@@ -259,3 +259,139 @@ def test_slice_on_cuda(dev, monkeypatch):
     core.qz_close_engine()
     assert outs["cuda"] == outs["cpu"]
     assert gzip.decompress(outs["cuda"]) == data
+
+
+# -- the construct probes' kernels (qatzip_tpu_torch/tools/probes.py) --------
+
+
+def test_probe_library_builds(dev):
+    from qatzip_tpu_torch.ops import _build
+
+    _build.build(name=_build.PROBES)
+    _build.library(_build.PROBES)
+
+
+def _probe_check(dev, kernel, call, *cpu_args):
+    """call(*args) on the card launches kernel once and equals call on the
+    CPU copies (the plain versions)."""
+    want = call(*cpu_args)
+    before = kernel.launches
+    got = call(*(a.to(dev) if isinstance(a, torch.Tensor) else a
+                 for a in cpu_args))
+    assert kernel.launches == before + 1
+    torch.cuda.synchronize()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert torch.equal(g.cpu(), w)
+
+
+def _i32(rng, shape, lo=-2**31, hi=2**31):
+    return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)
+                            .astype(np.int32))
+
+
+# a table a row (the TPU shape), one 2048-word table for every row (the
+# inflate's 8 KB a lane), one thread a row
+@pytest.mark.parametrize("t_rows,w,n", [(16, 128, 128), (1, 2048, 300),
+                                        (16, 2048, 1)])
+@pytest.mark.parametrize("mode", ["dep", "indep4", "indep8"])
+@pytest.mark.parametrize("smem", [True, False])
+def test_probe_chain_rows_equal_plain(dev, mode, smem, t_rows, w, n):
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(w + n)
+    t, idx = _i32(rng, (t_rows, w)), _i32(rng, (16, n))
+    _probe_check(dev, P.CHAIN, lambda a, b: P.probe_chain(
+        mode, a, b, 9, smem=smem), t, idx)
+
+
+@pytest.mark.parametrize("n,rows,post", [(8, 8, 0xFFFFFFFF), (64, 1, 63),
+                                         (512, 8, 511)])
+@pytest.mark.parametrize("smem", [True, False])
+def test_probe_chain_column_and_walk_equal_plain(dev, smem, n, rows, post):
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(n)
+    t, idx = _i32(rng, (n, 128), 0, n), _i32(rng, (rows, 128), 0, n)
+    _probe_check(dev, P.CHAIN, lambda a, b: P.probe_chain(
+        "column", a, b, 11, smem=smem, post=post), t, idx)
+    x = _i32(rng, (8, 128))
+    _probe_check(dev, P.CHAIN, lambda a: P.probe_chain(
+        "walk", a, None, 300, smem=smem), x)
+
+
+@pytest.mark.parametrize("mode", ["hash", "ew", "double"])
+def test_probe_alu_equals_plain(dev, mode):
+    from qatzip_tpu_torch.tools import probes as P
+
+    x = _i32(np.random.default_rng(1), (3, 1000))
+    _probe_check(dev, P.ALU, lambda a: P.probe_alu(mode, a, 13), x)
+
+
+@pytest.mark.parametrize("lpc", [1, 8, 32])
+def test_probe_step_equals_plain(dev, lpc):
+    """STEP3 on random int32 tables; STEP5 with and without its tokens at
+    the TPU's root of 128 cells and the inflate's 256; TOKENS stored alone
+    and through a tile (lanes a CTA a multiple of 4)."""
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(lpc)
+    win, tll, td = (_i32(rng, (2, 128)) for _ in range(3))
+    bp = _i32(rng, (2, 128), 0, 1 << 16)
+    _probe_check(dev, P.STEP, lambda *a: P.probe_step(
+        "step3", "none", *a, 20, lanes_per_cta=lpc), win, tll, td, bp)
+    for rc in (128, 256):
+        w5 = _i32(rng, (128, 64))
+        t5, d5 = _i32(rng, (rc + 256, 64)), _i32(rng, (rc + 256, 64))
+        b5 = _i32(rng, (1, 64), 0, 1000)
+        for store in ("none", "lone"):
+            _probe_check(dev, P.STEP, lambda *a: P.probe_step(
+                "step5", store, *a, 10, lanes_per_cta=lpc, root_cells=rc,
+                sub_cells=256), w5, t5, d5, b5)
+    t = _i32(rng, (2, 128), 0, 3)
+    i0 = _i32(rng, (2, 128), 0, 128)
+    for store in (("lone", "tile") if lpc % 4 == 0 else ("lone",)):
+        _probe_check(dev, P.STEP, lambda a, b: P.probe_step(
+            "tokens", store, None, a, None, b, 16, lanes_per_cta=lpc,
+            tile=8), t, i0)
+
+
+@pytest.mark.parametrize("lpc", [64, 128])
+def test_probe_tokens_tile_fits_wide_ctas(dev, lpc):
+    """A CTA of 64 or 128 lanes stages one 384-word row and a [256][lpc]
+    token tile: within the shared memory a CTA may take."""
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(lpc)
+    t = _i32(rng, (2, 128), 0, 3)
+    i0 = _i32(rng, (2, 128), 0, 128)
+    for store in ("lone", "tile"):
+        _probe_check(dev, P.STEP, lambda a, b: P.probe_step(
+            "tokens", store, None, a, None, b, 512, lanes_per_cta=lpc,
+            tile=256), t, i0)
+
+
+def test_probe_tiles_equal_plain(dev):
+    """ROLL on both axes, TRANSPOSE, REFILL by loads, cp.async and TMA (by
+    offset and by block index), BITONIC on the three segment shapes."""
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(7)
+    for S, shift, axis in ((16, 4, 0), (512, 448, 0), (8, 127, 1),
+                           (512, -3, 1)):
+        x = _i32(rng, (S, 128))
+        _probe_check(dev, P.TILE, lambda a: P.probe_roll(a, shift, axis), x)
+    x = _i32(rng, (128, 128))
+    for K in (1, 2, 5):
+        _probe_check(dev, P.TILE, lambda a: P.probe_transpose(a, K), x)
+    stream = _i32(rng, (64, 1024))
+    off = _i32(rng, (64,), 0, 1024 - 200)
+    for how in ("ld", "cp", "tma"):
+        for K, alt in ((1, 0), (4, 0), (3, 64)):
+            _probe_check(dev, P.TILE, lambda a, b: P.probe_refill(
+                a, b, 128, K, alt=alt, how=how), stream, off)
+    x = _i32(rng, (5, 8, 128))
+    for segment in ("flat", "rows", "cols"):
+        _probe_check(dev, P.TILE, lambda a: P.probe_bitonic(a, segment, 2), x)

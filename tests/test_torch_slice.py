@@ -154,8 +154,8 @@ def test_kernel_that_cannot_build_raises_instead_of_failing_over(
 
     # route the CPU tensors into the kernels' launches, as a CUDA tensor is
     monkeypatch.setattr(_build, "_nvcc", no_nvcc)
-    monkeypatch.setattr(_build, "LIB", str(tmp_path / "libqzkernels.so"))
-    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_libs", {})
     for kern in (S.POS_KERNEL, K.KERNEL):
         monkeypatch.setattr(kern, "_fn", None)
     monkeypatch.setattr(mf, "select_to_positions",
