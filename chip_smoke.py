@@ -50,11 +50,27 @@ Run from the repository root:  python3 chip_smoke.py
    a 128-chunk batch, run on the device only, fail no block over to the
    CPU, record no health failure, round-trip bit-exactly, and be readable
    by the software path.
-6. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
+6. The rest of the qz* surface through the public API, gzip-ext and 4B at
+   level 1 and 64 KB chunks, the device route forced and the raw candidate
+   format, the launch counts zeroed before each step: stream compress of
+   8 MB in 1 MB pieces (gzip-ext and 4B; the select kernel at least once a
+   stream buffer) and the 4B stream decompressed piecemeal; eight 4 MB
+   slices through qz_compress2 and then qz_decompress2 from two submitter
+   threads (completed in submission order, equal to the one-shot
+   results); the metadata API over the 32 MB corpus at 64 KB blocks (every
+   block's CRC32/CRC64, the decompress in one batch of at most 512 lanes a
+   launch, no more launches than the one-shot decompress of step 4); the
+   CRC64 variants; and qzip -k -O gzip and -d in this process, then once
+   as a child (python3 -m qatzip_tpu_torch.cli.qzip).  Each step must
+   launch the kernels it reaches, run no software request or result, fail
+   no lane over and record no health failure, and round-trip exactly; its
+   GB/s is printed beside the card's name and power limit, and the
+   kernels line carries each step's launches (``api_launches``).
+7. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
    device busy time against the unprofiled wall time, the inflate kernel's
    share of the gzip-ext decompress, and the host functions that take the
    time.
-7. Routing: one gzip-ext request each way with QATZIP_TPU_DEVICE unset,
+8. Routing: one gzip-ext request each way with QATZIP_TPU_DEVICE unset,
    routed by the record of step 3; prints which backend took each
    direction, which must be the one the record names.
 
@@ -754,6 +770,256 @@ def phase_lz4(torch, corpus: bytes) -> list:
     return runs
 
 
+class _ApiStep:
+    """One step of phase_api: made just before the step, it zeroes the
+    launch counts, the failed-over lanes and the health failures and starts
+    the clock; ``done`` stops it, checks the step ran on the device route
+    only (no software request or result, no lane failed over, no health
+    failure) and prints its line."""
+
+    def __init__(self, torch, name: str, gpu: str, records: dict):
+        from qatzip_tpu_torch.engine import core
+        from qatzip_tpu_torch.engine.health import health
+        from qatzip_tpu_torch.ops import deflate_decode as dd
+        from qatzip_tpu_torch.ops import inflate_kernel as K
+        from qatzip_tpu_torch.ops import select as S
+
+        self.torch, self.name, self.gpu, self.records = torch, name, gpu, \
+            records
+        S.POS_KERNEL.launches = 0
+        K.KERNEL.launches = 0
+        dd.failover_lanes = 0
+        health.total_failures = 0
+        self.sw0 = core.engine().sw_requests
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def done(self, nbytes: int, need: dict, results=(),
+             extra: str = "") -> dict:
+        """Close the step over ``nbytes`` of uncompressed data: ``need``
+        gives the least launches of each kernel the step reaches,
+        ``results`` the OpResult-like objects whose ext_rc must be clear of
+        the software mask.  Returns the launches."""
+        import qatzip_tpu_torch as qt
+        from qatzip_tpu_torch.engine import core
+        from qatzip_tpu_torch.engine.health import health
+        from qatzip_tpu_torch.ops import deflate_decode as dd
+        from qatzip_tpu_torch.ops import inflate_kernel as K
+        from qatzip_tpu_torch.ops import select as S
+
+        self.torch.cuda.synchronize()
+        dt = time.perf_counter() - self.t0
+        launches = {"select_to_positions": S.POS_KERNEL.launches,
+                    "inflate_decode": K.KERNEL.launches}
+        sw = core.engine().sw_requests - self.sw0
+        for r in results:
+            _check(r.rc == qt.QZ_OK, f"{self.name}: rc {r.rc}")
+            _check(not r.ext_rc & qt.QZ_SW_EXECUTION_MASK,
+                   f"{self.name}: a result ran on the software path")
+        _check(sw == 0, f"{self.name}: {sw} software requests")
+        _check(dd.failover_lanes == 0,
+               f"{self.name}: {dd.failover_lanes} lanes failed over")
+        _check(health.total_failures == 0,
+               f"{self.name}: {health.total_failures} health failures")
+        for kernel, least in need.items():
+            _check(launches[kernel] >= least, f"{self.name}: {kernel} "
+                   f"launched {launches[kernel]} times, not {least}")
+        self.records[self.name] = launches
+        print(f"api {self.name}: {nbytes} bytes in {dt:.4f} s = "
+              f"{nbytes / 1e9 / dt:.4f} GB/s ({self.gpu}); launches "
+              f"{launches}; software requests 0, failover lanes 0, health "
+              f"failures 0{extra}")
+        return launches
+
+
+def phase_api(torch, corpus: bytes, tmpdir: str, main_inflate: int) -> dict:
+    """The rest of the qz* surface on the card, the device route forced and
+    the raw candidate format (phase_slice set both): stream, async,
+    metadata, the CRC64 variants and the qzip CLI, each step with its
+    launch counts zeroed before it.  Returns {step: launches}."""
+    import threading
+
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch import async_api, metadata, stream
+    from qatzip_tpu_torch.cli import qzip
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+    from qatzip_tpu_torch.ops import device_codecs as dc
+    from qatzip_tpu_torch.utils import checksum as ck
+
+    gpu = _gpu_line()
+    records: dict = {}
+
+    def session(fmt):
+        sess = qt.QzSession()
+        p = qt.QzSessionParamsDeflate(
+            common_params=qt.QzSessionParamsCommon(comp_lvl=1,
+                                                   hw_buff_sz=CHUNK),
+            data_fmt=fmt)
+        _check(qt.qz_setup_session_deflate(sess, p) == qt.QZ_OK,
+               "session setup failed")
+        return sess
+
+    def feed(fn, sess, data, piece=1 << 20):
+        strm, out = stream.QzStream(), bytearray()
+        for i in range(0, len(data), piece):
+            rc, produced = fn(sess, strm, data[i:i + piece],
+                              last=int(i + piece >= len(data)))
+            _check(rc == qt.QZ_OK, f"{fn.__name__} rc {rc}")
+            out += produced
+        out += stream.qz_end_stream(sess, strm)[1]
+        return bytes(out)
+
+    # 1. stream: a quarter of the corpus (8 MB) in 1 MB pieces at the
+    # default strm_buff_sz
+    src = corpus[:len(corpus) // 4]
+    gz, fb = qt.QzDataFormat.QZ_DEFLATE_GZIP_EXT, qt.QzDataFormat.QZ_DEFLATE_4B
+    buffers = -(-len(src) // qt.QZ_STRM_BUFF_SZ_DEFAULT)
+    st = _ApiStep(torch, "stream gzip-ext compress", gpu, records)
+    comp = feed(stream.qz_compress_stream, session(gz), src)
+    st.done(len(src), {"select_to_positions": buffers},
+            extra=f"; {buffers} stream buffers")
+    _check(gzip.decompress(comp) == src, "gzip cannot read the stream")
+    st = _ApiStep(torch, "stream 4B compress", gpu, records)
+    comp = feed(stream.qz_compress_stream, session(fb), src)
+    st.done(len(src), {"select_to_positions": buffers})
+    st = _ApiStep(torch, "stream 4B decompress", gpu, records)
+    back = feed(stream.qz_decompress_stream, session(fb), comp)
+    st.done(len(src), {"inflate_decode": 1})
+    _check(back == src, "the 4B stream round trip is not bit-exact")
+
+    # 2. async: eight slices of the corpus (4 MB) from two submitter threads
+    part = len(corpus) // 8
+    slices = [corpus[i * part:(i + 1) * part] for i in range(8)]
+    sess = session(gz)
+    want = [qt.qz_compress(sess, s).data for s in slices]
+    order, submitted, lock = [], [], threading.Lock()
+
+    def submit(direction, idx, futs):
+        for i in idx:
+            with lock:   # the seq order is the order of this list
+                fn = (async_api.qz_compress2 if direction == "compress"
+                      else async_api.qz_decompress2)
+                rc, fut = fn(sess, slices[i] if direction == "compress"
+                             else want[i],
+                             callback=lambda ext, *a: order.append(ext),
+                             external=i)
+                _check(rc == qt.QZ_OK, f"qz_{direction}2 rc {rc}")
+                submitted.append(i)
+                futs[i] = fut
+
+    for direction in ("compress", "decompress"):
+        order.clear()
+        submitted.clear()
+        futs = [None] * 8
+        st = _ApiStep(torch, f"async {direction}", gpu, records)
+        threads = [threading.Thread(target=submit,
+                                    args=(direction, range(k, 8, 2),
+                                          futs)) for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        _check(not any(t.is_alive() for t in threads),
+               "an async submitter did not finish")
+        results = [f.result(timeout=300) for f in futs]
+        st.done(len(corpus), {"select_to_positions" if direction ==
+                              "compress" else "inflate_decode": 1}, results)
+        _check(order == submitted,
+               f"async {direction} completed out of submission order")
+        _check([r.data for r in results] ==
+               (want if direction == "compress" else slices),
+               f"async {direction} differs from the one-shot results")
+    qt.qz_close(sess)
+
+    # 3. metadata: the 32 MB corpus at 64 KB blocks, decoded as one batch
+    rc, blob = qt.qz_allocate_metadata(len(corpus), CHUNK)
+    _check(rc == qt.QZ_OK and blob.block_count == len(corpus) // CHUNK,
+           "metadata allocation")
+    st = _ApiStep(torch, "metadata compress", gpu, records)
+    res = qt.qz_compress_with_metadata_ext(session(gz), corpus, blob)
+    st.done(len(corpus), {"select_to_positions": 1}, [res])
+    for k in range(blob.valid):
+        chunk = corpus[k * CHUNK:(k + 1) * CHUNK]
+        _, in32, _ = qt.qz_metadata_block_get_crc32(k, blob)
+        _, in64, _ = qt.qz_metadata_block_get_crc64(k, blob)
+        _check((in32, in64) == (zlib.crc32(chunk), ck.crc64(chunk)),
+               f"metadata block {k}: CRC32/CRC64 differ from checksum's")
+    deflate = sum(1 for b in blob.blocks[:blob.valid]
+                  if b.flags & metadata.QZ_METADATA_BLOCK_DEFLATE)
+    lanes, batches = [], []
+    round_fn, batch_fn = dd._run_device_round_lockstep, dd.inflate_batch
+    dd._run_device_round_lockstep = (
+        lambda batch, dev: lanes.append(len(batch)) or round_fn(batch, dev))
+    dd.inflate_batch = (
+        lambda p, *a, **k: batches.append(len(p)) or batch_fn(p, *a, **k))
+    try:
+        st = _ApiStep(torch, "metadata decompress", gpu, records)
+        dres = qt.qz_decompress_with_metadata_ext(session(gz), res.data,
+                                                  blob)
+        inflates = st.done(
+            len(corpus), {"inflate_decode": 1}, [dres],
+            extra=f"; {deflate} deflate blocks in batches {batches}, lanes "
+                  f"a launch {lanes}")["inflate_decode"]
+    finally:
+        dd._run_device_round_lockstep, dd.inflate_batch = round_fn, batch_fn
+    _check(dres.data == corpus, "the metadata round trip is not bit-exact")
+    width = dc.DeflateDeviceCodec.LOCKSTEP_BATCH
+    _check(batches == [width] * (deflate // width)
+           + ([deflate % width] if deflate % width else []),
+           f"metadata decompress batches {batches} for {deflate} blocks")
+    _check(inflates == len(lanes) <= main_inflate,
+           f"metadata decompress ran {inflates} inflate launches over "
+           f"{len(lanes)} rounds (the one-shot decompress: {main_inflate})")
+
+    # 4. the CRC64 variants on the 32 MB corpus
+    want64 = ck.crc64(corpus)
+    st = _ApiStep(torch, "crc64 compress", gpu, records)
+    res = qt.qz_compress_crc64(session(gz), corpus)
+    st.done(len(corpus), {"select_to_positions": 1}, [res])
+    _check(res.crc == want64, "qz_compress_crc64 returned another crc64")
+    st = _ApiStep(torch, "crc64 decompress", gpu, records)
+    dres = qt.qz_decompress_crc64(session(gz), res.data)
+    st.done(len(corpus), {"inflate_decode": 1}, [dres])
+    _check(dres.crc == want64 and dres.data == corpus,
+           "qz_decompress_crc64: crc64 or bytes")
+
+    # 5. the qzip CLI in this process, then in a child
+    path = os.path.join(tmpdir, "corpus.bin")
+    with open(path, "wb") as f:
+        f.write(corpus)
+    st = _ApiStep(torch, "qzip -k -O gzip", gpu, records)
+    qzip.main(["-k", "-O", "gzip", path])
+    st.done(len(corpus), {"select_to_positions": 1})
+    with open(path + ".gz", "rb") as f:
+        _check(gzip.decompress(f.read()) == corpus,
+               "gzip cannot read qzip's output")
+    out = os.path.join(tmpdir, "restored.bin")
+    st = _ApiStep(torch, "qzip -d", gpu, records)
+    qzip.main(["-d", "-k", "-o", out, path + ".gz"])
+    st.done(len(corpus), {"inflate_decode": 1})
+    with open(out, "rb") as f:
+        _check(f.read() == corpus, "qzip -d did not restore the file")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, QATZIP_TPU_DEVICE="1", PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "qatzip_tpu_torch.cli.qzip",
+                           "-k", "-O", "gzip", "-o",
+                           os.path.join(tmpdir, "child"), path],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+    dt = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"the qzip child exited {proc.returncode}: "
+           f"{proc.stderr[-2000:]}")
+    with open(os.path.join(tmpdir, "child.gz"), "rb") as f:
+        _check(gzip.decompress(f.read()) == corpus,
+               "gzip cannot read the qzip child's output")
+    print(f"api python3 -m qatzip_tpu_torch.cli.qzip (a child, "
+          f"QATZIP_TPU_DEVICE=1): exit 0 in {dt:.2f} s, start-up and kernel "
+          f"load included; gzip reads its output; its own line: "
+          f"{proc.stderr.strip().splitlines()[-1]}")
+    return records
+
+
 def phase_profile(torch, runs: list) -> None:
     """Device busy time and the host's top functions, one pass each way of
     each session.
@@ -835,6 +1101,13 @@ def main() -> int:
         rec = phase_calibrate(tmpdir)
         runs = [phase_slice(torch, corpus, kernels, sort_rec, probes)]
         runs += phase_lz4(torch, corpus)
+        main = {k["name"]: k for k in kernels}
+        api = phase_api(torch, corpus, tmpdir,
+                        main["inflate_decode"]["launches"])
+        for name in ("select_to_positions", "inflate_decode"):
+            # each step's launches of the path's kernels
+            main[name]["api_launches"] = {step: counts[name]
+                                          for step, counts in api.items()}
         phase_profile(torch, runs)
         phase_routing(torch, corpus, rec)
     kernels.append(sort_rec)

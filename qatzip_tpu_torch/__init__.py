@@ -6,7 +6,10 @@ tested against).  It runs the DEFLATE device path — the hybrid compressor
 (device entropy decode + native window copies) — and the LZ4/LZ4s device
 path — the same match finder with native LZ4 emission, and a device block
 decoder — on an NVIDIA GPU through hand-written CUDA kernels (``csrc/``)
-and plain torch.  It imports nothing of ``qatzip_tpu``: the host layers it
+and plain torch, behind the reference's whole qz* API: one-shot, CRC and
+CRC64 variants, streaming (``stream``), async (``async_api``), the
+metadata block index (``metadata``) and the qzip/qzstd/7z command lines
+(``cli``).  It imports nothing of ``qatzip_tpu``: the host layers it
 shares with the reference (constants, sessions, wire formats, the native
 C++ codec, the CPU backend) are its own copies, and its native codec builds
 under ``build/qatzip_tpu_torch/``.  Importing it never loads jax.

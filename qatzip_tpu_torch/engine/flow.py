@@ -13,7 +13,8 @@ reassembled in submission order.
 ``FlowTracker`` counts the four stages per request and globally;
 ``check()`` asserts stage equality at request end (logging FLOW ERROR and
 returning False on violation so the engine can fail the request rather
-than emit silently corrupt output).
+than emit silently corrupt output).  ``dump()`` is the qatzip_counter.c
+analog (dumpAllCounters, src/qatzip_counter.c:56-82).
 """
 from __future__ import annotations
 
@@ -33,6 +34,16 @@ class FlowTracker:
 
     def request(self) -> "_RequestFlow":
         return _RequestFlow(self)
+
+    def dump(self) -> dict:
+        """Counter dump (the qzip `dumpAllCounters` analog)."""
+        with self._lock:
+            out = dict(self.totals)
+            out["flow_errors"] = self.flow_errors
+            out["requests"] = self.requests
+            return out
+
+
 class _RequestFlow:
     """Per-request counter quad."""
 

@@ -22,9 +22,25 @@ _lib.qz_lz4s_compress_block.argtypes = [ctypes.c_void_p, ctypes.c_int64,
 _lib.qz_lz4_decompress_block.restype = ctypes.c_int64
 _lib.qz_lz4_decompress_block.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                          ctypes.c_void_p, ctypes.c_int64]
+_lib.qz_lz4s_decompress_block.restype = ctypes.c_int64
+_lib.qz_lz4s_decompress_block.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                          ctypes.c_void_p, ctypes.c_int64,
+                                          ctypes.c_int]
 _lib.qz_crc32_combine.restype = ctypes.c_uint32
 _lib.qz_crc32_combine.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
                                   ctypes.c_int64]
+_lib.qz_crc32.restype = ctypes.c_uint32
+_lib.qz_crc32.argtypes = [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int64]
+_lib.qz_adler32.restype = ctypes.c_uint32
+_lib.qz_adler32.argtypes = [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int64]
+_lib.qz_adler32_combine.restype = ctypes.c_uint32
+_lib.qz_adler32_combine.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
+                                    ctypes.c_int64]
+_lib.qz_crc_generic.restype = ctypes.c_uint64
+_lib.qz_crc_generic.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                ctypes.c_uint64, ctypes.c_uint64,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_uint64]
 _lib.qz_deflate_compress.restype = ctypes.c_int64
 _lib.qz_deflate_compress.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                      ctypes.c_void_p, ctypes.c_int64,
@@ -55,6 +71,8 @@ _lib.qz_batch_inflate.argtypes = [
     ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32)]
 _lib.qz_xxh32.restype = ctypes.c_uint32
 _lib.qz_xxh32.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
+_lib.qz_xxh64.restype = ctypes.c_uint64
+_lib.qz_xxh64.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64]
 _lib.qz_lz4_candidates.restype = ctypes.c_int64
 _lib.qz_lz4_candidates.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                    ctypes.c_void_p, ctypes.c_void_p,
@@ -126,6 +144,11 @@ def xxh32(data, seed: int = 0) -> int:
     return _lib.qz_xxh32(p, n, seed & 0xFFFFFFFF)
 
 
+def xxh64(data, seed: int = 0) -> int:
+    p, n, keep = _addr(data)
+    return _lib.qz_xxh64(p, n, seed & 0xFFFFFFFFFFFFFFFF)
+
+
 def lz4_candidates(data, cand_u16, mode: int = 0,
                    mini_match: int = 3) -> bytes:
     """Hybrid LZ4/LZ4s: device candidate distances -> native verify/extend/
@@ -174,6 +197,17 @@ def lz4_decompress_block(block: bytes, max_out: int) -> bytes:
     n = _lib.qz_lz4_decompress_block(p, bn, buf.ctypes.data_as(ctypes.c_void_p), cap)
     if n < 0:
         raise ValueError("corrupt lz4 block")
+    return buf[:n].tobytes()
+
+
+def lz4s_decompress_block(block: bytes, max_out: int,
+                          mini_match: int = 3) -> bytes:
+    cap = min(max_out, 1 << 26) if max_out > 0 else 1 << 26
+    buf = _arena(cap)
+    p, bn, keep = _addr(block)
+    n = _lib.qz_lz4s_decompress_block(p, bn, buf.ctypes.data_as(ctypes.c_void_p), cap, mini_match)
+    if n < 0:
+        raise ValueError("corrupt lz4s block")
     return buf[:n].tobytes()
 
 
@@ -231,6 +265,28 @@ def deflate_candidates_packed(data, packed_u8, level: int = 1) -> bytes:
     if n < 0:
         raise ValueError("deflate_candidates_packed failed")
     return buf[:n].tobytes()
+
+
+def crc32(data, crc: int = 0) -> int:
+    p, n, keep = _addr(data)
+    return _lib.qz_crc32(crc & 0xFFFFFFFF, p, n)
+
+
+def adler32(data, adler: int = 1) -> int:
+    p, n, keep = _addr(data)
+    return _lib.qz_adler32(adler & 0xFFFFFFFF, p, n)
+
+
+def adler32_combine(a1: int, a2: int, len2: int) -> int:
+    return _lib.qz_adler32_combine(a1 & 0xFFFFFFFF, a2 & 0xFFFFFFFF, len2)
+
+
+def crc_generic(data: bytes, poly: int, init: int, width: int,
+                reflect_in: bool, reflect_out: bool, xor_out: int) -> int:
+    """Rocksoft-model CRC, width 8..64 (session-configurable CRC32/CRC64)."""
+    p, n, keep = _addr(data)
+    return _lib.qz_crc_generic(p, n, poly, init, width,
+                               int(reflect_in), int(reflect_out), xor_out)
 
 
 def batch_deflate_compress(data, chunk_sz: int, level: int,

@@ -1,6 +1,6 @@
-"""Checksum helpers of the port (a copy of the part of
-qatzip_tpu/utils/checksum.py it reaches): crc32/adler32 combination across
-independent chunks, and XXH32.
+"""Checksum helpers of the port (a copy of qatzip_tpu/utils/checksum.py):
+crc32/adler32 combination across independent chunks, XXH32/XXH64, and the
+session-configurable CRC32/CRC64.
 
 The engine compresses chunks independently and combines their checksums
 in submission order, mirroring the reference's crc32_combine use (src/qatzip.c:1707-1714).
@@ -116,3 +116,216 @@ def xxh32(data, seed: int = 0) -> int:
         import xxhash as _xx
 
         return _xx.xxh32(bytes(data), seed).intdigest()
+
+
+class XXH32State:
+    """Incremental XXH32 (RFC-less spec; same mandated constants as the
+    reference's vendored src/xxhash.c).  Used by the streaming LZ4-frame
+    decompressor to fold the content checksum without buffering the whole
+    frame output."""
+
+    _P1, _P2, _P3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
+    _P4, _P5 = 0x27D4EB2F, 0x165667B1
+    _M = 0xFFFFFFFF
+
+    def __init__(self, seed: int = 0):
+        s = seed & self._M
+        self._acc = [(s + self._P1 + self._P2) & self._M,
+                     (s + self._P2) & self._M, s,
+                     (s - self._P1) & self._M]
+        self._seed = s
+        self._buf = bytearray()
+        self._total = 0
+
+    @staticmethod
+    def _rotl(v: int, r: int) -> int:
+        return ((v << r) | (v >> (32 - r))) & 0xFFFFFFFF
+
+    def _round(self, acc: int, lane: int) -> int:
+        acc = (acc + lane * self._P2) & self._M
+        return (self._rotl(acc, 13) * self._P1) & self._M
+
+    def update(self, data) -> "XXH32State":
+        data = bytes(data)
+        self._total += len(data)
+        self._buf += data
+        n = len(self._buf) - (len(self._buf) & 15)
+        if n:
+            import struct as _st
+
+            a = self._acc
+            for (l0, l1, l2, l3) in _st.iter_unpack("<IIII",
+                                                    bytes(self._buf[:n])):
+                a[0] = self._round(a[0], l0)
+                a[1] = self._round(a[1], l1)
+                a[2] = self._round(a[2], l2)
+                a[3] = self._round(a[3], l3)
+            del self._buf[:n]
+        return self
+
+    def digest(self) -> int:
+        import struct as _st
+
+        if self._total >= 16:
+            h = (self._rotl(self._acc[0], 1) + self._rotl(self._acc[1], 7)
+                 + self._rotl(self._acc[2], 12)
+                 + self._rotl(self._acc[3], 18)) & self._M
+        else:
+            h = (self._seed + self._P5) & self._M
+        h = (h + self._total) & self._M
+        buf = bytes(self._buf)
+        i = 0
+        while i + 4 <= len(buf):
+            (lane,) = _st.unpack_from("<I", buf, i)
+            h = (h + lane * self._P3) & self._M
+            h = (self._rotl(h, 17) * self._P4) & self._M
+            i += 4
+        while i < len(buf):
+            h = (h + buf[i] * self._P5) & self._M
+            h = (self._rotl(h, 11) * self._P1) & self._M
+            i += 1
+        h ^= h >> 15
+        h = (h * self._P2) & self._M
+        h ^= h >> 13
+        h = (h * self._P3) & self._M
+        h ^= h >> 16
+        return h
+
+
+def xxh64(data, seed: int = 0) -> int:
+    try:
+        from qatzip_tpu_torch.native import qzcore as _native
+
+        return _native.xxh64(bytes(data), seed)
+    except Exception:
+        import xxhash as _xx
+
+        return _xx.xxh64(bytes(data), seed).intdigest()
+
+
+# ---------------------------------------------------------------------------
+# Session-configurable CRC32/CRC64 (reference QzCrc32Config_T /
+# QzCrc64Config_T, include/qatzip.h:753-787)
+# ---------------------------------------------------------------------------
+import dataclasses as _dc
+
+
+@_dc.dataclass
+class Crc64Config:
+    """Session CRC64 configuration; defaults to ECMA-182 Normal
+    (reference include/qatzip.h:753-765)."""
+
+    polynomial: int = 0x42F0E1EBA9EA3693
+    initial_value: int = 0
+    reflect_in: int = 0
+    reflect_out: int = 0
+    xor_out: int = 0
+
+
+@_dc.dataclass
+class Crc32Config:
+    """Session CRC32 configuration; defaults to the gzip CRC-32
+    (reflected 0x04C11DB7, init/xor 0xFFFFFFFF)."""
+
+    polynomial: int = 0x04C11DB7
+    initial_value: int = 0xFFFFFFFF
+    reflect_in: int = 1
+    reflect_out: int = 1
+    xor_out: int = 0xFFFFFFFF
+
+
+def _reflect(v: int, bits: int) -> int:
+    r = 0
+    for _ in range(bits):
+        r = (r << 1) | (v & 1)
+        v >>= 1
+    return r
+
+
+@functools.lru_cache(maxsize=8)
+def _crc_table(poly: int, width: int, reflect_in: int) -> tuple[int, ...]:
+    mask = (1 << width) - 1
+    tab = []
+    if reflect_in:
+        rp = _reflect(poly & mask, width)
+        for b in range(256):
+            crc = b
+            for _ in range(8):
+                crc = (crc >> 1) ^ (rp if crc & 1 else 0)
+            tab.append(crc)
+    else:
+        top = 1 << (width - 1)
+        for b in range(256):
+            crc = b << (width - 8)
+            for _ in range(8):
+                crc = ((crc << 1) ^ poly) & mask if crc & top else (crc << 1) & mask
+            tab.append(crc)
+    return tuple(tab)
+
+
+def crc_generic(data, poly: int, init: int, width: int, reflect_in: int,
+                reflect_out: int, xor_out: int) -> int:
+    """Rocksoft-model CRC of any width 8..64."""
+    data = bytes(data)
+    if _native is not None:
+        return _native.crc_generic(data, poly, init, width,
+                                   bool(reflect_in), bool(reflect_out),
+                                   xor_out)
+    mask = (1 << width) - 1
+    tab = _crc_table(poly, width, int(bool(reflect_in)))
+    if reflect_in:
+        crc = _reflect(init & mask, width)
+        for byte in data:
+            crc = (crc >> 8) ^ tab[(crc ^ byte) & 0xFF]
+        if not reflect_out:
+            crc = _reflect(crc, width)
+    else:
+        crc = init & mask
+        for byte in data:
+            crc = ((crc << 8) & mask) ^ tab[((crc >> (width - 8)) ^ byte) & 0xFF]
+        if reflect_out:
+            crc = _reflect(crc, width)
+    return (crc ^ xor_out) & mask
+
+
+def crc_continue(data, running: int, poly: int, width: int, reflect_in: int,
+                 reflect_out: int, xor_out: int) -> int:
+    """Continue a Rocksoft-model CRC across buffers: ``running`` is a value
+    previously returned by :func:`crc_generic` with the same config."""
+    mask = (1 << width) - 1
+    state = (running ^ xor_out) & mask
+    if bool(reflect_in) != bool(reflect_out):
+        state = _reflect(state, width)
+    init = _reflect(state, width) if reflect_in else state
+    return crc_generic(data, poly, init, width, reflect_in, reflect_out,
+                       xor_out)
+
+
+def crc64_update(data, running: int, config: Crc64Config | None = None,
+                 first: bool = False) -> int:
+    cfg = config or Crc64Config()
+    if first:
+        return crc64(data, cfg)
+    return crc_continue(data, running, cfg.polynomial, 64, cfg.reflect_in,
+                        cfg.reflect_out, cfg.xor_out)
+
+
+def crc32_update(data, running: int, config: Crc32Config | None = None,
+                 first: bool = False) -> int:
+    cfg = config or Crc32Config()
+    if first:
+        return crc32_configured(data, cfg)
+    return crc_continue(data, running, cfg.polynomial, 32, cfg.reflect_in,
+                        cfg.reflect_out, cfg.xor_out)
+
+
+def crc64(data, config: Crc64Config | None = None) -> int:
+    cfg = config or Crc64Config()
+    return crc_generic(data, cfg.polynomial, cfg.initial_value, 64,
+                       cfg.reflect_in, cfg.reflect_out, cfg.xor_out)
+
+
+def crc32_configured(data, config: Crc32Config | None = None) -> int:
+    cfg = config or Crc32Config()
+    return crc_generic(data, cfg.polynomial, cfg.initial_value, 32,
+                       cfg.reflect_in, cfg.reflect_out, cfg.xor_out)

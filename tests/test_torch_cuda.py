@@ -261,6 +261,144 @@ def test_slice_on_cuda(dev, monkeypatch):
     assert gzip.decompress(outs["cuda"]) == data
 
 
+def _engine_on(device):
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch import constants as C
+    from qatzip_tpu_torch.engine import core
+
+    core.qz_close_engine()
+    assert qt.qz_init(qt.QzSession(), device=device) == C.QZ_OK
+    return core.engine()
+
+
+def _deflate_session(fmt):
+    import qatzip_tpu_torch as qt
+
+    sess = qt.QzSession()
+    p = qt.QzSessionParamsDeflate(data_fmt=fmt)
+    p.common_params.hw_buff_sz = 16384
+    p.common_params.strm_buff_sz = 16384
+    assert qt.qz_setup_session_deflate(sess, p) == qt.QZ_OK
+    return sess
+
+
+def _launches():
+    from qatzip_tpu_torch.ops import inflate_kernel as K
+    from qatzip_tpu_torch.ops import select as S
+
+    return S.POS_KERNEL.launches, K.KERNEL.launches
+
+
+def test_stream_on_cuda(dev, monkeypatch):
+    """Stream compress (gzip-ext and 4B) and the 4B stream decompress on the
+    card: the kernels launch, nothing runs on the software path, and the
+    bytes equal the CPU device's."""
+    from qatzip_tpu_torch import constants as C
+    from qatzip_tpu_torch import stream as ST
+    from qatzip_tpu_torch.engine import core
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+
+    monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
+    data = _text(200_000, 9)
+
+    def feed(fn, sess, src):
+        strm, out = ST.QzStream(), bytearray()
+        for i in range(0, len(src), 30_000):
+            rc, produced = fn(sess, strm, src[i:i + 30_000],
+                              last=int(i + 30_000 >= len(src)))
+            assert rc == C.QZ_OK
+            out += produced
+        return bytes(out + ST.qz_end_stream(sess, strm)[1])
+
+    outs = {}
+    for device in (torch.device("cpu"), dev):
+        eng = _engine_on(device)
+        sw0, fail0, launches0 = eng.sw_requests, dd.failover_lanes, \
+            _launches()
+        comps = [feed(ST.qz_compress_stream, _deflate_session(f), data)
+                 for f in (C.QzDataFormat.QZ_DEFLATE_GZIP_EXT,
+                           C.QzDataFormat.QZ_DEFLATE_4B)]
+        back = feed(ST.qz_decompress_stream,
+                    _deflate_session(C.QzDataFormat.QZ_DEFLATE_4B), comps[1])
+        assert back == data
+        assert (eng.sw_requests, dd.failover_lanes) == (sw0, fail0)
+        outs[device.type] = comps, _launches()
+    core.qz_close_engine()
+    assert outs["cuda"][0] == outs["cpu"][0]
+    select, inflate = (b - a for a, b in zip(launches0, outs["cuda"][1]))
+    assert select >= 2 * -(-len(data) // 16384) and inflate >= 1
+
+
+def test_async_on_cuda(dev, monkeypatch):
+    """qz_compress2/qz_decompress2 from two threads on the card: results
+    in order, equal to one-shot results, no software execution."""
+    import threading
+
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch import async_api as A
+    from qatzip_tpu_torch import constants as C
+    from qatzip_tpu_torch.engine import core
+
+    monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
+    slices = [_text(100_000, 20 + i) for i in range(4)]
+    eng = _engine_on(dev)
+    sess = _deflate_session(C.QzDataFormat.QZ_DEFLATE_GZIP_EXT)
+    want = [qt.qz_compress(sess, s).data for s in slices]
+    launches0, sw0 = _launches(), eng.sw_requests
+    for fn, srcs, expect in ((A.qz_compress2, slices, want),
+                             (A.qz_decompress2, want, slices)):
+        futs = [None] * 4
+
+        def submit(idx):
+            for i in idx:
+                rc, futs[i] = fn(sess, srcs[i])
+                assert rc == C.QZ_OK
+
+        threads = [threading.Thread(target=submit, args=(range(k, 4, 2),))
+                   for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        results = [f.result(timeout=120) for f in futs]
+        assert [r.data for r in results] == expect
+        assert not any(r.ext_rc & C.QZ_SW_EXECUTION_MASK for r in results)
+    qt.qz_close(sess)
+    core.qz_close_engine()
+    assert eng.sw_requests == sw0
+    assert all(b > a for a, b in zip(launches0, _launches()))
+
+
+def test_metadata_on_cuda(dev, monkeypatch):
+    """The metadata API on the card: the tables equal the CPU device's, the
+    decompress is exact in one device batch, no software execution."""
+    import dataclasses
+
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch import constants as C
+    from qatzip_tpu_torch.engine import core
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+
+    monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
+    data = _text(300_000, 30)
+    outs = {}
+    for device in (torch.device("cpu"), dev):
+        _engine_on(device)
+        fail0 = dd.failover_lanes
+        launches0 = _launches()
+        _, blob = qt.qz_allocate_metadata(len(data), 16384)
+        sess = _deflate_session(C.QzDataFormat.QZ_DEFLATE_GZIP_EXT)
+        res = qt.qz_compress_with_metadata_ext(sess, data, blob)
+        dres = qt.qz_decompress_with_metadata_ext(sess, res.data, blob)
+        assert dres.data == data and dd.failover_lanes == fail0
+        assert not (res.ext_rc | dres.ext_rc) & C.QZ_SW_EXECUTION_MASK
+        outs[device.type] = (res.data, [dataclasses.asdict(b)
+                                        for b in blob.blocks[:blob.valid]])
+    core.qz_close_engine()
+    assert outs["cuda"] == outs["cpu"]
+    assert all(b > a for a, b in zip(launches0, _launches()))
+
+
 # -- the construct probes' kernels (qatzip_tpu_torch/tools/probes.py) --------
 
 
