@@ -66,11 +66,29 @@ Run from the repository root:  python3 chip_smoke.py
    no lane over and record no health failure, and round-trip exactly; its
    GB/s is printed beside the card's name and power limit, and the
    kernels line carries each step's launches (``api_launches``).
-7. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
+7. The parity engines and the multi-device and multi-process layer, the
+   device route forced, the launch counts zeroed before each part, each
+   part's wall time, GB/s and launches on a line of its own: the device
+   encoder (QATZIP_TPU_ENCODER=device) on 8 MB, gzip-ext and LZ4 frame
+   (gzip and the native LZ4 decoder read the streams, every chunk CRC32
+   equals zlib's, the codec's output for the first 1 MB equals the CPU
+   device's); the speculative decoder (QATZIP_TPU_INFLATE=spec) on the
+   8 MB gzip-ext stream (exact, its device CRC32s equal zlib's); the
+   device checksums on a [128, 65536] batch of ragged lengths against
+   zlib; block-DP over [cuda:0] (compress_blocks_sharded equal to
+   encode_blocks, graft_entry.entry() launching the select kernel,
+   graft_entry.dryrun_multichip(1), shard.scaling_report); and two ranks
+   of tools/dist_worker.py on the card over gloo, 32 MB gzip-ext then 8
+   MB LZ4 frame through the distributed engine: each rank launches select
+   and inflate with no software request or failover, the assembled stream
+   equals this process's single-process stream, per-rank and total GB/s
+   and the share of the time outside the ranks' own work.  The kernels
+   line carries each part's launches (``parity_dist_launches``).
+8. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
    device busy time against the unprofiled wall time, the inflate kernel's
    share of the gzip-ext decompress, and the host functions that take the
    time.
-8. Routing: one gzip-ext request each way with QATZIP_TPU_DEVICE unset,
+9. Routing: one gzip-ext request each way with QATZIP_TPU_DEVICE unset,
    routed by the record of step 3; prints which backend took each
    direction, which must be the one the record names.
 
@@ -1020,6 +1038,263 @@ def phase_api(torch, corpus: bytes, tmpdir: str, main_inflate: int) -> dict:
     return records
 
 
+def _busy(torch, label: str, fn) -> None:
+    """One profiled pass of fn: the device's busy time, the device
+    operations it ran and the three that took the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    print(f"parity profile {label}: device busy {busy:.6f} s of {wall:.4f} "
+          f"s profiled wall, {sum(e.count for e in rows)} device operations; "
+          f"top: " + "; ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms "
+              f"x{e.count}" for e in rows[:3]))
+
+
+def _codec_on(device, chunks, params, codec, encoder: str):
+    """One codec call on ``device`` with QATZIP_TPU_ENCODER=``encoder``."""
+    os.environ["QATZIP_TPU_ENCODER"] = encoder
+    try:
+        return codec.compress_chunks(chunks, params, device)
+    finally:
+        os.environ.pop("QATZIP_TPU_ENCODER", None)
+
+
+def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
+    """Step 7: the parity engines (the device encoder, the speculative
+    decoder, the device checksums), block-DP over [cuda:0] and two ranks on
+    the card, the device route forced, the launch counts zeroed before each
+    part.  Returns {part: launches}."""
+    import random
+
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch import graft_entry
+    from qatzip_tpu_torch.engine import core
+    from qatzip_tpu_torch.ops import checksums as cks
+    from qatzip_tpu_torch.ops import deflate_encode as de
+    from qatzip_tpu_torch.ops import device_codecs as dc
+    from qatzip_tpu_torch.ops import select as S
+    from qatzip_tpu_torch.parallel import shard
+    from qatzip_tpu_torch.tools import dist_worker
+
+    os.environ["QATZIP_TPU_DEVICE"] = "1"
+    gpu = _gpu_line()
+    records: dict = {}
+    cpu = torch.device("cpu")
+    src = corpus[:8 << 20]
+    gz = qt.QzDataFormat.QZ_DEFLATE_GZIP_EXT
+    first = [corpus[i:i + CHUNK] for i in range(0, 1 << 20, CHUNK)]
+
+    # 1. the device encoder, gzip-ext and LZ4 frame, 8 MB each
+    captured = []
+    full = dc.DeflateDeviceCodec._compress_full_device
+
+    def capture(self, chunks, params, device):
+        out = full(self, chunks, params, device)
+        captured.extend(zip(chunks, out))
+        return out
+
+    dc.DeflateDeviceCodec._compress_full_device = capture
+    os.environ["QATZIP_TPU_ENCODER"] = "device"
+    try:
+        st = _ApiStep(torch, "parity device encoder gzip-ext compress", gpu,
+                          records)
+        comp = qt.compress(src, fmt=gz, level=1, hw_buff_sz=CHUNK)
+        st.done(len(src), {}, extra=f"; ratio {len(src) / len(comp):.4f}")
+        st = _ApiStep(torch, "parity device encoder lz4 compress", gpu,
+                      records)
+        lz = qt.compress(src, "lz4", level=1, hw_buff_sz=CHUNK)
+        st.done(len(src), {}, extra=f"; ratio {len(src) / len(lz):.4f}")
+    finally:
+        os.environ.pop("QATZIP_TPU_ENCODER", None)
+        dc.DeflateDeviceCodec._compress_full_device = full
+    _check(gzip.decompress(comp) == src, "gzip cannot read the device "
+           "encoder's stream")
+    _check(len(captured) == len(src) // CHUNK and all(
+        r.checksum == zlib.crc32(c) for c, r in captured),
+        "a device chunk CRC differs from zlib's")
+    _check(qt.decompress(lz, "lz4", hw_buff_sz=CHUNK, sw_only=True) == src,
+           "the native decoder cannot read the device encoder's LZ4")
+    os.environ["QATZIP_TPU_ENCODER"] = "device"
+    try:
+        _busy(torch, "device encoder gzip-ext compress, 8 MB",
+              lambda: qt.compress(src, fmt=gz, level=1, hw_buff_sz=CHUNK))
+    finally:
+        os.environ.pop("QATZIP_TPU_ENCODER", None)
+    params = qt.api._session_for("deflate", gz, 1, CHUNK).params
+    lz_params = qt.api._session_for("lz4", None, 1, CHUNK).params
+    for label, codec, p in (("gzip-ext", dc.DeflateDeviceCodec(), params),
+                            ("lz4", dc.Lz4DeviceCodec(), lz_params)):
+        on_card = _codec_on(dev, first, p, codec, "device")
+        on_cpu = _codec_on(cpu, first, p, codec, "device")
+        _check([(r.payload, r.checksum) for r in on_card]
+               == [(r.payload, r.checksum) for r in on_cpu],
+               f"device encoder {label}: the card's first 1 MB differs from "
+               f"the CPU device's")
+    print(f"parity device encoder: the first 1 MB ({len(first)} chunks) "
+          f"equal to the CPU device's, gzip-ext and LZ4; {len(captured)} "
+          f"chunk CRC32s equal to zlib's; gzip and the native LZ4 decoder "
+          f"read the 8 MB streams")
+
+    # 2. the speculative decoder on the device encoder's 8 MB stream
+    decoded = []
+    dec = dc.DeflateDeviceCodec.decompress_chunks
+
+    def capture_dec(self, *a, **k):
+        out = dec(self, *a, **k)
+        decoded.extend(out)
+        return out
+
+    dc.DeflateDeviceCodec.decompress_chunks = capture_dec
+    os.environ["QATZIP_TPU_INFLATE"] = "spec"
+    try:
+        st = _ApiStep(torch, "parity speculative decoder decompress", gpu,
+                          records)
+        back = qt.decompress(comp, fmt=gz, hw_buff_sz=CHUNK)
+        st.done(len(src), {})
+    finally:
+        os.environ.pop("QATZIP_TPU_INFLATE", None)
+        dc.DeflateDeviceCodec.decompress_chunks = dec
+    _check(back == src, "the speculative decoder's round trip differs")
+    os.environ["QATZIP_TPU_INFLATE"] = "spec"
+    try:
+        _busy(torch, "speculative decoder decompress, 8 MB",
+              lambda: qt.decompress(comp, fmt=gz, hw_buff_sz=CHUNK))
+    finally:
+        os.environ.pop("QATZIP_TPU_INFLATE", None)
+    _check(len(decoded) == len(src) // CHUNK and all(
+        d.checksum == zlib.crc32(d.data) for d in decoded),
+        "a device CRC of the speculative decoder differs from zlib's")
+
+    # 3. the device checksums on a [128, 65536] batch of ragged lengths
+    st = _ApiStep(torch, "parity device checksums, CRC32 and Adler-32", gpu,
+                  records)
+    rng = random.Random(5)
+    lens = [rng.randrange(0, CHUNK + 1) for _ in range(LANES)]
+    lens[:3] = [0, 1, CHUNK]
+    data, _ = _first_chunks(torch, corpus, dev)
+    data = data[:, :CHUNK].contiguous()
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    host = data.cpu().numpy()
+    crc = cks.crc32_blocks(data, lt, CHUNK).cpu().tolist()
+    adl = cks.adler32_blocks(data, lt, CHUNK).cpu().tolist()
+    _check(crc == [zlib.crc32(host[i, :n].tobytes())
+                   for i, n in enumerate(lens)], "device CRC32 != zlib")
+    _check(adl == [zlib.adler32(host[i, :n].tobytes())
+                   for i, n in enumerate(lens)], "device Adler-32 != zlib")
+    nbytes = sum(lens)
+    st.done(nbytes, {}, extra="; both equal to zlib on every length, "
+            "checked on the host")
+    _busy(torch, "crc32_blocks [128, 65536]",
+          lambda: cks.crc32_blocks(data, lt, CHUNK))
+    c_ms = _time_ms(lambda: cks.crc32_blocks(data, lt, CHUNK), 5)
+    a_ms = _time_ms(lambda: cks.adler32_blocks(data, lt, CHUNK), 5)
+    print(f"parity device checksums [128, 65536], {nbytes} bytes: CRC32 "
+          f"{c_ms:.4f} ms ({nbytes / c_ms / 1e6:.4f} GB/s), Adler-32 "
+          f"{a_ms:.4f} ms ({nbytes / a_ms / 1e6:.4f} GB/s), equal to zlib "
+          f"({gpu})")
+
+    # 4. block-DP over [cuda:0]
+    mesh = [dev]
+    arr = torch.zeros((16, CHUNK + 8), dtype=torch.uint8)
+    arr[:, :CHUNK] = torch.frombuffer(bytearray(b"".join(first[:16])),
+                                      dtype=torch.uint8).view(16, CHUNK)
+    ln = torch.full((16,), CHUNK, dtype=torch.int32)
+    m_words = de.words_bound(CHUNK)
+    w1, b1, m1 = de.encode_blocks(arr.to(dev), ln.to(dev), 8, 16, True,
+                                  m_words)
+    st = _ApiStep(torch, "parity compress_blocks_sharded over [cuda:0]", gpu,
+                  records)
+    ws, bs, ms_ = shard.compress_blocks_sharded(mesh, arr.numpy(), ln.numpy(),
+                                                8, 16, True, m_words)
+    st.done(arr.shape[0] * CHUNK, {}, extra="; equal to encode_blocks")
+    _check(all(w.device == dev for w in ws), "a shard left its device")
+    _check(torch.equal(torch.cat(ws), w1) and torch.equal(torch.cat(bs), b1)
+           and (ms_ == m1).all(),
+           "compress_blocks_sharded over [cuda:0] != encode_blocks")
+    st = _ApiStep(torch, "parity graft_entry.entry()", gpu, records)
+    fn, args = graft_entry.entry()
+    cand = fn(*args)
+    st.done(cand.numel(), {"select_to_positions": 1})
+    _check(tuple(cand.shape) == (8, 4096), "graft_entry.entry()'s shape")
+    st = _ApiStep(torch, "parity dryrun_multichip(1)", gpu, records)
+    graft_entry.dryrun_multichip(1)
+    st.done(4 * 4096, {"select_to_positions": 1, "inflate_decode": 1},
+            extra="; the data of its round trip, its format matrix beside")
+    _check(core.engine().hw_backend.device == dev, "the engine left cuda:0")
+    st = _ApiStep(torch, "parity scaling_report over [cuda:0]", gpu, records)
+    rep = shard.scaling_report(mesh)
+    st.done(2 * 6 * 8 * CHUNK, {"select_to_positions": 1},
+            extra=f"; 2 x 6 calls of 8 x 64 KB; {json.dumps(rep)}")
+
+    # 5. two ranks on the card over gloo: 32 MB gzip-ext, then 8 MB LZ4
+    want = qt.compress(corpus, fmt=gz, level=1, hw_buff_sz=CHUNK)
+    out_path = os.path.join(tmpdir, "dist.gz")
+    t0 = time.perf_counter()
+    outs = dist_worker.launch(["--device", dev.type, "--smoke-mb",
+                               str(len(corpus) >> 20), "--chunk-kb",
+                               str(CHUNK >> 10), "--out", out_path],
+                              timeout=600)
+    wall = time.perf_counter() - t0
+    reports = [json.loads(ln[len("DIST SMOKE "):]) for out in outs
+               for ln in out.splitlines() if ln.startswith("DIST SMOKE ")]
+    _check(len(reports) == 2, f"{len(reports)} ranks reported")
+    with open(out_path, "rb") as f:
+        _check(f.read() == want, "the two-rank stream differs from the "
+               "single-process stream")
+    parts = ("deflate compress", "deflate decompress", "lz4 compress",
+             "lz4 decompress")
+    need = {"deflate compress": "select", "deflate decompress": "inflate",
+            "lz4 compress": "select"}
+    for r in reports:
+        for part, rec in r.items():
+            if not isinstance(rec, dict):
+                continue
+            for key in ("sw_requests", "failover_lanes", "failover_blocks",
+                        "health_failures"):
+                _check(rec[key] == 0, f"rank {r['rank']} {part}: {key} "
+                       f"{rec[key]}")
+            if part in need:
+                _check(rec[need[part]] >= 1, f"rank {r['rank']} {part}: "
+                       f"{need[part]} launched {rec[need[part]]} times")
+            gb = (len(corpus) if part.startswith("deflate")
+                  else len(corpus) // 4) / 1e9
+            print(f"parity two ranks, rank {r['rank']} {part}: "
+                  f"{rec['seconds']:.4f} s = {gb / rec['seconds']:.4f} GB/s "
+                  f"of the stream, own work {rec['local_seconds']:.4f} s, "
+                  f"outside it {rec['overhead_share']:.4f}; select "
+                  f"{rec['select']}, inflate {rec['inflate']} launches; "
+                  f"software requests 0, failover 0 ({gpu})")
+        records[f"two ranks, rank {r['rank']}"] = {
+            "select_to_positions": sum(v["select"] for v in r.values()
+                                       if isinstance(v, dict)),
+            "inflate_decode": sum(v["inflate"] for v in r.values()
+                                  if isinstance(v, dict))}
+    for part in parts:
+        slowest = max(r[part]["seconds"] for r in reports)
+        gb = (len(corpus) if part.startswith("deflate")
+              else len(corpus) // 4) / 1e9
+        print(f"parity two ranks {part}: {gb / slowest:.4f} GB/s over both "
+              f"ranks (the slower rank's {slowest:.4f} s); mean share "
+              f"outside the ranks' own work "
+              f"{sum(r[part]['overhead_share'] for r in reports) / 2:.4f}")
+    print(f"parity two ranks: {wall:.1f} s with start-up; the assembled "
+          f"gzip-ext stream equals the single-process stream "
+          f"({len(want)} bytes)")
+    return records
+
+
 def phase_profile(torch, runs: list) -> None:
     """Device busy time and the host's top functions, one pass each way of
     each session.
@@ -1104,10 +1379,13 @@ def main() -> int:
         main = {k["name"]: k for k in kernels}
         api = phase_api(torch, corpus, tmpdir,
                         main["inflate_decode"]["launches"])
+        parity = phase_parity_dist(torch, corpus, dev, tmpdir)
         for name in ("select_to_positions", "inflate_decode"):
             # each step's launches of the path's kernels
             main[name]["api_launches"] = {step: counts[name]
                                           for step, counts in api.items()}
+            main[name]["parity_dist_launches"] = {
+                step: counts[name] for step, counts in parity.items()}
         phase_profile(torch, runs)
         phase_routing(torch, corpus, rec)
     kernels.append(sort_rec)

@@ -25,7 +25,8 @@
 //  * a thread takes 2 records of the tile, 256 apart, so a warp reads 32
 //    consecutive shared-memory words (no bank conflict);
 //  * the depth is a template parameter (8, 12 or 16, the depths the path
-//    uses), so the look-back unrolls, and it stops at the end of the hash
+//    uses, and 4, the match finder's default depth), so the look-back
+//    unrolls, and it stops at the end of the hash
 //    run, at a distance past 32767 or at the nearest 8-byte match, exact on
 //    rows sorted as sort 1 leaves them (select.cuh);
 //  * the position-order entry stores each distance straight to its column:
@@ -70,6 +71,9 @@ static int qz_select_launch(const QzSelectArgs& a, int B, int depth,
       B);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (depth) {
+    case 4:
+      qz_select_kernel<4, TO_POS><<<grid, QZ_SELECT_THREADS, 0, st>>>(a);
+      break;
     case 8:
       qz_select_kernel<8, TO_POS><<<grid, QZ_SELECT_THREADS, 0, st>>>(a);
       break;

@@ -83,6 +83,17 @@ _lib.qz_apply_tokens.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                  ctypes.c_int64, ctypes.c_void_p,
                                  ctypes.c_int64, ctypes.c_void_p,
                                  ctypes.c_int64]
+_lib.qz_lz4_assemble.restype = ctypes.c_int64
+_lib.qz_lz4_assemble.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+_lib.qz_huff_build_batch.restype = ctypes.c_int
+_lib.qz_huff_build_batch.argtypes = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _addr(data):
@@ -147,6 +158,24 @@ def xxh32(data, seed: int = 0) -> int:
 def xxh64(data, seed: int = 0) -> int:
     p, n, keep = _addr(data)
     return _lib.qz_xxh64(p, n, seed & 0xFFFFFFFFFFFFFFFF)
+
+
+def lz4_assemble(data: bytes, rec, mode: int = 0,
+                 mini_match: int = 3) -> bytes:
+    """Emit an LZ4 (mode 0) / LZ4s (mode 1) block from the device
+    encoder's per-position (mlen<<15|dist) records."""
+    import numpy as np
+
+    rec = np.ascontiguousarray(rec, np.int32)
+    p, dn, keep = _addr(data)
+    cap = dn + dn // 255 + 64
+    out = _arena(cap)
+    n = _lib.qz_lz4_assemble(p, dn,
+                             rec.ctypes.data_as(ctypes.c_void_p), out.ctypes.data_as(ctypes.c_void_p), cap,
+                             mode, mini_match)
+    if n < 0:
+        raise ValueError("lz4 assembly failed")
+    return out[:n].tobytes()
 
 
 def lz4_candidates(data, cand_u16, mode: int = 0,
@@ -380,3 +409,38 @@ def apply_tokens(tokens_np, lane: int, window, wlen: int,
     if n < 0:
         raise ValueError(f"token apply failed ({n})")
     return buf[:n].tobytes()
+
+
+def huff_build_batch(freq_ll, freq_d, blk_len, allow_dynamic: bool,
+                     bit_capacity: int, hdr_max: int):
+    """Batch true-Huffman + dynamic-header build for the device encoder
+    (see qz_huff_build_batch in qzdeflate.cpp).
+
+    freq_ll [B,286] / freq_d [B,30] / blk_len [B] numpy arrays.  Returns
+    (mode[B] i32, ll_len[B,286] i32, ll_code[B,286] i32, d_len[B,30] i32,
+    d_code[B,30] i32, hdr_vals[B,HMAX] u32, hdr_nbits[B,HMAX] i32,
+    est_bits[B] i64).
+    """
+    import numpy as np
+
+    freq_ll = np.ascontiguousarray(freq_ll, np.uint32)
+    freq_d = np.ascontiguousarray(freq_d, np.uint32)
+    blk_len = np.ascontiguousarray(blk_len, np.int32)
+    B = freq_ll.shape[0]
+    mode = np.zeros(B, np.int32)
+    ll_len = np.zeros((B, 286), np.int32)
+    ll_code = np.zeros((B, 286), np.int32)
+    d_len = np.zeros((B, 30), np.int32)
+    d_code = np.zeros((B, 30), np.int32)
+    hv = np.zeros((B, hdr_max), np.uint32)
+    hn = np.zeros((B, hdr_max), np.int32)
+    est = np.zeros(B, np.int64)
+    rc = _lib.qz_huff_build_batch(
+        freq_ll.ctypes.data, freq_d.ctypes.data, blk_len.ctypes.data,
+        B, int(allow_dynamic), bit_capacity, hdr_max,
+        mode.ctypes.data, ll_len.ctypes.data, ll_code.ctypes.data,
+        d_len.ctypes.data, d_code.ctypes.data,
+        hv.ctypes.data, hn.ctypes.data, est.ctypes.data)
+    if rc != 0:
+        raise ValueError("huff_build_batch: header overflow")
+    return mode, ll_len, ll_code, d_len, d_code, hv, hn, est

@@ -1,27 +1,45 @@
-"""Host orchestration of the lockstep inflate rounds.
+"""DEFLATE decode on the device: host orchestration of the inflate
+rounds, and the speculative decoder.
 
-Port of the lockstep half of qatzip_tpu/ops/deflate_decode.py:
-``inflate_batch`` (:463-522), ``_lockstep_regions`` (:582-595) and
-``_run_device_round_lockstep`` (:633-699).  The reference's
-``_run_device_round`` (:562-575) sorts a batch and cuts it into launches of
-128 lanes; here one launch takes the whole batch (the caller bounds the
-width: DeflateDeviceCodec.LOCKSTEP_BATCH), a lane a CTA that waits for no
-other lane, so nothing is sorted.  The host parses block headers and builds
-table regions, the device decodes tokens (ops/inflate.py), and the native ``apply_tokens``
-does the LZ77 window copies.  The stream state (``_Stream``, with its 32 KB
-history window), the bit reader, the header parsers and the Python token
-applier are copies of the reference's.
+Port of qatzip_tpu/ops/deflate_decode.py.  ``inflate_batch`` (:463-522)
+parses block headers on the host and hands each round of Huffman blocks to
+one of two engines, as ``_run_device_round`` (:562-575) picks them:
 
-A stream the device cannot prove correct comes back as None and the
-caller inflates it on the CPU; ``failover_lanes`` counts them.
+* lockstep (the default): ``_lockstep_regions`` (:582-595) and
+  ``_run_device_round_lockstep`` (:633-699).  The reference sorts a batch
+  and cuts it into launches of 128 lanes; here one launch takes the whole
+  batch (the caller bounds the width: DeflateDeviceCodec.LOCKSTEP_BATCH),
+  a lane a CTA that waits for no other lane, so nothing is sorted.  The
+  device decodes tokens (ops/inflate.py) and the native ``apply_tokens``
+  does the LZ77 window copies;
+* speculative (QATZIP_TPU_INFLATE=spec, a parity engine): flat 15-bit
+  tables (``build_flat_table``, :79-155), a decode at every bit position,
+  the true symbol chain by a segment-entry recurrence plus segment walks,
+  records placed on the output grid by a merge sort and a forward fill
+  (``_ffill_key24``), and the copies resolved by pointer doubling
+  (``_decode_kernel_impl``, :228-390), the round's CRC32/Adler-32 computed
+  on the device from its output (ops/checksums.py).  The reference's code
+  is XLA without Pallas, so this is plain torch on the card; its
+  ``lax.scan`` walks are Python loops of batched steps.  With a local mesh
+  (parallel/shard.py) a round of at least two streams a device runs a
+  contiguous slice on each device.
+
+The stream state (``_Stream``, with its 32 KB history window), the bit
+reader, the header parsers and the Python token applier are copies of the
+reference's.  A stream the device cannot prove correct comes back as None
+and the caller inflates it on the CPU; ``failover_lanes`` counts them.
 """
 from __future__ import annotations
+
+import functools
+import os
 
 import numpy as np
 import torch
 
 from qatzip_tpu_torch.ops import deflate_tables as T
 from qatzip_tpu_torch.ops import inflate as PI
+from qatzip_tpu_torch.ops.deflate_encode import _take, _vsort
 
 try:  # native token applier (qz_apply_tokens); python fallback below
     from qatzip_tpu_torch.native import qzcore as _native
@@ -30,6 +48,9 @@ except ImportError:  # pragma: no cover - native build optional
 
 MAX_PAYLOAD = 1 << 20     # payloads larger than 1 MB route to the CPU path
 MAX_OUTCAP = 1 << 20
+SEG = 512                 # speculative chain-walk segment width (bits)
+
+_LL_ENTRY_INVALID = 0
 
 _LOCKSTEP_NW = (1024, 4096, 16896)       # stream words per lane (buckets)
 _LOCKSTEP_STEPS = (1024, 4096, 16384, 65664)
@@ -267,7 +288,7 @@ def inflate_batch(payloads, hints, device: torch.device,
             break
         if ran_out is not None and not ran_out:
             ran_out.append(True)  # at least one real device round executed
-        _run_device_round_lockstep(batch, device)
+        _run_device_round(batch, device)
 
     results = []
     for s in streams:
@@ -280,6 +301,14 @@ def inflate_batch(payloads, hints, device: torch.device,
             results.append((bytes(s.out), True, crc))
     failover_lanes += results.count(None)
     return results
+
+
+def _run_device_round(batch, device: torch.device) -> None:
+    """One device decode round: the lockstep engine, or with
+    QATZIP_TPU_INFLATE=spec the speculative decoder."""
+    if os.environ.get("QATZIP_TPU_INFLATE", "lockstep") == "spec":
+        return _run_device_round_spec(batch, device)
+    return _run_device_round_lockstep(batch, device)
 
 
 def _lockstep_regions(s):
@@ -365,5 +394,347 @@ def _run_device_round_lockstep(batch, device: torch.device) -> None:
             continue
         s.push(data)
         s.bits.pos = (byte0 << 3) + int(end_bit[i])
+        if s.final_block:
+            s.done = True
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoder (QATZIP_TPU_INFLATE=spec): host flat tables
+# ---------------------------------------------------------------------------
+def _pack_ll_entries(lens: np.ndarray) -> np.ndarray:
+    """Per-symbol packed entry: sym|len<<9|extra_bits<<13|len_base<<16."""
+    nsym = len(lens)
+    sym = np.arange(nsym, dtype=np.uint32)
+    entry = sym | (lens.astype(np.uint32) << 9)
+    lbase = np.zeros(nsym, np.uint32)
+    leb = np.zeros(nsym, np.uint32)
+    for s in range(257, min(nsym, 286)):
+        lbase[s] = T._LENGTH_BASE[s - 257]
+        leb[s] = T._LENGTH_EXTRA[s - 257]
+    entry |= (leb << 13) | (lbase << 16)
+    entry[lens == 0] = _LL_ENTRY_INVALID
+    return entry
+
+
+def _pack_d_entries(lens: np.ndarray) -> np.ndarray:
+    """Per-distance-symbol packed entry: len|extra_bits<<4|dist_base<<8."""
+    nsym = len(lens)
+    entry = lens.astype(np.uint32)
+    deb = np.zeros(nsym, np.uint32)
+    dbase = np.zeros(nsym, np.uint32)
+    hi = min(nsym, 30)
+    dbase[:hi] = np.asarray(T._DIST_BASE[:hi], np.uint32)
+    deb[:hi] = np.asarray(T._DIST_EXTRA[:hi], np.uint32)
+    entry |= (deb << 4) | (dbase << 8)
+    entry[lens == 0] = 0
+    if nsym > 30:  # symbols 30/31 are invalid in a stream
+        entry[30:] = 0
+    return entry
+
+
+def _bitrev_vec(v: np.ndarray, l: np.ndarray) -> np.ndarray:
+    out = np.zeros_like(v)
+    work = v.copy()
+    maxl = int(l.max()) if l.size else 0
+    for _ in range(maxl):
+        out = (out << 1) | (work & 1)
+        work >>= 1
+    # codes shorter than maxl got over-rotated; shift back
+    return out >> (maxl - l)
+
+
+def build_flat_table(lens: np.ndarray, entries: np.ndarray) -> np.ndarray:
+    """Flat 2^15-entry decode table: index = the next 15 raw stream bits.
+
+    A code of length l is filled at its bit-reversed value for every fill
+    of the top bits; unassigned slots stay 0 (len field 0: invalid).
+    Raises ValueError on an over-subscribed code."""
+    lens = lens.astype(np.int64)
+    codes = T.canonical_codes(lens.astype(np.int32)).astype(np.int64)
+    if ((codes >> np.maximum(lens, 1)) != 0).any():
+        raise ValueError("over-subscribed Huffman code")
+    table = np.zeros(1 << 15, np.uint32)
+    for l in range(1, 16):
+        syms = np.nonzero(lens == l)[0]
+        if syms.size == 0:
+            continue
+        rc = _bitrev_vec(codes[syms], np.full(syms.size, l, np.int64))
+        fills = np.arange(1 << (15 - l), dtype=np.int64) << l
+        idx = (rc[:, None] | fills[None, :]).reshape(-1)
+        table[idx] = np.repeat(entries[syms], 1 << (15 - l))
+    return table
+
+
+@functools.lru_cache(maxsize=1)
+def static_tables() -> tuple[np.ndarray, np.ndarray]:
+    ll_lens = T.STATIC_LITLEN_LEN
+    d_lens = T.STATIC_DIST_LEN
+    return (build_flat_table(ll_lens, _pack_ll_entries(ll_lens)),
+            build_flat_table(d_lens, _pack_d_entries(d_lens)))
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoder: the device part (plain torch; u32 in int64)
+# ---------------------------------------------------------------------------
+def _ffill_key24(marker: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Forward-fill 24-bit vals from marker positions: cummax over three
+    8-bit value planes, each packed under a 24-bit position key (grid
+    indices up to 2^24)."""
+    B, M = marker.shape
+    idx = torch.arange(M, dtype=torch.int64, device=marker.device)[None, :] + 1
+    key = torch.where(marker, idx, 0)
+    out = torch.zeros((B, M), dtype=torch.int64, device=marker.device)
+    for plane in range(3):
+        part = (vals >> (8 * plane)) & 0xFF
+        packed = torch.where(marker, (key << 8) | part, 0)
+        filled = torch.cummax(packed, dim=1).values
+        out = out | ((filled & 0xFF) << (8 * plane))
+    return out
+
+
+def _decode_kernel_impl(pay, bit0, tll, td, window, wlen, nbits: int,
+                        outcap: int):
+    """Decode one Huffman block a row.  pay uint8[B, PB] (the whole
+    payload), bit0 int[B] (the block's first bit after its header), tll/td
+    flat tables [B, 32768], window uint8[B, 32768] (history,
+    right-aligned), wlen int[B].  Returns (out uint8[B, outcap], out_len
+    int32[B], end_bit int32[B], err bool[B])."""
+    B, PB = pay.shape
+    dev = pay.device
+    n = nbits
+    q = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+    p = bit0.long()[:, None] + q                 # absolute bit positions
+    payi = pay.long()
+    tll = tll.long()
+    td = td.long()
+
+    def bits_at(pp):
+        """25 valid low bits of the stream starting at absolute bit pp."""
+        byi = pp >> 3
+        w = (_take(payi, byi) | (_take(payi, byi + 1) << 8)
+             | (_take(payi, byi + 2) << 16) | (_take(payi, byi + 3) << 24))
+        return w >> (pp & 7)
+
+    # speculative decode at every bit position
+    e = _take(tll, bits_at(p) & 0x7FFF)
+    sym = e & 511
+    clen = (e >> 9) & 15
+    leb = (e >> 13) & 7
+    lbase = (e >> 16) & 511
+    mlen = lbase + (bits_at(p + clen) & ((1 << leb) - 1))
+    p2 = p + clen + leb
+
+    ed = _take(td, bits_at(p2) & 0x7FFF)
+    dlen = ed & 15
+    deb = (ed >> 4) & 15
+    dbase = ed >> 8
+    dist = dbase + (bits_at(p2 + dlen) & ((1 << deb) - 1))
+
+    valid = clen > 0
+    iseob = valid & (sym == 256)
+    islen = valid & (sym > 256) & (sym <= 285)
+    islit = valid & (sym < 256)
+    bad = (~valid) | (valid & (sym > 285)) | (islen & (dlen == 0))
+    f_abs = torch.where(islen, p2 + dlen + deb, p + clen)
+    adv = torch.where(islit, 1, torch.where(islen, mlen, 0))
+
+    f = torch.clamp(f_abs - bit0.long()[:, None], 0, n)
+    f = torch.where(iseob | bad, n, f)
+    f = torch.maximum(f, q + 1)  # progress even on garbage entries
+
+    # the true chain: segment-entry recurrence + segment walks (the
+    # reference's two lax.scan loops, here Python loops of batched steps)
+    nseg = n // SEG
+    seg_end = ((q // SEG) + 1) * SEG
+    X = f
+    hops = 1
+    while hops < SEG:
+        X = torch.where(X >= seg_end, X, torch.where(X >= n, n, _take(X, X)))
+        hops <<= 1
+    e_ = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    ent = []
+    for s_ in range(nseg):
+        ent.append(e_[:, 0])
+        e_ = torch.where(e_ >= (s_ + 1) * SEG, e_,
+                         torch.where(e_ >= n, n, _take(X, e_)))
+    entries = torch.stack(ent, dim=1)           # [B, nseg]
+    seg_hi = (torch.arange(nseg, dtype=torch.int64, device=dev)
+              + 1)[None, :] * SEG
+    pp = entries
+    visited = []
+    for _ in range(SEG):
+        visited.append(pp)
+        pp = torch.where(pp < seg_hi, _take(f, pp), pp)
+    visited = torch.stack(visited, dim=2)       # [B, nseg, SEG]
+    seg_lo3 = (torch.arange(nseg, dtype=torch.int64, device=dev)
+               * SEG)[None, :, None]
+    ok_slot = ((visited >= seg_lo3) & (visited < seg_lo3 + SEG)
+               & (visited < n)).reshape(B, n)
+    vl = torch.clamp(visited.reshape(B, n), 0, n - 1)  # chain, in order
+
+    # per-chain-record fields
+    sym_v = _take(sym, vl)
+    adv_v = torch.where(ok_slot, _take(adv, vl), 0)
+    dist_v = _take(dist, vl)
+    bad_v = ok_slot & _take(bad, vl)
+    eob_v = ok_slot & _take(iseob, vl)
+    end_v = _take(p + clen, vl)                 # bit after this symbol
+
+    cum = torch.cumsum(adv_v, dim=-1)
+    off_v = cum - adv_v
+    out_len = cum[:, -1]
+    err = bad_v.any(dim=-1) | ~eob_v.any(dim=-1) | (out_len > outcap)
+    end_bit = torch.where(eob_v, end_v, -1).max(dim=-1).values
+
+    # place records onto the output grid (merge sort + forward fill);
+    # value: islit | byte<<1 | (dist-1)<<9 (24 bits)
+    isrec = ok_slot & (adv_v > 0)
+    rec_lit = isrec & (sym_v < 256)
+    rval = (rec_lit.long() | (torch.where(rec_lit, sym_v, 0) << 1)
+            | (torch.where(isrec & ~rec_lit, dist_v - 1, 0) << 9)) & 0xFFFFFFFF
+    okey = torch.clamp(off_v, 0, outcap - 1)
+    rkey = torch.where(isrec, okey << 1, 0xFFFFFFFF)
+    j = torch.arange(outcap, dtype=torch.int64, device=dev)[None, :]
+    keys = torch.cat([rkey, ((j << 1) | 1).expand(B, outcap)], dim=-1)
+    vals = torch.cat([rval, torch.zeros((B, outcap), dtype=torch.int64,
+                                        device=dev)], dim=-1)
+    ident = torch.cat([torch.full((B, n), outcap, dtype=torch.int64,
+                                  device=dev), j.expand(B, outcap)], dim=-1)
+    sk, sv, sid = _vsort(keys, vals, ident)
+    filled = _ffill_key24((sk & 1) == 0, sv)
+    _, per_j = _vsort(sid, filled)
+    per_j = per_j[:, :outcap]
+
+    in_out = j < out_len[:, None]
+    islit_j = ((per_j & 1) == 1) | ~in_out
+    byte_j = (per_j >> 1) & 0xFF
+    dist_j = ((per_j >> 9) & 0x7FFF) + 1
+
+    # resolve the LZ77 copies: pointer doubling over the source map
+    W = 32768
+    g = j + W
+    src = torch.where(islit_j, g, g - dist_j)
+    err = err | (in_out & ~islit_j
+                 & (src < (W - wlen.long()[:, None]))).any(dim=-1)
+    src_full = torch.cat([torch.arange(W, dtype=torch.int64,
+                                       device=dev).expand(B, W), src], dim=-1)
+    val_full = torch.cat([window.long(), torch.where(islit_j, byte_j, 0)],
+                         dim=-1)
+    res_full = torch.cat([torch.ones((B, W), dtype=torch.bool, device=dev),
+                          islit_j], dim=-1)
+    total = W + outcap
+    steps = 1
+    while steps < total:
+        sc = torch.clamp(src_full, 0, total - 1)
+        rs = res_full.gather(-1, sc)
+        vs = val_full.gather(-1, sc)
+        ss = src_full.gather(-1, sc)
+        newly = ~res_full & rs
+        val_full = torch.where(newly, vs, val_full)
+        src_full = torch.where(res_full | newly, src_full, ss)
+        res_full = res_full | rs
+        steps <<= 1
+    err = err | ~res_full.all(dim=-1)
+    out = torch.where(in_out, val_full[:, W:], 0).to(torch.uint8)
+    return out, out_len.to(torch.int32), end_bit.to(torch.int32), err
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_kernel(nbits: int, outcap: int):
+    """The decode at one (nbits, outcap) shape (the reference compiles one
+    jit a shape; here it is the same function with the shape bound)."""
+    return functools.partial(_decode_kernel_impl, nbits=nbits, outcap=outcap)
+
+
+def _next_pow2(x: int, lo: int) -> int:
+    p = lo
+    while p < x:
+        p <<= 1
+    return p
+
+
+def _spec_tables(s):
+    if getattr(s, "_lens", None) is None:
+        return static_tables()
+    ll_lens, d_lens = s._lens
+    return (build_flat_table(ll_lens, _pack_ll_entries(ll_lens)),
+            build_flat_table(d_lens, _pack_d_entries(d_lens)))
+
+
+def _run_device_round_spec(batch, device: torch.device) -> None:
+    from qatzip_tpu_torch.ops import checksums as cksum
+    from qatzip_tpu_torch.parallel import shard
+
+    pb = max(len(s.payload) - (s.bits.pos >> 3) for s in batch)
+    nbits = _next_pow2(max(pb * 8 + 64, SEG * 2), 4096)
+    outcap = _next_pow2(
+        max(max((s.hint if s.hint and s.hint > 0 else 1 << 16)
+                for s in batch), 1 << 12), 4096)
+    outcap = min(outcap, MAX_OUTCAP)
+    # _ffill_key24 packs the grid index + 1 into 24 bits: a round whose
+    # record + grid array (nbits + outcap entries) would overflow that key
+    # fails to the CPU path (unreachable at MAX_PAYLOAD/MAX_OUTCAP: kept as
+    # the reference's guard)
+    if nbits + outcap >= (1 << 24):
+        for s in batch:
+            s.failed = True
+        return
+
+    B = len(batch)
+    pbytes = max(len(s.payload) for s in batch)
+    PB = ((pbytes + 4 + 127) // 128) * 128 + 128
+    pay = np.zeros((B, PB), np.uint8)
+    bit0 = np.zeros((B,), np.int32)
+    tll = np.zeros((B, 1 << 15), np.uint32)
+    td = np.zeros((B, 1 << 15), np.uint32)
+    window = np.zeros((B, 32768), np.uint8)
+    wlen = np.zeros((B,), np.int32)
+    for i, s in enumerate(batch):
+        pay[i, :len(s.payload)] = np.frombuffer(s.payload, np.uint8)
+        bit0[i] = s.bits.pos
+        try:
+            tll[i], td[i] = _spec_tables(s)
+        except ValueError:
+            s.failed = True  # invalid code set: zero tables flag as err
+            continue
+        if s.window:
+            window[i, 32768 - len(s.window):] = np.frombuffer(s.window,
+                                                              np.uint8)
+        wlen[i] = len(s.window)
+
+    # block-DP: a round of at least two streams a device of the local mesh
+    # runs a contiguous slice on each
+    slices = (shard.block_slices(B, shard.local_mesh())
+              or [(device, 0, B)])
+    kinds = {s.kind for s in batch if s.kind}
+    fn = _decode_kernel(nbits, outcap)
+    parts = []
+    for dev, start, end in slices:
+        rows = slice(start, end)
+        with shard.on(dev):
+            ins = [torch.from_numpy(a[rows]).to(dev)
+                   for a in (pay, bit0, tll.astype(np.int64),
+                             td.astype(np.int64), window, wlen)]
+            out, out_len, end_bit, err = fn(*ins)
+            # the round's checksums on the device, from its output, before
+            # it reaches the host (the reference's hardware returns the
+            # checksum with the chunk)
+            cks = {k: (cksum.adler32_blocks if k == "adler32"
+                       else cksum.crc32_blocks)(out, out_len, outcap)
+                   for k in kinds}
+            parts.append((out, out_len, end_bit, err, cks))
+    out = shard.gather([t[0] for t in parts])
+    out_len = shard.gather([t[1] for t in parts])
+    end_bit = shard.gather([t[2] for t in parts])
+    err = shard.gather([t[3] for t in parts])
+    cks = {k: shard.gather([t[4][k] for t in parts]) for k in kinds}
+
+    for i, s in enumerate(batch):
+        if err[i] or end_bit[i] < 0:
+            s.failed = True
+            continue
+        part_crc = int(cks[s.kind][i]) if s.kind else None
+        s.push(out[i, :int(out_len[i])].tobytes(), part_crc)
+        s.bits.pos = int(end_bit[i])
         if s.final_block:
             s.done = True

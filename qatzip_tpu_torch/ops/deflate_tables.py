@@ -1,7 +1,7 @@
 """DEFLATE constant tables (RFC1951) as numpy arrays: the part of
-qatzip_tpu/ops/deflate_tables.py the port's inflate reaches, namely the
-static Huffman code of BTYPE=01, canonical codes and the code-length-code
-symbol order.
+qatzip_tpu/ops/deflate_tables.py the port's decoders reach, namely the
+length and distance code bases and extra bits, the static Huffman code of
+BTYPE=01, canonical codes and the code-length-code symbol order.
 """
 from __future__ import annotations
 
@@ -18,6 +18,17 @@ NUM_CLCODES = 19
 # order in which code-length-code lengths are transmitted (RFC1951 3.2.7)
 CLCODE_ORDER = np.array([16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13,
                          2, 14, 1, 15], dtype=np.int32)
+
+# length codes 257-285 and distance codes 0-29: base value and extra bits
+_LENGTH_BASE = [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35,
+                43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258]
+_LENGTH_EXTRA = [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3,
+                 4, 4, 4, 4, 5, 5, 5, 5, 0]
+_DIST_BASE = [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257,
+              385, 513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289,
+              16385, 24577]
+_DIST_EXTRA = [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9,
+               9, 10, 10, 11, 11, 12, 12, 13, 13]
 
 # ---------------------------------------------------------------------------
 # Static Huffman code (RFC1951 3.2.6)

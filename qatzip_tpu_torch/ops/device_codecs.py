@@ -5,17 +5,27 @@ Port of the two device codecs of qatzip_tpu/ops/device_codecs.py, with the
 reference's per-batch CPU failover and its ``faults``/``health`` hooks:
 
 * ``DeflateDeviceCodec``: the hybrid compress path (``_compress_hybrid``,
-  :102-224, without the mesh branch), with the raw and the packed candidate
-  format, and the lockstep decompress path (``decompress_chunks``,
-  :306-362);
+  :102-224), with the raw and the packed candidate format; the full-device
+  encoder (``_compress_full_device``, :226-303, QATZIP_TPU_ENCODER=device)
+  with the chunk checksums computed on the device from the same staged
+  batch; and the decompress path (``decompress_chunks``, :306-362): the
+  lockstep inflate, or the speculative decoder in batches of
+  ``MAX_DECODE_BATCH`` with QATZIP_TPU_INFLATE=spec;
 * ``Lz4DeviceCodec`` (:365-521), for LZ4 frames and LZ4s blocks: the hybrid
-  compress branch and the device block decoder (ops/lz4_decode.py) with
-  per-block CPU failover.
+  compress branch, the device encoder's branch (``_lz4_analyze``) and the
+  device block decoder (ops/lz4_decode.py) with per-block CPU failover.
+
+Every compress path runs block-data-parallel over ``shard.local_mesh()``
+(a list of devices, parallel/shard.py) when a batch has at least two
+chunks a device: each contiguous slice is staged and run on its own
+device, and the results are gathered in block order.  With one device
+(one H100: no mesh) a batch runs whole on the engine's device.
 
 The failover takes injected faults and device errors; a
 :class:`KernelError` (a kernel that cannot be built or launched) passes
-through it to the caller.  The host-only helpers (CPU fallbacks,
-checksums) are copies of the reference's.
+through it to the caller, where the reference reroutes every exception.
+The host-only helpers (CPU fallbacks, checksums, the stored-block framing)
+are copies of the reference's.
 """
 from __future__ import annotations
 
@@ -27,26 +37,18 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from qatzip_tpu_torch.constants import DataFormatInternal
+from qatzip_tpu_torch.constants import DataFormatInternal, QzHuffmanHdr
 from qatzip_tpu_torch.engine import faults
 from qatzip_tpu_torch.engine.backend import CompressedChunk, DecompressedChunk
 from qatzip_tpu_torch.engine.cpu_backend import CpuBackend, _map_chunks
 from qatzip_tpu_torch.engine.health import health
 from qatzip_tpu_torch.engine.lz4_block import (lz4_block_decompress,
                                                lz4s_block_decompress)
+from qatzip_tpu_torch.ops import deflate_encode as de
 from qatzip_tpu_torch.ops._build import KernelError
+from qatzip_tpu_torch.parallel import shard
 from qatzip_tpu_torch.session import InternalParams
 from qatzip_tpu_torch.utils import checksum as _ck
-
-
-def level_params(level: int) -> int:
-    """Compression level -> hash-chain depth (the table of
-    qatzip_tpu/ops/deflate_encode.py:level_params, :68-79)."""
-    if level <= 3:
-        return 8
-    if level <= 6:
-        return 12
-    return 16
 
 
 def _stage_chunks(batch, n: int, device: torch.device):
@@ -64,11 +66,48 @@ def _stage_chunks(batch, n: int, device: torch.device):
             torch.from_numpy(lens).to(device, non_blocking=True))
 
 
-def _unported(env: str, value: str, what: str, item: int) -> None:
-    if os.environ.get(env, "") == value:
-        raise NotImplementedError(f"{env}={value}: {what} is not ported to "
-                                  f"qatzip_tpu_torch yet (ROADMAP queue 1 "
-                                  f"item {item})")
+def _submit(batch, n: int, device: torch.device, run) -> list:
+    """Stage ``batch`` and call ``run(data, lens)`` on it: whole on
+    ``device``, or cut over the local mesh (``shard.block_slices``) with
+    each slice staged and run on its own device.  Returns the per-slice
+    results in block order."""
+    slices = shard.block_slices(len(batch), shard.local_mesh())
+    if slices is None:
+        slices = [(device, 0, len(batch))]
+    out = []
+    for dev, start, end in slices:
+        with shard.on(dev):
+            out.append(run(*_stage_chunks(batch[start:end], n, dev)))
+    return out
+
+
+def _batch_size(nchunks: int, bsz: int) -> int:
+    """Chunks a dispatch: ``bsz``, or ``bsz`` a device of the local mesh
+    when the request has at least two chunks a device (the reference's
+    block-DP batch)."""
+    mesh = shard.local_mesh()
+    if mesh is None or nchunks < 2 * len(mesh):
+        return bsz
+    ndev = len(mesh)
+    return max(ndev, (min(nchunks, bsz * ndev) // ndev) * ndev)
+
+
+def _stored_block(chunk: bytes) -> bytes:
+    """BFINAL=1 BTYPE=00 stored deflate block(s) for one chunk (host side)."""
+    out = bytearray()
+    n = len(chunk)
+    pos = 0
+    while True:
+        seg = min(n - pos, 65535)
+        last = pos + seg == n
+        out.append(0x01 if last else 0x00)
+        out += seg.to_bytes(2, "little")
+        out += (seg ^ 0xFFFF).to_bytes(2, "little")
+        out += chunk[pos:pos + seg]
+        pos += seg
+        if last:
+            break
+    return bytes(out)
 
 
 class DeflateDeviceCodec:
@@ -79,11 +118,13 @@ class DeflateDeviceCodec:
     # reference's 128 (a TPU vreg's lanes) cut a 32 MB request's 512 chunks
     # into 4 launches a round (PERF.md, the inflate kernel's redesign)
     LOCKSTEP_BATCH = 512
+    MAX_DECODE_BATCH = 8   # streams a speculative round (the reference's)
 
     def compress_chunks(self, chunks: Sequence[bytes], params: InternalParams,
                         device: torch.device) -> list[CompressedChunk]:
-        _unported("QATZIP_TPU_ENCODER", "device", "the full-device encoder", 9)
-        return self._compress_hybrid(chunks, params, device)
+        if os.environ.get("QATZIP_TPU_ENCODER", "hybrid") == "hybrid":
+            return self._compress_hybrid(chunks, params, device)
+        return self._compress_full_device(chunks, params, device)
 
     def _compress_hybrid(self, chunks: Sequence[bytes],
                          params: InternalParams,
@@ -97,7 +138,7 @@ class DeflateDeviceCodec:
         from qatzip_tpu_torch.ops import match_finder as mf
 
         n = params.hw_buff_sz
-        depth = level_params(params.comp_lvl)
+        depth, _ = de.level_params(params.comp_lvl)
         # Packed candidate D2H (0.75 bytes an input byte against 2):
         # exceptions above the side stream's budget degrade to guesses, so
         # packing trades a few % of compressed size for 2.7x less D2H.
@@ -124,18 +165,20 @@ class DeflateDeviceCodec:
         else:
             stride = 1
 
+        def run(data, lens):
+            faults.check("submit", "compress")
+            return (mf.find_candidates_packed(data, lens, depth)
+                    if use_packed else
+                    mf.find_candidates(data, lens, depth, stride=stride))
+
         # submit-all-then-assemble: kernels queue on the device while the
         # host assembles earlier batches
+        bsz = _batch_size(len(chunks), self.MAX_BATCH)
         pending: list[tuple] = []
-        for start in range(0, len(chunks), self.MAX_BATCH):
-            batch = list(chunks[start:start + self.MAX_BATCH])
+        for start in range(0, len(chunks), bsz):
+            batch = list(chunks[start:start + bsz])
             try:
-                data, lens = _stage_chunks(batch, n, device)
-                faults.check("submit", "compress")
-                pending.append(
-                    (batch, mf.find_candidates_packed(data, lens, depth)
-                     if use_packed else
-                     mf.find_candidates(data, lens, depth, stride=stride)))
+                pending.append((batch, _submit(batch, n, device, run)))
             except KernelError:
                 raise
             except Exception:
@@ -150,7 +193,7 @@ class DeflateDeviceCodec:
                 continue
             try:
                 faults.check("death", "compress")
-                cand_np = cand.cpu().numpy()
+                cand_np = shard.gather(cand)
             except Exception:
                 health.record_failure()
                 out.extend(_cpu_compress_batch(batch, params))
@@ -178,17 +221,82 @@ class DeflateDeviceCodec:
             out.extend(_map_chunks(assemble, list(enumerate(batch))))
         return out
 
+    def _compress_full_device(self, chunks: Sequence[bytes],
+                              params: InternalParams,
+                              device: torch.device) -> list[CompressedChunk]:
+        """The full-device parity engine (ops/deflate_encode.py): K1 on the
+        device, the native Huffman build, K2 on the device; the chunk
+        checksums on the device from the same staged batch (the
+        reference's hardware returns the checksum with each request)."""
+        from qatzip_tpu_torch.ops import checksums as cksum
+
+        n = params.hw_buff_sz
+        depth, kwords = de.level_params(params.comp_lvl)
+        allow_dynamic = params.huffman_hdr == QzHuffmanHdr.QZ_DYNAMIC_HDR
+        m_words = de.words_bound(n)
+        checksum = (cksum.adler32_blocks
+                    if _checksum_kind(params) == "adler32"
+                    else cksum.crc32_blocks)
+
+        # submit everything, then collect in order: batch k+1's device
+        # work queues while batch k's results come back
+        bsz = _batch_size(len(chunks), self.MAX_BATCH)
+        pending: list[tuple] = []
+        for start in range(0, len(chunks), bsz):
+            batch = list(chunks[start:start + bsz])
+            try:
+                # one staged upload, a slice a device, feeds the encoder
+                # and the checksum
+                staged = _submit(batch, n, device, lambda d, l: (d, l))
+                data = [d for d, _ in staged]
+                words, bits, mode = de.encode_blocks(
+                    data, [l for _, l in staged], depth, kwords,
+                    allow_dynamic, m_words, mesh=[d.device for d in data])
+                cks = [checksum(d, l, n) for d, l in staged]
+                pending.append((batch, words, bits, mode, cks))
+            except KernelError:
+                raise
+            except Exception:
+                # mid-request per-batch reroute (compInSWFallback analog):
+                # only this batch goes to the CPU
+                health.record_failure()
+                pending.append((batch, None, None, None, None))
+
+        out: list[CompressedChunk] = []
+        for batch, words, bits, mode, cks in pending:
+            if words is None:
+                out.extend(_cpu_compress_batch(batch, params))
+                continue
+            try:
+                words = shard.gather(words).astype(np.uint32)
+                bits = shard.gather(bits)
+                cks = shard.gather(cks)
+            except Exception:
+                health.record_failure()
+                out.extend(_cpu_compress_batch(batch, params))
+                continue
+            health.record_success()
+            for i, c in enumerate(batch):
+                if mode[i] == de.MODE_STORED:
+                    payload = _stored_block(c)
+                else:
+                    payload = words[i].tobytes()[:(int(bits[i]) + 7) // 8]
+                out.append(CompressedChunk(payload, int(cks[i]), len(c)))
+        return out
+
     def decompress_chunks(self, payloads, hints, params: InternalParams,
                           device: torch.device) -> list[DecompressedChunk]:
-        """Lockstep device inflate with per-chunk CPU failover (the
-        reference's decompOutSWFallback): chunks the kernel flags as
-        unprovable are re-inflated with zlib.  Chunk checksums are computed
-        on the host over each decoded part."""
+        """Device inflate with per-chunk CPU failover (the reference's
+        decompOutSWFallback): chunks the decoder flags as unprovable are
+        re-inflated with zlib.  The lockstep engine's chunk checksums are
+        computed on the host over each decoded part; the speculative
+        engine (QATZIP_TPU_INFLATE=spec) returns them from the device."""
         from qatzip_tpu_torch.ops import deflate_decode as dd
 
-        _unported("QATZIP_TPU_INFLATE", "spec", "the speculative decoder", 9)
         kind = _checksum_kind(params)
-        bsz = self.LOCKSTEP_BATCH
+        bsz = (self.MAX_DECODE_BATCH
+               if os.environ.get("QATZIP_TPU_INFLATE", "lockstep") == "spec"
+               else self.LOCKSTEP_BATCH)
         out: list[DecompressedChunk] = []
         for start in range(0, len(payloads), bsz):
             batch = payloads[start:start + bsz]
@@ -243,28 +351,34 @@ class Lz4DeviceCodec:
     def compress_chunks(self, chunks: Sequence[bytes], params: InternalParams,
                         device: torch.device) -> list[CompressedChunk]:
         """Hybrid compress (the reference's default branch): device
-        candidates, native ``lz4_candidates``.  Unlike deflate, LZ4 keeps the
-        match finder's stride (QATZIP_TPU_MF_STRIDE, default 1) at every
-        level, as the reference does."""
+        candidates, native ``lz4_candidates``; with QATZIP_TPU_ENCODER=device
+        the device encoder's K1 under LZ4 rules (``_lz4_analyze``) and the
+        native ``lz4_assemble``.  Unlike deflate, LZ4 keeps the match
+        finder's stride (QATZIP_TPU_MF_STRIDE, default 1) at every level,
+        as the reference does."""
         from qatzip_tpu_torch.formats.lz4_fmt import gen_lz4_block_header
         from qatzip_tpu_torch.native import qzcore as native
         from qatzip_tpu_torch.ops import match_finder as mf
 
-        _unported("QATZIP_TPU_ENCODER", "device",
-                  "the LZ4 device encoder (_lz4_analyze)", 9)
         n = params.hw_buff_sz
-        depth = level_params(params.comp_lvl)
+        depth, kwords = de.level_params(params.comp_lvl)
         is_lz4s = params.data_fmt == DataFormatInternal.LZ4S_BK
         mode = 1 if is_lz4s else 0
         mini = params.lz4s_mini_match if is_lz4s else 4
+        hybrid = os.environ.get("QATZIP_TPU_ENCODER", "hybrid") == "hybrid"
 
+        def run(data, lens):
+            faults.check("submit", "compress")
+            if hybrid:
+                return mf.find_candidates(data, lens, depth)
+            return _lz4_analyze(data, lens, depth, kwords)
+
+        bsz = _batch_size(len(chunks), self.MAX_BATCH)
         pending: list[tuple] = []
-        for start in range(0, len(chunks), self.MAX_BATCH):
-            batch = list(chunks[start:start + self.MAX_BATCH])
+        for start in range(0, len(chunks), bsz):
+            batch = list(chunks[start:start + bsz])
             try:
-                data, lens = _stage_chunks(batch, n, device)
-                faults.check("submit", "compress")
-                pending.append((batch, mf.find_candidates(data, lens, depth)))
+                pending.append((batch, _submit(batch, n, device, run)))
             except KernelError:
                 raise
             except Exception:
@@ -272,12 +386,12 @@ class Lz4DeviceCodec:
                 pending.append((batch, None))
 
         out: list[CompressedChunk] = []
-        for batch, cand in pending:
-            if cand is None:
+        for batch, rec in pending:
+            if rec is None:
                 out.extend(_cpu_compress_batch(batch, params))
                 continue
             try:
-                cand_np = cand.cpu().numpy()
+                arr = shard.gather(rec)
             except Exception:
                 health.record_failure()
                 out.extend(_cpu_compress_batch(batch, params))
@@ -286,8 +400,12 @@ class Lz4DeviceCodec:
 
             def assemble(i_c):
                 i, c = i_c
-                payload = native.lz4_candidates(c, cand_np[i, :len(c)], mode,
-                                                mini)
+                if hybrid:
+                    payload = native.lz4_candidates(c, arr[i, :len(c)], mode,
+                                                    mini)
+                else:
+                    payload = native.lz4_assemble(c, arr[i, :len(c)], mode,
+                                                  mini)
                 ckv = _chunk_checksum(c, params)
                 if is_lz4s:
                     return CompressedChunk(payload, ckv, len(c))
@@ -369,6 +487,14 @@ class Lz4DeviceCodec:
             out.append(DecompressedChunk(data, _chunk_checksum(data, params),
                                          True))
         return out
+
+
+def _lz4_analyze(data, lengths, depth: int, kwords: int) -> torch.Tensor:
+    """Device K1 under LZ4 parse rules; per-position (mlen<<15|dist)
+    records (int32) for the host assembler."""
+    sel, take, mlen, mdist, _f1, _f2 = de.analyze_blocks(
+        data, lengths, depth, kwords, lz4_rules=True)
+    return (mlen << 15) | mdist
 
 
 # CPU fallbacks and checksums: copies of the helpers of

@@ -18,12 +18,15 @@ The candidates are verified only to a 3/4/8-byte prefix; the native parser
 them.  Keys are built in int64, because torch on the CPU has no uint32
 shift; the product b3 * 2654435761 stays below 2**56 and is masked to 32
 bits before the shift.  ``find_candidates_packed`` packs the candidates
-into the reference's 0.75-byte-a-position format (lines 183-247).
+into the reference's 0.75-byte-a-position format (lines 183-247);
+``find_candidates_batch`` (lines 250-263) is the host wrapper, block-DP
+over a list of devices.
 """
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from qatzip_tpu_torch.ops.select import select_to_positions
@@ -162,3 +165,30 @@ def find_candidates_packed(data: torch.Tensor, lengths: torch.Tensor,
     if not 0 < n <= 65536 or n % CHUNK_P:
         raise ValueError("block width must be a multiple of 64 up to 65536")
     return _find_candidates_packed_impl(data, lengths, int(depth), 1)
+
+
+def find_candidates_batch(data_np: np.ndarray, lengths_np: np.ndarray,
+                          depth: int = DEPTH, mesh=None,
+                          device: torch.device | None = None) -> np.ndarray:
+    """Host wrapper: upload, run, return uint16[B, n] distances as numpy.
+
+    Runs on ``device`` (default ``cuda:0``), or with ``mesh`` (a list of
+    devices, parallel/shard.py) a contiguous slice of the batch on each
+    device when there are at least two blocks a device."""
+    from qatzip_tpu_torch.parallel import shard
+
+    B = data_np.shape[0]
+    slices = shard.block_slices(B, mesh)
+    if slices is None:
+        if device is None:
+            device = mesh[0] if mesh else torch.device("cuda", 0)
+        slices = [(device, 0, B)]
+    out = []
+    for dev, start, end in slices:
+        with shard.on(dev):
+            out.append(find_candidates(
+                torch.from_numpy(np.ascontiguousarray(data_np[start:end])).to(
+                    dev),
+                torch.from_numpy(np.ascontiguousarray(
+                    lengths_np[start:end])).to(dev), depth))
+    return shard.gather(out)

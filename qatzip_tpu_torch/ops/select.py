@@ -29,9 +29,9 @@ from qatzip_tpu_torch.ops._build import Kernel, KernelError
 
 TOO_FAR = 4096   # len-3 matches beyond this distance are not worth bits
 _INV = -1        # invalid key 0xFFFFFFFF as int32
-# the kernel's template depths: device_codecs.level_params' 8, 12 and 16
-# (deflate L1/L2 raise theirs to 16)
-DEPTHS = (8, 12, 16)
+# the kernel's template depths: deflate_encode.level_params' 8, 12 and 16
+# (deflate L1/L2 raise theirs to 16), and match_finder.DEPTH's 4
+DEPTHS = (4, 8, 12, 16)
 
 KERNEL = Kernel("qz_select_candidates",
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])

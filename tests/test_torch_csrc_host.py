@@ -76,8 +76,8 @@ static int select_order(const QzSelectArgs& a, int B, int to_pos) {
 }
 
 // out: int32 [B, n] (to_pos 0) or zeroed uint16 [B, n_full] (to_pos 1).
-// The kernel takes depths 8, 12 and 16; 4 is the header's too.  Returns 0,
-// or -1 for another depth.
+// The kernel's depths, 4, 8, 12 and 16.  Returns 0, or -1 for another
+// depth.
 extern "C" int shim_select(const uint32_t* sk, const uint32_t* sb4,
                            const uint32_t* sb4b, void* out, int B, int n,
                            int n_full, int depth, int to_pos, int vec) {

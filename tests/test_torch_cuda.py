@@ -47,7 +47,7 @@ def _u16(t: torch.Tensor) -> torch.Tensor:
 
 
 # stride 3 gives rows of n % 4 != 0 records, staged word by word
-@pytest.mark.parametrize("depth,stride", [(16, 2), (8, 1), (12, 3)])
+@pytest.mark.parametrize("depth,stride", [(16, 2), (8, 1), (12, 3), (4, 1)])
 def test_select_kernel_equals_plain(dev, depth, stride):
     from qatzip_tpu_torch.ops import match_finder as mf
     from qatzip_tpu_torch.ops import select as S
@@ -82,7 +82,7 @@ def test_select_kernel_refuses_other_depths(dev):
 
     a = torch.full((2, 1024), -1, dtype=torch.int32, device=dev)
     before = S.KERNEL.launches, S.POS_KERNEL.launches
-    for depth in (4, 17):
+    for depth in (3, 17):
         with pytest.raises(ValueError, match="depth"):
             S.select_candidates(a, a, a, depth)
         with pytest.raises(ValueError, match="depth"):
@@ -533,3 +533,122 @@ def test_probe_tiles_equal_plain(dev):
     x = _i32(rng, (5, 8, 128))
     for segment in ("flat", "rows", "cols"):
         _probe_check(dev, P.TILE, lambda a: P.probe_bitonic(a, segment, 2), x)
+
+
+# ------------------------------------------- parity engines and parallel/
+def _internal(algo, fmt=None):
+    import qatzip_tpu_torch as qt
+
+    return qt.api._session_for(algo, fmt, 1, 16384).params
+
+
+@pytest.mark.parametrize("algo", ["deflate", "lz4"])
+def test_device_encoder_on_cuda_equals_cpu(dev, monkeypatch, algo):
+    """QATZIP_TPU_ENCODER=device: the codec's payloads and chunk checksums
+    on the card equal the CPU device's."""
+    import gzip
+
+    from qatzip_tpu_torch.ops import device_codecs as dc
+
+    monkeypatch.setenv("QATZIP_TPU_ENCODER", "device")
+    data = _text(8 * 16384 - 100, 11)
+    chunks = [data[i:i + 16384] for i in range(0, len(data), 16384)]
+    codec = (dc.DeflateDeviceCodec() if algo == "deflate"
+             else dc.Lz4DeviceCodec())
+    params = _internal(algo)
+    out = {d.type: codec.compress_chunks(chunks, params, d)
+           for d in (torch.device("cpu"), dev)}
+    assert out["cuda"] == out["cpu"]
+    if algo == "deflate":
+        for c, r in zip(chunks, out["cuda"]):
+            assert zlib.decompressobj(-15).decompress(r.payload) == c
+            assert r.checksum == zlib.crc32(c)
+
+
+def test_spec_decoder_on_cuda_equals_cpu(dev, monkeypatch):
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+
+    monkeypatch.setenv("QATZIP_TPU_INFLATE", "spec")
+    datas = [_text(16384, s) for s in range(9)] + [b"A" * 20000, b""]
+    payloads = []
+    for d in datas:
+        co = zlib.compressobj(1, zlib.DEFLATED, -15)
+        payloads.append(co.compress(d) + co.flush())
+    hints = [len(d) for d in datas]
+    for kind in ("crc32", "adler32"):
+        got = dd.inflate_batch(payloads, hints, dev, kind=kind)
+        assert got == dd.inflate_batch(payloads, hints, torch.device("cpu"),
+                                       kind=kind)
+        assert [g[0] for g in got] == datas
+
+
+def test_device_checksums_on_cuda(dev):
+    from qatzip_tpu_torch.ops import checksums as ck
+
+    rng = np.random.default_rng(3)
+    n = 65536
+    lens = [0, 1, 3, 4, 127, 128, 129, n - 1, n] + list(
+        rng.integers(0, n, 23))
+    data = torch.from_numpy(rng.integers(0, 256, (len(lens), n),
+                                         dtype=np.uint8)).to(dev)
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    host = data.cpu().numpy()
+    assert ck.crc32_blocks(data, lt, n).cpu().tolist() == [
+        zlib.crc32(host[i, :k].tobytes()) for i, k in enumerate(lens)]
+    assert ck.adler32_blocks(data, lt, n).cpu().tolist() == [
+        zlib.adler32(host[i, :k].tobytes()) for i, k in enumerate(lens)]
+
+
+def test_compress_blocks_sharded_on_cuda(dev):
+    from qatzip_tpu_torch.ops import deflate_encode as de
+    from qatzip_tpu_torch.parallel import shard
+
+    n, b = 16384, 8
+    blob = _text(n * b, 12)
+    data = np.zeros((b, n + 8), np.uint8)
+    data[:, :n] = np.frombuffer(blob, np.uint8).reshape(b, n)
+    lens = np.full(b, n, np.int32)
+    words, bits, mode = shard.compress_blocks_sharded([dev], data, lens)
+    assert [w.device for w in words] == [dev]
+    w1, b1, m1 = de.encode_blocks(data, lens, 1, 16, True, de.words_bound(n),
+                                  device=torch.device("cpu"))
+    assert torch.equal(words[0].cpu(), w1) and torch.equal(bits[0].cpu(), b1)
+    assert (mode == m1).all()
+
+
+def test_graft_entry_on_cuda(dev):
+    from qatzip_tpu_torch import graft_entry
+    from qatzip_tpu_torch.engine import core
+    from qatzip_tpu_torch.ops import select as S
+
+    n0 = S.POS_KERNEL.launches
+    fn, args = graft_entry.entry()
+    assert args[0].device == dev and fn(*args).shape == (8, 4096)
+    assert S.POS_KERNEL.launches > n0
+    core.qz_close_engine()
+    try:
+        graft_entry.dryrun_multichip(1)
+    finally:
+        core.qz_close_engine()
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        graft_entry.dryrun_multichip(torch.cuda.device_count() + 1)
+
+
+def test_two_ranks_share_the_card(dev):
+    """Two ranks of the worker on the device route on the card: the
+    distributed stream equals the single-process one, each rank launches
+    the kernels."""
+    import os
+    import re
+
+    from qatzip_tpu_torch.ops import _build
+    from qatzip_tpu_torch.tools import dist_worker
+
+    _build.library()   # built once here, not by both ranks
+    outs = dist_worker.launch(["--device", "cuda"],
+                              env=dict(os.environ, QATZIP_TPU_FORCE_SW="0"),
+                              timeout=300)
+    for out in outs:
+        m = re.search(r"DIST DEVICE OK rank=\d hw=\d+ select=(\d+) "
+                      r"inflate=(\d+)", out)
+        assert m and int(m.group(1)) >= 1 and int(m.group(2)) >= 1, out[-2000:]

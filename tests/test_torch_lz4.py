@@ -72,9 +72,16 @@ def test_tiny_inputs_equal_reference(corpus_factory, cpu_engine, size):
 
 def test_device_encoder_option_raises(corpus_factory, cpu_engine,
                                       monkeypatch):
+    """QATZIP_TPU_ENCODER=device runs the device encoder's LZ4 branch: the
+    reference's bytes, on the device route, and they round-trip."""
     monkeypatch.setenv("QATZIP_TPU_ENCODER", "device")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qt.compress(corpus_factory(20_000), "lz4", hw_buff_sz=HW_BUFF)
+    data = corpus_factory(20_000)
+    hw0, sw0 = cpu_engine.hw_requests, cpu_engine.sw_requests
+    comp = qt.compress(data, "lz4", hw_buff_sz=HW_BUFF)
+    assert cpu_engine.hw_requests - hw0 == -(-len(data) // HW_BUFF)
+    assert cpu_engine.sw_requests == sw0
+    assert comp == qatzip_tpu.compress(data, "lz4", hw_buff_sz=HW_BUFF)
+    assert qt.decompress(comp, "lz4", hw_buff_sz=HW_BUFF, sw_only=True) == data
 
 
 def _lz4s_blocks(corpus_factory):

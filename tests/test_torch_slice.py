@@ -120,16 +120,29 @@ def test_no_cuda_default_init_is_labelled_software(corpus_factory,
 ])
 def test_unported_options_raise(corpus_factory, monkeypatch, engine_on, env,
                                 value, direction):
+    """The parity engines' options run on the device route:
+    QATZIP_TPU_ENCODER=device compresses to bytes gzip reads and the
+    software path inflates, QATZIP_TPU_INFLATE=spec decompresses with no
+    lane failed over; neither raises."""
     monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
     engine_on(torch.device("cpu"))
+    eng = core.engine()
     data = corpus_factory(20_000, "text")
     comp = qt.compress(data, level=1, hw_buff_sz=HW_BUFF)
     monkeypatch.setenv(env, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if direction == "compress":
-            qt.compress(data, level=1, hw_buff_sz=HW_BUFF)
-        else:
-            qt.decompress(comp, hw_buff_sz=HW_BUFF)
+    hw0, sw0, fail0 = eng.hw_requests, eng.sw_requests, dd.failover_lanes
+    if direction == "compress":
+        out = qt.compress(data, level=1, hw_buff_sz=HW_BUFF)
+        assert gzip.decompress(out) == data
+        assert qt.decompress(out, hw_buff_sz=HW_BUFF, sw_only=True) == data
+    else:
+        assert qt.decompress(comp, hw_buff_sz=HW_BUFF) == data
+    nchunks = -(-len(data) // HW_BUFF)
+    assert eng.hw_requests - hw0 == nchunks
+    # the compress's check reads its output once on the software path
+    assert eng.sw_requests - sw0 == (nchunks if direction == "compress"
+                                     else 0)
+    assert dd.failover_lanes == fail0
 
 
 @pytest.mark.parametrize("direction", ["compress", "decompress",
