@@ -84,11 +84,36 @@ Run from the repository root:  python3 chip_smoke.py
    equals this process's single-process stream, per-rank and total GB/s
    and the share of the time outside the ranks' own work.  The kernels
    line carries each part's launches (``parity_dist_launches``).
-8. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
+8. The failure and edge paths of the select and inflate kernels, the
+   device route forced, the launch counts, failed-over lanes and blocks and
+   health failures zeroed before each part and the engine's software
+   requests read, each part's wall time and counts on a line of its own
+   (``edges ...``): (1) one lockstep round of 128 lanes of 16 KB zlib-L1
+   chunks, a third corrupted past their dynamic header, one in eight
+   truncated, a few idle, the kernel equal to its plain version on all
+   five outputs, then step 2's clean 512-lane round again, unchanged;
+   (2) the corpus compressed gzip-ext and 9 mutated copies (point
+   mutations, truncation, a spliced window, as tests/test_fuzz.py)
+   decompressed on the card: the reference's rc class, a prefix of the
+   input on QZ_OK, inflate launched, no batch failed over (no health
+   failure, no software request), no more lanes failed over than chunks
+   touched; (3) the boundary lengths of tests/test_sweep.py x text, random
+   and constant through the device codec (the select kernel at every
+   non-empty length), and gzip, gzip-ext, raw, 4B and zlib at L1 and L9 on
+   1 MB through the API, bytes equal to the CPU-tensor route's, read back
+   on the card; (4) injected faults: submit, death and poison on compress,
+   poison and checksum on decompress, then the breaker tripped, a request
+   on the software route with no launch, and past the cooldown (its clock
+   moved) the probe that revives the device; (5) four threads compressing
+   and decompressing 8 MB each on cuda:0 at once, equal to the serial run;
+   (6) the 8 MB LZ4-frame stream with mutated blocks: the blocks the card
+   fails over are the ones the native decoder refuses.  The kernels line
+   carries each part's launches (``edge_launches``).
+9. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
    device busy time against the unprofiled wall time, the inflate kernel's
    share of the gzip-ext decompress, and the host functions that take the
    time.
-9. Routing: one gzip-ext request each way with QATZIP_TPU_DEVICE unset,
+10. Routing: one gzip-ext request each way with QATZIP_TPU_DEVICE unset,
    routed by the record of step 3; prints which backend took each
    direction, which must be the one the record names.
 
@@ -113,6 +138,9 @@ import zlib
 
 CHUNK = 64 << 10
 LANES = 128            # the reference's lanes a round and chunks a batch
+EDGE_LANE = 16 << 10   # step 8's corrupt round: 16 KB zlib-L1 chunks a lane
+EDGE_SEED = 10         # step 8's mutations
+_ROUNDS: dict = {}     # step 2's inflate rounds by lanes: inputs, outputs
 
 
 def _check(cond: bool, what: str) -> None:
@@ -295,6 +323,7 @@ def _inflate_round(torch, corpus: bytes, dev, lanes: int,
                f"inflate kernel != plain in {name} at {lanes} lanes")
     ns = int(ker[4][0])
     _check(not bool(ker[1].any()), "a lane of the round errored")
+    _ROUNDS[lanes] = (t, max_steps, ker)
     err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
               for a, b in zip(ker, ref))
     ms = _time_ms(lambda: PI.decode_lockstep(*t, max_steps), 5)
@@ -1295,6 +1324,608 @@ def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
     return records
 
 
+class _EdgePart:
+    """One part of step 8: made just before the part, it zeroes the launch
+    counts, the failed-over lanes and blocks and the health failures, reads
+    the engine's software requests and starts the clock; ``counts`` reads
+    them all, ``done`` prints the part's line and returns its launches."""
+
+    def __init__(self, torch, name: str, gpu: str):
+        from qatzip_tpu_torch.engine import core
+        from qatzip_tpu_torch.engine.health import health
+        from qatzip_tpu_torch.ops import deflate_decode as dd
+        from qatzip_tpu_torch.ops import inflate_kernel as K
+        from qatzip_tpu_torch.ops import lz4_decode as ld
+        from qatzip_tpu_torch.ops import select as S
+
+        self.torch, self.name, self.gpu = torch, name, gpu
+        S.POS_KERNEL.launches = 0
+        K.KERNEL.launches = 0
+        dd.failover_lanes = 0
+        ld.failover_blocks = 0
+        health.total_failures = 0
+        self.sw0 = core.engine().sw_requests
+        self.zero()
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def zero(self) -> None:
+        """Mark the start of one request inside the part."""
+        self.mark = self.counts()
+
+    def counts(self, since: bool = False) -> dict:
+        """The part's counts so far, or since the last ``zero``."""
+        from qatzip_tpu_torch.engine import core
+        from qatzip_tpu_torch.engine.health import health
+        from qatzip_tpu_torch.ops import deflate_decode as dd
+        from qatzip_tpu_torch.ops import inflate_kernel as K
+        from qatzip_tpu_torch.ops import lz4_decode as ld
+        from qatzip_tpu_torch.ops import select as S
+
+        now = {"select_to_positions": S.POS_KERNEL.launches,
+               "inflate_decode": K.KERNEL.launches,
+               "failover_lanes": dd.failover_lanes,
+               "failover_blocks": ld.failover_blocks,
+               "health_failures": health.total_failures,
+               "sw_requests": core.engine().sw_requests - self.sw0}
+        if since:
+            return {k: v - self.mark[k] for k, v in now.items()}
+        return now
+
+    def done(self, extra: str = "") -> dict:
+        self.torch.cuda.synchronize()
+        dt = time.perf_counter() - self.t0
+        c = self.counts()
+        print(f"edges {self.name}: {dt:.4f} s ({self.gpu}); launches select "
+              f"{c['select_to_positions']}, inflate {c['inflate_decode']}; "
+              f"failover lanes {c['failover_lanes']}, blocks "
+              f"{c['failover_blocks']}; health failures "
+              f"{c['health_failures']}; software requests "
+              f"{c['sw_requests']}{extra}")
+        return {k: c[k] for k in ("select_to_positions", "inflate_decode")}
+
+
+def _fuzz(buf: bytearray, rng, kind: int) -> list:
+    """Mutate ``buf`` as the reference's fuzz does (tests/test_fuzz.py): kind
+    0 flips 1-4 bytes, 1 truncates, 2 splices a 4-63 byte window over
+    another offset.  Returns the (start, end) byte ranges it changed (a
+    truncation: from the cut to the end)."""
+    if kind == 0:
+        spans = []
+        for _ in range(int(rng.integers(1, 5))):
+            i = int(rng.integers(0, len(buf)))
+            buf[i] ^= int(rng.integers(1, 256))
+            spans.append((i, i + 1))
+        return spans
+    if kind == 1:
+        cut = int(rng.integers(1, len(buf)))
+        n = len(buf)
+        del buf[cut:]
+        return [(cut, n)]
+    w = int(rng.integers(4, 64))
+    src = int(rng.integers(0, len(buf) - w))
+    dst = int(rng.integers(0, len(buf) - w))
+    buf[dst:dst + w] = buf[src:src + w]
+    return [(dst, dst + w)]
+
+
+def _gz_members(buf: bytes) -> list:
+    """(start, end) of each gzip-ext member of a well-formed stream."""
+    from qatzip_tpu_torch.formats import gzip_fmt
+
+    out, pos = [], 0
+    while pos < len(buf):
+        ext = gzip_fmt.parse_gzipext_header(buf, pos)
+        _check(ext is not None, "not a gzip-ext stream")
+        end = pos + gzip_fmt.GZIPEXT_HEADER_SIZE + ext.dest_sz + 8
+        out.append((pos, end))
+        pos = end
+    return out
+
+
+def _lz4_blocks(buf: bytes) -> list:
+    """(offset, size) of each compressed block of an LZ4-frame stream."""
+    import struct
+
+    from qatzip_tpu_torch.formats import lz4_fmt
+
+    out, pos = [], 0
+    while pos < len(buf):
+        hlen, _ = lz4_fmt.parse_lz4_frame_header(buf, pos)
+        pos += hlen
+        while True:
+            (size,) = struct.unpack_from("<I", buf, pos)
+            pos += 4
+            if size == 0:
+                pos += 4          # the content checksum
+                break
+            if not size & 0x80000000:
+                out.append((pos, size))
+            pos += size & 0x7FFFFFFF
+    return out
+
+
+def _gz_session(qt, fmt=None, hw_buff_sz: int | None = None):
+    """A level-1 session, gzip-ext unless ``fmt``, at CHUNK unless
+    ``hw_buff_sz``."""
+    sess = qt.QzSession()
+    params = qt.QzSessionParamsDeflate(
+        common_params=qt.QzSessionParamsCommon(
+            comp_lvl=1, hw_buff_sz=hw_buff_sz or CHUNK),
+        data_fmt=fmt or qt.QzDataFormat.QZ_DEFLATE_GZIP_EXT)
+    _check(qt.qz_setup_session_deflate(sess, params) == qt.QZ_OK,
+           "session setup failed")
+    return sess
+
+
+def _edge_corrupt_round(torch, corpus: bytes, dev, gpu: str) -> dict:
+    """Part 1: one lockstep round of 128 lanes of 16 KB zlib-L1 chunks, a
+    third corrupted past their dynamic header, one in eight truncated, a
+    few idle, at the step bound the clean round takes (a corrupted lane
+    without an end of block runs to it): the kernel equals its plain
+    version on all five outputs; then step 2's clean 512-lane round again,
+    equal to its first run."""
+    import numpy as np
+
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+    from qatzip_tpu_torch.ops import inflate as PI
+
+    part = _EdgePart(torch, "corrupt round", gpu)
+    streams = []
+    for i in range(LANES):
+        chunk = corpus[i * EDGE_LANE:(i + 1) * EDGE_LANE]
+        co = zlib.compressobj(1, zlib.DEFLATED, -15)
+        s = dd._Stream(co.compress(chunk) + co.flush(), len(chunk), i)
+        _check(dd._parse_one_header(s) == "huff", "expected a Huffman block")
+        streams.append(s)
+    live, inputs = dd.pack_round(streams)
+    _check(len(live) == LANES, "every lane must take part in the round")
+    words, bit0, nbits, tll, td, active, bound = inputs
+    # the step bound: what the clean round takes (the kernel, once)
+    clean_run = PI.decode_lockstep(*PI.upload(*inputs[:6], dev), bound)
+    max_steps = int(clean_run[4][0])
+    _check(not bool(clean_run[1].any()), "a lane of the clean round errored")
+    stream8 = words.view(np.uint8)
+    rng = np.random.default_rng(EDGE_SEED)
+    lanes = np.arange(LANES)
+    corrupt, trunc, idle = lanes % 3 == 1, lanes % 8 == 5, lanes % 32 == 7
+    for i in lanes[corrupt]:
+        # bytes flipped from the middle on, past the dynamic header, as
+        # tests/test_torch_inflate.py does
+        nb = int(nbits[i]) // 8
+        stream8[i, nb // 2:nb - 4:5] ^= 0x5A
+    for i in lanes[trunc]:
+        nb = int(nbits[i]) // 8
+        cut = int(rng.integers(nb // 8, nb))
+        stream8[i, cut:] = 0
+        nbits[i] = cut * 8
+    active[idle] = False
+    t = PI.upload(words, bit0, nbits, tll, td, active, dev)
+    ker = PI.decode_lockstep(*t, max_steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = PI._decode_ref(*t, max_steps)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for name, a, b in zip(("tokens", "err", "outcnt", "end_bit", "nsteps"),
+                          ker, ref):
+        _check(torch.equal(a, b), f"corrupt round: kernel != plain in {name}")
+    err = ker[1].cpu().numpy()
+    clean = ~(corrupt | trunc | idle)
+    _check(not err[clean].any(), "a clean lane of the corrupt round errored")
+    _check(not err[idle].any() and not ker[2].cpu().numpy()[idle].any(),
+           "an idle lane decoded")
+    t5, ms5, want = _ROUNDS[max(_ROUNDS)]
+    again = PI.decode_lockstep(*t5, ms5)
+    for name, a, b in zip(("tokens", "err", "outcnt", "end_bit", "nsteps"),
+                          again, want):
+        _check(torch.equal(a, b), f"step 2's clean round changed in {name} "
+               f"after the corrupt round")
+    return part.done(
+        f"; {LANES} lanes, nsteps {int(ker[4][0])} of {max_steps}: kernel "
+        f"equal to plain ({plain_s:.1f} s) on all five outputs; errored "
+        f"lanes {int(err.sum())} (corrupted {int(err[corrupt].sum())} of "
+        f"{int(corrupt.sum())}, truncated {int(err[trunc].sum())} of "
+        f"{int(trunc.sum())}; {int(idle.sum())} idle lanes decoded nothing); step 2's "
+        f"{t5[0].shape[0]}-lane round again equal")
+
+
+def _edge_api_fuzz(torch, corpus: bytes, gpu: str) -> tuple:
+    """Part 2: the corpus compressed gzip-ext L1 at 64 KB chunks, then 9
+    mutated copies (3 each of point mutations, truncation and a spliced
+    window, from EDGE_SEED) decompressed on the card: the reference's rc
+    class, a prefix of the input on QZ_OK, inflate launched unless the
+    first member's header no longer parses, no health failure, software
+    request or CPU rerun of a batch (a chunk zlib refuses after its lane
+    failed over ends the request), and no more lanes failed over than
+    chunks touched.  Returns (launches, the compressed stream)."""
+    import numpy as np
+
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch.formats import gzip_fmt
+
+    part = _EdgePart(torch, "api fuzz", gpu)
+    res = qt.qz_compress(_gz_session(qt), corpus)
+    _check(res.rc == qt.QZ_OK, f"compress rc {res.rc}")
+    comp = res.data
+    members = _gz_members(comp)
+    nbatch = -(-len(members) // LANES)
+    _check(part.counts()["select_to_positions"] >= nbatch,
+           "the compress did not launch select once a batch")
+    rng = np.random.default_rng(EDGE_SEED)
+    ok_codes = {qt.QZ_OK, qt.QZ_DATA_ERROR, qt.QZ_BUF_ERROR, qt.QZ_FAIL}
+    rows = []
+    for trial in range(9):
+        buf = bytearray(comp)
+        spans = _fuzz(buf, rng, trial % 3)
+        touched = {k for k, (a, b) in enumerate(members)
+                   for lo, hi in spans if lo < b and hi > a}
+        # a first member whose header no longer parses (or is cut) ends
+        # the request before any batch: no launch is owed
+        ext = gzip_fmt.parse_gzipext_header(bytes(buf), 0)
+        head_broken = (ext is None or ext.dest_sz
+                       > len(buf) - gzip_fmt.GZIPEXT_HEADER_SIZE)
+        part.zero()
+        out = qt.qz_decompress(_gz_session(qt), bytes(buf))
+        c = part.counts(since=True)
+        _check(out.rc in ok_codes, f"api fuzz {trial}: rc {out.rc}")
+        _check(out.rc != qt.QZ_OK or corpus.startswith(out.data),
+               f"api fuzz {trial}: QZ_OK with bytes that are not a prefix")
+        _check(c["inflate_decode"] >= 1 or head_broken,
+               f"api fuzz {trial}: no inflate launch")
+        if head_broken:
+            print(f"edges api fuzz {trial}: the first member's header no "
+                  f"longer parses, so no inflate launch is owed")
+        _check(c["health_failures"] == 0 and c["sw_requests"] == 0
+               and not out.ext_rc & qt.QZ_SW_EXECUTION_MASK,
+               f"api fuzz {trial}: a batch failed over ({c}, ext_rc "
+               f"{out.ext_rc:#x})")
+        _check(c["failover_lanes"] <= len(touched),
+               f"api fuzz {trial}: {c['failover_lanes']} lanes failed over "
+               f"for {len(touched)} chunks touched")
+        rows.append(f"{('point', 'cut', 'splice')[trial % 3]} rc {out.rc} "
+                    f"lanes {c['failover_lanes']}/{len(touched)} out "
+                    f"{len(out.data)} inflate {c['inflate_decode']}")
+    launches = part.done(f"; {len(corpus)} bytes, {len(members)} chunks, "
+                         f"9 copies (rc, lanes failed over / chunks "
+                         f"touched, output bytes, inflate launches; no CPU "
+                         f"rerun): "
+                         + "; ".join(rows))
+    return launches, comp
+
+
+def _edge_sweep(torch, corpus: bytes, dev, gpu: str) -> dict:
+    """Part 3: the reference's boundary lengths (tests/test_sweep.py) x
+    text, random and constant through the device codec at 4 KB chunks on
+    the card (below the API's 1 KB threshold too; an empty request as one
+    empty chunk), the select kernel launched for each, bytes equal to the
+    codec's CPU-tensor route, framed as gzip that gzip reads and the card
+    decompresses; then gzip, gzip-ext, raw, 4B and zlib at L1 and L9 on
+    1 MB through the API, bytes equal to the CPU-tensor route's."""
+    import numpy as np
+
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch.engine import core, framing
+    from qatzip_tpu_torch.ops import device_codecs as dc
+    from qatzip_tpu_torch.ops import select as S
+
+    part = _EdgePart(torch, "sweep", gpu)
+    cpu = torch.device("cpu")
+    codec = dc.DeflateDeviceCodec()
+    gz = qt.QzDataFormat.QZ_DEFLATE_GZIP
+    params = _gz_session(qt, gz, 4096).params
+    lengths = [0, 1, 2, 3, 4, 5, 11, 12, 13, 255, 256, 4095, 4096, 4097,
+               8191, 12288]
+    rnd = np.random.default_rng(EDGE_SEED).integers(
+        0, 256, max(lengths), np.uint8).tobytes()
+    cases = 0
+    for kind, src in (("text", corpus), ("random", rnd),
+                      ("constant", b"A" * max(lengths))):
+        for n in lengths:
+            data = src[:n]
+            # an empty request is one empty chunk, as the API makes it
+            chunks = [data[i:i + 4096] for i in range(0, n, 4096)] or [b""]
+            part.zero()
+            got = codec.compress_chunks(chunks, params, dev)
+            sel = part.counts(since=True)["select_to_positions"]
+            _check(sel >= 1, f"sweep {kind} {n}: no select launch")
+            want = codec.compress_chunks(chunks, params, cpu)
+            _check([(c.payload, c.checksum) for c in got]
+                   == [(c.payload, c.checksum) for c in want],
+                   f"sweep {kind} {n}: card bytes != CPU-tensor bytes")
+            comp = b"".join(framing.frame_chunk(
+                params.data_fmt, c.payload, c.consumed, c.checksum)
+                for c in got)
+            _check(gzip.decompress(comp) == data,
+                   f"sweep {kind} {n}: gzip cannot read it")
+            _check(qt.decompress(comp, hw_buff_sz=4096) == data,
+                   f"sweep {kind} {n}: the card's decompress != input")
+            cases += 1
+    backend = core.engine().hw_backend
+    src = corpus[:1 << 20]
+    fmts = {"gzip": ("deflate", gz),
+            "gzip_ext": ("deflate", qt.QzDataFormat.QZ_DEFLATE_GZIP_EXT),
+            "raw": ("deflate", qt.QzDataFormat.QZ_DEFLATE_RAW),
+            "4b": ("deflate", qt.QzDataFormat.QZ_DEFLATE_4B),
+            "zlib": ("zlib", None)}
+    for name, (algorithm, fmt) in fmts.items():
+        for level in (1, 9):
+            comp = qt.compress(src, algorithm, fmt=fmt, level=level,
+                               hw_buff_sz=CHUNK)
+            backend.device = cpu
+            try:
+                want = qt.compress(src, algorithm, fmt=fmt, level=level,
+                                   hw_buff_sz=CHUNK)
+            finally:
+                backend.device = dev
+            _check(comp == want, f"{name} L{level}: card bytes != CPU-tensor "
+                   f"route's")
+            if name in ("gzip", "gzip_ext"):
+                _check(gzip.decompress(comp) == src, f"{name} L{level}: "
+                       f"gzip cannot read it")
+            _check(qt.decompress(comp, algorithm, fmt=fmt,
+                                 hw_buff_sz=CHUNK) == src,
+                   f"{name} L{level}: the card's decompress != input")
+    c = part.counts()
+    _check(c["health_failures"] == 0 and c["failover_lanes"] == 0
+           and c["sw_requests"] == 0, f"sweep: {c}")
+    _check(S.POS_KERNEL.launches > 0, "sweep: select never launched")
+    return part.done(f"; {cases} length cases (select launched for each, "
+                     f"bytes equal to the CPU-tensor route, "
+                     f"gzip reads them, the card returns the input); "
+                     f"gzip, gzip-ext, raw, 4B, zlib at L1 and L9 on 1 MB: "
+                     f"bytes equal to the CPU-tensor route, round trips "
+                     f"exact")
+
+
+def _edge_faults(torch, corpus: bytes, comp: bytes, gpu: str) -> dict:
+    """Part 4: injected faults on the corpus, gzip-ext L1: submit (one batch
+    reroutes), death mid-batch, poison compress (harmless), poison and
+    checksum decompress (detected), then FAILURE_TRIP failures that open
+    the breaker, a request on the software route with no launch, and past
+    the cooldown (the breaker's clock moved, not slept) a probe request
+    that revives the device."""
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch.engine import core, faults
+    from qatzip_tpu_torch.engine import health as hm
+
+    part = _EdgePart(torch, "faults", gpu)
+    nbatch = -(-len(corpus) // (CHUNK * LANES))
+    notes = []
+    for kind, sel in (("submit", nbatch - 1), ("death", nbatch),
+                      ("poison", nbatch)):
+        faults.inject_error(kind, nth=1, direction="compress", count=1)
+        part.zero()
+        res = qt.qz_compress(_gz_session(qt), corpus)
+        c = part.counts(since=True)
+        _check(not faults.armed(), f"{kind}: the fault did not fire")
+        _check(res.rc == qt.QZ_OK and gzip.decompress(res.data) == corpus,
+               f"{kind}: the stream does not read back")
+        _check(c["health_failures"] == (kind != "poison"),
+               f"{kind}: {c['health_failures']} batches rerouted")
+        _check(c["select_to_positions"] == sel,
+               f"{kind}: select launched {c['select_to_positions']}, not "
+               f"{sel}")
+        if kind == "poison":
+            _check(qt.qz_decompress(_gz_session(qt), res.data).data
+                   == corpus, "poison: the card cannot read the stream")
+        notes.append(f"{kind} compress: {c['health_failures']} batch "
+                     f"rerouted, select {c['select_to_positions']}"
+                     + (f", bytes equal to the clean run "
+                        f"{res.data == comp}" if kind == "poison" else ""))
+        hm.health.record_success()
+    for kind in ("poison", "checksum"):
+        faults.inject_error(kind, nth=1, direction="decompress", count=1)
+        part.zero()
+        res = qt.qz_decompress(_gz_session(qt), comp)
+        c = part.counts(since=True)
+        _check(not faults.armed(), f"{kind}: the fault did not fire")
+        _check(res.rc == qt.QZ_DATA_ERROR, f"{kind} decompress: rc {res.rc}")
+        _check(c["inflate_decode"] >= 1, f"{kind}: no inflate launch")
+        notes.append(f"{kind} decompress: rc {res.rc}, inflate "
+                     f"{c['inflate_decode']}")
+    # the breaker: a batch a request (64 chunks), a submit fault each time
+    src = corpus[:LANES * CHUNK // 2]
+    eng = core.engine()
+    faults.inject_error("submit", direction="compress", count=-1)
+    try:
+        for _ in range(hm.FAILURE_TRIP):
+            res = qt.qz_compress(_gz_session(qt), src)
+            _check(gzip.decompress(res.data) == src, "trip: bad stream")
+        _check(not hm.health.healthy(), "the breaker did not open")
+        part.zero()
+        hw0 = eng.hw_requests
+        res = qt.qz_compress(_gz_session(qt), src)
+        c = part.counts(since=True)
+        _check(res.rc == qt.QZ_OK and res.ext_rc & qt.QZ_SW_EXECUTION_MASK
+               and eng.hw_requests == hw0 and c["sw_requests"] > 0
+               and c["select_to_positions"] == 0,
+               f"breaker open: the request did not stay on the software "
+               f"route ({c})")
+    finally:
+        faults.clear()
+
+    class _PastCooldown:
+        """The breaker's clock, past its cooldown."""
+        sleep = staticmethod(time.sleep)
+
+        @staticmethod
+        def monotonic():
+            return time.monotonic() + hm.COOLDOWN_S + 1
+
+    hm.time = _PastCooldown
+    try:
+        part.zero()
+        res = qt.qz_compress(_gz_session(qt), src)
+        back = qt.qz_decompress(_gz_session(qt), res.data)
+        c = part.counts(since=True)
+    finally:
+        hm.time = time
+    _check(hm.health.healthy(), "the probe did not close the breaker")
+    _check(back.data == src and not (res.ext_rc | back.ext_rc)
+           & qt.QZ_SW_EXECUTION_MASK, "revival: not a device round trip")
+    _check(c["select_to_positions"] >= 1 and c["inflate_decode"] >= 1,
+           f"revival: select {c['select_to_positions']}, inflate "
+           f"{c['inflate_decode']}")
+    notes.append(f"trip after {hm.FAILURE_TRIP} failures, open: 0 launches, "
+                 f"software; revived: select {c['select_to_positions']}, "
+                 f"inflate {c['inflate_decode']}")
+    return part.done("; " + "; ".join(notes))
+
+
+def _edge_threads(torch, corpus: bytes, gpu: str) -> dict:
+    """Part 5: four threads each compress and decompress a quarter of the
+    corpus (8 MB) through cuda:0 at once; every result equals the serial run's, no software
+    request or failure, and at least the serial run's launches."""
+    import threading
+
+    import qatzip_tpu_torch as qt
+
+    part = _EdgePart(torch, "threads", gpu)
+    q = len(corpus) // 4
+    slices = [corpus[i * q:(i + 1) * q] for i in range(4)]
+
+    def run(i, out):
+        c = qt.qz_compress(_gz_session(qt), slices[i])
+        d = qt.qz_decompress(_gz_session(qt), c.data)
+        out[i] = (c.rc, c.data, d.rc, d.data,
+                  (c.ext_rc | d.ext_rc) & qt.QZ_SW_EXECUTION_MASK)
+
+    serial: dict = {}
+    for i in range(4):
+        run(i, serial)
+    s_counts = part.counts()
+    part.zero()
+    t0 = time.perf_counter()
+    together: dict = {}
+    ts = [threading.Thread(target=run, args=(i, together)) for i in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    c = part.counts(since=True)
+    _check(all(not t.is_alive() for t in ts), "a thread did not finish")
+    for i in range(4):
+        _check(serial[i][0] == serial[i][2] == qt.QZ_OK
+               and serial[i][3] == slices[i] and not serial[i][4],
+               f"threads: serial run {i} failed")
+        _check(together.get(i) == serial[i],
+               f"threads: thread {i}'s result != the serial run's")
+    for k in ("select_to_positions", "inflate_decode"):
+        _check(c[k] >= s_counts[k], f"threads: {k} {c[k]} < serial "
+               f"{s_counts[k]}")
+    _check(c["sw_requests"] == 0 and c["health_failures"] == 0
+           and c["failover_lanes"] == 0, f"threads: {c}")
+    return part.done(f"; 4 x {q} bytes at once {wall:.4f} s: results equal the "
+                     f"serial run's (select {s_counts['select_to_positions']}"
+                     f", inflate {s_counts['inflate_decode']} serial; "
+                     f"{c['select_to_positions']}, {c['inflate_decode']} "
+                     f"at once)")
+
+
+def _edge_lz4(torch, corpus: bytes, dev, gpu: str) -> dict:
+    """Part 6: the 8 MB LZ4-frame stream with six compressed blocks mutated
+    (three by point mutations, three by a zeroed tail): decoded on cuda:0 through the API (rc class, prefix on QZ_OK)
+    and block by block, the blocks failed over are the ones the native
+    decoder refuses and the others decode to its bytes; then a clean group
+    decodes to its bytes (the card survived)."""
+    import numpy as np
+
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch.engine.lz4_block import lz4_block_decompress
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+
+    part = _EdgePart(torch, "lz4 blocks", gpu)
+    src = corpus[:8 << 20]
+
+    def session():
+        sess = qt.QzSession()
+        _check(qt.qz_setup_session_lz4(sess, qt.QzSessionParamsLZ4(
+            common_params=qt.QzSessionParamsCommon(
+                comp_lvl=1, hw_buff_sz=CHUNK))) == qt.QZ_OK, "lz4 session")
+        return sess
+
+    comp = qt.qz_compress(session(), src).data
+    spans = _lz4_blocks(comp)
+    rng = np.random.default_rng(EDGE_SEED)
+    buf = bytearray(comp)
+    hit = sorted(int(k) for k in rng.choice(len(spans), 6, replace=False))
+    for j, k in enumerate(hit):
+        off, size = spans[k]
+        if j % 2:
+            # a zeroed tail: zero tokens and offsets, which no decoder takes
+            buf[off + size - 16:off + size] = bytes(16)
+            continue
+        for _ in range(3):   # point mutations, mostly in literals
+            buf[off + int(rng.integers(0, size))] ^= int(rng.integers(1, 256))
+    blocks = [bytes(buf[o:o + n]) for o, n in spans]
+
+    def native(blk):
+        try:
+            return lz4_block_decompress(blk, CHUNK)
+        except ValueError:
+            return None
+
+    want = [native(b) for b in blocks]
+    refused = sum(w is None for w in want)
+    _check(refused > 0, "lz4: the native decoder took every mutated block")
+    part.zero()
+    res = qt.qz_decompress(session(), bytes(buf))
+    c = part.counts(since=True)
+    _check(res.rc in (qt.QZ_OK, qt.QZ_DATA_ERROR, qt.QZ_BUF_ERROR,
+                      qt.QZ_FAIL), f"lz4: rc {res.rc}")
+    _check(res.rc != qt.QZ_OK or src.startswith(res.data),
+           "lz4: QZ_OK with bytes that are not a prefix")
+    _check(c["health_failures"] == 0 and c["sw_requests"] == 0
+           and not res.ext_rc & qt.QZ_SW_EXECUTION_MASK,
+           f"lz4: a batch failed over ({c}, ext_rc {res.ext_rc:#x})")
+    api_blocks = c["failover_blocks"]
+    part.zero()
+    got = ld.decode_blocks(blocks, device=dev)
+    _check([g is None for g in got] == [w is None for w in want],
+           "lz4: the blocks failed over are not the ones the native decoder "
+           "refuses")
+    _check(all(g == w for g, w in zip(got, want) if w is not None),
+           "lz4: a block decoded on the card != the native decoder")
+    clean = [comp[o:o + n] for o, n in spans[:ld.GROUP]]
+    part.zero()
+    again = ld.decode_blocks(clean, device=dev)
+    _check(part.counts(since=True)["failover_blocks"] == 0
+           and again == [native(b) for b in clean],
+           "lz4: a clean group after the corrupt blocks != native")
+    return part.done(f"; {len(spans)} compressed blocks, {len(hit)} mutated "
+                     f"(3 point, 3 zeroed tails), "
+                     f"{refused} refused by the native decoder; API rc "
+                     f"{res.rc} ({len(res.data)} bytes out), "
+                     f"{api_blocks} blocks failed over; block by block the "
+                     f"same blocks fail over, the rest equal native; a "
+                     f"clean group of {len(clean)} equal after")
+
+
+def phase_edges(torch, corpus: bytes, dev) -> dict:
+    """Step 8: the failure and edge paths of the select and inflate kernels
+    on the card, the device route forced, each part with its counts zeroed
+    before it and its line after.  Returns {part: launches}."""
+    from qatzip_tpu_torch.engine import faults
+    from qatzip_tpu_torch.engine.health import health
+
+    os.environ["QATZIP_TPU_DEVICE"] = "1"
+    gpu = _gpu_line()
+    t0 = time.perf_counter()
+    records = {"corrupt_round": _edge_corrupt_round(torch, corpus, dev, gpu)}
+    records["api_fuzz"], comp = _edge_api_fuzz(torch, corpus, gpu)
+    records["sweep"] = _edge_sweep(torch, corpus, dev, gpu)
+    records["faults"] = _edge_faults(torch, corpus, comp, gpu)
+    records["threads"] = _edge_threads(torch, corpus, gpu)
+    records["lz4_blocks"] = _edge_lz4(torch, corpus, dev, gpu)
+    _check(not faults.armed() and health.healthy(),
+           "step 8 left a fault armed or the breaker open")
+    print(f"edges: {time.perf_counter() - t0:.1f} s in all; launches "
+          f"{json.dumps(records)}")
+    return records
+
+
 def phase_profile(torch, runs: list) -> None:
     """Device busy time and the host's top functions, one pass each way of
     each session.
@@ -1380,12 +2011,15 @@ def main() -> int:
         api = phase_api(torch, corpus, tmpdir,
                         main["inflate_decode"]["launches"])
         parity = phase_parity_dist(torch, corpus, dev, tmpdir)
+        edges = phase_edges(torch, corpus, dev)
         for name in ("select_to_positions", "inflate_decode"):
             # each step's launches of the path's kernels
             main[name]["api_launches"] = {step: counts[name]
                                           for step, counts in api.items()}
             main[name]["parity_dist_launches"] = {
                 step: counts[name] for step, counts in parity.items()}
+            main[name]["edge_launches"] = {
+                part: counts[name] for part, counts in edges.items()}
         phase_profile(torch, runs)
         phase_routing(torch, corpus, rec)
     kernels.append(sort_rec)

@@ -31,6 +31,11 @@ class DecompressedChunk(NamedTuple):
     end_of_stream: bool = True
 
 
+class RefusedStream(Exception):
+    """A chunk the device failed over that the host decoder then refused:
+    corrupt input, which no route decodes."""
+
+
 class Backend(abc.ABC):
     """A compression engine operating on batches of independent chunks."""
 

@@ -10,8 +10,11 @@ host-only helpers are copies of the reference's.
 Bring-up finds the first CUDA device through torch.  Without one, init
 reports QZ_NO_HW and every request runs on the shared ``CpuBackend`` with
 QZ_SW_EXECUTION_MASK set: the reference's labelled software path.  A
-device request fails over to the CPU on a device error, never on a
-``KernelError``: a kernel that cannot be built or launched raises.
+device request fails over to the CPU on an injected fault or a card out
+of memory (``faults.FAILOVER``) and on nothing else: a kernel that cannot
+be built or launched, or that faults on the card, raises.  A chunk the
+device failed over that the host decoder refuses ends the request with
+QZ_DATA_ERROR, with no CPU rerun.
 """
 from __future__ import annotations
 
@@ -26,14 +29,13 @@ import torch
 
 from qatzip_tpu_torch import constants as C
 from qatzip_tpu_torch.constants import DataFormatInternal, QzDirection
-from qatzip_tpu_torch.engine import devcal, framing
-from qatzip_tpu_torch.engine.backend import Backend
+from qatzip_tpu_torch.engine import devcal, faults, framing
+from qatzip_tpu_torch.engine.backend import Backend, RefusedStream
 from qatzip_tpu_torch.engine.cpu_backend import CpuBackend
-from qatzip_tpu_torch.engine.flow import FlowTracker
+from qatzip_tpu_torch.engine.flow import flow
 from qatzip_tpu_torch.engine.gpu_backend import GpuBackend
 from qatzip_tpu_torch.engine.health import health
 from qatzip_tpu_torch.formats import gzip_fmt, lz4_fmt, zlib_fmt
-from qatzip_tpu_torch.ops._build import KernelError
 from qatzip_tpu_torch.session import InternalParams, QzSession
 from qatzip_tpu_torch.utils import checksum as ck
 from qatzip_tpu_torch.utils.logging import QZ_ERROR, QZ_WARN
@@ -76,7 +78,6 @@ class EngineState:
 
 _engine = EngineState()
 _engine_lock = threading.Lock()
-flow = FlowTracker()
 
 
 def _discover_hw(device: torch.device | None
@@ -302,11 +303,14 @@ def compress_ext(sess: QzSession, src, last: int = 1,
         rf.add("completed", len(compressed))
         if not is_sw:
             _engine.hw_requests += len(chunks)
-    except (NotImplementedError, KernelError):
-        # an unported option or a kernel that cannot be built or launched
-        # must not pass as a device failure
-        raise
     except Exception as exc:
+        if isinstance(exc, NotImplementedError) or (
+                not is_sw and not isinstance(exc, faults.FAILOVER)):
+            # an unported option, and on the device route any error but an
+            # injected fault or a card out of memory (a kernel that cannot
+            # be built or launched, a CUDA error, a fault of the port's own
+            # code), must not pass as a device failure
+            raise
         # whole-batch failover (reference src/qatzip.c:2042-2060)
         if not is_sw and C.qz_sw_backup_enabled(p.sw_backup):
             QZ_WARN("HW compress failed (%s); falling back to SW", exc)
@@ -537,9 +541,17 @@ def decompress_ext(sess: QzSession, src, dest_limit: int | None = None) -> OpRes
                         sess.rrt.update(per_chunk)
                 if not is_sw:
                     _engine.hw_requests += len(batch)
-            except (NotImplementedError, KernelError):
-                raise  # see compress_ext
             except Exception as exc:
+                if not is_sw and isinstance(exc, RefusedStream):
+                    # corrupt input: a CPU rerun of the batch would refuse
+                    # the chunk again (the reference reruns it)
+                    QZ_ERROR("decompress refused: %s", exc)
+                    rf.abort()
+                    res.rc = C.QZ_DATA_ERROR
+                    return res
+                if isinstance(exc, NotImplementedError) or (
+                        not is_sw and not isinstance(exc, faults.FAILOVER)):
+                    raise  # see compress_ext
                 if not is_sw and C.qz_sw_backup_enabled(p.sw_backup):
                     QZ_WARN("HW decompress failed (%s); falling back to SW",
                             exc)

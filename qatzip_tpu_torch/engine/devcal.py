@@ -125,8 +125,9 @@ def calibrate(sample_bytes: int = 8 << 20, level: int = 1, save: bool = True,
     CUDA events.  A device that cannot run the codec leaves
     ``device_error`` (or ``compute_probe_error``) in the record and 0 GB/s,
     so routing stays on the CPU; a kernel that cannot be built or launched
-    raises :class:`KernelError`.  Expensive on first use (the kernels'
-    build): call it explicitly, never from the request path."""
+    raises :class:`KernelError`, and a kernel that faulted on the card its
+    CUDA error.  Expensive on first use (the kernels' build): call it
+    explicitly, never from the request path."""
     import numpy as np
     import torch
 
@@ -221,7 +222,7 @@ def calibrate(sample_bytes: int = 8 << 20, level: int = 1, save: bool = True,
             # are not the device's
             raise RuntimeError(f"{health.total_failures - failures0} device "
                                f"batches failed over to the CPU")
-    except KernelError:
+    except (KernelError, torch.AcceleratorError):
         raise
     except Exception as exc:  # no usable device -> CPU-only
         rec["device_error"] = repr(exc)
@@ -257,7 +258,7 @@ def calibrate(sample_bytes: int = 8 << 20, level: int = 1, save: bool = True,
                 mf.find_candidates(dj, lj, depth=16, stride=2)
             secs = time.perf_counter() - t0
         rec["dev_comp_compute_gbps"] = sample_bytes * reps / secs / 1e9
-    except KernelError:
+    except (KernelError, torch.AcceleratorError):
         raise
     except Exception as exc:
         rec["compute_probe_error"] = repr(exc)[:160]

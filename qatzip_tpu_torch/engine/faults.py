@@ -36,10 +36,21 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass, field
 
+import torch
+
 
 class InjectedFault(RuntimeError):
     """Raised at a fault site; treated by the engine exactly like a real
     device failure (health.record_failure + CPU reroute)."""
+
+
+# The errors a device batch fails over to the CPU on: an injected fault and
+# a card out of memory.  Any other error reaches the caller, where the
+# reference reroutes every exception: a kernel that cannot be built or
+# launched (KernelError), one that faulted on the card (a CUDA error, raised
+# at the next synchronisation) or a fault of the port's own code would
+# otherwise hide behind the CPU's right bytes.
+FAILOVER = (InjectedFault, torch.OutOfMemoryError)
 
 
 @dataclass

@@ -95,3 +95,6 @@ class _RequestFlow:
         QZ_ERROR("FLOW ERROR%s: %s",
                  f" ({context})" if context else "", self.counts)
         return False
+
+
+flow = FlowTracker()

@@ -15,12 +15,9 @@ import torch
 from qatzip_tpu_torch.constants import QzDirection
 from qatzip_tpu_torch.engine.backend import (Backend, CompressedChunk,
                                              DecompressedChunk)
-from qatzip_tpu_torch.engine.instances import InstancePool
+from qatzip_tpu_torch.engine.instances import pool
 from qatzip_tpu_torch.ops import registry
 from qatzip_tpu_torch.session import InternalParams
-
-# the port's own instance pool (cross-session admission control)
-pool = InstancePool()
 
 
 class GpuBackend(Backend):

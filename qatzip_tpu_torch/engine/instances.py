@@ -13,8 +13,9 @@ README.md:65-66), hands out instance slots round-robin, and lets callers
 fall back to the CPU path instead of blocking when the pool is saturated
 (the qzGrabInstance-failure → SW route of src/qatzip.c:1963-1975).
 
-Usage: the context manager ``pool.instance(timeout)``, which yields None
-when the pool is saturated.
+Usage: the context manager ``pool.instance(timeout)`` of the module's
+``pool`` (the one the GPU backend grabs from), which yields None when the
+pool is saturated.
 """
 from __future__ import annotations
 
@@ -71,3 +72,11 @@ class InstancePool:
             yield idx
         finally:
             self.release(idx)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"slots": self.slots, "grabs": self.grabs,
+                    "busy_rejects": self.busy_rejects}
+
+
+pool = InstancePool()

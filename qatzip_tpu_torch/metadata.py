@@ -18,10 +18,12 @@ replaced without touching the others.
 Block flags: bit0 = stored (payload is the uncompressed input verbatim),
 bit1 = deflate payload.
 
-Unlike the reference, a ``KernelError`` (a kernel that cannot be built or
-launched) or ``NotImplementedError`` (an unported option) raised by the
-device backend reaches the caller instead of falling back to the CPU, as
-in the engine's funnels (engine/core.py).
+Unlike the reference, only an injected fault or a card out of memory
+(``faults.FAILOVER``) raised by the device backend falls back to the CPU,
+as in the engine's funnels (engine/core.py); any other error (a
+``KernelError``, a CUDA error, a ``NotImplementedError`` for an unported
+option) reaches the caller, and a block the device failed over that zlib
+refuses is QZ_DATA_ERROR with no CPU rerun.
 """
 from __future__ import annotations
 
@@ -29,9 +31,9 @@ import dataclasses
 
 from qatzip_tpu_torch import constants as C
 from qatzip_tpu_torch.constants import DataFormatInternal, QzDirection
-from qatzip_tpu_torch.engine import core
+from qatzip_tpu_torch.engine import core, faults
+from qatzip_tpu_torch.engine.backend import RefusedStream
 from qatzip_tpu_torch.engine.core import OpResult
-from qatzip_tpu_torch.ops._build import KernelError
 from qatzip_tpu_torch.session import QzSession
 from qatzip_tpu_torch.utils import checksum as ck
 
@@ -135,9 +137,10 @@ def qz_compress_with_metadata_ext(sess: QzSession, src,
                                          QzDirection.QZ_DIR_COMPRESS)
     try:
         compressed = backend.compress_chunks(chunks, p)
-    except (NotImplementedError, KernelError):
-        raise
-    except Exception:
+    except Exception as exc:
+        if isinstance(exc, NotImplementedError) or (
+                not is_sw and not isinstance(exc, faults.FAILOVER)):
+            raise
         if not is_sw and C.qz_sw_backup_enabled(p.sw_backup):
             is_sw = True
             compressed = core.engine().cpu_backend.compress_chunks(chunks, p)
@@ -213,9 +216,12 @@ def qz_decompress_with_metadata_ext(sess: QzSession, src,
             res.ext_rc |= C.QZ_SW_EXECUTION_MASK
         try:
             dcs = backend.decompress_chunks(payloads, hints, p)
-        except (NotImplementedError, KernelError):
-            raise
-        except Exception:
+        except Exception as exc:
+            if not is_sw and isinstance(exc, RefusedStream):
+                return OpResult(rc=C.QZ_DATA_ERROR)
+            if isinstance(exc, NotImplementedError) or (
+                    not is_sw and not isinstance(exc, faults.FAILOVER)):
+                raise
             if not is_sw and C.qz_sw_backup_enabled(p.sw_backup):
                 res.ext_rc |= C.QZ_SW_EXECUTION_MASK
                 dcs = core.engine().cpu_backend.decompress_chunks(

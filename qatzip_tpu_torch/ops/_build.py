@@ -17,8 +17,9 @@ nothing falls back.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises :class:`KernelError` when
 that is not 0 and counts the launches that went through.  The engine's
-device-to-CPU failover lets a ``KernelError`` through, so a kernel that
-cannot be built or launched is an error, never a quiet CPU run.
+device-to-CPU failover takes only injected faults and an exhausted card
+(``engine.faults.FAILOVER``), so a kernel that cannot be built or
+launched, or that faults on the card, is an error, never a quiet CPU run.
 """
 from __future__ import annotations
 
@@ -136,6 +137,7 @@ class Kernel:
         self.lib = lib
         self.launches = 0
         self._fn = None
+        self._count = threading.Lock()   # sessions launch from threads
 
     def __call__(self, *args) -> None:
         if self._fn is None:
@@ -151,4 +153,5 @@ class Kernel:
         if rc != 0:
             msg = library(self.lib).qz_cuda_error_string(rc).decode()
             raise KernelError(f"{self.symbol}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        with self._count:
+            self.launches += 1

@@ -21,9 +21,12 @@ chunks a device: each contiguous slice is staged and run on its own
 device, and the results are gathered in block order.  With one device
 (one H100: no mesh) a batch runs whole on the engine's device.
 
-The failover takes injected faults and device errors; a
-:class:`KernelError` (a kernel that cannot be built or launched) passes
-through it to the caller, where the reference reroutes every exception.
+The per-batch failover takes injected faults and a card out of memory
+(``faults.FAILOVER``); any other error, a :class:`KernelError` (a kernel
+that cannot be built or launched) and a CUDA error (a kernel that faulted
+on the card) among them, reaches the caller, where the reference reroutes
+every exception.  A chunk the device fails over that the host decoder
+refuses raises :class:`RefusedStream`: a data error, not a device failure.
 The host-only helpers (CPU fallbacks, checksums, the stored-block framing)
 are copies of the reference's.
 """
@@ -39,13 +42,13 @@ import torch
 
 from qatzip_tpu_torch.constants import DataFormatInternal, QzHuffmanHdr
 from qatzip_tpu_torch.engine import faults
-from qatzip_tpu_torch.engine.backend import CompressedChunk, DecompressedChunk
+from qatzip_tpu_torch.engine.backend import (CompressedChunk,
+                                             DecompressedChunk, RefusedStream)
 from qatzip_tpu_torch.engine.cpu_backend import CpuBackend, _map_chunks
 from qatzip_tpu_torch.engine.health import health
 from qatzip_tpu_torch.engine.lz4_block import (lz4_block_decompress,
                                                lz4s_block_decompress)
 from qatzip_tpu_torch.ops import deflate_encode as de
-from qatzip_tpu_torch.ops._build import KernelError
 from qatzip_tpu_torch.parallel import shard
 from qatzip_tpu_torch.session import InternalParams
 from qatzip_tpu_torch.utils import checksum as _ck
@@ -179,9 +182,7 @@ class DeflateDeviceCodec:
             batch = list(chunks[start:start + bsz])
             try:
                 pending.append((batch, _submit(batch, n, device, run)))
-            except KernelError:
-                raise
-            except Exception:
+            except faults.FAILOVER:
                 # per-batch reroute to the CPU (compInSWFallback analog)
                 health.record_failure()
                 pending.append((batch, None))
@@ -194,7 +195,7 @@ class DeflateDeviceCodec:
             try:
                 faults.check("death", "compress")
                 cand_np = shard.gather(cand)
-            except Exception:
+            except faults.FAILOVER:
                 health.record_failure()
                 out.extend(_cpu_compress_batch(batch, params))
                 continue
@@ -254,9 +255,7 @@ class DeflateDeviceCodec:
                     allow_dynamic, m_words, mesh=[d.device for d in data])
                 cks = [checksum(d, l, n) for d, l in staged]
                 pending.append((batch, words, bits, mode, cks))
-            except KernelError:
-                raise
-            except Exception:
+            except faults.FAILOVER:
                 # mid-request per-batch reroute (compInSWFallback analog):
                 # only this batch goes to the CPU
                 health.record_failure()
@@ -271,7 +270,7 @@ class DeflateDeviceCodec:
                 words = shard.gather(words).astype(np.uint32)
                 bits = shard.gather(bits)
                 cks = shard.gather(cks)
-            except Exception:
+            except faults.FAILOVER:
                 health.record_failure()
                 out.extend(_cpu_compress_batch(batch, params))
                 continue
@@ -311,16 +310,18 @@ class DeflateDeviceCodec:
                     # only a round that reached the device is evidence of
                     # health; an all-pre-failed batch is not
                     health.record_success()
-            except KernelError:
-                raise
-            except Exception:
+            except faults.FAILOVER:
                 # device dispatch failure: per-batch reroute to the CPU
                 # (decompInSWFallback analog)
                 health.record_failure()
                 results = [None] * len(batch)
-            for payload, hint, r in zip(batch, bh, results):
+            for i, (payload, hint, r) in enumerate(zip(batch, bh, results)):
                 if r is None:
-                    data, eof = _cpu_inflate(bytes(payload), hint)
+                    try:
+                        data, eof = _cpu_inflate(bytes(payload), hint)
+                    except zlib.error as exc:
+                        raise RefusedStream(f"chunk {start + i}: {exc}") \
+                            from exc
                     ckv = _chunk_checksum(data, params)
                 else:
                     data, eof, ckv = r
@@ -379,9 +380,7 @@ class Lz4DeviceCodec:
             batch = list(chunks[start:start + bsz])
             try:
                 pending.append((batch, _submit(batch, n, device, run)))
-            except KernelError:
-                raise
-            except Exception:
+            except faults.FAILOVER:
                 health.record_failure()
                 pending.append((batch, None))
 
@@ -392,7 +391,7 @@ class Lz4DeviceCodec:
                 continue
             try:
                 arr = shard.gather(rec)
-            except Exception:
+            except faults.FAILOVER:
                 health.record_failure()
                 out.extend(_cpu_compress_batch(batch, params))
                 continue
@@ -464,9 +463,7 @@ class Lz4DeviceCodec:
                                                    device=device)
                 if any(d is not None for d in decoded):
                     health.record_success()
-            except KernelError:
-                raise
-            except Exception:
+            except faults.FAILOVER:
                 health.record_failure()
 
         out: list[DecompressedChunk] = []
@@ -479,9 +476,12 @@ class Lz4DeviceCodec:
                 d = decoded[v]
                 if d is None:
                     maxo = hint if hint and hint > 0 else 1 << 22
-                    d = (lz4s_block_decompress(blocks[v], maxo, mini)
-                         if is_lz4s else
-                         lz4_block_decompress(blocks[v], maxo))
+                    try:
+                        d = (lz4s_block_decompress(blocks[v], maxo, mini)
+                             if is_lz4s else
+                             lz4_block_decompress(blocks[v], maxo))
+                    except ValueError as exc:
+                        raise RefusedStream(f"block {v}: {exc}") from exc
                 data += d
             data = bytes(data)
             out.append(DecompressedChunk(data, _chunk_checksum(data, params),

@@ -48,6 +48,26 @@ def test_no_import_of_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
+_SUITES = ["api", "sweep", "fuzz", "negative", "formats", "lz4_interop",
+           "health", "device_decode"]
+
+
+@pytest.mark.parametrize("suite", _SUITES)
+def test_each_reference_suite_has_a_port_counterpart(suite):
+    """tests/test_<suite>.py, a behavioural suite of the reference, has its
+    counterpart tests/test_torch_<suite>.py, which imports both packages
+    (only tests may; tests/torch_conformance.py imports both) and holds as
+    many test functions as the reference suite, or more."""
+    ref = (ROOT / "tests" / f"test_{suite}.py").read_text()
+    port = (ROOT / "tests" / f"test_torch_{suite}.py").read_text()
+    names = _imported(ast.parse(port))
+    assert any(m == "qatzip_tpu" or m.startswith("qatzip_tpu.")
+               for m in names)
+    assert any(m == "qatzip_tpu_torch" or m.startswith("qatzip_tpu_torch.")
+               or m == "tests.torch_conformance" for m in names)
+    assert port.count("\ndef test_") >= ref.count("\ndef test_")
+
+
 _ROUND_TRIPS = textwrap.dedent("""
     import importlib, os, pkgutil, sys
     import torch

@@ -21,24 +21,11 @@ from qatzip_tpu.constants import QzDataFormat
 from qatzip_tpu_torch.engine import core
 from qatzip_tpu_torch.engine.health import health
 from qatzip_tpu_torch.ops import deflate_decode as dd
+from tests.torch_conformance import engine_on  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 
 HW_BUFF = 16 << 10
-
-
-@pytest.fixture
-def engine_on(monkeypatch):
-    """Yield an initializer for the port's engine; close it afterwards."""
-    core.qz_close_engine()
-
-    def init(device=None):
-        sess = qt.QzSession()
-        rc = qt.qz_init(sess, device=device)
-        return sess, rc
-
-    yield init
-    core.qz_close_engine()
 
 
 @pytest.mark.parametrize("level", [1, 6])
