@@ -25,9 +25,15 @@ Run from the repository root:  python3 chip_smoke.py
    cluster ([4, 262144]) and with 4 payloads ([128, 32768]): equal to its
    plain version, timed the same way, its device operations a call counted
    with torch.profiler (one kernel at the two sort-1 shapes) and its
-   clusters' occupancy printed.  The LZ4 block decoder (plain torch on the
-   card) on one 128-block group of the corpus's LZ4 blocks: bytes equal to
-   the host decoder, none flagged.
+   clusters' occupancy printed.  The LZ4 block-decode kernel
+   (csrc/lz4_block.cu) against its plain version on the same tensors, on
+   the corpus's first 128 LZ4 blocks (the path's group), 128 LZ4s blocks of
+   incompressible 64 KB chunks (about 65.8 KB each, n = 131072) and the
+   edge cases of tools/lz4_cases.py with mutated corpus blocks, as LZ4 and
+   as LZ4s: err equal on every row, tot and bytes on every clear row, which
+   the host decoder gives too; each group timed with CUDA events beside
+   the plain version and its bound (bytes at the HBM rate); then the first
+   group through decode_blocks, equal to its chunks.
 3. Calibration (engine/devcal.calibrate, 8 MB, into a record of its own):
    the CPU funnel, the device codec's raw and packed compress and its
    decompress, the inflate kernel and the match finder alone.  No device or
@@ -47,9 +53,11 @@ Run from the repository root:  python3 chip_smoke.py
 5. The LZ4 device path through the public API: an LZ4-frame session at
    level 1 and 64 KB chunks on the 32 MB corpus, then an LZ4s session
    (mini match 3) on 8 MB of it.  Each must launch the select kernel once
-   a 128-chunk batch, run on the device only, fail no block over to the
-   CPU, record no health failure, round-trip bit-exactly, and be readable
-   by the software path.
+   a 128-chunk batch and the LZ4 decode kernel once a batch in its first
+   decompress (the count zeroed just before it), run on the device only,
+   never run the plain decode on the card, fail no block over to the CPU,
+   record no health failure, round-trip bit-exactly, and be readable by
+   the software path.
 6. The rest of the qz* surface through the public API, gzip-ext and 4B at
    level 1 and 64 KB chunks, the device route forced and the raw candidate
    format, the launch counts zeroed before each step: stream compress of
@@ -79,11 +87,11 @@ Run from the repository root:  python3 chip_smoke.py
    encode_blocks, graft_entry.entry() launching the select kernel,
    graft_entry.dryrun_multichip(1), shard.scaling_report); and two ranks
    of tools/dist_worker.py on the card over gloo, 32 MB gzip-ext then 8
-   MB LZ4 frame through the distributed engine: each rank launches select
-   and inflate with no software request or failover, the assembled stream
-   equals this process's single-process stream, per-rank and total GB/s
-   and the share of the time outside the ranks' own work.  The kernels
-   line carries each part's launches (``parity_dist_launches``).
+   MB LZ4 frame through the distributed engine: each rank launches select,
+   inflate and the LZ4 decode with no software request or failover, the
+   assembled stream equals this process's single-process stream, per-rank
+   and total GB/s and the share of the time outside the ranks' own work.
+   The kernels line carries each part's launches (``parity_dist_launches``).
 8. The failure and edge paths of the select and inflate kernels, the
    device route forced, the launch counts, failed-over lanes and blocks and
    health failures zeroed before each part and the engine's software
@@ -106,13 +114,15 @@ Run from the repository root:  python3 chip_smoke.py
    on the software route with no launch, and past the cooldown (its clock
    moved) the probe that revives the device; (5) four threads compressing
    and decompressing 8 MB each on cuda:0 at once, equal to the serial run;
-   (6) the 8 MB LZ4-frame stream with mutated blocks: the blocks the card
-   fails over are the ones the native decoder refuses.  The kernels line
-   carries each part's launches (``edge_launches``).
+   (6) the 8 MB LZ4-frame stream with mutated blocks through the LZ4
+   decode kernel: the blocks the card fails over are the ones the native
+   decoder refuses.  The kernels line carries each part's launches
+   (``edge_launches``).
 9. A profiled pass of each direction of the gzip-ext and LZ4 sessions:
-   device busy time against the unprofiled wall time, the inflate kernel's
-   share of the gzip-ext decompress, and the host functions that take the
-   time.
+   device busy time (torch's work from the profiler, the port's kernels
+   from CUDA events around each launch) against the unprofiled wall time,
+   each kernel's time in the request, and the host functions that take
+   the time.
 10. Routing: one gzip-ext request each way with QATZIP_TPU_DEVICE unset,
    routed by the record of step 3; prints which backend took each
    direction, which must be the one the record names.
@@ -487,15 +497,94 @@ def phase_sort(torch, corpus: bytes, dev) -> dict:
     return rec
 
 
-def phase_lz4_decode(torch, corpus: bytes, dev) -> None:
-    """One 128-block group of the corpus's LZ4 blocks (level 1, 64 KB
-    chunks; the blocks a frame does not store) through the device block
-    decoder, against the host decoder."""
+def _lz4_group_vs_plain(torch, label: str, blocks: list, lz4s: bool,
+                        dev, want: list | None = None) -> dict:
+    """One group of blocks through the LZ4 decode kernel and its plain
+    version on the same tensors on the card: err equal on every row, tot
+    and bytes on every clear row, and a clear row's bytes the host
+    decoder's; with ``want`` (the bytes each block must give) no row may be
+    flagged.  Both timed with CUDA events; the bound is the
+    blocks' bytes read and the clear rows' bytes written (and the four
+    small arrays) at the HBM rate."""
+    import numpy as np
+
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    from qatzip_tpu_torch.ops import lz4_kernel as LK
+    from qatzip_tpu_torch.tools import lz4_cases as LC
+    from qatzip_tpu_torch.tools.h100 import HBM_BYTES_S
+
+    base = 2 if lz4s else 0
+    n = ld._next_pow2(max(len(b) for b in blocks) + 8, 1024)
+    arr = np.zeros((len(blocks), n), np.uint8)
+    for i, b in enumerate(blocks):
+        arr[i, :len(b)] = np.frombuffer(b, np.uint8)
+    b_t = torch.from_numpy(arr).to(dev)
+    l_t = torch.tensor([len(b) for b in blocks], dtype=torch.int32,
+                       device=dev)
+
+    def kernel():
+        return LK.decode(b_t, l_t, n, ld.MAX_OUT, lz4s, base)
+
+    def plain():
+        return ld._decode_blocks_impl(b_t, l_t, n, ld.MAX_OUT, lz4s, base)
+
+    ker = [t.cpu() for t in kernel()]
+    ref = [t.cpu() for t in plain()]
+    _check(torch.equal(ker[2], ref[2]),
+           f"lz4 decode {label}: the kernel flags other rows than plain")
+    err, out_bytes = 0, 0
+    for r, blk in enumerate(blocks):
+        if bool(ker[2][r]):
+            _check(want is None, f"lz4 decode {label}: row {r} flagged")
+            continue
+        t = int(ker[1][r])
+        err = max(err, abs(t - int(ref[1][r])), int(
+            (ker[0][r, :t].to(torch.int32) - ref[0][r, :t].to(torch.int32))
+            .abs().max()) if t else 0)
+        got = ker[0][r, :t].numpy().tobytes()
+        _check(got == LC.host_decode(blk, lz4s, base, ld.MAX_OUT),
+               f"lz4 decode {label}: row {r} != the host decoder")
+        _check(want is None or got == want[r],
+               f"lz4 decode {label}: row {r} != its chunk")
+        out_bytes += t
+    _check(err == 0, f"lz4 decode {label}: kernel != plain by {err}")
+    flagged = int(ker[2].sum())
+    ms = _time_ms(kernel, 5)
+    plain_ms = _time_ms(plain, 2)
+    nbytes = sum(len(b) for b in blocks) + out_bytes + 13 * len(blocks)
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    rec = {"blocks": len(blocks), "n": n, "flagged": flagged,
+           "output_bytes": out_bytes, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms}
+    walk = ""
+    if want is not None:
+        # the group lasts as long as the block with the most sequences
+        rec["max_sequences"] = max(LC.count_sequences(b) for b in blocks)
+        walk = (f"; most sequences in a block {rec['max_sequences']}, "
+                f"{ms * 1e6 / rec['max_sequences']:.1f} ns a sequence")
+    print(f"lz4 decode {label}: {len(blocks)} blocks, n {n}, outcap "
+          f"{ld.MAX_OUT}, {out_bytes} output bytes, {flagged} flagged; "
+          f"kernel = plain on every row; kernel {ms:.4f} ms "
+          f"({out_bytes / ms / 1e6:.4f} GB/s of output), plain {plain_ms:.4f}"
+          f" ms, bound {bound_ms:.6f} ms ({nbytes} bytes at the HBM "
+          f"rate){walk} ({_gpu_line()})")
+    return rec
+
+
+def phase_lz4_decode(torch, corpus: bytes, dev) -> dict:
+    """The LZ4 block-decode kernel against its plain version on three kinds
+    of group: the corpus's first 128 LZ4 blocks (level 1, 64 KB chunks; the
+    blocks a frame does not store), the path's shape; 128 LZ4s blocks of
+    incompressible 64 KB chunks (mini match 3, about 65.8 KB each, n =
+    131072); and the edge cases of tools/lz4_cases.py with mutated corpus
+    blocks, as LZ4 and as LZ4s.  Then the first group through
+    decode_blocks, equal to its chunks with none flagged.  Returns the
+    kernel's record (times of the first group)."""
     import numpy as np
 
     from qatzip_tpu_torch.ops import deflate_decode as dd
-    from qatzip_tpu_torch.ops import device_codecs as dc
     from qatzip_tpu_torch.ops import lz4_decode as ld
+    from qatzip_tpu_torch.tools import lz4_cases as LC
 
     chunks, blocks = [], []
     for i in range(0, len(corpus), CHUNK):
@@ -506,6 +595,29 @@ def phase_lz4_decode(torch, corpus: bytes, dev) -> None:
             blocks.append(blk)
         if len(blocks) == ld.GROUP:
             break
+    rng = np.random.default_rng(EDGE_SEED)
+    rand = [rng.integers(0, 256, CHUNK, np.uint8).tobytes()
+            for _ in range(ld.GROUP)]
+    rand_blocks = [dd._native.lz4s_compress_block(c, 3) for c in rand]
+    _check(min(len(b) for b in rand_blocks) > CHUNK,
+           "an incompressible LZ4s block is not above 64 KB")
+    groups = {"lz4 L1": _lz4_group_vs_plain(torch, "lz4 L1", blocks, False,
+                                            dev, chunks),
+              "lz4s incompressible": _lz4_group_vs_plain(
+                  torch, "lz4s incompressible", rand_blocks, True, dev,
+                  rand)}
+    edges = [b for _, b in LC.edge_blocks()]
+    for lz4s in (False, True):
+        good = (blocks[:16] if not lz4s else
+                [dd._native.lz4s_compress_block(c, 3) for c in chunks[:16]])
+        fuzz = [LC.mutate(good[i % 16], LC.random_mutations(rng))
+                for i in range(64)]
+        label = "edges and fuzz " + ("lz4s" if lz4s else "lz4")
+        groups[label] = _lz4_group_vs_plain(torch, label, edges + fuzz,
+                                            lz4s, dev)
+        _check(0 < groups[label]["flagged"] < len(edges) + len(fuzz),
+               f"{label}: {groups[label]['flagged']} flagged")
+
     ld.failover_blocks = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -513,24 +625,17 @@ def phase_lz4_decode(torch, corpus: bytes, dev) -> None:
     wall = time.perf_counter() - t0
     _check(ld.failover_blocks == 0,
            f"the decoder flagged {ld.failover_blocks} of {len(blocks)} blocks")
-    for chunk, blk, g in zip(chunks, blocks, got):
-        _check(g == dc.lz4_block_decompress(blk, CHUNK) == chunk,
-               "device LZ4 decode != host decoder")
-    n = ld._next_pow2(max(len(b) for b in blocks) + 8, 1024)
-    arr = np.zeros((len(blocks), n), np.uint8)
-    for i, b in enumerate(blocks):
-        arr[i, :len(b)] = np.frombuffer(b, np.uint8)
-    b_t = torch.from_numpy(arr).to(dev)
-    l_t = torch.tensor([len(b) for b in blocks], dtype=torch.int32,
-                       device=dev)
-    ms = _time_ms(lambda: ld._decode_blocks_impl(b_t, l_t, n, ld.MAX_OUT,
-                                                 False, 0), 3)
-    out_bytes = sum(len(c) for c in chunks)
-    print(f"lz4 decode: {len(blocks)} blocks, n {n}, outcap {ld.MAX_OUT}, "
-          f"{out_bytes} output bytes: equal to the host decoder, none "
-          f"flagged; device {ms:.4f} ms a group (CUDA events, "
-          f"{out_bytes / ms / 1e6:.4f} GB/s of output), first call "
-          f"{wall * 1e3:.1f} ms with copies")
+    _check(got == chunks, "decode_blocks on the card != the chunks")
+    print(f"lz4 decode: decode_blocks of the L1 group equal to its chunks, "
+          f"none flagged, {wall * 1e3:.1f} ms with copies")
+    main = groups["lz4 L1"]
+    return {"name": "lz4_decode", "route": "cuda",
+            "source": "qatzip_tpu_torch/csrc/lz4_block.cu",
+            "replaces": "qatzip_tpu/ops/lz4_decode.py:42", "path": "lz4",
+            "max_abs_err": max(g["max_abs_err"] for g in groups.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "groups": groups}
 
 
 def _run(torch, sess, direction: str, src):
@@ -760,19 +865,46 @@ def phase_routing(torch, corpus: bytes, rec: dict) -> None:
     _check(health.total_failures == 0, "routing recorded device failures")
 
 
-def phase_lz4(torch, corpus: bytes) -> list:
+def phase_lz4(torch, corpus: bytes, lz4_rec: dict) -> list:
     """The LZ4-frame session on the corpus and the LZ4s session on 8 MB of
     it, through the public API with the device forced (phase_slice set
-    QATZIP_TPU_DEVICE and initialised the engine on the card)."""
+    QATZIP_TPU_DEVICE and initialised the engine on the card).  The LZ4
+    decode kernel's count is zeroed just before each session's first
+    decompress and read just after it, into ``lz4_rec``; a group a batch
+    of 128 chunks, and the plain decode never runs on the card."""
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+
+    plain_on_card = []
+    impl = ld._decode_blocks_impl
+
+    def counted(b, *a):
+        if b.device.type == "cuda":
+            plain_on_card.append(1)
+        return impl(b, *a)
+
+    ld._decode_blocks_impl = counted
+    try:
+        runs = _lz4_sessions(torch, corpus, lz4_rec)
+    finally:
+        ld._decode_blocks_impl = impl
+    _check(not plain_on_card, f"the plain LZ4 decode ran "
+           f"{len(plain_on_card)} times on the card")
+    lz4_rec["launches"] = sum(lz4_rec["path_launches"].values())
+    return runs
+
+
+def _lz4_sessions(torch, corpus: bytes, lz4_rec: dict) -> list:
     import qatzip_tpu_torch as qt
     from qatzip_tpu_torch.engine.health import health
     from qatzip_tpu_torch.ops import lz4_decode as ld
+    from qatzip_tpu_torch.ops import lz4_kernel as LK
     from qatzip_tpu_torch.ops import select as S
 
     def common():
         return qt.QzSessionParamsCommon(comp_lvl=1, hw_buff_sz=CHUNK)
 
     runs = []
+    lz4_rec["path_launches"] = {}
     for name, setup, params, src in (
             ("lz4", qt.qz_setup_session_lz4,
              qt.QzSessionParamsLZ4(common_params=common()), corpus),
@@ -785,10 +917,16 @@ def phase_lz4(torch, corpus: bytes) -> list:
         S.POS_KERNEL.launches = 0
         ld.failover_blocks = 0
         comp, t_c = _run(torch, sess, "compress", src)
-        dec, t_d = _run(torch, sess, "decompress", comp.data)
         launches = S.POS_KERNEL.launches
+        LK.KERNEL.launches = 0
+        dec, t_d = _run(torch, sess, "decompress", comp.data)
+        decodes = LK.KERNEL.launches
+        lz4_rec["path_launches"][name] = decodes
         _check(launches >= nchunks // LANES,
                f"{name}: select launched {launches} times")
+        _check(decodes == -(-nchunks // LANES),
+               f"{name}: the LZ4 decode kernel launched {decodes} times, "
+               f"not once a batch of {LANES} chunks")
         _check(ld.failover_blocks == 0,
                f"{name}: {ld.failover_blocks} blocks failed over to the CPU")
         _check(health.total_failures == 0,
@@ -801,7 +939,8 @@ def phase_lz4(torch, corpus: bytes) -> list:
         print(f"{name}: {len(src)} bytes, {nchunks} chunks, ratio "
               f"{len(src) / len(comp.data):.4f}; compress {t_c:.4f} s = "
               f"{gb / t_c:.4f} GB/s, decompress {t_d:.4f} s = "
-              f"{gb / t_d:.4f} GB/s; select launches {launches}; failover "
+              f"{gb / t_d:.4f} GB/s; select launches {launches}, LZ4 decode "
+              f"launches {decodes}; failover "
               f"blocks 0; health failures 0; round trip exact, software "
               f"path reads it")
         walls = {"compress": [t_c], "decompress": [t_d]}
@@ -1285,7 +1424,7 @@ def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
     parts = ("deflate compress", "deflate decompress", "lz4 compress",
              "lz4 decompress")
     need = {"deflate compress": "select", "deflate decompress": "inflate",
-            "lz4 compress": "select"}
+            "lz4 compress": "select", "lz4 decompress": "lz4_decode"}
     for r in reports:
         for part, rec in r.items():
             if not isinstance(rec, dict):
@@ -1303,13 +1442,16 @@ def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
                   f"{rec['seconds']:.4f} s = {gb / rec['seconds']:.4f} GB/s "
                   f"of the stream, own work {rec['local_seconds']:.4f} s, "
                   f"outside it {rec['overhead_share']:.4f}; select "
-                  f"{rec['select']}, inflate {rec['inflate']} launches; "
+                  f"{rec['select']}, inflate {rec['inflate']}, lz4 decode "
+                  f"{rec['lz4_decode']} launches; "
                   f"software requests 0, failover 0 ({gpu})")
         records[f"two ranks, rank {r['rank']}"] = {
             "select_to_positions": sum(v["select"] for v in r.values()
                                        if isinstance(v, dict)),
             "inflate_decode": sum(v["inflate"] for v in r.values()
-                                  if isinstance(v, dict))}
+                                  if isinstance(v, dict)),
+            "lz4_decode": sum(v["lz4_decode"] for v in r.values()
+                              if isinstance(v, dict))}
     for part in parts:
         slowest = max(r[part]["seconds"] for r in reports)
         gb = (len(corpus) if part.startswith("deflate")
@@ -1336,11 +1478,13 @@ class _EdgePart:
         from qatzip_tpu_torch.ops import deflate_decode as dd
         from qatzip_tpu_torch.ops import inflate_kernel as K
         from qatzip_tpu_torch.ops import lz4_decode as ld
+        from qatzip_tpu_torch.ops import lz4_kernel as LK
         from qatzip_tpu_torch.ops import select as S
 
         self.torch, self.name, self.gpu = torch, name, gpu
         S.POS_KERNEL.launches = 0
         K.KERNEL.launches = 0
+        LK.KERNEL.launches = 0
         dd.failover_lanes = 0
         ld.failover_blocks = 0
         health.total_failures = 0
@@ -1360,10 +1504,12 @@ class _EdgePart:
         from qatzip_tpu_torch.ops import deflate_decode as dd
         from qatzip_tpu_torch.ops import inflate_kernel as K
         from qatzip_tpu_torch.ops import lz4_decode as ld
+        from qatzip_tpu_torch.ops import lz4_kernel as LK
         from qatzip_tpu_torch.ops import select as S
 
         now = {"select_to_positions": S.POS_KERNEL.launches,
                "inflate_decode": K.KERNEL.launches,
+               "lz4_decode": LK.KERNEL.launches,
                "failover_lanes": dd.failover_lanes,
                "failover_blocks": ld.failover_blocks,
                "health_failures": health.total_failures,
@@ -1377,12 +1523,14 @@ class _EdgePart:
         dt = time.perf_counter() - self.t0
         c = self.counts()
         print(f"edges {self.name}: {dt:.4f} s ({self.gpu}); launches select "
-              f"{c['select_to_positions']}, inflate {c['inflate_decode']}; "
+              f"{c['select_to_positions']}, inflate {c['inflate_decode']}, "
+              f"lz4 decode {c['lz4_decode']}; "
               f"failover lanes {c['failover_lanes']}, blocks "
               f"{c['failover_blocks']}; health failures "
               f"{c['health_failures']}; software requests "
               f"{c['sw_requests']}{extra}")
-        return {k: c[k] for k in ("select_to_positions", "inflate_decode")}
+        return {k: c[k] for k in ("select_to_positions", "inflate_decode",
+                                  "lz4_decode")}
 
 
 def _fuzz(buf: bytearray, rng, kind: int) -> list:
@@ -1881,8 +2029,13 @@ def _edge_lz4(torch, corpus: bytes, dev, gpu: str) -> dict:
            and not res.ext_rc & qt.QZ_SW_EXECUTION_MASK,
            f"lz4: a batch failed over ({c}, ext_rc {res.ext_rc:#x})")
     api_blocks = c["failover_blocks"]
+    _check(c["lz4_decode"] >= 1, "lz4: the decompress ran no LZ4 decode "
+           "kernel")
     part.zero()
     got = ld.decode_blocks(blocks, device=dev)
+    _check(part.counts(since=True)["lz4_decode"] == -(-sum(
+        0 < len(b) <= ld.MAX_BLOCK for b in blocks) // ld.GROUP),
+           "lz4: decode_blocks did not launch the kernel once a group")
     _check([g is None for g in got] == [w is None for w in want],
            "lz4: the blocks failed over are not the ones the native decoder "
            "refuses")
@@ -1926,12 +2079,55 @@ def phase_edges(torch, corpus: bytes, dev) -> dict:
     return records
 
 
+class _KernelEvents:
+    """While active, every launch of a port kernel (``_build.Kernel``) is
+    bracketed by CUDA events on the current stream, so its device time is
+    known whether or not the profiler keeps its record: on the H100 the
+    profiler was seen to drop records of short passes, the port's kernels'
+    and torch's own copies alike (a whole LZ4s decompress pass showed no
+    device row)."""
+
+    def __init__(self, torch):
+        from qatzip_tpu_torch.ops import _build
+
+        self.torch, self.cls, self.call = torch, _build.Kernel, None
+        self.launches: list = []
+
+    def __enter__(self):
+        torch, launches, call = self.torch, self.launches, self.cls.__call__
+
+        def timed(kernel, *args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call(kernel, *args)
+            stop.record()
+            launches.append((kernel.symbol, start, stop))
+
+        self.call, self.cls.__call__ = call, timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.call
+
+    def ms(self) -> dict:
+        """{symbol: (ms, launches)} of the launches made while active."""
+        out: dict = {}
+        for symbol, start, stop in self.launches:
+            ms, k = out.get(symbol, (0.0, 0))
+            out[symbol] = (ms + start.elapsed_time(stop), k + 1)
+        return out
+
+
 def phase_profile(torch, runs: list) -> None:
     """Device busy time and the host's top functions, one pass each way of
     each session.
 
     The idle share is taken against the median unprofiled wall time of the
-    session's phase, since the profiler itself slows the host."""
+    session's phase, since the profiler itself slows the host.  Device busy
+    is the profiler's rows of torch's own work plus the port's kernels
+    timed by CUDA events (``_KernelEvents``), since the profiler drops
+    records of short passes."""
     import qatzip_tpu_torch as qt
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1949,8 +2145,9 @@ def phase_profile(torch, runs: list) -> None:
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _KernelEvents(torch) as ev, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1958,19 +2155,24 @@ def phase_profile(torch, runs: list) -> None:
         dev_rows = sorted((e for e in prof.key_averages()
                            if e.device_type == DeviceType.CUDA),
                           key=lambda e: -e.self_device_time_total)
-        busy = sum(e.self_device_time_total for e in dev_rows) / 1e6
-        _check(busy > 0, f"the profiler saw no device time in {direction}")
-        print(f"profile {label} {direction}: device busy {busy:.6f} s; wall "
-              f"{unprofiled:.6f} s unprofiled (median), {wall:.4f} s "
-              f"profiled; idle share {1 - busy / unprofiled:.4f}")
-        for e in dev_rows[:6]:
+        torch_rows = [e for e in dev_rows if not e.key.startswith("qz_")]
+        ours = ev.ms()
+        busy = (sum(e.self_device_time_total for e in torch_rows) / 1e6
+                + sum(ms for ms, _ in ours.values()) / 1e3)
+        _check(busy > 0, f"no device time in {label} {direction}")
+        seen = sum(e.count for e in dev_rows if e.key.startswith("qz_"))
+        print(f"profile {label} {direction}: device busy {busy:.6f} s "
+              f"(torch's rows in the profiler, the port's kernels by CUDA "
+              f"events; the profiler kept {seen} of their "
+              f"{len(ev.launches)} launches); wall {unprofiled:.6f} s "
+              f"unprofiled (median), {wall:.4f} s profiled; idle share "
+              f"{1 - busy / unprofiled:.4f}")
+        for symbol, (ms, k) in sorted(ours.items()):
+            print(f"  kernel {symbol}: {ms:.4f} ms over {k} launches (CUDA "
+                  f"events)")
+        for e in torch_rows[:6]:
             print(f"  device {e.self_device_time_total / 1e3:10.3f} ms "
                   f"x{e.count:<6d} {e.key[:70]}")
-        inflate = [e for e in dev_rows if "qz_inflate" in e.key]
-        if inflate:
-            print(f"  inflate kernel in the request: "
-                  f"{sum(e.self_device_time_total for e in inflate) / 1e3:.4f}"
-                  f" ms over {sum(e.count for e in inflate)} launches")
         pr = cProfile.Profile()
         pr.enable()
         fn()
@@ -2002,11 +2204,12 @@ def main() -> int:
     probes = phase_probes(torch, dev)
     kernels.insert(1, phase_inflate(torch, corpus, dev, probes))
     sort_rec = phase_sort(torch, corpus, dev)
-    phase_lz4_decode(torch, corpus, dev)
+    lz4_rec = phase_lz4_decode(torch, corpus, dev)
     with tempfile.TemporaryDirectory() as tmpdir:
         rec = phase_calibrate(tmpdir)
         runs = [phase_slice(torch, corpus, kernels, sort_rec, probes)]
-        runs += phase_lz4(torch, corpus)
+        runs += phase_lz4(torch, corpus, lz4_rec)
+        kernels.append(lz4_rec)
         main = {k["name"]: k for k in kernels}
         api = phase_api(torch, corpus, tmpdir,
                         main["inflate_decode"]["launches"])
@@ -2020,6 +2223,12 @@ def main() -> int:
                 step: counts[name] for step, counts in parity.items()}
             main[name]["edge_launches"] = {
                 part: counts[name] for part, counts in edges.items()}
+        # the LZ4 decode kernel's launches where a part counted them
+        lz4_rec["parity_dist_launches"] = {
+            step: counts["lz4_decode"] for step, counts in parity.items()
+            if "lz4_decode" in counts}
+        lz4_rec["edge_launches"] = {
+            part: counts["lz4_decode"] for part, counts in edges.items()}
         phase_profile(torch, runs)
         phase_routing(torch, corpus, rec)
     kernels.append(sort_rec)

@@ -63,6 +63,11 @@ class QzHuffmanHdr(enum.IntEnum):
     QZ_STATIC_HDR = 1
 
 
+class PinMem(enum.IntEnum):
+    COMMON_MEM = 0
+    PINNED_MEM = 1
+
+
 class QzDirection(enum.IntEnum):
     QZ_DIR_COMPRESS = 0
     QZ_DIR_DECOMPRESS = 1
@@ -94,6 +99,20 @@ class DataFormatInternal(enum.IntEnum):
 class QzPollingMode(enum.IntEnum):
     QZ_PERIODICAL_POLLING = 0
     QZ_BUSY_POLLING = 1
+
+
+class QzCrcType(enum.IntEnum):
+    QZ_CRC32 = 0
+    QZ_ADLER = 1
+    NONE = 2
+
+
+class QzSoftwareComponentType(enum.IntEnum):
+    QZ_COMPONENT_FIRMWARE = 0
+    QZ_COMPONENT_KERNEL_DRIVER = 1
+    QZ_COMPONENT_USER_DRIVER = 2
+    QZ_COMPONENT_QATZIP_API = 3
+    QZ_COMPONENT_SOFTWARE_PROVIDER = 4
 
 
 class QzLogLevel(enum.IntEnum):
@@ -181,3 +200,15 @@ QZ_TIMEOUT_BIT = 8
 QZ_TIMEOUT_MASK = 1 << QZ_TIMEOUT_BIT
 QZ_POST_PROCESS_FAIL_BIT = 10
 QZ_POST_PROCESS_FAIL_MASK = 1 << QZ_POST_PROCESS_FAIL_BIT
+
+
+def qz_sw_execution(ret: int, ext_rc: int) -> bool:
+    return ret == 0 and bool(ext_rc & QZ_SW_EXECUTION_MASK)
+
+
+def qz_hw_timeout(ret: int, ext_rc: int) -> bool:
+    return ret == 0 and bool(ext_rc & QZ_TIMEOUT_MASK)
+
+
+def qz_post_process_fail(ret: int, ext_rc: int) -> bool:
+    return ret != 0 and bool(ext_rc & QZ_POST_PROCESS_FAIL_MASK)

@@ -1,8 +1,12 @@
 """Device LZ4 / LZ4s block decoder.
 
 Port of qatzip_tpu/ops/lz4_decode.py (``_decode_blocks_impl`` and
-``decode_blocks``).  The reference is XLA code, not a Pallas kernel, so the
-port is plain torch that runs on whatever device its tensors lie on:
+``decode_blocks``).  The reference is XLA code, not a Pallas kernel.
+:func:`decode_blocks` runs the hand-written kernel of
+``csrc/lz4_block.cu`` (ops/lz4_kernel.py, a warp walks a block's
+sequences) for a CUDA device, and :func:`_decode_blocks_impl`, the plain
+torch version of the reference, for the CPU; the plain version is also
+what the kernel is held to.  It runs on whatever device its tensors lie on:
 
   1. every byte offset speculatively parses as a sequence start (token,
      literal-length extension, offset, match-length extension), with the
@@ -15,18 +19,32 @@ port is plain torch that runs on whatever device its tensors lie on:
 
 The table sizes (``n``, ``outcap``, ``J``, ``Jp``), the loop counts and
 ``EXT_RUN_CAP`` and ``MAX_OUT`` are the reference's, so the arrays are
-equal.  ``MAX_BLOCK`` is not: the reference sends every block above 64 KB
-to the CPU, which is every LZ4s block of an incompressible 64 KB chunk
-(LZ4s has no stored escape; such a block is about 65.8 KB).  The port takes
-any block up to ``MAX_OUT``, the most output a block may decode to here;
-a larger output is flagged as before.  The reference's
-``take_along_axis(mode="clip")`` becomes ``torch.gather`` on an index
-clamped to the same range.  All arithmetic is int32, as in XLA.
+equal on every block the reference decodes right.  Three divergences:
+
+* ``MAX_BLOCK``: the reference sends every block above 64 KB to the CPU,
+  which is every LZ4s block of an incompressible 64 KB chunk (LZ4s has no
+  stored escape; such a block is about 65.8 KB).  The port takes any block
+  up to ``MAX_OUT``, the most output a block may decode to here; a larger
+  output is flagged as before.
+* The last sequence's errors: the reference ORs the errors of the
+  sequences before each live one, so the last sequence's own (a truncated
+  offset, literals or match length, an offset of 0) go unseen, and a
+  truncated block decodes to bytes the host decoder refuses.  The port
+  flags every live sequence's errors.
+* The owner search: the reference keys a sequence that adds no bytes (an
+  LZ4s token of 0, no literals and no match) as "never", which breaks the
+  order the binary search needs, and the bytes after such a sequence may
+  come from the wrong one.  The port keys every live sequence by its
+  output start.
+
+The reference's ``take_along_axis(mode="clip")`` becomes ``torch.gather``
+on an index clamped to the same range.  All arithmetic is int32, as in XLA.
 
 ``decode_blocks`` decodes at most ``GROUP`` blocks at a time (the
-reference hands all of a request's blocks to one call): the doubling tables
-stay live for every level, about 2.4 GB at 128 rows of n = 131072.  The
-bytes do not depend on the grouping, since ``n`` and ``outcap`` only pad.
+reference hands all of a request's blocks to one call): the plain
+version's doubling tables stay live for every level, about 2.4 GB at 128
+rows of n = 131072.  The bytes do not depend on the grouping, since ``n``
+and ``outcap`` only pad.
 """
 from __future__ import annotations
 
@@ -156,10 +174,13 @@ def _decode_blocks_impl(b: torch.Tensor, blk_len: torch.Tensor, n: int,
     del Fs, Ss, Es
 
     live = a_pos < L      # slot j is a real sequence
-    err_stream = (live & a_bad).any(dim=1)
 
     def slot_gather(arr):
         return _take(arr, a_pos, n - 1)
+
+    # a live slot's own errors count too (the last one's included)
+    err_stream = (live & (a_bad | (slot_gather(bad.to(_I32)) != 0))).any(
+        dim=1)
 
     s_litlen = torch.where(live, slot_gather(litlen), 0)
     s_litstart = slot_gather(lit_start)
@@ -171,9 +192,10 @@ def _decode_blocks_impl(b: torch.Tensor, blk_len: torch.Tensor, n: int,
 
     # --- output construction --------------------------------------------
     # the owning slot of each output position: binary search over the
-    # slots' output starts (ordered by chain order)
+    # live slots' output starts, which chain order keeps non-decreasing (a
+    # slot that adds no bytes shares its start with the next)
     o = torch.arange(outcap, dtype=_I32, device=dev)[None, :].expand(B, -1)
-    start_key = torch.where(live & (s_adv > 0), a_out, _I32_MAX)
+    start_key = torch.where(live, a_out, _I32_MAX)
     lo = torch.zeros_like(o)
     hi = torch.full_like(o, Jp)
     for _ in range(int(np.log2(Jp)) + 1):
@@ -207,7 +229,8 @@ def _decode_blocks_impl(b: torch.Tensor, blk_len: torch.Tensor, n: int,
 def decode_blocks(blocks, mini_match: int | None = None,
                   device: torch.device | None = None) -> list:
     """Decode a batch of LZ4 (mini_match=None) or LZ4s blocks on ``device``
-    (default: ``cuda:0``; ``torch.device("cpu")`` runs on the CPU).
+    (default: ``cuda:0``, the kernel, one launch a group; a CPU device runs
+    the plain version).  A kernel error reaches the caller.
 
     blocks: list of bytes.  Returns a list of bytes-or-None (None = this
     block needs the CPU path: empty, oversize, deep length extensions, or
@@ -219,6 +242,11 @@ def decode_blocks(blocks, mini_match: int | None = None,
     idxs = [i for i, blk in enumerate(blocks) if 0 < len(blk) <= MAX_BLOCK]
     lz4s = mini_match is not None
     base = (mini_match - 1) if lz4s else 0
+    if device.type == "cuda":
+        from qatzip_tpu_torch.ops import lz4_kernel
+        decode = lz4_kernel.decode
+    else:
+        decode = _decode_blocks_impl
     for g in range(0, len(idxs), GROUP):
         group = idxs[g:g + GROUP]
         n = _next_pow2(max(len(blocks[i]) for i in group) + 8, 1024)
@@ -231,13 +259,15 @@ def decode_blocks(blocks, mini_match: int | None = None,
             blk = blocks[i]
             arr[row, :len(blk)] = np.frombuffer(blk, np.uint8)
             lens[row] = len(blk)
-        out, tot, err = _decode_blocks_impl(
-            torch.from_numpy(arr).to(device),
-            torch.from_numpy(lens).to(device),
-            n, outcap, lz4s, base)
-        out, tot, err = out.cpu().numpy(), tot.cpu().numpy(), err.cpu().numpy()
+        out, tot, err = decode(torch.from_numpy(arr).to(device),
+                               torch.from_numpy(lens).to(device),
+                               n, outcap, lz4s, base)
+        tot, err = tot.cpu().numpy(), err.cpu().numpy()
+        good = ~err & (tot >= 0) & (tot <= outcap)
+        # only the columns a good row needs come back to the host
+        out = out[:, :int(tot[good].max(initial=0))].cpu().numpy()
         for row, i in enumerate(group):
-            if not err[row] and 0 <= tot[row] <= outcap:
+            if good[row]:
                 results[i] = out[row, :tot[row]].tobytes()
     failover_blocks += results.count(None)
     return results

@@ -19,10 +19,10 @@ one).  ``--smoke-mb`` drives that many MB of the pinned corpus
 (tools/corpus.py), gzip-ext L1 at ``--chunk-kb`` chunks (64 KB), compress
 then decompress, and then LZ4 frame on a quarter of it, on the device
 route, and prints a ``DIST SMOKE`` JSON line a rank: launches of the
-select and inflate kernels, software requests, failed-over lanes and
-blocks, seconds and the share of the time spent outside the rank's own
-compress or decompress; rank 0 writes the assembled gzip-ext stream to
-``--out``.  ``--perf`` and ``--overhead`` print the rows of
+select, inflate and LZ4 decode kernels, software requests, failed-over
+lanes and blocks, seconds and the share of the time spent outside the
+rank's own compress or decompress; rank 0 writes the assembled gzip-ext
+stream to ``--out``.  ``--perf`` and ``--overhead`` print the rows of
 tools/scaling_run.py.  ``launch`` starts the ranks.
 """
 from __future__ import annotations
@@ -85,10 +85,12 @@ def _counters():
     from qatzip_tpu_torch.ops import deflate_decode as dd
     from qatzip_tpu_torch.ops import inflate_kernel as K
     from qatzip_tpu_torch.ops import lz4_decode as ld
+    from qatzip_tpu_torch.ops import lz4_kernel as LK
     from qatzip_tpu_torch.ops import select as S
 
     eng = core.engine()
     return {"select": S.POS_KERNEL.launches, "inflate": K.KERNEL.launches,
+            "lz4_decode": LK.KERNEL.launches,
             "hw_requests": eng.hw_requests, "sw_requests": eng.sw_requests,
             "failover_lanes": dd.failover_lanes,
             "failover_blocks": ld.failover_blocks,

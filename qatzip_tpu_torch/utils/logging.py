@@ -1,5 +1,4 @@
-"""Leveled logger of the port: the part of qatzip_tpu/utils/logging.py it
-reaches (set_log_level, QZ_ERROR, QZ_WARN).
+"""Leveled logger of the port, a copy of qatzip_tpu/utils/logging.py.
 
 Mirrors the reference logger semantics (qzSetLogLevel, 8 levels NONE->TEST;
 include/qatzip.h:944-990, impl src/qatzip_utils.c:185-249): timestamped
@@ -31,6 +30,10 @@ def set_log_level(level: int) -> int:
     return 0
 
 
+def get_log_level() -> QzLogLevel:
+    return _level
+
+
 def _log(level: QzLogLevel, tag: str, fmt: str, *args) -> None:
     if level > _level:
         return
@@ -48,3 +51,11 @@ def QZ_ERROR(fmt: str, *args) -> None:
 
 def QZ_WARN(fmt: str, *args) -> None:
     _log(QzLogLevel.LOG_WARNING, "WARN", fmt, *args)
+
+
+def QZ_INFO(fmt: str, *args) -> None:
+    _log(QzLogLevel.LOG_INFO, "INFO", fmt, *args)
+
+
+def QZ_DEBUG(fmt: str, *args) -> None:
+    _log(QzLogLevel.LOG_DEBUG1, "DEBUG", fmt, *args)

@@ -1,12 +1,13 @@
 """The CUDA kernels' per-record and per-lane logic, built for the host.
 
-``csrc/select.cuh``, ``csrc/inflate_step.cuh``, ``csrc/sort.cuh`` and
-``tools/probes.cuh`` hold the logic of the kernels as ``__host__
-__device__`` functions.  g++ builds
+``csrc/select.cuh``, ``csrc/inflate_step.cuh``, ``csrc/sort.cuh``,
+``csrc/lz4_block.cuh`` and ``tools/probes.cuh`` hold the logic of the
+kernels as ``__host__ __device__`` functions.  g++ builds
 them here (with ``__host__``/``__device__`` defined away) into a small shim
 library, and the shim is held exactly against the port's plain torch
 versions, or numpy, on the same inputs; the inflate shim also against the
-reference's XLA driver.  The kernels themselves run only on the card
+reference's XLA driver, the LZ4 shim against the reference's XLA decoder
+and the host decoder.  The kernels themselves run only on the card
 (chip_smoke.py).
 """
 import ctypes
@@ -18,12 +19,20 @@ import numpy as np
 import pytest
 import torch
 
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
+
 from qatzip_tpu.ops import deflate_decode as rdd
+from qatzip_tpu.ops import lz4_decode as RLD
 from qatzip_tpu.ops import pallas_inflate as RPI
+from qatzip_tpu_torch.engine.lz4_block import (lz4_block_compress,
+                                               lz4s_block_compress)
 from qatzip_tpu_torch.ops import _build
 from qatzip_tpu_torch.ops import inflate as PI
+from qatzip_tpu_torch.ops import lz4_decode as LD
 from qatzip_tpu_torch.ops import match_finder as mf
 from qatzip_tpu_torch.ops import select as SEL
+from qatzip_tpu_torch.tools import lz4_cases as LC
 from qatzip_tpu_torch.tools import probes as PR
 
 torch.set_num_threads(1)
@@ -33,6 +42,7 @@ _SHIM = r"""
 #include "inflate_step.cuh"
 #include "sort.cuh"
 #include "probes.cuh"
+#include "lz4_block.cuh"
 
 #include <algorithm>
 #include <vector>
@@ -113,6 +123,33 @@ extern "C" int shim_inflate(const uint32_t* words, int nw,
     nsteps = s > nsteps ? s : nsteps;
   }
   return nsteps;
+}
+
+// The launch of csrc/lz4_block.cu run serially, through lz4_block.cuh's
+// own qz_lz4_row: a warp whose 32 lanes run in turn at each step of the
+// schedule (a literal or match copy, a ballot over a length extension's
+// bytes), so a lane reads only what the lanes before a __syncwarp wrote.
+struct QzHostWarp {
+  template <class F>
+  void each(F f) {
+    for (int lane = 0; lane < QZ_LZ4_LANES; ++lane) f(lane);
+  }
+  void sync() {}
+  template <class F>
+  uint32_t ballot(F f) {
+    uint32_t mask = 0;
+    for (int lane = 0; lane < QZ_LZ4_LANES; ++lane)
+      if (f(lane)) mask |= 1u << lane;
+    return mask;
+  }
+};
+
+extern "C" void shim_lz4(const uint8_t* in, const int32_t* len, int rows,
+                         int n, int outcap, int lz4s, int base, uint8_t* out,
+                         int32_t* tot, uint8_t* err) {
+  const QzLz4Args a = {in, len, rows, n, outcap, lz4s, base, out, tot, err};
+  QzHostWarp w;
+  for (int r = 0; r < rows; ++r) qz_lz4_row(a, r, w);
 }
 
 // The launches of csrc/sort.cu run serially, through sort.cuh's own walkers
@@ -424,6 +461,8 @@ def shim(tmp_path_factory):
                    capture_output=True, text=True)
     so = ctypes.CDLL(str(lib))
     so.shim_inflate.restype = ctypes.c_int
+    so.shim_lz4.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] * 3
     so.shim_select.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     so.shim_sort.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_uint32]
@@ -904,3 +943,215 @@ def test_probe_bitonic_schedule_sorts_each_segment(shim, S, L, segment):
            if segment == "flat" else np.sort(x, axis=2 if segment == "rows"
                                              else 1))
     assert (want == ref).all()
+
+
+# ---------------------------------------------------------------------------
+# LZ4 / LZ4s block decode (csrc/lz4_block.cuh)
+# ---------------------------------------------------------------------------
+def _lz4_rows(blocks, n: int | None = None):
+    """Blocks zero-padded into uint8[B, n] rows, as decode_blocks lays a
+    group out, and their int32 lengths."""
+    n = n or LD._next_pow2(max(len(b) for b in blocks) + 8, 1024)
+    arr = np.zeros((len(blocks), n), np.uint8)
+    lens = np.zeros(len(blocks), np.int32)
+    for i, b in enumerate(blocks):
+        arr[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return arr, lens
+
+
+def _shim_lz4(shim, arr, lens, outcap: int, lz4s: bool, base: int):
+    B, n = arr.shape
+    out = np.zeros((B, outcap), np.uint8)
+    tot = np.zeros(B, np.int32)
+    err = np.zeros(B, np.uint8)
+    shim.shim_lz4(_ptr(arr), _ptr(lens), B, n, outcap, int(lz4s), base,
+                  _ptr(out), _ptr(tot), _ptr(err))
+    return out, tot, err != 0
+
+
+def _same_rows(a, b) -> np.ndarray:
+    """Per row: err equal and, where it is clear, tot and the bytes."""
+    (oa, ta, ea), (ob, tb, eb) = a, b
+    same = ea == eb
+    for r in np.flatnonzero(~ea & ~eb):
+        same[r] = ta[r] == tb[r] and np.array_equal(oa[r, :ta[r]],
+                                                    ob[r, :tb[r]])
+    return same
+
+
+def _walk(row: np.ndarray, length: int, lz4s: bool, base: int) -> list:
+    """The sequences the plain version chains from a row's byte 0, in order:
+    (bad, output bytes) of each live one, by its per-byte rules (a length
+    extension's 0xFF run counted inside the row and capped, a read past
+    the row taking its last byte)."""
+    n = len(row)
+
+    def byte(i):
+        return int(row[min(i, n - 1)])
+
+    def ext(q):
+        q = min(q, n - 1)
+        run = 0
+        while (q + run < n and row[q + run] == 255
+               and run < LD.EXT_RUN_CAP):
+            run += 1
+        return run + 1, 255 * run + byte(q + run), run >= LD.EXT_RUN_CAP
+
+    seqs, p = [], 0
+    while p < length:
+        tok = byte(p)
+        lit_len, lit_val, lit_ovf = (ext(p + 1) if tok >> 4 == 15
+                                     else (0, 0, False))
+        q2 = p + 1 + lit_len + (tok >> 4) + lit_val
+        term = q2 == length
+        off = byte(q2) | byte(q2 + 1) << 8
+        m_len, m_val, m_ovf = (ext(q2 + 2) if tok & 15 == 15
+                               else (0, 0, False))
+        mraw = (tok & 15) + m_val
+        mlen = (0 if term else (mraw + base if mraw else 0) if lz4s
+                else mraw + 4)
+        nxt = length if term else q2 + 2 + m_len
+        bad = (lit_ovf or (not term and (m_ovf or off == 0))
+               or q2 > length or nxt > length)
+        seqs.append((bad, (tok >> 4) + lit_val + mlen))
+        p = min(nxt, n)
+    return seqs
+
+
+def _lz4_vs_plain(shim, blocks, lz4s: bool, base: int = 2,
+                  outcap: int = LD.MAX_OUT, n: int | None = None,
+                  reference: bool = True):
+    """The shim on one group against the port's plain version (every row's
+    err, and tot and bytes where it is clear), the host decoder (bytes on
+    every clear row) and, with ``reference``, the reference's XLA decoder:
+    equal on every row but where the reference's two defects (ops/
+    lz4_decode.py's docstring) show, a last sequence in error or a
+    sequence adding no bytes before it.  Returns the shim's arrays."""
+    arr, lens = _lz4_rows(blocks, n)
+    n = arr.shape[1]
+    got = _shim_lz4(shim, arr, lens, outcap, lz4s, base)
+    plain = tuple(t.numpy() for t in LD._decode_blocks_impl(
+        torch.from_numpy(arr), torch.from_numpy(lens), n, outcap, lz4s,
+        base))
+    assert _same_rows(got, plain).all()
+    for r, blk in enumerate(blocks):
+        if not got[2][r]:
+            assert got[0][r, :got[1][r]].tobytes() == LC.host_decode(
+                blk, lz4s, base, outcap)
+    if reference:
+        import jax.numpy as jnp
+
+        ref = tuple(np.asarray(a) for a in RLD._decode_blocks_impl(
+            jnp.asarray(arr), jnp.asarray(lens), n, outcap, lz4s, base))
+        for r in np.flatnonzero(~_same_rows(got, ref)):
+            seqs = _walk(arr[r], int(lens[r]), lz4s, base)
+            assert ((seqs[-1][0] and got[2][r] and not ref[2][r])
+                    or any(adv == 0 for _, adv in seqs[:-1])), r
+    return got
+
+
+@pytest.mark.parametrize("lz4s", [False, True])
+def test_lz4_header_corpus_blocks_match_plain_and_reference(shim,
+                                                            corpus_factory,
+                                                            lz4s):
+    datas = [corpus_factory(s, k) for s, k in
+             [(100, "text"), (7000, "text"), (3000, "constant"),
+              (2000, "random"), (900, "iterative"), (1, "text")]]
+    blocks = [lz4s_block_compress(d, 3) if lz4s else lz4_block_compress(d)
+              for d in datas]
+    out, tot, err = _lz4_vs_plain(shim, blocks, lz4s)
+    assert not err.any()
+    assert [out[r, :tot[r]].tobytes() for r in range(len(datas))] == datas
+
+
+def test_lz4_header_lz4s_blocks_above_64k(shim, corpus_factory):
+    """LZ4s blocks of incompressible 64 KB chunks (about 65.8 KB, past the
+    reference's MAX_BLOCK but decoded by the port) at the n the group
+    takes, 131072."""
+    datas = [corpus_factory(1 << 16, "random"),
+             corpus_factory(1 << 16, "text")]
+    blocks = [lz4s_block_compress(d, 3) for d in datas]
+    assert len(blocks[0]) > RLD.MAX_BLOCK
+    out, tot, err = _lz4_vs_plain(shim, blocks, True)
+    assert not err.any() and out[0, :tot[0]].tobytes() == datas[0]
+
+
+@pytest.mark.parametrize("lz4s", [False, True])
+def test_lz4_header_edge_blocks(shim, corpus_factory, lz4s):
+    """Zero offsets, offsets before the start, 0xFF runs at the cap and
+    one below, LZ4s zero-length matches, blocks that end after a match or
+    are cut short, and overlapping matches at offsets 1-31."""
+    names, blocks = zip(*LC.edge_blocks())
+    corpus = lz4_block_compress(corpus_factory(6000, "text"))
+    cuts = [corpus[:k] for k in (1, 2, 3, 17, len(corpus) // 2,
+                                 len(corpus) - 1)]
+    out, tot, err = _lz4_vs_plain(shim, list(blocks) + cuts, lz4s)
+    flagged = {nm for nm, e in zip(names, err) if e}
+    must = {"zero offset", "offset before start", "match run 512",
+            "literal run 512", "zero-length match, offset 0",
+            "zero-length match, offset 0, last", "truncated offset",
+            "truncated match length", "truncated literals",
+            "literals past the end"}
+    assert must <= flagged
+    assert not {"good", "60000-byte run", "match run 511", "literal run 2",
+                "ends after a match", "ends after a long match",
+                "empty"} & flagged
+    # a cut of a corpus block: flagged where the host decoder refuses it
+    # (a cut just after a match is a whole block)
+    refused = [LC.host_decode(c, lz4s, 2, LD.MAX_OUT) is None for c in cuts]
+    assert sum(refused) >= 4
+    assert all(e for e, no in zip(err[len(names):], refused) if no)
+    row = dict(zip(names, range(len(names))))
+    if lz4s:
+        assert "zero-length match, far offset" not in flagged
+        r = row["zero-length sequence"]
+        assert out[r, :tot[r]].tobytes() == b"abcabcz"
+    for off in range(1, 32):
+        r = row[f"overlap {off}"]
+        assert not err[r]
+        lit = LC.overlap_literals(off)
+        mlen = 15 + LC.OVERLAP_EXT + (2 if lz4s else 4)
+        want = (lit * (mlen // off + 2))[:off + mlen] + b"z"
+        assert out[r, :tot[r]].tobytes() == want
+
+
+def test_lz4_header_output_of_exactly_outcap(shim):
+    """A block decoding to outcap bytes is clear and one decoding to
+    outcap + 1 is flagged, with nothing written past outcap."""
+    outcap = 4096
+    blocks = [lz4_block_compress(b"A" * outcap),
+              lz4_block_compress(b"A" * (outcap + 1)),
+              lz4_block_compress(bytes(range(256)) * 16),
+              lz4_block_compress(bytes(range(256)) * 16 + b"!")]
+    out, tot, err = _lz4_vs_plain(shim, blocks, False, outcap=outcap)
+    assert err.tolist() == [False, True, False, True]
+    assert tot[0] == tot[2] == outcap
+
+
+def _lz4_corpus_blocks(lz4s: bool) -> tuple:
+    """Eight blocks of 2 KB chunks of the pinned corpus, the fuzz's seeds."""
+    from qatzip_tpu_torch.tools.corpus import build_corpus
+
+    corpus = build_corpus(1)
+    chunks = [corpus[i * 131_072:i * 131_072 + 2048] for i in range(8)]
+    return tuple(lz4s_block_compress(c, 3) if lz4s else lz4_block_compress(c)
+                 for c in chunks)
+
+
+_FUZZ_SEEDS = {lz4s: _lz4_corpus_blocks(lz4s) for lz4s in (False, True)}
+_mutation = st.tuples(st.integers(0, 3), st.integers(0, 1 << 16),
+                      st.integers(1, 255))
+
+
+@settings(max_examples=25, deadline=None, derandomize=True,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(lz4s=st.booleans(),
+       muts=st.lists(st.lists(_mutation, min_size=1, max_size=4),
+                     min_size=8, max_size=8))
+def test_lz4_header_fuzzed_corpus_blocks(shim, lz4s, muts):
+    """Mutated corpus blocks, a group of 8 an example: the shim equals the
+    plain version on every row and the reference on every row its defects
+    leave alone, and a clear row's bytes are the host decoder's."""
+    blocks = [LC.mutate(b, m) for b, m in zip(_FUZZ_SEEDS[lz4s], muts)]
+    _lz4_vs_plain(shim, blocks, lz4s, outcap=8192, n=4096)

@@ -1,19 +1,20 @@
 """The kernels' host logic under AddressSanitizer and UBSan.
 
-``csrc/inflate_step.cuh`` and ``csrc/select.cuh`` (with the rest of the
-host shim of ``tests/test_torch_csrc_host.py``, which runs their launches
-serially) are built by g++ with ``-fsanitize=address,undefined
+``csrc/inflate_step.cuh``, ``csrc/select.cuh`` and ``csrc/lz4_block.cuh``
+(with the rest of the host shim of ``tests/test_torch_csrc_host.py``, which
+runs their launches serially) are built by g++ with ``-fsanitize=address,undefined
 -fno-sanitize-recover=all`` into a small executable.  It reads rounds from
 a file the test writes, each array of a round in an allocation of its own
 size, so that a read past a lane's stream words, its table regions, the
-CTA's shared memory or a select row is reported; it writes the outputs,
+CTA's shared memory, a select row or an LZ4 block is reported; it writes the outputs,
 which must equal the plain torch versions'.  Any sanitizer report fails
 the test.  The rounds: the lockstep layouts with corrupted and idle lanes,
 and one lane a round of fuzzed streams (point mutations, truncation,
 spliced windows over the first 64 KB of the pinned corpus, from a seed);
-select rows at the boundary lengths and with invalid tails.  This is the
-memory-safety check the card's machine cannot give (no compute-sanitizer
-there).
+select rows at the boundary lengths and with invalid tails; LZ4 and LZ4s
+blocks, fuzzed the same way, one a round in a row of exactly its length.
+This is the memory-safety check the card's machine cannot give (no
+compute-sanitizer there).
 """
 import os
 import pathlib
@@ -28,10 +29,14 @@ import torch
 from qatzip_tpu_torch.ops import _build
 from qatzip_tpu_torch.ops import deflate_decode as dd
 from qatzip_tpu_torch.ops import inflate as PI
+from qatzip_tpu_torch.ops import lz4_decode as LD
 from qatzip_tpu_torch.ops import match_finder as mf
 from qatzip_tpu_torch.ops import select as SEL
 from qatzip_tpu_torch.tools.corpus import build_corpus
-from tests.test_torch_csrc_host import _SHIM, _block, _layout, _raw, _runs
+from qatzip_tpu_torch.tools import lz4_cases as LC
+from tests.test_torch_csrc_host import (_SHIM, _block, _layout,
+                                        _lz4_corpus_blocks, _lz4_rows, _raw,
+                                        _runs, _same_rows)
 
 torch.set_num_threads(1)
 
@@ -40,9 +45,10 @@ _MAIN = r"""
 #include <cstdlib>
 
 // Rounds from argv[1], outputs to argv[2].  A round starts with 8 int32:
-// kind 0 (inflate: lanes, nw, max_steps) or kind 1 (select: B, n, n_full,
-// depth, to_pos, vec), then its arrays; every array is read into a vector
-// of its exact size.
+// kind 0 (inflate: lanes, nw, max_steps), kind 1 (select: B, n, n_full,
+// depth, to_pos, vec) or kind 2 (LZ4: one row of n bytes, outcap, lz4s,
+// base, len), then its arrays; every array is read into a vector of its
+// exact size.
 template <class T>
 static std::vector<T> take(FILE* f, size_t n) {
   std::vector<T> v(n);
@@ -82,6 +88,14 @@ int main(int argc, char** argv) {
                            end_bit.data());
       put(out, ns); put(out, tokens); put(out, err); put(out, outcnt);
       put(out, end_bit);
+    } else if (h[0] == 2) {
+      const size_t n = h[1], outcap = h[2];
+      auto row = take<uint8_t>(in, n);
+      std::vector<int32_t> len(1, h[5]), tot(1);
+      std::vector<uint8_t> o(outcap), err(1);
+      shim_lz4(row.data(), len.data(), 1, (int)n, (int)outcap, h[3], h[4],
+               o.data(), tot.data(), err.data());
+      put(out, tot); put(out, err); put(out, o);
     } else {
       const size_t B = h[1], n = h[2], n_full = h[3];
       auto sk = take<uint32_t>(in, B * n);
@@ -335,3 +349,72 @@ def test_select_rows_at_boundary_lengths_and_invalid_tails(sanitized,
         off += got.nbytes
         assert (got.reshape(want.shape) == want).all(), header
     assert off == len(buf)
+
+
+def _lz4_rounds(blocks, lz4s: bool, outcap: int):
+    """One round a block: its row exactly the block's bytes, so a read at or
+    past its length leaves the allocation, and an output of outcap."""
+    return [([2, len(b), outcap, int(lz4s), 2, len(b)],
+             [np.frombuffer(b, np.uint8)]) for b in blocks]
+
+
+def _read_lz4(buf, rounds):
+    """Each round's (out[1, outcap], tot[1], err[1])."""
+    off, got = 0, []
+    for header, _ in rounds:
+        outcap = header[2]
+        tot = np.frombuffer(buf, np.int32, 1, off)
+        err = np.frombuffer(buf, np.uint8, 1, off + 4) != 0
+        out = np.frombuffer(buf, np.uint8, outcap, off + 5)
+        off += 5 + outcap
+        got.append((out[None], tot, err))
+    assert off == len(buf)
+    return got
+
+
+@pytest.mark.parametrize("lz4s", [False, True])
+def test_lz4_fuzzed_blocks_one_a_round(sanitized, tmp_path, lz4s):
+    """The fuzz's corpus blocks and 12 mutated copies of each (point flips,
+    cuts, zeroed runs, spliced windows, from a seed), each alone in a row
+    of its own length with an output of the chunk's 2048 bytes: no
+    sanitizer report, and every round equal to the plain version on the
+    block zero-padded as decode_blocks lays a group out."""
+    rng = np.random.default_rng(11)
+    seeds = _lz4_corpus_blocks(lz4s)
+    blocks = list(seeds)
+    for blk in seeds:
+        for _ in range(12):
+            blocks.append(LC.mutate(blk, LC.random_mutations(rng)))
+    outcap = 2048
+    rounds = _lz4_rounds(blocks, lz4s, outcap)
+    got = _read_lz4(_run(sanitized, tmp_path, rounds), rounds)
+    arr, lens = _lz4_rows(blocks)
+    want = [t.numpy() for t in LD._decode_blocks_impl(
+        torch.from_numpy(arr), torch.from_numpy(lens), arr.shape[1], outcap,
+        lz4s, 2)]
+    errs = 0
+    for r, (blk, g) in enumerate(zip(blocks, got)):
+        assert _same_rows(g, [a[r:r + 1] for a in want]).all(), blk.hex()
+        errs += int(g[2][0])
+    assert not any(g[2][0] for g in got[:len(seeds)])
+    assert 0 < errs < len(blocks)
+
+
+def test_a_read_past_the_block_is_reported(sanitized, tmp_path):
+    """The check itself: the shim built from a copy of lz4_block.cuh whose
+    length-extension ballot reads the byte at the block's length fails a
+    block that ends inside a 0xFF run with a heap-buffer-overflow report;
+    the kernel's own header runs it clean."""
+    good = pathlib.Path(_build.CSRC, "lz4_block.cuh").read_text()
+    bound = "return i >= len || QZ_LZ4_LDG(row + i) != 0xFF;"
+    assert good.count(bound) == 1
+    d = tmp_path / "mutant"
+    d.mkdir()
+    (d / "lz4_block.cuh").write_text(
+        good.replace(bound, "return i > len || QZ_LZ4_LDG(row + i) != 0xFF;"))
+    exe = _compile(d)
+    rounds = _lz4_rounds([LC.seq(b"", lit_ext=b"\xff" * 3)], False, 64)
+    with pytest.raises(AssertionError, match="heap-buffer-overflow"):
+        _run(exe, tmp_path, rounds)
+    got = _read_lz4(_run(sanitized, tmp_path, rounds), rounds)
+    assert got[0][2][0]

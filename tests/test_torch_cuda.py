@@ -652,3 +652,181 @@ def test_two_ranks_share_the_card(dev):
         m = re.search(r"DIST DEVICE OK rank=\d hw=\d+ select=(\d+) "
                       r"inflate=(\d+)", out)
         assert m and int(m.group(1)) >= 1 and int(m.group(2)) >= 1, out[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# LZ4 / LZ4s block decode kernel (csrc/lz4_block.cu)
+# ---------------------------------------------------------------------------
+def _lz4_sets():
+    """(name, blocks, lz4s) groups: corpus blocks, LZ4s blocks above 64 KB,
+    the edge cases of tools/lz4_cases.py and mutated corpus blocks."""
+    from qatzip_tpu_torch.engine.lz4_block import (lz4_block_compress,
+                                                   lz4s_block_compress)
+    from qatzip_tpu_torch.tools import lz4_cases as LC
+
+    rng = np.random.default_rng(12)
+    texts = [_text(n, s) for n, s in ((100, 1), (7000, 2), (30000, 3))]
+    texts += [bytes(3000), rng.integers(0, 256, 2000, np.uint8).tobytes()]
+    big = [rng.integers(0, 256, 1 << 16, np.uint8).tobytes(),
+           _text(1 << 16, 4)]
+    sets = []
+    for lz4s in (False, True):
+        comp = ((lambda d: lz4s_block_compress(d, 3)) if lz4s
+                else lz4_block_compress)
+        good = [comp(d) for d in texts]
+        fuzz = [LC.mutate(good[i % 3], LC.random_mutations(rng))
+                for i in range(48)]
+        edges = [b for _, b in LC.edge_blocks()]
+        sets += [("corpus", good, lz4s), ("edges", edges, lz4s),
+                 ("fuzz", fuzz, lz4s)]
+    sets.append(("lz4s above 64 KB", [lz4s_block_compress(d, 3)
+                                      for d in big], True))
+    return sets
+
+
+def _lz4_group(blocks, dev):
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+
+    n = ld._next_pow2(max(len(b) for b in blocks) + 8, 1024)
+    arr = np.zeros((len(blocks), n), np.uint8)
+    for i, b in enumerate(blocks):
+        arr[i, :len(b)] = np.frombuffer(b, np.uint8)
+    lens = torch.tensor([len(b) for b in blocks], dtype=torch.int32)
+    return torch.from_numpy(arr).to(dev), lens.to(dev), n
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_lz4_kernel_equals_plain(dev, case):
+    """The kernel against the plain version on the same tensors on the
+    card: every row's err, and tot and bytes where it is clear; a clear
+    row's bytes are the host decoder's."""
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    from qatzip_tpu_torch.ops import lz4_kernel as LK
+    from qatzip_tpu_torch.tools import lz4_cases as LC
+
+    name, blocks, lz4s = _lz4_sets()[case]
+    b, lens, n = _lz4_group(blocks, dev)
+    got = [t.cpu() for t in LK.decode(b, lens, n, ld.MAX_OUT, lz4s, 2)]
+    want = [t.cpu() for t in ld._decode_blocks_impl(b, lens, n, ld.MAX_OUT,
+                                                     lz4s, 2)]
+    assert torch.equal(got[2], want[2]), name
+    for r, blk in enumerate(blocks):
+        if not bool(got[2][r]):
+            t = int(got[1][r])
+            assert t == int(want[1][r])
+            assert torch.equal(got[0][r, :t], want[0][r, :t]), (name, r)
+            assert got[0][r, :t].numpy().tobytes() == LC.host_decode(
+                blk, lz4s, 2, ld.MAX_OUT)
+    if name in ("corpus", "lz4s above 64 KB"):
+        assert not bool(got[2].any())
+    elif name == "fuzz":
+        assert 0 < int(got[2].sum()) < len(blocks)
+
+
+def test_lz4_decode_blocks_launches_once_a_group(dev, monkeypatch):
+    """decode_blocks on cuda:0 launches the kernel once a group of GROUP
+    blocks and never runs the plain version."""
+    from qatzip_tpu_torch.engine.lz4_block import lz4_block_compress
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    from qatzip_tpu_torch.ops import lz4_kernel as LK
+
+    plain = []
+    impl = ld._decode_blocks_impl
+    monkeypatch.setattr(ld, "_decode_blocks_impl",
+                        lambda *a: plain.append(1) or impl(*a))
+    datas = [_text(4096, s) for s in range(ld.GROUP + 5)]
+    blocks = [lz4_block_compress(d) for d in datas]
+    launches = LK.KERNEL.launches
+    assert ld.decode_blocks(blocks, device=dev) == datas
+    assert LK.KERNEL.launches - launches == 2
+    assert not plain
+
+
+def test_lz4_kernel_unbuildable_library_raises(dev, monkeypatch, tmp_path):
+    """A kernel library that does not compile raises KernelError from
+    decode_blocks: nothing falls back to the plain version or the CPU."""
+    import shutil
+
+    from qatzip_tpu_torch.ops import _build
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    from qatzip_tpu_torch.ops import lz4_kernel as LK
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    (src / "lz4_block.cu").write_text((src / "lz4_block.cu").read_text()
+                                      + "\nthis is not C++;\n")
+    monkeypatch.setitem(_build.LIBRARIES, _build.KERNELS, (str(src), "*.cu"))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(LK, "KERNEL", _build.Kernel(LK.KERNEL.symbol,
+                                                    LK.KERNEL.argtypes))
+    fail0 = ld.failover_blocks
+    with pytest.raises(_build.KernelError, match="nvcc failed"):
+        ld.decode_blocks([b"\x10a"], device=dev)
+    assert ld.failover_blocks == fail0 and LK.KERNEL.launches == 0
+
+
+_TRAP_CHILD = r"""
+import json, os, re, shutil, sys, tempfile
+import torch
+import qatzip_tpu_torch as qt
+from qatzip_tpu_torch.engine import core
+from qatzip_tpu_torch.engine.health import health
+from qatzip_tpu_torch.ops import _build, lz4_decode as ld
+from qatzip_tpu_torch.ops import lz4_kernel as LK
+
+# a copy of the kernels whose LZ4 kernel traps on entry
+tmp = tempfile.mkdtemp()
+src = os.path.join(tmp, "csrc")
+shutil.copytree(_build.CSRC, src)
+path = os.path.join(src, "lz4_block.cu")
+text = open(path).read()
+head = "qz_lz4_kernel(QzLz4Args a) {"
+assert text.count(head) == 1
+open(path, "w").write(text.replace(head, head + " __trap();"))
+_build.LIBRARIES[_build.KERNELS] = (src, "*.cu")
+_build.BUILD_DIR = os.path.join(tmp, "build")
+
+os.environ["QATZIP_TPU_DEVICE"] = "1"
+assert qt.qz_init(qt.QzSession(), device=torch.device("cuda", 0)) == 0
+data = bytes(range(256)) * 4096 + b"tail" * 5000
+comp = qt.compress(data, "lz4", hw_buff_sz=65536, sw_only=True)
+eng = core.engine()
+before = (eng.sw_requests, health.total_failures, ld.failover_blocks)
+try:
+    qt.decompress(comp, "lz4", hw_buff_sz=65536)
+    caught = None
+except Exception as exc:
+    caught = (type(exc).__name__, str(exc)[:300])
+after = (eng.sw_requests, health.total_failures, ld.failover_blocks)
+print("TRAP " + json.dumps({"caught": caught, "before": before,
+                            "after": after, "launches": LK.KERNEL.launches}))
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def test_lz4_kernel_fault_reaches_the_caller(dev, tmp_path):
+    """A kernel that really faults on the card (a __trap() at its entry, in
+    a copy of the sources built in a child process, whose context the
+    fault poisons): the LZ4 decompress through the API raises KernelError
+    or the CUDA error, with no CPU rerun, no health failure and no
+    failed-over block."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _TRAP_CHILD], cwd=root,
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=root))
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("TRAP ")]
+    assert line, proc.stdout[-2000:] + proc.stderr[-4000:]
+    rec = json.loads(line[0][5:])
+    assert rec["caught"] is not None, rec
+    kind, msg = rec["caught"]
+    assert kind in ("KernelError", "AcceleratorError") or (
+        kind == "RuntimeError" and "CUDA error" in msg), rec
+    assert rec["launches"] == 1, rec
+    assert rec["after"] == rec["before"], rec

@@ -44,8 +44,49 @@ def _imported(tree: ast.AST) -> list[str]:
 def test_no_import_of_the_jax_package(path):
     tree = ast.parse((ROOT / path).read_text(), path)
     bad = [m for m in _imported(tree)
-           if m == "qatzip_tpu" or m.startswith("qatzip_tpu.")]
+           if m in ("qatzip_tpu", "jax") or m.startswith(("qatzip_tpu.",
+                                                          "jax."))]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_public_names_of_the_reference_exist_in_the_port(capsys):
+    """Every public name of qatzip_tpu and qatzip_tpu.utils (modules
+    aside) exists in the port; the enums and ext_rc helpers that only the
+    reference's ``from constants import *`` exported are equal, and the
+    port's logger levels work as the reference's."""
+    import types
+
+    import qatzip_tpu
+    import qatzip_tpu.utils
+    import qatzip_tpu_torch.utils as port_utils
+
+    for ref, port in ((qatzip_tpu, qt), (qatzip_tpu.utils, port_utils)):
+        names = [n for n in dir(ref) if not n.startswith("_")
+                 and not isinstance(getattr(ref, n), types.ModuleType)]
+        missing = [n for n in names if not hasattr(port, n)]
+        assert not missing, f"{port.__name__} lacks {missing}"
+    for name in ("PinMem", "QzCrcType", "QzSoftwareComponentType"):
+        assert ({m.name: int(m) for m in getattr(qt, name)}
+                == {m.name: int(m) for m in getattr(qatzip_tpu, name)})
+    masks = [0, qt.QZ_SW_EXECUTION_MASK, qt.QZ_TIMEOUT_MASK,
+             qt.QZ_POST_PROCESS_FAIL_MASK]
+    for name in ("qz_sw_execution", "qz_hw_timeout", "qz_post_process_fail"):
+        for ret in (0, -1, 1):
+            for ext in masks + [sum(masks)]:
+                assert (getattr(qt, name)(ret, ext)
+                        == getattr(qatzip_tpu, name)(ret, ext)), (name, ret,
+                                                                   ext)
+    level = port_utils.get_log_level()
+    try:
+        assert port_utils.set_log_level(qt.QzLogLevel.LOG_INFO) == 0
+        assert port_utils.get_log_level() == qt.QzLogLevel.LOG_INFO
+        port_utils.QZ_INFO("shown %d", 1)
+        port_utils.QZ_DEBUG("hidden")
+        assert port_utils.set_log_level(99) == -1
+    finally:
+        port_utils.set_log_level(level)
+    out = capsys.readouterr().out
+    assert "[INFO]" in out and "shown 1" in out and "hidden" not in out
 
 
 _SUITES = ["api", "sweep", "fuzz", "negative", "formats", "lz4_interop",

@@ -155,3 +155,55 @@ def test_decode_impl_arrays_equal_reference(corpus_factory, lz4s):
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))
     assert not got[2][:3].any() and got[2][3:5].all()
+
+
+def test_decode_flags_what_the_reference_misses():
+    """The plain decoder's two repairs over the reference (ops/
+    lz4_decode.py's docstring).  A block whose last sequence is cut short
+    is flagged, where the reference returns bytes the host decoder
+    refuses; and an LZ4s sequence that adds no bytes no longer sends the
+    bytes after it to the wrong sequence."""
+    from qatzip_tpu_torch.engine.lz4_block import (lz4_block_decompress,
+                                                   lz4s_block_decompress)
+
+    truncated = [b"\x14a\x01", b"\x54abcde\x05", b"\x90abc"]
+    assert all(r is not None for r in rld.decode_blocks(truncated))
+    for blk in truncated:
+        with pytest.raises(ValueError):
+            lz4_block_decompress(blk, ld.MAX_OUT)
+    assert ld.decode_blocks(truncated, device=CPU) == [None] * 3
+
+    empty_seq = (b"\x20ab\x01\x00" + b"\x10c\x01\x00" + b"\x00\x01\x00"
+                 + b"\x01\x03\x00" + b"\x10z")
+    want = lz4s_block_decompress(empty_seq, ld.MAX_OUT, 3)
+    assert want == b"abcabcz"
+    assert rld.decode_blocks([empty_seq], mini_match=3) != [want]
+    assert ld.decode_blocks([empty_seq], mini_match=3, device=CPU) == [want]
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """ops/lz4_kernel.decode launches only on CUDA tensors: handed CPU ones
+    it raises, and decode_blocks on the CPU never reaches it."""
+    from qatzip_tpu_torch.ops import lz4_kernel
+    from qatzip_tpu_torch.ops._build import KernelError
+
+    b = torch.zeros((1, 1024), dtype=torch.uint8)
+    with pytest.raises(KernelError, match="CUDA tensors"):
+        lz4_kernel.decode(b, torch.zeros(1, dtype=torch.int32), 1024,
+                          ld.MAX_OUT, False, 0)
+    launches = lz4_kernel.KERNEL.launches
+    assert ld.decode_blocks([b"\x10a"], device=CPU) == [b"a"]
+    assert lz4_kernel.KERNEL.launches == launches
+
+
+def test_sequence_count_equals_the_host_walk(corpus_factory):
+    """tools/lz4_cases.count_sequences, which chip_smoke divides the
+    kernel's time by, counts the sequences engine/lz4_block's LZ4s walk
+    finds (LZ4 has the same grammar)."""
+    from qatzip_tpu_torch.engine.lz4_block import lz4s_decode_sequences
+    from qatzip_tpu_torch.tools import lz4_cases as LC
+
+    for kind in ("text", "random", "constant"):
+        blk = lz4s_block_compress(corpus_factory(30_000, kind), 3)
+        assert LC.count_sequences(blk) == len(lz4s_decode_sequences(blk, 3))
+    assert LC.count_sequences(lz4_block_compress(b"A" * 60000)) == 2
