@@ -31,9 +31,15 @@ Run from the repository root:  python3 chip_smoke.py
    incompressible 64 KB chunks (about 65.8 KB each, n = 131072) and the
    edge cases of tools/lz4_cases.py with mutated corpus blocks, as LZ4 and
    as LZ4s: err equal on every row, tot and bytes on every clear row, which
-   the host decoder gives too; each group timed with CUDA events beside
-   the plain version and its bound (bytes at the HBM rate); then the first
-   group through decode_blocks, equal to its chunks.
+   the host decoder gives too; then every compressed block of the 32 MB
+   LZ4 frame (about 400) in one launch, the request's, against the plain
+   version run group by group on the same rows; each launch timed with
+   CUDA events beside the plain version, its bound (bytes at the HBM rate)
+   and, for the corpus's, its latency bound (the block with the most
+   sequences at one dependent shared-memory load a sequence, the probes'
+   measure); the kernel's ptxas report (registers, shared memory, spills)
+   and the CTAs the card holds a SM; then the first group through
+   decode_blocks, equal to its chunks.
 3. Calibration (engine/devcal.calibrate, 8 MB, into a record of its own):
    the CPU funnel, the device codec's raw and packed compress and its
    decompress, the inflate kernel and the match finder alone.  No device or
@@ -53,7 +59,7 @@ Run from the repository root:  python3 chip_smoke.py
 5. The LZ4 device path through the public API: an LZ4-frame session at
    level 1 and 64 KB chunks on the 32 MB corpus, then an LZ4s session
    (mini match 3) on 8 MB of it.  Each must launch the select kernel once
-   a 128-chunk batch and the LZ4 decode kernel once a batch in its first
+   a 128-chunk batch and the LZ4 decode kernel once in its first
    decompress (the count zeroed just before it), run on the device only,
    never run the plain decode on the card, fail no block over to the CPU,
    record no health failure, round-trip bit-exactly, and be readable by
@@ -498,14 +504,18 @@ def phase_sort(torch, corpus: bytes, dev) -> dict:
 
 
 def _lz4_group_vs_plain(torch, label: str, blocks: list, lz4s: bool,
-                        dev, want: list | None = None) -> dict:
-    """One group of blocks through the LZ4 decode kernel and its plain
-    version on the same tensors on the card: err equal on every row, tot
-    and bytes on every clear row, and a clear row's bytes the host
-    decoder's; with ``want`` (the bytes each block must give) no row may be
-    flagged.  Both timed with CUDA events; the bound is the
-    blocks' bytes read and the clear rows' bytes written (and the four
-    small arrays) at the HBM rate."""
+                        dev, want: list | None = None,
+                        dep_ns: float | None = None) -> dict:
+    """One launch of blocks through the LZ4 decode kernel and its plain
+    version on the same tensors on the card, the plain version in groups
+    of ``lz4_decode.GROUP`` rows: err equal on every row, tot and bytes on
+    every clear row, and a clear row's bytes the host decoder's; with
+    ``want`` (the bytes each block must give) no row may be flagged.  Both
+    timed with CUDA events; the bound is the blocks' bytes read and the
+    clear rows' bytes written (and the four small arrays) at the HBM rate;
+    with ``want``, also the latency bound: the block with the most
+    sequences, one dependent shared-memory load (``dep_ns``, the probes'
+    measure) a sequence."""
     import numpy as np
 
     from qatzip_tpu_torch.ops import lz4_decode as ld
@@ -526,7 +536,11 @@ def _lz4_group_vs_plain(torch, label: str, blocks: list, lz4s: bool,
         return LK.decode(b_t, l_t, n, ld.MAX_OUT, lz4s, base)
 
     def plain():
-        return ld._decode_blocks_impl(b_t, l_t, n, ld.MAX_OUT, lz4s, base)
+        parts = [ld._decode_blocks_impl(b_t[g:g + ld.GROUP],
+                                        l_t[g:g + ld.GROUP], n, ld.MAX_OUT,
+                                        lz4s, base)
+                 for g in range(0, len(blocks), ld.GROUP)]
+        return [torch.cat(x) for x in zip(*parts)]
 
     ker = [t.cpu() for t in kernel()]
     ref = [t.cpu() for t in plain()]
@@ -558,10 +572,13 @@ def _lz4_group_vs_plain(torch, label: str, blocks: list, lz4s: bool,
            "plain_ms": plain_ms, "bound_ms": bound_ms}
     walk = ""
     if want is not None:
-        # the group lasts as long as the block with the most sequences
+        # the launch lasts as long as the block with the most sequences
         rec["max_sequences"] = max(LC.count_sequences(b) for b in blocks)
+        rec["latency_bound_ms"] = rec["max_sequences"] * dep_ns * 1e-6
         walk = (f"; most sequences in a block {rec['max_sequences']}, "
-                f"{ms * 1e6 / rec['max_sequences']:.1f} ns a sequence")
+                f"{ms * 1e6 / rec['max_sequences']:.1f} ns a sequence, "
+                f"latency bound {rec['latency_bound_ms']:.4f} ms (one "
+                f"dependent shared-memory load a sequence, {dep_ns:.3f} ns)")
     print(f"lz4 decode {label}: {len(blocks)} blocks, n {n}, outcap "
           f"{ld.MAX_OUT}, {out_bytes} output bytes, {flagged} flagged; "
           f"kernel = plain on every row; kernel {ms:.4f} ms "
@@ -571,30 +588,63 @@ def _lz4_group_vs_plain(torch, label: str, blocks: list, lz4s: bool,
     return rec
 
 
-def phase_lz4_decode(torch, corpus: bytes, dev) -> dict:
+def _lz4_build_report(torch) -> dict:
+    """The LZ4 decode kernel's ptxas report (registers, shared memory,
+    spills) from the build's log, and its CTAs resident a SM from the CUDA
+    runtime's occupancy count."""
+    from qatzip_tpu_torch.ops import _build
+    from qatzip_tpu_torch.ops import lz4_kernel as LK
+
+    with open(_build.log_path()) as f:
+        log = f.read().splitlines()
+    at = [i for i, ln in enumerate(log) if "qz_lz4_kernel" in ln
+          and "Compiling entry" in ln]
+    _check(len(at) == 1, "no ptxas report of the LZ4 decode kernel")
+    report = []
+    for ln in log[at[0] + 1:]:
+        if not ln.startswith(("ptxas info", " ")) or "Compiling" in ln:
+            break
+        report.append(ln.strip())
+        print(f"lz4 decode ptxas: {ln.strip()}")
+    info = LK.launch_info()
+    _check(info["ctas_per_sm"] >= 3, f"the LZ4 decode kernel fits "
+           f"{info['ctas_per_sm']} CTAs a SM, not the design's 3")
+    print(f"lz4 decode launch: {info['threads']} threads and "
+          f"{info['smem_bytes']} bytes of shared memory a CTA, "
+          f"{info['ctas_per_sm']} CTAs resident a SM on {info['sms']} SMs "
+          f"({info['ctas_per_sm'] * info['sms']} blocks at once)")
+    return {"ptxas": report, **info}
+
+
+def phase_lz4_decode(torch, corpus: bytes, dev, probes: list) -> dict:
     """The LZ4 block-decode kernel against its plain version on three kinds
     of group: the corpus's first 128 LZ4 blocks (level 1, 64 KB chunks; the
     blocks a frame does not store), the path's shape; 128 LZ4s blocks of
     incompressible 64 KB chunks (mini match 3, about 65.8 KB each, n =
     131072); and the edge cases of tools/lz4_cases.py with mutated corpus
-    blocks, as LZ4 and as LZ4s.  Then the first group through
-    decode_blocks, equal to its chunks with none flagged.  Returns the
-    kernel's record (times of the first group)."""
+    blocks, as LZ4 and as LZ4s.  Then every compressed block of the 32 MB
+    LZ4 frame in one launch, the request's, against the plain version run
+    group by group on the same rows; the kernel's ptxas report and its
+    CTAs a SM; and the first group through decode_blocks, equal to its
+    chunks with none flagged.  Returns the kernel's record (times of the
+    first group and of the request's launch)."""
     import numpy as np
 
     from qatzip_tpu_torch.ops import deflate_decode as dd
     from qatzip_tpu_torch.ops import lz4_decode as ld
     from qatzip_tpu_torch.tools import lz4_cases as LC
+    from qatzip_tpu_torch.tools import probe_bench as PB
 
-    chunks, blocks = [], []
+    build = _lz4_build_report(torch)
+    dep_ns = PB.dep_load_ns(probes)
+    all_chunks, all_blocks = [], []
     for i in range(0, len(corpus), CHUNK):
         chunk = corpus[i:i + CHUNK]
         blk = dd._native.lz4_compress_block(chunk)
         if len(blk) < len(chunk):
-            chunks.append(chunk)
-            blocks.append(blk)
-        if len(blocks) == ld.GROUP:
-            break
+            all_chunks.append(chunk)
+            all_blocks.append(blk)
+    chunks, blocks = all_chunks[:ld.GROUP], all_blocks[:ld.GROUP]
     rng = np.random.default_rng(EDGE_SEED)
     rand = [rng.integers(0, 256, CHUNK, np.uint8).tobytes()
             for _ in range(ld.GROUP)]
@@ -602,10 +652,10 @@ def phase_lz4_decode(torch, corpus: bytes, dev) -> dict:
     _check(min(len(b) for b in rand_blocks) > CHUNK,
            "an incompressible LZ4s block is not above 64 KB")
     groups = {"lz4 L1": _lz4_group_vs_plain(torch, "lz4 L1", blocks, False,
-                                            dev, chunks),
+                                            dev, chunks, dep_ns),
               "lz4s incompressible": _lz4_group_vs_plain(
                   torch, "lz4s incompressible", rand_blocks, True, dev,
-                  rand)}
+                  rand, dep_ns)}
     edges = [b for _, b in LC.edge_blocks()]
     for lz4s in (False, True):
         good = (blocks[:16] if not lz4s else
@@ -617,6 +667,13 @@ def phase_lz4_decode(torch, corpus: bytes, dev) -> dict:
                                             lz4s, dev)
         _check(0 < groups[label]["flagged"] < len(edges) + len(fuzz),
                f"{label}: {groups[label]['flagged']} flagged")
+
+    rows = ld.LAUNCH_OUT_BYTES // ld.MAX_OUT
+    _check(ld.GROUP < len(all_blocks) <= rows, f"the 32 MB LZ4 frame has "
+           f"{len(all_blocks)} compressed blocks, not one launch of more "
+           f"than {ld.GROUP}")
+    request = _lz4_group_vs_plain(torch, "lz4 L1 request", all_blocks,
+                                  False, dev, all_chunks, dep_ns)
 
     ld.failover_blocks = 0
     torch.cuda.synchronize()
@@ -635,7 +692,9 @@ def phase_lz4_decode(torch, corpus: bytes, dev) -> dict:
             "max_abs_err": max(g["max_abs_err"] for g in groups.values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "groups": groups}
+            "library_ms": None,
+            "latency_bound_ms": main["latency_bound_ms"],
+            "request": request, "build": build, "groups": groups}
 
 
 def _run(torch, sess, direction: str, src):
@@ -870,8 +929,8 @@ def phase_lz4(torch, corpus: bytes, lz4_rec: dict) -> list:
     it, through the public API with the device forced (phase_slice set
     QATZIP_TPU_DEVICE and initialised the engine on the card).  The LZ4
     decode kernel's count is zeroed just before each session's first
-    decompress and read just after it, into ``lz4_rec``; a group a batch
-    of 128 chunks, and the plain decode never runs on the card."""
+    decompress and read just after it, into ``lz4_rec``; one launch a
+    request, and the plain decode never runs on the card."""
     from qatzip_tpu_torch.ops import lz4_decode as ld
 
     plain_on_card = []
@@ -890,6 +949,7 @@ def phase_lz4(torch, corpus: bytes, lz4_rec: dict) -> list:
     _check(not plain_on_card, f"the plain LZ4 decode ran "
            f"{len(plain_on_card)} times on the card")
     lz4_rec["launches"] = sum(lz4_rec["path_launches"].values())
+    lz4_rec["launches_per_request"] = dict(lz4_rec["path_launches"])
     return runs
 
 
@@ -924,9 +984,10 @@ def _lz4_sessions(torch, corpus: bytes, lz4_rec: dict) -> list:
         lz4_rec["path_launches"][name] = decodes
         _check(launches >= nchunks // LANES,
                f"{name}: select launched {launches} times")
-        _check(decodes == -(-nchunks // LANES),
+        _check(decodes == -(-nchunks // (ld.LAUNCH_OUT_BYTES //
+                                         ld.MAX_OUT)),
                f"{name}: the LZ4 decode kernel launched {decodes} times, "
-               f"not once a batch of {LANES} chunks")
+               f"not once a request")
         _check(ld.failover_blocks == 0,
                f"{name}: {ld.failover_blocks} blocks failed over to the CPU")
         _check(health.total_failures == 0,
@@ -2034,8 +2095,10 @@ def _edge_lz4(torch, corpus: bytes, dev, gpu: str) -> dict:
     part.zero()
     got = ld.decode_blocks(blocks, device=dev)
     _check(part.counts(since=True)["lz4_decode"] == -(-sum(
-        0 < len(b) <= ld.MAX_BLOCK for b in blocks) // ld.GROUP),
-           "lz4: decode_blocks did not launch the kernel once a group")
+        0 < len(b) <= ld.MAX_BLOCK for b in blocks) // (
+            ld.LAUNCH_OUT_BYTES // ld.MAX_OUT)),
+           "lz4: decode_blocks did not launch the kernel once a capped "
+           "launch")
     _check([g is None for g in got] == [w is None for w in want],
            "lz4: the blocks failed over are not the ones the native decoder "
            "refuses")
@@ -2204,7 +2267,7 @@ def main() -> int:
     probes = phase_probes(torch, dev)
     kernels.insert(1, phase_inflate(torch, corpus, dev, probes))
     sort_rec = phase_sort(torch, corpus, dev)
-    lz4_rec = phase_lz4_decode(torch, corpus, dev)
+    lz4_rec = phase_lz4_decode(torch, corpus, dev, probes)
     with tempfile.TemporaryDirectory() as tmpdir:
         rec = phase_calibrate(tmpdir)
         runs = [phase_slice(torch, corpus, kernels, sort_rec, probes)]

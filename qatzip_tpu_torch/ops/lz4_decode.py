@@ -3,7 +3,7 @@
 Port of qatzip_tpu/ops/lz4_decode.py (``_decode_blocks_impl`` and
 ``decode_blocks``).  The reference is XLA code, not a Pallas kernel.
 :func:`decode_blocks` runs the hand-written kernel of
-``csrc/lz4_block.cu`` (ops/lz4_kernel.py, a warp walks a block's
+``csrc/lz4_block.cu`` (ops/lz4_kernel.py, a CTA walks a block's
 sequences) for a CUDA device, and :func:`_decode_blocks_impl`, the plain
 torch version of the reference, for the CPU; the plain version is also
 what the kernel is held to.  It runs on whatever device its tensors lie on:
@@ -40,11 +40,14 @@ equal on every block the reference decodes right.  Three divergences:
 The reference's ``take_along_axis(mode="clip")`` becomes ``torch.gather``
 on an index clamped to the same range.  All arithmetic is int32, as in XLA.
 
-``decode_blocks`` decodes at most ``GROUP`` blocks at a time (the
-reference hands all of a request's blocks to one call): the plain
-version's doubling tables stay live for every level, about 2.4 GB at 128
-rows of n = 131072.  The bytes do not depend on the grouping, since ``n``
-and ``outcap`` only pad.
+On a CUDA device ``decode_blocks`` stages every block of a call and
+launches the kernel once for up to ``LAUNCH_OUT_BYTES`` of output rows
+(512 blocks at ``MAX_OUT``), the launches one after another with no host
+wait between them.  On the CPU the plain version takes at most ``GROUP``
+blocks a call (the reference hands all of a request's blocks to one
+call): its doubling tables stay live for every level, about 2.4 GB at 128
+rows of n = 131072.  The bytes do not depend on the cut, since ``n`` and
+``outcap`` only pad.
 """
 from __future__ import annotations
 
@@ -54,7 +57,13 @@ import torch
 EXT_RUN_CAP = 512     # max 0xFF-run in a length extension (len <= ~130K)
 MAX_OUT = 1 << 17
 MAX_BLOCK = MAX_OUT   # block payloads beyond this fall back to CPU
-GROUP = 128           # blocks per decode call
+GROUP = 128           # blocks a call of the plain version (CPU)
+# Output bytes a kernel launch may take: 512 rows at MAX_OUT.  A 32 MB
+# request of 64 KB chunks has at most 512 blocks, so it is one launch; the
+# card holds 396 of the kernel's CTAs at once (3 a SM by shared memory), so
+# wider launches would only queue more CTAs, and the launch's arrays (64 MB
+# of output, at most as much input) stay a small share of the card.
+LAUNCH_OUT_BYTES = 64 << 20
 
 _I32 = torch.int32
 _I32_MAX = torch.iinfo(torch.int32).max
@@ -229,8 +238,9 @@ def _decode_blocks_impl(b: torch.Tensor, blk_len: torch.Tensor, n: int,
 def decode_blocks(blocks, mini_match: int | None = None,
                   device: torch.device | None = None) -> list:
     """Decode a batch of LZ4 (mini_match=None) or LZ4s blocks on ``device``
-    (default: ``cuda:0``, the kernel, one launch a group; a CPU device runs
-    the plain version).  A kernel error reaches the caller.
+    (default: ``cuda:0``, the kernel, one launch for up to
+    ``LAUNCH_OUT_BYTES`` of output; a CPU device runs the plain version,
+    ``GROUP`` blocks a call).  A kernel error reaches the caller.
 
     blocks: list of bytes.  Returns a list of bytes-or-None (None = this
     block needs the CPU path: empty, oversize, deep length extensions, or
@@ -242,32 +252,43 @@ def decode_blocks(blocks, mini_match: int | None = None,
     idxs = [i for i, blk in enumerate(blocks) if 0 < len(blk) <= MAX_BLOCK]
     lz4s = mini_match is not None
     base = (mini_match - 1) if lz4s else 0
+    # high-ratio blocks (RLE-ish) expand far beyond 4x: always allow the
+    # full 128K output so small compressed blocks don't fall back
+    outcap = MAX_OUT
     if device.type == "cuda":
         from qatzip_tpu_torch.ops import lz4_kernel
         decode = lz4_kernel.decode
+        rows = max(1, LAUNCH_OUT_BYTES // outcap)
     else:
-        decode = _decode_blocks_impl
-    for g in range(0, len(idxs), GROUP):
-        group = idxs[g:g + GROUP]
+        decode, rows = _decode_blocks_impl, GROUP
+    calls = []
+    for g in range(0, len(idxs), rows):
+        group = idxs[g:g + rows]
         n = _next_pow2(max(len(blocks[i]) for i in group) + 8, 1024)
-        # high-ratio blocks (RLE-ish) expand far beyond 4x: always allow the
-        # full 128K output so small compressed blocks don't fall back
-        outcap = min(_next_pow2(max(4 * n, MAX_OUT), 4096), MAX_OUT)
         arr = np.zeros((len(group), n), np.uint8)
         lens = np.zeros((len(group),), np.int32)
         for row, i in enumerate(group):
             blk = blocks[i]
             arr[row, :len(blk)] = np.frombuffer(blk, np.uint8)
             lens[row] = len(blk)
-        out, tot, err = decode(torch.from_numpy(arr).to(device),
-                               torch.from_numpy(lens).to(device),
-                               n, outcap, lz4s, base)
-        tot, err = tot.cpu().numpy(), err.cpu().numpy()
-        good = ~err & (tot >= 0) & (tot <= outcap)
-        # only the columns a good row needs come back to the host
-        out = out[:, :int(tot[good].max(initial=0))].cpu().numpy()
-        for row, i in enumerate(group):
-            if good[row]:
-                results[i] = out[row, :tot[row]].tobytes()
+        calls.append((group, decode(torch.from_numpy(arr).to(device),
+                                    torch.from_numpy(lens).to(device),
+                                    n, outcap, lz4s, base)))
+        if device.type != "cuda":   # the plain version's output, now
+            _collect(blocks, results, *calls.pop(), outcap)
+    for call in calls:   # the kernel's launches, queued back to back
+        _collect(blocks, results, *call, outcap)
     failover_blocks += results.count(None)
     return results
+
+
+def _collect(blocks, results, group, decoded, outcap: int) -> None:
+    """The clear rows of one call's (out, tot, err) into ``results``."""
+    out, tot, err = decoded
+    tot, err = tot.cpu().numpy(), err.cpu().numpy()
+    good = ~err & (tot >= 0) & (tot <= outcap)
+    # only the columns a good row needs come back to the host
+    out = out[:, :int(tot[good].max(initial=0))].cpu().numpy()
+    for row, i in enumerate(group):
+        if good[row]:
+            results[i] = out[row, :tot[row]].tobytes()

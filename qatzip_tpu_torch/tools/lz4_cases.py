@@ -68,6 +68,103 @@ def edge_blocks() -> list:
     return cases
 
 
+def _ext(v: int) -> bytes:
+    """A length extension of value v."""
+    return b"\xff" * (v // 255) + bytes([v % 255])
+
+
+def match(lit: bytes, off: int, mlen: int) -> bytes:
+    """A sequence of literals and an LZ4 match of mlen >= 4 bytes."""
+    m = mlen - 4
+    return seq(lit, off, min(m, 15), m_ext=_ext(m - 15) if m >= 15 else b"")
+
+
+def sized_block(size: int, seed: int) -> bytes:
+    """A well-formed block of exactly ``size`` bytes (>= 64): random short
+    literals and matches (offsets within the output so far), then the
+    terminal sequence's literals to fill it."""
+    rng = np.random.default_rng(seed)
+    out, blk = 0, bytearray()
+    while len(blk) < size - 600:
+        lit = rng.integers(97, 123, int(rng.integers(1, 20)),
+                           np.uint8).tobytes()
+        mlen = int(rng.integers(4, 40))
+        blk += match(lit, int(rng.integers(1, out + len(lit) + 1)), mlen)
+        out += len(lit) + mlen
+    rest = size - len(blk)
+    lit = rest - 1
+    while len(seq(b"x" * lit)) > rest:
+        lit -= 1
+    blk += seq(b"x" * lit)
+    return bytes(blk)
+
+
+def ring_edge_blocks() -> list:
+    """(name, block) cases at the kernel's shared-memory edges, well formed
+    as LZ4: output past the 64 KB match window, matches at offset 1 and at
+    offset 65535 whose source or output crosses the window's edge (one
+    ending exactly at MAX_OUT), and blocks that end exactly at an input
+    refill's boundary (1, 2, 3 and 4 KB, the ring's size) or a byte past
+    it."""
+    rng = np.random.default_rng(13)
+
+    def rand(k: int) -> bytes:
+        return rng.integers(0, 256, k, np.uint8).tobytes()
+
+    return [
+        # output [65535, 68535) from [0, 3000): the step is one byte wide
+        ("offset 65535 across the edge",
+         match(rand(65535), 65535, 3000) + match(b"ab", 1, 100)
+         + seq(b"z")),
+        # output [65530, 65550) at offset 1 across the edge
+        ("offset 1 across the edge", match(rand(65530), 1, 20) + seq(b"z")),
+        # a run of 65530 at offset 1, then source [65535, 65542) at offset
+        # 65535 across the edge; the output ends at 131072
+        ("offset 65535 source across the edge, output at MAX_OUT",
+         match(rand(65535), 1, 65530) + match(b"", 65535, 7)),
+        # 120 KB of output through the window, matches at offsets 1 to
+        # 40000 after its first wrap
+        ("window wrapped", match(rand(300), 7, 40000)
+         + match(rand(40), 40000, 50000) + match(b"q", 1, 30000)
+         + seq(rand(100))),
+    ] + [(f"{k} bytes", sized_block(k, k))
+         for k in (1024, 2048, 3072, 4096, 4097, 1023)]
+
+
+def sequences(blk: bytes, lz4s: bool = False, base: int = 2) -> list:
+    """(lit, litlen, off, mlen) of each sequence of a well-formed LZ4 or
+    LZ4s block, in order: the records the kernel queues for it."""
+    def ext(p: int) -> tuple:
+        value = 0
+        while True:
+            value += blk[p]
+            p += 1
+            if blk[p - 1] != 255:
+                return value, p
+
+    p, out = 0, []
+    while p < len(blk):
+        tok = blk[p]
+        p += 1
+        lit = tok >> 4
+        if lit == 15:
+            more, p = ext(p)
+            lit += more
+        start, p = p, p + lit
+        if p >= len(blk):
+            out.append((start, lit, 0, 0))
+            break
+        off = blk[p] | blk[p + 1] << 8
+        p += 2
+        m = tok & 15
+        if m == 15:
+            more, p = ext(p)
+            m += more
+        out.append((start, lit, off,
+                    (m + base if m else 0) if lz4s else m + 4))
+    return out
+
+
 def mutate(blk: bytes, muts) -> bytes:
     """Mutations (kind, at, v) applied in turn: kind 0 flips the byte at
     ``at`` by v, 1 cuts the block there (keeping a byte), 2 zeroes 1-24
@@ -98,31 +195,8 @@ def random_mutations(rng: np.random.Generator) -> list:
 
 def count_sequences(blk: bytes) -> int:
     """The sequences of a well-formed LZ4 or LZ4s block (one grammar), the
-    steps a warp of the kernel walks for it."""
-    def ext(p: int) -> tuple:
-        value = 0
-        while True:
-            value += blk[p]
-            p += 1
-            if blk[p - 1] != 255:
-                return value, p
-
-    p, n = 0, 0
-    while p < len(blk):
-        tok = blk[p]
-        p += 1
-        n += 1
-        lit = tok >> 4
-        if lit == 15:
-            more, p = ext(p)
-            lit += more
-        p += lit
-        if p >= len(blk):
-            break
-        p += 2
-        if tok & 15 == 15:
-            p = ext(p)[1]
-    return n
+    longest chain of headers the kernel's parse warp walks for it."""
+    return len(sequences(blk))
 
 
 def host_decode(blk: bytes, lz4s: bool, base: int, outcap: int):

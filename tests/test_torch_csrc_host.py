@@ -126,13 +126,37 @@ extern "C" int shim_inflate(const uint32_t* words, int nw,
 }
 
 // The launch of csrc/lz4_block.cu run serially, through lz4_block.cuh's
-// own qz_lz4_row: a warp whose 32 lanes run in turn at each step of the
-// schedule (a literal or match copy, a ballot over a length extension's
-// bytes), so a lane reads only what the lanes before a __syncwarp wrote.
+// own qz_lz4_block: one thread takes both of a CTA's roles, a round's parse
+// and then its copy (they touch disjoint shared memory between barriers),
+// and each warp's 32 lanes run in turn at each step of the schedule (a
+// literal or match step, a ballot over a length extension's bytes, a
+// refill), so a lane reads only what the lanes before a __syncwarp wrote.
+// The CTA's shared memory starts full of garbage.  The hooks count every
+// byte read from the input ring (stats[0]) and from device memory
+// (stats[1]) and every window read (stats[3]), and count as faults a byte
+// of the input that is not the block's or lies at or past len (stats[2])
+// and a window byte that is not the output at its position (stats[4]);
+// stats[5] counts the bytes staged.
 struct QzHostWarp {
+  const uint8_t* row;
+  int len;
+  const uint8_t* out;
+  int64_t* stats;
+  static constexpr bool kCheck = true;   // the kernel feeds the hooks
+  template <class T>
+  struct Reg {   // a value of each lane's own
+    T v[QZ_LZ4_LANES];
+    T& operator[](int lane) { return v[lane]; }
+  };
   template <class F>
   void each(F f) {
     for (int lane = 0; lane < QZ_LZ4_LANES; ++lane) f(lane);
+  }
+  template <class T>
+  T shfl(Reg<T>& r, int src) { return r.v[src]; }
+  template <class T>
+  void set(Reg<T>& r, int dst, T v) {
+    if (dst >= 0 && dst < QZ_LZ4_LANES) r.v[dst] = v;
   }
   void sync() {}
   template <class F>
@@ -142,14 +166,91 @@ struct QzHostWarp {
       if (f(lane)) mask |= 1u << lane;
     return mask;
   }
+  void seen_input(int i, int v, bool staged) {
+    ++stats[staged ? 0 : 1];
+    if (i < 0 || i >= len || v != row[i]) ++stats[2];
+  }
+  void seen_window(int pos, int v) {
+    ++stats[3];
+    if (v != out[pos]) ++stats[4];
+  }
+  void stage(const QzLz4Shm& sm, int off, const uint8_t* src, int bytes) {
+    for (int i = 0; i < QZ_LZ4_CHUNK; ++i)
+      *sm.host(off + i) = i < bytes ? src[i] : 0;
+    stats[5] += bytes;
+  }
+  void commit() {}
 };
+
+// Both roles of a CTA in one thread.  After each barrier but the first it
+// notes the round just parsed: its head (round, slot, start, end, count,
+// output, final, bad) and its records (round, lit, litlen, off, mlen) as
+// the slot holds them, until the last round.
+struct QzHostCta {
+  QzHostWarp pw, cw;
+  QzLz4Smem* sm;
+  std::vector<int32_t>* heads;
+  std::vector<int32_t>* recs;
+  int syncs = 0;
+  bool parsed_last = false;
+  bool parse() const { return true; }
+  bool copy() const { return true; }
+  bool lead() const { return true; }
+  void landed() {}
+  void sync() {
+    const int k = syncs++ - 1;
+    if (k < 0 || parsed_last || !heads) return;
+    const QzLz4Head& h = sm->head[k & 1];
+    const int32_t head[8] = {k, k & 1, h.start, h.end, h.count, h.o,
+                             h.final, h.bad};
+    heads->insert(heads->end(), head, head + 8);
+    for (int i = 0; i < h.count; ++i) {
+      const QzLz4Rec& r = sm->q[k & 1][i];
+      const int32_t rec[5] = {k, r.lit, r.litlen, r.off, r.mlen};
+      recs->insert(recs->end(), rec, rec + 5);
+    }
+    parsed_last = h.final != 0;
+  }
+};
+
+static void lz4_rows(const uint8_t* in, const int32_t* len, int rows, int n,
+                     int outcap, int lz4s, int base, uint8_t* out,
+                     int32_t* tot, uint8_t* err, int64_t* stats,
+                     std::vector<int32_t>* heads,
+                     std::vector<int32_t>* recs) {
+  const QzLz4Args a = {in, len, rows, n, outcap, lz4s, base, out, tot, err};
+  std::vector<uint8_t> smem(sizeof(QzLz4Smem), 0xA5);
+  for (int r = 0; r < rows; ++r) {
+    const QzHostWarp w = {in + (int64_t)r * n, len[r],
+                          out + (int64_t)r * outcap, stats};
+    QzHostCta c = {w, w, (QzLz4Smem*)smem.data(), heads, recs};
+    qz_lz4_block(a, r, QzLz4Shm{(uint64_t)(uintptr_t)smem.data()}, c);
+  }
+}
 
 extern "C" void shim_lz4(const uint8_t* in, const int32_t* len, int rows,
                          int n, int outcap, int lz4s, int base, uint8_t* out,
-                         int32_t* tot, uint8_t* err) {
-  const QzLz4Args a = {in, len, rows, n, outcap, lz4s, base, out, tot, err};
-  QzHostWarp w;
-  for (int r = 0; r < rows; ++r) qz_lz4_row(a, r, w);
+                         int32_t* tot, uint8_t* err, int64_t* stats) {
+  lz4_rows(in, len, rows, n, outcap, lz4s, base, out, tot, err, stats,
+           nullptr, nullptr);
+}
+
+// One row, with its rounds' heads and records (as QzHostCta notes them)
+// into heads[8 x max_heads] and recs[5 x max_recs]; returns the number of
+// heads and records in nout[0], nout[1], or -1 where they do not fit.
+extern "C" void shim_lz4_trace(const uint8_t* in, int32_t len, int n,
+                               int outcap, int lz4s, int base, uint8_t* out,
+                               int32_t* tot, uint8_t* err, int64_t* stats,
+                               int32_t* heads, int max_heads, int32_t* recs,
+                               int max_recs, int32_t* nout) {
+  std::vector<int32_t> hs, rs;
+  lz4_rows(in, &len, 1, n, outcap, lz4s, base, out, tot, err, stats, &hs,
+           &rs);
+  const int nh = (int)hs.size() / 8, nr = (int)rs.size() / 5;
+  nout[0] = nh <= max_heads ? nh : -1;
+  nout[1] = nr <= max_recs ? nr : -1;
+  if (nh <= max_heads) std::copy(hs.begin(), hs.end(), heads);
+  if (nr <= max_recs) std::copy(rs.begin(), rs.end(), recs);
 }
 
 // The launches of csrc/sort.cu run serially, through sort.cuh's own walkers
@@ -462,7 +563,10 @@ def shim(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     so.shim_inflate.restype = ctypes.c_int
     so.shim_lz4.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p] * 3
+        ctypes.c_void_p] * 4
+    so.shim_lz4_trace.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_void_p]
     so.shim_select.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     so.shim_sort.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_uint32]
@@ -960,13 +1064,21 @@ def _lz4_rows(blocks, n: int | None = None):
     return arr, lens
 
 
-def _shim_lz4(shim, arr, lens, outcap: int, lz4s: bool, base: int):
+def _shim_lz4(shim, arr, lens, outcap: int, lz4s: bool, base: int,
+              stats: np.ndarray | None = None):
+    """The shim on a group; every byte it read from the staged input is
+    the block's (none at or past a row's length) and every window byte the
+    output's.  ``stats`` (int64[8]) takes the shim's counts: input bytes
+    read from the ring and from device memory, window reads, bytes
+    staged."""
     B, n = arr.shape
     out = np.zeros((B, outcap), np.uint8)
     tot = np.zeros(B, np.int32)
     err = np.zeros(B, np.uint8)
+    stats = np.zeros(8, np.int64) if stats is None else stats
     shim.shim_lz4(_ptr(arr), _ptr(lens), B, n, outcap, int(lz4s), base,
-                  _ptr(out), _ptr(tot), _ptr(err))
+                  _ptr(out), _ptr(tot), _ptr(err), _ptr(stats))
+    assert stats[2] == 0 and stats[4] == 0, stats
     return out, tot, err != 0
 
 
@@ -1155,3 +1267,91 @@ def test_lz4_header_fuzzed_corpus_blocks(shim, lz4s, muts):
     leave alone, and a clear row's bytes are the host decoder's."""
     blocks = [LC.mutate(b, m) for b, m in zip(_FUZZ_SEEDS[lz4s], muts)]
     _lz4_vs_plain(shim, blocks, lz4s, outcap=8192, n=4096)
+
+
+def _shim_trace(shim, blk: bytes, lz4s: bool = False, base: int = 2,
+                outcap: int = LD.MAX_OUT):
+    """One block through the shim with its rounds noted: (out, tot, err,
+    stats, heads [rounds, 8], records [sequences, 5]) (QzHostCta)."""
+    arr, lens = _lz4_rows([blk])
+    out = np.zeros(outcap, np.uint8)
+    tot = np.zeros(1, np.int32)
+    err = np.zeros(1, np.uint8)
+    stats = np.zeros(8, np.int64)
+    heads = np.zeros((4096, 8), np.int32)
+    recs = np.zeros((65536, 5), np.int32)
+    nout = np.zeros(2, np.int32)
+    shim.shim_lz4_trace(_ptr(arr), int(lens[0]), arr.shape[1], outcap,
+                        int(lz4s), base, _ptr(out), _ptr(tot), _ptr(err),
+                        _ptr(stats), _ptr(heads), len(heads), _ptr(recs),
+                        len(recs), _ptr(nout))
+    assert (nout >= 0).all() and stats[2] == 0 and stats[4] == 0, stats
+    return (out, int(tot[0]), bool(err[0]), stats, heads[:nout[0]],
+            recs[:nout[1]])
+
+
+@pytest.mark.parametrize("kind", ["text", "sized", "wrapped"])
+def test_lz4_header_queue_order_and_rounds(shim, corpus_factory, kind):
+    """The parse warp's queue: round k fills slot k & 1 with up to 64
+    records, a round ending short of 64 only when its input span has
+    reached 1 KB (QZ_LZ4_SPAN) or it is the last, each round's input span
+    starting where the one before ended; the records in queue order are
+    the block's sequences in order, and the heads' output counts their
+    bytes.  Nearly every header and literal byte of a corpus block comes
+    from the staged ring, not device memory."""
+    blk = {"text": lambda: lz4_block_compress(corpus_factory(30000, "text")),
+           "sized": lambda: LC.sized_block(6000, 1),
+           "wrapped": lambda: dict(LC.ring_edge_blocks())["window wrapped"]
+           }[kind]()
+    out, tot, err, stats, heads, recs = _shim_trace(shim, blk)
+    seqs = LC.sequences(blk)
+    assert not err and tot == sum(s[1] + s[3] for s in seqs)
+    assert out[:tot].tobytes() == LC.host_decode(blk, False, 0, LD.MAX_OUT)
+    assert [tuple(r[1:]) for r in recs] == seqs
+    rounds = len(heads)
+    assert heads[:, 0].tolist() == list(range(rounds))
+    assert heads[:, 1].tolist() == [k & 1 for k in range(rounds)]
+    assert (heads[:, 4] <= 64).all() and heads[:, 4].sum() == len(seqs)
+    short = (heads[:-1, 4] < 64) & (heads[:-1, 3] - heads[:-1, 2] < 1024)
+    assert not short.any()
+    assert heads[0, 2] == 0 and heads[-1, 3] == len(blk)
+    assert (heads[1:, 2] == heads[:-1, 3]).all()
+    assert heads[:, 6].tolist() == [0] * (rounds - 1) + [1]
+    assert not heads[:, 7].any()
+    assert recs[:, 0].tolist() == sum(([k] * c for k, c in
+                                       enumerate(heads[:, 4])), [])
+    adv = np.cumsum([s[1] + s[3] for s in seqs])
+    assert heads[:, 5].tolist() == [int(adv[c - 1])
+                                    for c in np.cumsum(heads[:, 4])]
+    if kind != "wrapped":
+        assert stats[0] > 0.97 * (stats[0] + stats[1]), stats
+    assert stats[5] <= len(blk) + 2 * 4096
+
+
+@pytest.mark.parametrize("lz4s", [False, True])
+def test_lz4_header_ring_edges(shim, lz4s):
+    """Output past the 64 KB match window, matches at offset 1 and 65535
+    across its edge (one ending at MAX_OUT), matches after a wrap, and
+    blocks that end exactly at an input refill boundary or a byte past it:
+    equal to the plain version and the host decoder; every window read is
+    the output byte at its position (the shim's hooks)."""
+    names, blocks = zip(*LC.ring_edge_blocks())
+    stats = np.zeros(8, np.int64)
+    arr, lens = _lz4_rows(blocks)
+    got = _shim_lz4(shim, arr, lens, LD.MAX_OUT, lz4s, 2, stats)
+    plain = tuple(t.numpy() for t in LD._decode_blocks_impl(
+        torch.from_numpy(arr), torch.from_numpy(lens), arr.shape[1],
+        LD.MAX_OUT, lz4s, 2))
+    assert _same_rows(got, plain).all()
+    for r, blk in enumerate(blocks):
+        want = LC.host_decode(blk, lz4s, 2, LD.MAX_OUT)
+        assert got[2][r] == (want is None), names[r]
+        if want is not None:
+            assert got[0][r, :got[1][r]].tobytes() == want, names[r]
+    if not lz4s:
+        assert not got[2].any()
+        row = dict(zip(names, range(len(names))))
+        assert got[1][row["offset 65535 source across the edge, output at "
+                          "MAX_OUT"]] == LD.MAX_OUT
+        assert got[1][row["window wrapped"]] > 65536 + 50000
+    assert stats[3] > 100000

@@ -12,7 +12,11 @@ the test.  The rounds: the lockstep layouts with corrupted and idle lanes,
 and one lane a round of fuzzed streams (point mutations, truncation,
 spliced windows over the first 64 KB of the pinned corpus, from a seed);
 select rows at the boundary lengths and with invalid tails; LZ4 and LZ4s
-blocks, fuzzed the same way, one a round in a row of exactly its length.
+blocks, fuzzed the same way, and the cases at the LZ4 kernel's
+shared-memory edges (the match window's wrap, offsets 1 and 65535 across
+it, blocks ending at an input refill's boundary), one a round in a row of
+exactly its length, its input and window reads checked by the shim's
+hooks.
 This is the memory-safety check the card's machine cannot give (no
 compute-sanitizer there).
 """
@@ -93,8 +97,13 @@ int main(int argc, char** argv) {
       auto row = take<uint8_t>(in, n);
       std::vector<int32_t> len(1, h[5]), tot(1);
       std::vector<uint8_t> o(outcap), err(1);
+      std::vector<int64_t> stats(8);
       shim_lz4(row.data(), len.data(), 1, (int)n, (int)outcap, h[3], h[4],
-               o.data(), tot.data(), err.data());
+               o.data(), tot.data(), err.data(), stats.data());
+      if (stats[2] || stats[4])
+        fprintf(stderr, "runtime error: lz4 read %lld input bytes that are "
+                "not the block's, %lld window bytes that are not the "
+                "output's\n", (long long)stats[2], (long long)stats[4]);
       put(out, tot); put(out, err); put(out, o);
     } else {
       const size_t B = h[1], n = h[2], n_full = h[3];
@@ -406,15 +415,43 @@ def test_a_read_past_the_block_is_reported(sanitized, tmp_path):
     block that ends inside a 0xFF run with a heap-buffer-overflow report;
     the kernel's own header runs it clean."""
     good = pathlib.Path(_build.CSRC, "lz4_block.cuh").read_text()
-    bound = "return i >= len || QZ_LZ4_LDG(row + i) != 0xFF;"
+    bound = "return i >= len || qz_lz4_get(in, i, w) != 0xFF;"
     assert good.count(bound) == 1
     d = tmp_path / "mutant"
     d.mkdir()
     (d / "lz4_block.cuh").write_text(
-        good.replace(bound, "return i > len || QZ_LZ4_LDG(row + i) != 0xFF;"))
+        good.replace(bound, "return i > len || qz_lz4_get(in, i, w) != 0xFF;"))
     exe = _compile(d)
     rounds = _lz4_rounds([LC.seq(b"", lit_ext=b"\xff" * 3)], False, 64)
     with pytest.raises(AssertionError, match="heap-buffer-overflow"):
         _run(exe, tmp_path, rounds)
     got = _read_lz4(_run(sanitized, tmp_path, rounds), rounds)
     assert got[0][2][0]
+
+
+@pytest.mark.parametrize("lz4s", [False, True])
+def test_lz4_ring_edges_one_a_round(sanitized, tmp_path, lz4s):
+    """tools/lz4_cases.py's shared-memory edge cases (output past the 64 KB
+    match window, offsets 1 and 65535 across its edge, one ending at
+    MAX_OUT, blocks of exactly 1-4 KB of input, the refill boundaries), its
+    edge cases and the LZ4s block of an incompressible 64 KB chunk (65.8 KB,
+    past the input ring and the window): each alone in a row of its own
+    length, no sanitizer report, and equal to the plain version."""
+    from qatzip_tpu_torch.engine.lz4_block import lz4s_block_compress
+
+    rng = np.random.default_rng(14)
+    blocks = [b for _, b in LC.ring_edge_blocks()]
+    blocks += [b for _, b in LC.edge_blocks() if b]
+    blocks.append(lz4s_block_compress(
+        rng.integers(0, 256, 1 << 16, np.uint8).tobytes(), 3))
+    rounds = _lz4_rounds(blocks, lz4s, LD.MAX_OUT)
+    got = _read_lz4(_run(sanitized, tmp_path, rounds), rounds)
+    for r, (blk, g) in enumerate(zip(blocks, got)):
+        arr, lens = _lz4_rows([blk])
+        want = [t.numpy() for t in LD._decode_blocks_impl(
+            torch.from_numpy(arr), torch.from_numpy(lens), arr.shape[1],
+            LD.MAX_OUT, lz4s, 2)]
+        assert _same_rows(g, want).all(), r
+        if not g[2][0]:
+            assert g[0][0, :g[1][0]].tobytes() == LC.host_decode(
+                blk, lz4s, 2, LD.MAX_OUT), r

@@ -681,6 +681,11 @@ def _lz4_sets():
                  ("fuzz", fuzz, lz4s)]
     sets.append(("lz4s above 64 KB", [lz4s_block_compress(d, 3)
                                       for d in big], True))
+    edges = [b for _, b in LC.ring_edge_blocks()]
+    sets += [("ring edges", edges, False), ("ring edges", edges, True)]
+    # one request-wide launch: more rows than the plain version's GROUP
+    sets.append(("request", [lz4_block_compress(_text(4096, s))
+                             for s in range(261)], False))
     return sets
 
 
@@ -695,11 +700,12 @@ def _lz4_group(blocks, dev):
     return torch.from_numpy(arr).to(dev), lens.to(dev), n
 
 
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", range(10))
 def test_lz4_kernel_equals_plain(dev, case):
     """The kernel against the plain version on the same tensors on the
     card: every row's err, and tot and bytes where it is clear; a clear
-    row's bytes are the host decoder's."""
+    row's bytes are the host decoder's.  The cases include the kernel's
+    shared-memory edges and one launch of 261 rows."""
     from qatzip_tpu_torch.ops import lz4_decode as ld
     from qatzip_tpu_torch.ops import lz4_kernel as LK
     from qatzip_tpu_torch.tools import lz4_cases as LC
@@ -717,15 +723,20 @@ def test_lz4_kernel_equals_plain(dev, case):
             assert torch.equal(got[0][r, :t], want[0][r, :t]), (name, r)
             assert got[0][r, :t].numpy().tobytes() == LC.host_decode(
                 blk, lz4s, 2, ld.MAX_OUT)
-    if name in ("corpus", "lz4s above 64 KB"):
+    if name in ("corpus", "lz4s above 64 KB", "request") or (
+            name == "ring edges" and not lz4s):
         assert not bool(got[2].any())
     elif name == "fuzz":
         assert 0 < int(got[2].sum()) < len(blocks)
 
 
-def test_lz4_decode_blocks_launches_once_a_group(dev, monkeypatch):
-    """decode_blocks on cuda:0 launches the kernel once a group of GROUP
-    blocks and never runs the plain version."""
+@pytest.mark.parametrize("cap_rows", [None, 64])
+def test_lz4_decode_blocks_launches_once_a_group(dev, monkeypatch,
+                                                 cap_rows):
+    """decode_blocks on cuda:0 launches the kernel once a capped launch
+    (LAUNCH_OUT_BYTES of output rows: 133 blocks, more than the plain
+    version's GROUP, in one launch; with the cap at 64 rows, three) and
+    never runs the plain version."""
     from qatzip_tpu_torch.engine.lz4_block import lz4_block_compress
     from qatzip_tpu_torch.ops import lz4_decode as ld
     from qatzip_tpu_torch.ops import lz4_kernel as LK
@@ -734,12 +745,26 @@ def test_lz4_decode_blocks_launches_once_a_group(dev, monkeypatch):
     impl = ld._decode_blocks_impl
     monkeypatch.setattr(ld, "_decode_blocks_impl",
                         lambda *a: plain.append(1) or impl(*a))
+    if cap_rows:
+        monkeypatch.setattr(ld, "LAUNCH_OUT_BYTES", cap_rows * ld.MAX_OUT)
     datas = [_text(4096, s) for s in range(ld.GROUP + 5)]
     blocks = [lz4_block_compress(d) for d in datas]
     launches = LK.KERNEL.launches
     assert ld.decode_blocks(blocks, device=dev) == datas
-    assert LK.KERNEL.launches - launches == 2
+    assert LK.KERNEL.launches - launches == (-(-len(blocks) // cap_rows)
+                                             if cap_rows else 1)
     assert not plain
+
+
+def test_lz4_kernel_launch_shape(dev):
+    """The kernel's CTA (two warps), its shared memory and the CTAs the
+    card holds at once: the design's 3 a SM."""
+    from qatzip_tpu_torch.ops import lz4_kernel as LK
+
+    info = LK.launch_info()
+    assert info["threads"] == 64
+    assert 65536 + 4096 <= info["smem_bytes"] <= 75 * 1024
+    assert info["ctas_per_sm"] == 3 and info["sms"] > 0
 
 
 def test_lz4_kernel_unbuildable_library_raises(dev, monkeypatch, tmp_path):
