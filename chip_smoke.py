@@ -83,21 +83,31 @@ Run from the repository root:  python3 chip_smoke.py
 7. The parity engines and the multi-device and multi-process layer, the
    device route forced, the launch counts zeroed before each part, each
    part's wall time, GB/s and launches on a line of its own: the device
-   encoder (QATZIP_TPU_ENCODER=device) on 8 MB, gzip-ext and LZ4 frame
-   (gzip and the native LZ4 decoder read the streams, every chunk CRC32
-   equals zlib's, the codec's output for the first 1 MB equals the CPU
-   device's); the speculative decoder (QATZIP_TPU_INFLATE=spec) on the
-   8 MB gzip-ext stream (exact, its device CRC32s equal zlib's); the
+   encoder (QATZIP_TPU_ENCODER=device) on the 32 MB corpus, gzip-ext and
+   LZ4 frame (gzip and the native LZ4 decoder read the streams, every
+   chunk CRC32 equals zlib's, the codec's output for the first 1 MB equals
+   the CPU device's, the chain-walk kernel launched once a batch and the
+   checksum kernel once a gzip-ext batch); the speculative decoder
+   (QATZIP_TPU_INFLATE=spec) on the 32 MB gzip-ext stream (exact, its
+   device CRC32s equal zlib's, both kernels launched once a round); the
    device checksums on a [128, 65536] batch of ragged lengths against
-   zlib; block-DP over [cuda:0] (compress_blocks_sharded equal to
-   encode_blocks, graft_entry.entry() launching the select kernel,
-   graft_entry.dryrun_multichip(1), shard.scaling_report); and two ranks
-   of tools/dist_worker.py on the card over gloo, 32 MB gzip-ext then 8
-   MB LZ4 frame through the distributed engine: each rank launches select,
-   inflate and the LZ4 decode with no software request or failover, the
-   assembled stream equals this process's single-process stream, per-rank
-   and total GB/s and the share of the time outside the ranks' own work.
-   The kernels line carries each part's launches (``parity_dist_launches``).
+   zlib and their plain versions; the chain-walk kernel against its plain
+   version on the maps the encoder and the decoder build from the
+   corpus's first chunks and on maps of steps of 1 at both shapes, timed
+   beside its bytes and latency bounds (phase B's load time probed on a
+   [1, 2^22] map); the device profile of each engine's 32 MB pass
+   (``parity profile`` lines); block-DP over [cuda:0]
+   (compress_blocks_sharded equal to encode_blocks, graft_entry.entry()
+   launching the select kernel, graft_entry.dryrun_multichip(1),
+   shard.scaling_report); and two ranks of tools/dist_worker.py on the card
+   over gloo, 32 MB gzip-ext then 8 MB LZ4 frame through the distributed
+   engine: each rank launches select, inflate and the LZ4 decode with no
+   software request or failover, the assembled stream equals this process's
+   single-process stream, per-rank and total GB/s and the share of the time
+   outside the ranks' own work.
+   The kernels line carries each part's launches (``parity_dist_launches``)
+   and the records of ``chain_walk`` and ``checksums`` (their launches in
+   each engine part beside the engine's batches or rounds).
 8. The failure and edge paths of the select and inflate kernels, the
    device route forced, the launch counts, failed-over lanes and blocks and
    health failures zeroed before each part and the engine's software
@@ -156,6 +166,7 @@ CHUNK = 64 << 10
 LANES = 128            # the reference's lanes a round and chunks a batch
 EDGE_LANE = 16 << 10   # step 8's corrupt round: 16 KB zlib-L1 chunks a lane
 EDGE_SEED = 10         # step 8's mutations
+CHAIN_PROBE = 1 << 22  # step 7's probe of the chain walk's dependent load
 _ROUNDS: dict = {}     # step 2's inflate rounds by lanes: inputs, outputs
 
 
@@ -174,6 +185,28 @@ def _time_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds a call of fn, from one replay of a CUDA
+    graph of reps calls: the kernels alone, without the host's cost of
+    launching them through Python."""
+    import torch
+
+    fn()  # warm: builds, binds and sets kernel attributes outside capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -1027,6 +1060,8 @@ class _ApiStep:
     def __init__(self, torch, name: str, gpu: str, records: dict):
         from qatzip_tpu_torch.engine import core
         from qatzip_tpu_torch.engine.health import health
+        from qatzip_tpu_torch.ops import chain as CH
+        from qatzip_tpu_torch.ops import checksums as CK
         from qatzip_tpu_torch.ops import deflate_decode as dd
         from qatzip_tpu_torch.ops import inflate_kernel as K
         from qatzip_tpu_torch.ops import select as S
@@ -1035,6 +1070,8 @@ class _ApiStep:
             records
         S.POS_KERNEL.launches = 0
         K.KERNEL.launches = 0
+        CH.KERNEL.launches = 0
+        CK.KERNEL.launches = 0
         dd.failover_lanes = 0
         health.total_failures = 0
         self.sw0 = core.engine().sw_requests
@@ -1050,6 +1087,8 @@ class _ApiStep:
         import qatzip_tpu_torch as qt
         from qatzip_tpu_torch.engine import core
         from qatzip_tpu_torch.engine.health import health
+        from qatzip_tpu_torch.ops import chain as CH
+        from qatzip_tpu_torch.ops import checksums as CK
         from qatzip_tpu_torch.ops import deflate_decode as dd
         from qatzip_tpu_torch.ops import inflate_kernel as K
         from qatzip_tpu_torch.ops import select as S
@@ -1057,7 +1096,9 @@ class _ApiStep:
         self.torch.cuda.synchronize()
         dt = time.perf_counter() - self.t0
         launches = {"select_to_positions": S.POS_KERNEL.launches,
-                    "inflate_decode": K.KERNEL.launches}
+                    "inflate_decode": K.KERNEL.launches,
+                    "chain_walk": CH.KERNEL.launches,
+                    "checksums": CK.KERNEL.launches}
         sw = core.engine().sw_requests - self.sw0
         for r in results:
             _check(r.rc == qt.QZ_OK, f"{self.name}: rc {r.rc}")
@@ -1275,18 +1316,28 @@ def _busy(torch, label: str, fn) -> None:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _KernelEvents(torch) as ev, profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # torch's rows from the profiler, the port's kernels by CUDA events
+    # (the profiler drops their records)
     rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("qz_")),
                   key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    ours = ev.ms()
+    busy = (sum(e.self_device_time_total for e in rows) / 1e6
+            + sum(ms for ms, _ in ours.values()) / 1e3)
+    ops = sum(e.count for e in rows)
+    calls = sum(k for _, k in ours.values())
     print(f"parity profile {label}: device busy {busy:.6f} s of {wall:.4f} "
-          f"s profiled wall, {sum(e.count for e in rows)} device operations; "
-          f"top: " + "; ".join(
+          f"s profiled wall, {ops + calls} device operations ({ops} of "
+          f"torch's, {calls} calls of the port's kernels: "
+          + ", ".join(f"{s} x{k} {ms:.3f} ms" for s, (ms, k) in ours.items())
+          + "); top: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms "
               f"x{e.count}" for e in rows[:3]))
 
@@ -1300,17 +1351,186 @@ def _codec_on(device, chunks, params, codec, encoder: str):
         os.environ.pop("QATZIP_TPU_ENCODER", None)
 
 
+def _chain_maps(fn) -> list:
+    """The (map as int32, seg) pairs fn hands to chain.chain_walk."""
+    import torch
+
+    from qatzip_tpu_torch.ops import chain as CH
+
+    maps = []
+    real = CH.chain_walk
+
+    def record(f, seg):
+        maps.append((f.to(torch.int32), seg))
+        return real(f, seg)
+
+    CH.chain_walk = record
+    try:
+        fn()
+    finally:
+        CH.chain_walk = real
+    return maps
+
+
+def _parity_chain(torch, dev, captured: list, gpu: str) -> dict:
+    """The chain-walk kernel against chain_walk_ref on the card: the maps
+    the device encoder ([128, 65536], seg 256) and the speculative decoder
+    ([8, 2^19], seg 512) build from the corpus's first chunks, and maps of
+    steps of 1 at both shapes; each timed with CUDA events beside the plain
+    version, its bytes bound and its latency bound (phase B's nseg
+    dependent loads a row, at the load time probed here on a [1, 2^22] map
+    of steps of 1 in segments of 32, where phase B is 131072 loads and the
+    other phases are negligible).  Returns the kernel's record."""
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch.ops import chain as CH
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+    from qatzip_tpu_torch.ops import device_codecs as dc
+    from qatzip_tpu_torch.tools.h100 import FP32_OPS_S, HBM_BYTES_S
+
+    params = qt.api._session_for(
+        "deflate", qt.QzDataFormat.QZ_DEFLATE_GZIP_EXT, 1, CHUNK).params
+    chunks = [c for c, _ in captured[:LANES]]
+    enc = _chain_maps(lambda: _codec_on(dev, chunks, params,
+                                        dc.DeflateDeviceCodec(), "device"))
+    os.environ["QATZIP_TPU_INFLATE"] = "spec"
+    try:
+        dec = _chain_maps(lambda: dd.inflate_batch(
+            [r.payload for _, r in captured[:8]], [CHUNK] * 8, dev,
+            kind="crc32"))
+    finally:
+        os.environ.pop("QATZIP_TPU_INFLATE", None)
+
+    def steps1(B, n):
+        return (torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+                .expand(B, n).contiguous())
+
+    probe = steps1(1, CHAIN_PROBE)
+    probe_ms = _graph_ms(lambda: CH.chain_walk(probe, 32), 5)
+    load_ns = probe_ms * 1e6 / (CHAIN_PROBE // 32)
+    print(f"chain walk phase B dependent load: {load_ns:.2f} ns (a [1, "
+          f"{CHAIN_PROBE}] map of steps of 1 in segments of 32, "
+          f"{CHAIN_PROBE // 32} loads, {probe_ms:.4f} ms; {gpu})")
+    cases = [("encoder map", *enc[0]), ("decoder map", *dec[0]),
+             ("steps of 1, encoder shape", steps1(LANES, CHUNK), 256),
+             ("steps of 1, decoder shape", steps1(8, 1 << 19), 512)]
+    shapes = {}
+    for label, f, seg in cases:
+        B, n = f.shape
+        got = CH.chain_walk(f, seg)
+        want = CH.chain_walk_ref(f, seg)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        _check(torch.equal(got, want), f"chain walk != plain on the {label}")
+        ms = _graph_ms(lambda: CH.chain_walk(f, seg), 10)
+        wrapper_ms = _time_ms(lambda: CH.chain_walk(f, seg), 10)
+        plain_ms = _time_ms(lambda: CH.chain_walk_ref(f, seg), 2)
+        # the phases by difference: A alone, A then B, all three (a phase
+        # timed alone would find the data its last replay left in L1)
+        out = torch.empty_like(f)
+        ent = torch.empty((B, n // seg), dtype=torch.int32, device=dev)
+        upto = {}
+        for mask in (1, 3, CH.ALL_PHASES):
+            def one(mask=mask):
+                CH.KERNEL(f.data_ptr(), out.data_ptr(), ent.data_ptr(), B, n,
+                          seg, mask,
+                          torch.cuda.current_stream(dev).cuda_stream)
+            upto[mask] = _graph_ms(one, 10)
+        phase_ms = {"A exits": upto[1], "B entries": upto[3] - upto[1],
+                    "C walks": upto[CH.ALL_PHASES] - upto[3]}
+        bytes_ms = 2 * 4 * B * n / HBM_BYTES_S * 1e3
+        # phase A a compare and a select a position, phase C a compare and
+        # a load a step, phase B a compare a segment
+        ops_ms = (4 * B * n + B * (n // seg)) / FP32_OPS_S * 1e3
+        lat_ms = (n // seg) * load_ns / 1e6
+        shapes[label] = {
+            "shape": [B, n], "seg": seg, "max_abs_err": err, "ms": ms,
+            "wrapper_ms": wrapper_ms, "phase_ms": phase_ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "latency_bound_ms": lat_ms}
+        print(f"chain walk {label} {(B, n)} seg {seg}: equal; kernel "
+              f"{ms:.4f} ms (3 launches from a CUDA graph; phases "
+              + ", ".join(f"{k} {v:.4f}" for k, v in phase_ms.items())
+              + f"), through the wrapper {wrapper_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.6f} ms "
+              f"(bytes {bytes_ms:.6f}, operations {ops_ms:.6f}); latency "
+              f"bound {lat_ms:.4f} ms ({n // seg} loads x {load_ns:.2f} ns) "
+              f"({gpu})")
+    main = shapes["encoder map"]
+    return {"name": "chain_walk", "route": "cuda",
+            "source": "qatzip_tpu_torch/csrc/chain.cu",
+            "replaces": "qatzip_tpu/ops/deflate_encode.py:294",
+            "also_replaces": "qatzip_tpu/ops/deflate_decode.py:282",
+            "path": "parity",
+            "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "latency_bound_ms": main["latency_bound_ms"],
+            "phase_b_load_ns": load_ns, "shapes": shapes}
+
+
+def _parity_checksums(torch, data, lt, host, lens: list, gpu: str) -> dict:
+    """The checksum kernel against the plain versions on step 7's ragged
+    [128, 65536] batch (its rows 8 bytes wider than a chunk, as the
+    encoder stages them), timed with CUDA events beside its bound (the
+    rows' bytes read once).  Returns the kernel's record."""
+    from qatzip_tpu_torch.ops import checksums as cks
+    from qatzip_tpu_torch.tools.h100 import FP32_OPS_S, HBM_BYTES_S
+
+    nbytes = sum(lens)
+    kinds = {}
+    for kind in ("crc32", "adler32"):
+        fn = getattr(cks, f"{kind}_blocks")
+        ref = getattr(cks, f"{kind}_blocks_ref")
+        got = fn(data, lt, CHUNK)
+        want = ref(data, lt, CHUNK)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, want), f"{kind} kernel != plain")
+        _check(got.cpu().tolist() == [
+            getattr(zlib, kind)(host[i, :n].tobytes())
+            for i, n in enumerate(lens)], f"{kind} kernel != zlib")
+        ms = _graph_ms(lambda: fn(data, lt, CHUNK), 20)
+        wrapper_ms = _time_ms(lambda: fn(data, lt, CHUNK), 20)
+        plain_ms = _time_ms(lambda: ref(data, lt, CHUNK), 5)
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        # a table lookup, a shift and an XOR a byte (CRC32), two adds a
+        # byte (Adler-32)
+        ops_ms = 3 * nbytes / FP32_OPS_S * 1e3
+        kinds[kind] = {
+            "max_abs_err": int((got - want).abs().max()), "ms": ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        print(f"checksums {kind} [{LANES}, {CHUNK}], {nbytes} bytes: equal to "
+              f"plain and zlib; kernel {ms:.4f} ms from a CUDA graph "
+              f"({nbytes / ms / 1e6:.4f} GB/s), through the wrapper "
+              f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{max(bytes_ms, ops_ms):.6f} ms ({gpu})")
+    main = kinds["crc32"]
+    return {"name": "checksums", "route": "cuda",
+            "source": "qatzip_tpu_torch/csrc/checksum.cu",
+            "replaces": "qatzip_tpu/ops/checksums.py:91",
+            "also_replaces": "qatzip_tpu/ops/checksums.py:139",
+            "path": "parity",
+            "max_abs_err": max(v["max_abs_err"] for v in kinds.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "kinds": kinds}
+
+
 def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
     """Step 7: the parity engines (the device encoder, the speculative
     decoder, the device checksums), block-DP over [cuda:0] and two ranks on
     the card, the device route forced, the launch counts zeroed before each
-    part.  Returns {part: launches}."""
+    part; the chain-walk and checksum kernels against their plain versions.
+    Returns ({part: launches}, the two kernels' records)."""
     import random
 
     import qatzip_tpu_torch as qt
     from qatzip_tpu_torch import graft_entry
     from qatzip_tpu_torch.engine import core
     from qatzip_tpu_torch.ops import checksums as cks
+    from qatzip_tpu_torch.ops import deflate_decode as dd
     from qatzip_tpu_torch.ops import deflate_encode as de
     from qatzip_tpu_torch.ops import device_codecs as dc
     from qatzip_tpu_torch.ops import select as S
@@ -1321,11 +1541,15 @@ def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
     gpu = _gpu_line()
     records: dict = {}
     cpu = torch.device("cpu")
-    src = corpus[:8 << 20]
+    src = corpus
+    nchunks = len(src) // CHUNK
+    batches = -(-nchunks // dc.DeflateDeviceCodec.MAX_BATCH)
     gz = qt.QzDataFormat.QZ_DEFLATE_GZIP_EXT
     first = [corpus[i:i + CHUNK] for i in range(0, 1 << 20, CHUNK)]
 
-    # 1. the device encoder, gzip-ext and LZ4 frame, 8 MB each
+    # 1. the device encoder, gzip-ext and LZ4 frame, 32 MB each: the
+    # chain-walk kernel once a batch, the checksum kernel once a gzip-ext
+    # batch
     captured = []
     full = dc.DeflateDeviceCodec._compress_full_device
 
@@ -1338,26 +1562,29 @@ def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
     os.environ["QATZIP_TPU_ENCODER"] = "device"
     try:
         st = _ApiStep(torch, "parity device encoder gzip-ext compress", gpu,
-                          records)
+                      records)
         comp = qt.compress(src, fmt=gz, level=1, hw_buff_sz=CHUNK)
-        st.done(len(src), {}, extra=f"; ratio {len(src) / len(comp):.4f}")
+        st.done(len(src), {"chain_walk": batches, "checksums": batches},
+                extra=f"; ratio {len(src) / len(comp):.4f}; {batches} "
+                f"batches")
         st = _ApiStep(torch, "parity device encoder lz4 compress", gpu,
                       records)
         lz = qt.compress(src, "lz4", level=1, hw_buff_sz=CHUNK)
-        st.done(len(src), {}, extra=f"; ratio {len(src) / len(lz):.4f}")
+        st.done(len(src), {"chain_walk": batches},
+                extra=f"; ratio {len(src) / len(lz):.4f}; {batches} batches")
     finally:
         os.environ.pop("QATZIP_TPU_ENCODER", None)
         dc.DeflateDeviceCodec._compress_full_device = full
     _check(gzip.decompress(comp) == src, "gzip cannot read the device "
            "encoder's stream")
-    _check(len(captured) == len(src) // CHUNK and all(
+    _check(len(captured) == nchunks and all(
         r.checksum == zlib.crc32(c) for c, r in captured),
         "a device chunk CRC differs from zlib's")
     _check(qt.decompress(lz, "lz4", hw_buff_sz=CHUNK, sw_only=True) == src,
            "the native decoder cannot read the device encoder's LZ4")
     os.environ["QATZIP_TPU_ENCODER"] = "device"
     try:
-        _busy(torch, "device encoder gzip-ext compress, 8 MB",
+        _busy(torch, f"device encoder gzip-ext compress, {len(src) >> 20} MB",
               lambda: qt.compress(src, fmt=gz, level=1, hw_buff_sz=CHUNK))
     finally:
         os.environ.pop("QATZIP_TPU_ENCODER", None)
@@ -1374,65 +1601,85 @@ def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
     print(f"parity device encoder: the first 1 MB ({len(first)} chunks) "
           f"equal to the CPU device's, gzip-ext and LZ4; {len(captured)} "
           f"chunk CRC32s equal to zlib's; gzip and the native LZ4 decoder "
-          f"read the 8 MB streams")
+          f"read the 32 MB streams")
 
-    # 2. the speculative decoder on the device encoder's 8 MB stream
+    # 2. the speculative decoder on the device encoder's 32 MB stream: the
+    # chain-walk and checksum kernels once a round
     decoded = []
+    rounds = []
     dec = dc.DeflateDeviceCodec.decompress_chunks
+    spec_round = dd._run_device_round_spec
 
     def capture_dec(self, *a, **k):
         out = dec(self, *a, **k)
         decoded.extend(out)
         return out
 
+    def count_round(batch, device):
+        rounds.append(len(batch))
+        return spec_round(batch, device)
+
     dc.DeflateDeviceCodec.decompress_chunks = capture_dec
+    dd._run_device_round_spec = count_round
     os.environ["QATZIP_TPU_INFLATE"] = "spec"
     try:
         st = _ApiStep(torch, "parity speculative decoder decompress", gpu,
-                          records)
+                      records)
         back = qt.decompress(comp, fmt=gz, hw_buff_sz=CHUNK)
-        st.done(len(src), {})
+        st.done(len(src), {"chain_walk": len(rounds),
+                           "checksums": len(rounds)},
+                extra=f"; {len(rounds)} rounds of {max(rounds)} streams")
     finally:
         os.environ.pop("QATZIP_TPU_INFLATE", None)
         dc.DeflateDeviceCodec.decompress_chunks = dec
+        dd._run_device_round_spec = spec_round
     _check(back == src, "the speculative decoder's round trip differs")
+    _check(records["parity speculative decoder decompress"]["chain_walk"]
+           == len(rounds) > 0, "the chain-walk kernel did not launch once "
+           "a speculative round")
     os.environ["QATZIP_TPU_INFLATE"] = "spec"
     try:
-        _busy(torch, "speculative decoder decompress, 8 MB",
+        _busy(torch, f"speculative decoder decompress, {len(src) >> 20} MB",
               lambda: qt.decompress(comp, fmt=gz, hw_buff_sz=CHUNK))
     finally:
         os.environ.pop("QATZIP_TPU_INFLATE", None)
-    _check(len(decoded) == len(src) // CHUNK and all(
+    _check(len(decoded) == nchunks and all(
         d.checksum == zlib.crc32(d.data) for d in decoded),
         "a device CRC of the speculative decoder differs from zlib's")
 
-    # 3. the device checksums on a [128, 65536] batch of ragged lengths
-    st = _ApiStep(torch, "parity device checksums, CRC32 and Adler-32", gpu,
-                  records)
+    # 3. the device checksums on a [128, 65536] batch of ragged lengths,
+    # against zlib and their plain versions
     rng = random.Random(5)
     lens = [rng.randrange(0, CHUNK + 1) for _ in range(LANES)]
     lens[:3] = [0, 1, CHUNK]
     data, _ = _first_chunks(torch, corpus, dev)
-    data = data[:, :CHUNK].contiguous()
     lt = torch.tensor(lens, dtype=torch.int32, device=dev)
     host = data.cpu().numpy()
+    st = _ApiStep(torch, "parity device checksums, CRC32 and Adler-32", gpu,
+                  records)
     crc = cks.crc32_blocks(data, lt, CHUNK).cpu().tolist()
     adl = cks.adler32_blocks(data, lt, CHUNK).cpu().tolist()
+    nbytes = sum(lens)
+    st.done(nbytes, {"checksums": 2}, extra="; both equal to zlib on every "
+            "length, checked on the host")
     _check(crc == [zlib.crc32(host[i, :n].tobytes())
                    for i, n in enumerate(lens)], "device CRC32 != zlib")
     _check(adl == [zlib.adler32(host[i, :n].tobytes())
                    for i, n in enumerate(lens)], "device Adler-32 != zlib")
-    nbytes = sum(lens)
-    st.done(nbytes, {}, extra="; both equal to zlib on every length, "
-            "checked on the host")
-    _busy(torch, "crc32_blocks [128, 65536]",
+    _busy(torch, f"crc32_blocks [{LANES}, {CHUNK}]",
           lambda: cks.crc32_blocks(data, lt, CHUNK))
-    c_ms = _time_ms(lambda: cks.crc32_blocks(data, lt, CHUNK), 5)
-    a_ms = _time_ms(lambda: cks.adler32_blocks(data, lt, CHUNK), 5)
-    print(f"parity device checksums [128, 65536], {nbytes} bytes: CRC32 "
-          f"{c_ms:.4f} ms ({nbytes / c_ms / 1e6:.4f} GB/s), Adler-32 "
-          f"{a_ms:.4f} ms ({nbytes / a_ms / 1e6:.4f} GB/s), equal to zlib "
-          f"({gpu})")
+    kernels = [_parity_chain(torch, dev, captured, gpu),
+               _parity_checksums(torch, data, lt, host, lens, gpu)]
+    parts = ("parity device encoder gzip-ext compress",
+             "parity device encoder lz4 compress",
+             "parity speculative decoder decompress")
+    calls = {parts[0]: batches, parts[1]: batches, parts[2]: len(rounds)}
+    for rec in kernels:
+        rec["launches_per_part"] = {p: records[p][rec["name"]] for p in parts}
+        rec["engine_calls_per_part"] = calls
+        rec["launches"] = sum(rec["launches_per_part"].values())
+        _check(rec["launches"] > 0, f"the parity engines never launched "
+               f"{rec['name']}")
 
     # 4. block-DP over [cuda:0]
     mesh = [dev]
@@ -1524,7 +1771,7 @@ def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
     print(f"parity two ranks: {wall:.1f} s with start-up; the assembled "
           f"gzip-ext stream equals the single-process stream "
           f"({len(want)} bytes)")
-    return records
+    return records, kernels
 
 
 class _EdgePart:
@@ -2276,7 +2523,8 @@ def main() -> int:
         main = {k["name"]: k for k in kernels}
         api = phase_api(torch, corpus, tmpdir,
                         main["inflate_decode"]["launches"])
-        parity = phase_parity_dist(torch, corpus, dev, tmpdir)
+        parity, parity_kernels = phase_parity_dist(torch, corpus, dev,
+                                                   tmpdir)
         edges = phase_edges(torch, corpus, dev)
         for name in ("select_to_positions", "inflate_decode"):
             # each step's launches of the path's kernels
@@ -2295,6 +2543,7 @@ def main() -> int:
         phase_profile(torch, runs)
         phase_routing(torch, corpus, rec)
     kernels.append(sort_rec)
+    kernels += parity_kernels
     kernels += probes
     _check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": kernels}))

@@ -17,13 +17,29 @@ final-xor convention is restored per block with a ladder of the same
 zero-advance matrices.  u32 values ride int64 tensors (torch on the CPU
 has no uint32 shift).  Equal to ``zlib.crc32``/``zlib.adler32`` for every
 length, 0 included.
+
+* :func:`crc32_blocks_ref` and :func:`adler32_blocks_ref` are the plain
+  torch versions (the tree and the ladder are some hundreds of launches a
+  call on the card).
+* :func:`crc32_blocks` and :func:`adler32_blocks` run them for tensors on
+  the CPU, and for CUDA tensors launch ``csrc/checksum.cu`` (a CTA a row,
+  a thread a slice of it, one launch a call) or raise.  Both refuse the
+  shapes the plain versions do not take (:func:`check_shape`).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
+
+from qatzip_tpu_torch.ops._build import Kernel, KernelError
+
+KERNEL = Kernel("qz_checksum",
+                [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+MAX_N = 1 << 25   # the kernel's ladder advances by up to 2^25 - 1 bytes
 
 _POLY = 0xEDB88320
 _M32 = 0xFFFFFFFF
@@ -97,8 +113,8 @@ def _mat_apply(matrix: int, v: torch.Tensor) -> torch.Tensor:
             ^ t[512 + ((v >> 16) & 0xFF)] ^ t[768 + ((v >> 24) & 0xFF)])
 
 
-def crc32_blocks(data: torch.Tensor, lengths: torch.Tensor,
-                 n: int) -> torch.Tensor:
+def crc32_blocks_ref(data: torch.Tensor, lengths: torch.Tensor,
+                     n: int) -> torch.Tensor:
     """crc32 (zlib convention) of data[b, :lengths[b]] for each block.
 
     data: uint8[B, >=n] with n // 4 a power of two; lengths: int32[B], on
@@ -134,8 +150,8 @@ def crc32_blocks(data: torch.Tensor, lengths: torch.Tensor,
     return crc0 ^ init ^ _M32
 
 
-def adler32_blocks(data: torch.Tensor, lengths: torch.Tensor,
-                   n: int) -> torch.Tensor:
+def adler32_blocks_ref(data: torch.Tensor, lengths: torch.Tensor,
+                       n: int) -> torch.Tensor:
     """adler32 (zlib convention) of data[b, :lengths[b]] per block; n a
     multiple of 128.  Returns int64[B] holding the u32 values."""
     MOD = 65521
@@ -156,3 +172,66 @@ def adler32_blocks(data: torch.Tensor, lengths: torch.Tensor,
     A = (sA + 1) % MOD
     Bv = (sB + L[:, 0]) % MOD
     return (Bv << 16) | A
+
+
+def check_shape(data: torch.Tensor, lengths: torch.Tensor, n: int,
+                kind: str) -> None:
+    """Raises ValueError unless data is uint8 [B, >= n] and lengths [B] on
+    its device, with n as the plain versions take it: n // 4 a power of 2
+    for CRC32, a multiple of 128 for Adler-32, and below MAX_N.  Lengths
+    must lie in [0, n] (not checked: they stay on the device)."""
+    if data.dim() != 2 or data.dtype != torch.uint8 or data.shape[1] < n:
+        raise ValueError(f"{kind} takes uint8 [B, >= {n}] data, got "
+                         f"{data.dtype} {tuple(data.shape)}")
+    if tuple(lengths.shape) != (data.shape[0],) or (
+            lengths.device != data.device):
+        raise ValueError(f"{kind} takes lengths [B] on the data's device")
+    if kind == "crc32" and (n < 4 or (n // 4) & (n // 4 - 1)):
+        raise ValueError(f"crc32_blocks takes n // 4 a power of 2, not {n}")
+    if kind == "adler32" and (n < 128 or n % 128):
+        raise ValueError(f"adler32_blocks takes n a multiple of 128, not {n}")
+    if n >= MAX_N:
+        raise ValueError(f"the checksums take n below {MAX_N}, not {n}")
+
+
+@functools.lru_cache(maxsize=None)
+def _zadv(device: torch.device) -> torch.Tensor:
+    """The zero-advance matrices' columns, int32 [25 * 32] u32 bits, on
+    ``device``: the kernel's copy of _host_tables()["zadv"]."""
+    z = _host_tables()["zadv"].reshape(-1)
+    return torch.from_numpy(z.view(np.int32).copy()).to(device)
+
+
+def _launch(data: torch.Tensor, lengths: torch.Tensor, n: int,
+            kind: str) -> torch.Tensor:
+    dev = data.device
+    if dev.type != "cuda":
+        raise KernelError(f"no checksum kernel for device {dev}")
+    if data.stride(1) != 1:
+        data = data.contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty(data.shape[0], dtype=torch.int64, device=dev)
+    if data.shape[0]:
+        KERNEL(data.data_ptr(), data.stride(0), lens.data_ptr(),
+               _zadv(dev).data_ptr(), out.data_ptr(), data.shape[0], n,
+               int(kind == "adler32"),
+               torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def crc32_blocks(data: torch.Tensor, lengths: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """As :func:`crc32_blocks_ref`; on a CUDA tensor, the kernel."""
+    check_shape(data, lengths, n, "crc32")
+    if data.device.type == "cpu":
+        return crc32_blocks_ref(data, lengths, n)
+    return _launch(data, lengths, n, "crc32")
+
+
+def adler32_blocks(data: torch.Tensor, lengths: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """As :func:`adler32_blocks_ref`; on a CUDA tensor, the kernel."""
+    check_shape(data, lengths, n, "adler32")
+    if data.device.type == "cpu":
+        return adler32_blocks_ref(data, lengths, n)
+    return _launch(data, lengths, n, "adler32")

@@ -19,8 +19,10 @@ one of two engines, as ``_run_device_round`` (:562-575) picks them:
   (``_ffill_key24``), and the copies resolved by pointer doubling
   (``_decode_kernel_impl``, :228-390), the round's CRC32/Adler-32 computed
   on the device from its output (ops/checksums.py).  The reference's code
-  is XLA without Pallas, so this is plain torch on the card; its
-  ``lax.scan`` walks are Python loops of batched steps.  With a local mesh
+  is XLA without Pallas, so this is plain torch on the card, apart from
+  the two stages an H100 profile gave hand-written kernels: the chain walk
+  (ops/chain.py, the reference's two ``lax.scan`` walks) and the
+  checksums.  With a local mesh
   (parallel/shard.py) a round of at least two streams a device runs a
   contiguous slice on each device.
 
@@ -37,6 +39,7 @@ import os
 import numpy as np
 import torch
 
+from qatzip_tpu_torch.ops import chain
 from qatzip_tpu_torch.ops import deflate_tables as T
 from qatzip_tpu_torch.ops import inflate as PI
 from qatzip_tpu_torch.ops.deflate_encode import _take, _vsort
@@ -543,29 +546,9 @@ def _decode_kernel_impl(pay, bit0, tll, td, window, wlen, nbits: int,
     f = torch.maximum(f, q + 1)  # progress even on garbage entries
 
     # the true chain: segment-entry recurrence + segment walks (the
-    # reference's two lax.scan loops, here Python loops of batched steps)
+    # reference's two lax.scan loops), ops/chain.py's walk
     nseg = n // SEG
-    seg_end = ((q // SEG) + 1) * SEG
-    X = f
-    hops = 1
-    while hops < SEG:
-        X = torch.where(X >= seg_end, X, torch.where(X >= n, n, _take(X, X)))
-        hops <<= 1
-    e_ = torch.zeros((B, 1), dtype=torch.int64, device=dev)
-    ent = []
-    for s_ in range(nseg):
-        ent.append(e_[:, 0])
-        e_ = torch.where(e_ >= (s_ + 1) * SEG, e_,
-                         torch.where(e_ >= n, n, _take(X, e_)))
-    entries = torch.stack(ent, dim=1)           # [B, nseg]
-    seg_hi = (torch.arange(nseg, dtype=torch.int64, device=dev)
-              + 1)[None, :] * SEG
-    pp = entries
-    visited = []
-    for _ in range(SEG):
-        visited.append(pp)
-        pp = torch.where(pp < seg_hi, _take(f, pp), pp)
-    visited = torch.stack(visited, dim=2)       # [B, nseg, SEG]
+    visited = chain.chain_walk(f, SEG).long()   # [B, nseg, SEG]
     seg_lo3 = (torch.arange(nseg, dtype=torch.int64, device=dev)
                * SEG)[None, :, None]
     ok_slot = ((visited >= seg_lo3) & (visited < seg_lo3 + SEG)

@@ -3,16 +3,17 @@
 
 Port of qatzip_tpu/ops/deflate_encode.py as plain torch: the reference is
 XLA-compiled code that reaches no Pallas kernel, so it runs here as torch
-operations on the card (no hand-written kernel).  The pipeline:
+operations on the card, apart from the greedy parse's chain walk, which an
+H100 profile gave a hand-written kernel (ops/chain.py).  The pipeline:
 
   K1 ``analyze_blocks`` (device): hash-chain candidates from one stable
     key sort whose payloads carry the shifted prefix words of every
     position, so match lengths are payload compares in sorted order; a
     second sort back to position order; exact dist-1 run lengths by
     log-doubling; the greedy parse as a segment-entry recurrence plus
-    parallel segment walks (a Python loop of batched steps where the
-    reference has ``lax.scan``) and one scatter of the selected
-    positions; litlen/dist histograms (``torch.bincount``).
+    parallel segment walks (``chain.chain_walk``, where the reference has
+    two ``lax.scan`` loops) and one scatter of the selected positions;
+    litlen/dist histograms (``torch.bincount``).
   Host ``huff_build_batch`` (native): length-limited Huffman codes, the
     dynamic headers and the stored/static/dynamic decision from exact bit
     costs.
@@ -34,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qatzip_tpu_torch.ops import chain
 from qatzip_tpu_torch.ops.codes import dist_code, length_code
 
 MODE_DYNAMIC = 0
@@ -262,38 +264,12 @@ def analyze_blocks(data: torch.Tensor, lengths: torch.Tensor, depth: int,
     mlen = torch.where(take, mlen, 0)
     mdist = torch.where(take, mdist, 0)
 
-    # greedy parse: chain membership is the one random-access stage
+    # greedy parse: chain membership is the one random-access stage, the
+    # walk that ops/chain.py runs (the kernel on a CUDA tensor)
     step = torch.where(take, mlen, 1)
     f = torch.clamp(pos + step, max=n)
     nseg = n // SEG
-    seg_end = ((pos // SEG) + 1) * SEG
-
-    # X(i) = first chain position >= seg_end(i), by clamped doubling
-    X = f
-    hops = 1
-    while hops < SEG:
-        nxt = _take(X, X)
-        X = torch.where(X >= seg_end, X, torch.where(X >= n, n, nxt))
-        hops <<= 1
-
-    # segment entries: the reference's lax.scan over the segments
-    e = torch.zeros((B, 1), dtype=torch.int64, device=dev)
-    ent = []
-    for s_ in range(nseg):
-        ent.append(e[:, 0])
-        nxt = _take(X, e)
-        e = torch.where(e >= (s_ + 1) * SEG, e, torch.where(e >= n, n, nxt))
-    entries = torch.stack(ent, dim=1)                      # [B, nseg]
-
-    # parallel segment walks: the reference's lax.scan over SEG steps
-    seg_hi = (torch.arange(nseg, dtype=torch.int64, device=dev)
-              + 1)[None, :] * SEG
-    p = entries
-    visited = []
-    for _ in range(SEG):
-        visited.append(p)
-        p = torch.where(p < seg_hi, _take(f, p), p)
-    visited = torch.stack(visited, dim=2)                  # [B, nseg, SEG]
+    visited = chain.chain_walk(f, SEG).long()             # [B, nseg, SEG]
     seg_lo3 = (torch.arange(nseg, dtype=torch.int64, device=dev)
                * SEG)[None, :, None]
     ok_slot = ((visited >= seg_lo3) & (visited < seg_lo3 + SEG)

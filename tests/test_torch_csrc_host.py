@@ -1,14 +1,15 @@
 """The CUDA kernels' per-record and per-lane logic, built for the host.
 
 ``csrc/select.cuh``, ``csrc/inflate_step.cuh``, ``csrc/sort.cuh``,
-``csrc/lz4_block.cuh`` and ``tools/probes.cuh`` hold the logic of the
-kernels as ``__host__ __device__`` functions.  g++ builds
-them here (with ``__host__``/``__device__`` defined away) into a small shim
-library, and the shim is held exactly against the port's plain torch
-versions, or numpy, on the same inputs; the inflate shim also against the
-reference's XLA driver, the LZ4 shim against the reference's XLA decoder
-and the host decoder.  The kernels themselves run only on the card
-(chip_smoke.py).
+``csrc/lz4_block.cuh``, ``csrc/chain.cuh``, ``csrc/checksum.cuh`` and
+``tools/probes.cuh`` hold the logic of the kernels as ``__host__
+__device__`` functions.  g++ builds them here (with
+``__host__``/``__device__`` defined away) into a small shim library, and
+the shim is held exactly against the port's plain torch versions, or
+numpy, on the same inputs; the inflate shim also against the reference's
+XLA driver, the LZ4 shim against the reference's XLA decoder and the host
+decoder, the checksum shim also against zlib.  The kernels themselves run
+only on the card (chip_smoke.py).
 """
 import ctypes
 import shutil
@@ -28,6 +29,8 @@ from qatzip_tpu.ops import pallas_inflate as RPI
 from qatzip_tpu_torch.engine.lz4_block import (lz4_block_compress,
                                                lz4s_block_compress)
 from qatzip_tpu_torch.ops import _build
+from qatzip_tpu_torch.ops import chain as CH
+from qatzip_tpu_torch.ops import checksums as CK
 from qatzip_tpu_torch.ops import inflate as PI
 from qatzip_tpu_torch.ops import lz4_decode as LD
 from qatzip_tpu_torch.ops import match_finder as mf
@@ -43,6 +46,8 @@ _SHIM = r"""
 #include "sort.cuh"
 #include "probes.cuh"
 #include "lz4_block.cuh"
+#include "chain.cuh"
+#include "checksum.cuh"
 
 #include <algorithm>
 #include <vector>
@@ -544,6 +549,87 @@ extern "C" void shim_bitonic(int32_t* x, int tiles, uint32_t n,
           qzp_compare_exchange(x + t * n, lo, hi, asc);
         }
 }
+
+// The three launches of csrc/chain.cu run serially through chain.cuh's own
+// functions: phase A a warp at a time (its lanes stage their words into a
+// shared memory full of garbage, then find their exits, then store them),
+// phase B a row at a time, phase C a warp at a time (every lane walks 32
+// steps into a tile full of garbage, then every lane stores its column).
+// out int32 [rows, n], ent int32 [rows, n / seg].
+extern "C" void shim_chain(const int32_t* f, int32_t* out, int32_t* ent,
+                           int rows, int n, int seg) {
+  int seg_lg = 0;
+  while ((1 << seg_lg) < seg) ++seg_lg;
+  const QzChainArgs a = {f, out, ent, rows, n, seg, seg_lg};
+  const int64_t G = qz_chain_segments(a);
+  const int nseg = n >> seg_lg;
+  std::vector<int32_t> sm(QZ_CHAIN_LANES * (seg + 1));
+  std::vector<int32_t> tile(QZ_CHAIN_LANES * QZ_CHAIN_TILE);
+  for (int64_t g0 = 0; g0 < G; g0 += QZ_CHAIN_LANES) {
+    const int nact = (int)std::min<int64_t>(QZ_CHAIN_LANES, G - g0);
+    const int words = nact << seg_lg;
+    for (int32_t& w : sm) w = (int32_t)0xA5A5A5A5u;
+    for (int lane = 0; lane < QZ_CHAIN_LANES; ++lane)
+      qz_chain_stage(f + (g0 << seg_lg), sm.data(), words, seg_lg, lane);
+    for (int lane = 0; lane < nact; ++lane)
+      qz_chain_exits(sm.data() + lane * (seg + 1),
+                     (int)((g0 + lane) % nseg) << seg_lg, seg);
+    for (int lane = 0; lane < QZ_CHAIN_LANES; ++lane)
+      qz_chain_unstage(sm.data(), out + (g0 << seg_lg), words, seg_lg, lane);
+  }
+  for (int row = 0; row < rows; ++row)
+    qz_chain_entries(out + (int64_t)row * n, ent + (int64_t)row * nseg, n,
+                     seg);
+  for (int64_t g0 = 0; g0 < G; g0 += QZ_CHAIN_LANES) {
+    const int nact = (int)std::min<int64_t>(QZ_CHAIN_LANES, G - g0);
+    int32_t p[QZ_CHAIN_LANES];
+    for (int lane = 0; lane < nact; ++lane) p[lane] = ent[g0 + lane];
+    for (int k0 = 0; k0 < seg; k0 += QZ_CHAIN_LANES) {
+      for (int32_t& w : tile) w = (int32_t)0xA5A5A5A5u;
+      for (int lane = 0; lane < nact; ++lane) {
+        const int64_t g = g0 + lane;
+        p[lane] = qz_chain_walk32(f + (g / nseg) * n, p[lane],
+                                  (int)(g % nseg + 1) << seg_lg,
+                                  tile.data() + lane * QZ_CHAIN_TILE);
+      }
+      for (int lane = 0; lane < QZ_CHAIN_LANES; ++lane)
+        qz_chain_flush(tile.data(), out, g0, nact, seg, k0, lane);
+    }
+  }
+}
+
+// The launch of csrc/checksum.cu run serially, a row's CTA at a time: its
+// threads build the CRC tables table by table (as between the kernel's
+// barriers), then each thread computes its share, and the shares combine
+// in thread order.  out int64 [rows].
+extern "C" void shim_checksum(const uint8_t* data, int64_t stride,
+                              const int32_t* len, const uint32_t* zadv,
+                              int64_t* out, int rows, int n, int kind) {
+  const QzCkArgs a = {data, stride, len, zadv, out, rows, n, kind};
+  std::vector<uint32_t> tab(QZ_CK_TAB, 0xA5A5A5A5u);
+  for (int row = 0; row < rows; ++row) {
+    const int L = qz_ck_len(a, row);
+    const uint8_t* p = data + row * stride;
+    if (kind == 0) {
+      for (int k = 0; k < 4; ++k)
+        for (int t = 0; t < 256; ++t)
+          tab[256 * k + t] = qz_crc_tab_entry(tab.data(), k, (uint32_t)t);
+      uint32_t raw = 0;
+      for (int t = 0; t < QZ_CK_THREADS; ++t)
+        raw ^= qz_crc_part(tab.data(), zadv, p, L, t);
+      out[row] = qz_crc_finish(zadv, raw, L);
+    } else {
+      uint32_t s1 = 0, s2 = 0;
+      for (int t = 0; t < QZ_CK_THREADS; ++t) {
+        uint32_t v1, v2;
+        qz_adler_part(p, L, t, &v1, &v2);
+        s1 += v1;
+        s2 += v2;
+      }
+      out[row] = qz_adler_finish(s1, s2, L);
+    }
+  }
+}
 """
 
 
@@ -586,6 +672,9 @@ def shim(tmp_path_factory):
         ctypes.c_void_p]
     so.shim_bitonic.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
         ctypes.c_uint32] * 4
+    so.shim_chain.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    so.shim_checksum.argtypes = [ctypes.c_void_p, ctypes.c_int64] + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     return so
 
 
@@ -1355,3 +1444,116 @@ def test_lz4_header_ring_edges(shim, lz4s):
                           "MAX_OUT"]] == LD.MAX_OUT
         assert got[1][row["window wrapped"]] > 65536 + 50000
     assert stats[3] > 100000
+
+
+# ------------------------------------------------------------ chain walk
+def _shim_chain(shim, f: np.ndarray, seg: int) -> np.ndarray:
+    """csrc/chain.cu's three launches through the shim: int32 [B, nseg,
+    seg]."""
+    f = np.ascontiguousarray(f, np.int32)
+    B, n = f.shape
+    out = np.empty((B, n), np.int32)
+    ent = np.empty((B, n // seg), np.int32)
+    shim.shim_chain(_ptr(f), _ptr(out), _ptr(ent), B, n, seg)
+    return out.reshape(B, n // seg, seg)
+
+
+@pytest.fixture(scope="module")
+def chain_cases():
+    from tests.test_torch_chain import maps
+
+    return maps()
+
+
+@pytest.mark.parametrize("k", range(9))
+def test_chain_header_matches_torch_reference(shim, chain_cases, k):
+    """The kernel's three phases, run serially, equal chain_walk_ref on
+    random maps, steps of 1 (the backward pass against the doubling), maps
+    that jump to n, and the engines' maps (a K1 batch, a spec round)."""
+    label, f, seg = chain_cases[k]
+    want = CH.chain_walk_ref(torch.from_numpy(f), seg).numpy()
+    assert (_shim_chain(shim, f, seg) == want).all(), label
+
+
+@pytest.mark.parametrize("B,n,seg", [(1, 32, 32), (33, 64, 32),
+                                     (5, 8192, 512), (2, 1024, 1024)])
+def test_chain_header_partial_warps_and_widths(shim, B, n, seg):
+    """Segment counts that leave a warp partly idle (1, 66, 80 segments),
+    a row of one segment and the widest segment the kernel takes."""
+    rng = np.random.default_rng(B * n + seg)
+    pos = np.arange(n)[None, :]
+    f = np.minimum(pos + rng.integers(1, 2 * seg, (B, n)), n).astype(
+        np.int32)
+    want = CH.chain_walk_ref(torch.from_numpy(f), seg).numpy()
+    assert (_shim_chain(shim, f, seg) == want).all()
+
+
+# ------------------------------------------------------------- checksums
+def _zadv() -> np.ndarray:
+    return np.ascontiguousarray(CK._host_tables()["zadv"], np.uint32)
+
+
+def _shim_checksum(shim, data: np.ndarray, lens, n: int,
+                   kind: str) -> list:
+    """csrc/checksum.cu's launch through the shim, rows of data at its
+    row stride."""
+    data = np.ascontiguousarray(data, np.uint8)
+    lens = np.ascontiguousarray(lens, np.int32)
+    out = np.zeros(len(lens), np.int64)
+    shim.shim_checksum(_ptr(data), data.shape[1], _ptr(lens), _ptr(_zadv()),
+                       _ptr(out), len(lens), n, int(kind == "adler32"))
+    return [int(v) for v in out]
+
+
+def _rows(lengths, width: int, seed: int, fill=None) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (len(lengths), width), dtype=np.uint8)
+    if fill is not None:
+        data[:] = fill
+    return data
+
+
+_SWEEP = list(range(0, 65)) + [120, 121, 126, 127, 128, 129, 255, 256, 257,
+                               511, 512, 513, 1000, 1023, 1024]
+
+
+@pytest.mark.parametrize("kind", ["crc32", "adler32"])
+@pytest.mark.parametrize("n,width,lengths", [
+    (1024, 1024, _SWEEP), (1024, 1027, _SWEEP),
+    (65536, 65544, [0, 1, 3, 4, 1023, 1024, 1025, 65535, 65536, 40000,
+                    255 * 256 + 1, 255 * 256 - 1, 3077])])
+def test_checksum_header_length_sweep(shim, kind, n, width, lengths):
+    """Every length of test_checksum_length_sweep and lengths around a
+    thread's slice at 64 KB, rows wider than n (the encoder's staging) and
+    rows 1027 bytes apart (not 8-byte aligned: read a byte a load): equal
+    to zlib and to the plain version."""
+    data = _rows(lengths, width, 21)
+    got = _shim_checksum(shim, data, lengths, n, kind)
+    want = [getattr(zlib, kind)(data[i, :k].tobytes())
+            for i, k in enumerate(lengths)]
+    assert got == want
+    plain = getattr(CK, f"{kind}_blocks_ref")(
+        torch.from_numpy(data), torch.tensor(lengths, dtype=torch.int32), n)
+    assert got == plain.tolist()
+
+
+@pytest.mark.parametrize("kind", ["crc32", "adler32"])
+@pytest.mark.parametrize("fill", [0xFF, 0x00])
+def test_checksum_header_runs_at_full_length(shim, kind, fill):
+    """Rows of 0xFF and of zeros at full length: 64 KB (the engines'
+    chunks) against zlib and the plain version, and 2 MB, where each
+    thread's slice passes zlib's 5552-byte reduction bound, against zlib."""
+    n = 65536
+    lengths = [n, n - 1, n // 2, 1]
+    data = _rows(lengths, n, 0, fill)
+    want = [getattr(zlib, kind)(data[i, :k].tobytes())
+            for i, k in enumerate(lengths)]
+    assert _shim_checksum(shim, data, lengths, n, kind) == want
+    plain = getattr(CK, f"{kind}_blocks_ref")(
+        torch.from_numpy(data), torch.tensor(lengths, dtype=torch.int32), n)
+    assert plain.tolist() == want
+    big = 1 << 21
+    row = np.full((1, big), fill, np.uint8)
+    for k in (big, big - 3):
+        assert _shim_checksum(shim, row, [k], big, kind) == [
+            getattr(zlib, kind)(row[0, :k].tobytes())]

@@ -1,8 +1,9 @@
 """The kernels' host logic under AddressSanitizer and UBSan.
 
-``csrc/inflate_step.cuh``, ``csrc/select.cuh`` and ``csrc/lz4_block.cuh``
-(with the rest of the host shim of ``tests/test_torch_csrc_host.py``, which
-runs their launches serially) are built by g++ with ``-fsanitize=address,undefined
+``csrc/inflate_step.cuh``, ``csrc/select.cuh``, ``csrc/lz4_block.cuh``,
+``csrc/chain.cuh`` and ``csrc/checksum.cuh`` (with the rest of the host
+shim of ``tests/test_torch_csrc_host.py``, which runs their launches
+serially) are built by g++ with ``-fsanitize=address,undefined
 -fno-sanitize-recover=all`` into a small executable.  It reads rounds from
 a file the test writes, each array of a round in an allocation of its own
 size, so that a read past a lane's stream words, its table regions, the
@@ -16,7 +17,8 @@ blocks, fuzzed the same way, and the cases at the LZ4 kernel's
 shared-memory edges (the match window's wrap, offsets 1 and 65535 across
 it, blocks ending at an input refill's boundary), one a round in a row of
 exactly its length, its input and window reads checked by the shim's
-hooks.
+hooks; the chain walk on every kind of map of tests/test_torch_chain.py,
+and the checksums on rows in allocations of exactly their length.
 This is the memory-safety check the card's machine cannot give (no
 compute-sanitizer there).
 """
@@ -31,6 +33,8 @@ import pytest
 import torch
 
 from qatzip_tpu_torch.ops import _build
+from qatzip_tpu_torch.ops import chain as CH
+from qatzip_tpu_torch.ops import checksums as CK
 from qatzip_tpu_torch.ops import deflate_decode as dd
 from qatzip_tpu_torch.ops import inflate as PI
 from qatzip_tpu_torch.ops import lz4_decode as LD
@@ -50,9 +54,10 @@ _MAIN = r"""
 
 // Rounds from argv[1], outputs to argv[2].  A round starts with 8 int32:
 // kind 0 (inflate: lanes, nw, max_steps), kind 1 (select: B, n, n_full,
-// depth, to_pos, vec) or kind 2 (LZ4: one row of n bytes, outcap, lz4s,
-// base, len), then its arrays; every array is read into a vector of its
-// exact size.
+// depth, to_pos, vec), kind 2 (LZ4: one row of n bytes, outcap, lz4s,
+// base, len), kind 3 (chain walk: rows, n, seg) or kind 4 (checksum: one
+// row of len bytes, n, kind), then its arrays; every array is read into a
+// vector of its exact size.
 template <class T>
 static std::vector<T> take(FILE* f, size_t n) {
   std::vector<T> v(n);
@@ -92,6 +97,22 @@ int main(int argc, char** argv) {
                            end_bit.data());
       put(out, ns); put(out, tokens); put(out, err); put(out, outcnt);
       put(out, end_bit);
+    } else if (h[0] == 3) {
+      const size_t rows = h[1], n = h[2], seg = h[3];
+      auto f = take<int32_t>(in, rows * n);
+      std::vector<int32_t> o(rows * n), ent(rows * (n / seg));
+      shim_chain(f.data(), o.data(), ent.data(), (int)rows, (int)n,
+                 (int)seg);
+      put(out, o);
+    } else if (h[0] == 4) {
+      const size_t len = h[2];
+      auto row = take<uint8_t>(in, len);
+      auto zadv = take<uint32_t>(in, QZ_CK_ZADV * 32);
+      std::vector<int32_t> lens(1, (int32_t)len);
+      std::vector<int64_t> o(1);
+      shim_checksum(row.data(), (int64_t)len, lens.data(), zadv.data(),
+                    o.data(), 1, h[1], h[3]);
+      put(out, o);
     } else if (h[0] == 2) {
       const size_t n = h[1], outcap = h[2];
       auto row = take<uint8_t>(in, n);
@@ -455,3 +476,76 @@ def test_lz4_ring_edges_one_a_round(sanitized, tmp_path, lz4s):
         if not g[2][0]:
             assert g[0][0, :g[1][0]].tobytes() == LC.host_decode(
                 blk, lz4s, 2, LD.MAX_OUT), r
+
+
+def _chain_rounds(cases):
+    return [([3, f.shape[0], f.shape[1], seg], [np.ascontiguousarray(
+        f, np.int32)]) for _, f, seg in cases]
+
+
+def _read_chain(buf, rounds) -> list:
+    off, got = 0, []
+    for header, _ in rounds:
+        rows, n = header[1], header[2]
+        got.append(np.frombuffer(buf, np.int32, rows * n, off))
+        off += 4 * rows * n
+    assert off == len(buf)
+    return got
+
+
+def test_chain_walks_of_every_map_kind(sanitized, tmp_path):
+    """The chain shim's three phases on each kind of map of
+    tests/test_torch_chain.py (random, steps of 1, all n, the engines'
+    maps) and on rows of one segment, each map in an allocation of its
+    own: no sanitizer report, equal to chain_walk_ref."""
+    from tests.test_torch_chain import maps, random_map
+
+    cases = maps() + [("one segment", random_map(3, 512, 4, most=600), 512),
+                      ("33 rows", random_map(33, 64, 5, most=70), 32)]
+    rounds = _chain_rounds(cases)
+    got = _read_chain(_run(sanitized, tmp_path, rounds), rounds)
+    for (label, f, seg), g in zip(cases, got):
+        want = CH.chain_walk_ref(torch.from_numpy(f), seg).numpy()
+        assert (g == want.reshape(-1)).all(), label
+
+
+def test_a_read_past_the_map_is_reported(sanitized, tmp_path):
+    """The check itself: the shim built from a copy of chain.cuh whose
+    walk also follows f at the segment's end reads f[n] past the last
+    row's map (a map that jumps to n at once) and is reported; the
+    kernel's own header runs it clean."""
+    from tests.test_torch_chain import all_n_map
+
+    good = pathlib.Path(_build.CSRC, "chain.cuh").read_text()
+    bound = "if (p < hi) p = f[p < 0 ? 0 : p];"
+    assert good.count(bound) == 1
+    d = tmp_path / "mutant"
+    d.mkdir()
+    (d / "chain.cuh").write_text(
+        good.replace(bound, "if (p <= hi) p = f[p < 0 ? 0 : p];"))
+    exe = _compile(d)
+    rounds = _chain_rounds([("all n", all_n_map(1, 256), 256)])
+    with pytest.raises(AssertionError, match="heap-buffer-overflow"):
+        _run(exe, tmp_path, rounds)
+    _run(sanitized, tmp_path, rounds)
+
+
+@pytest.mark.parametrize("kind", ["crc32", "adler32"])
+def test_checksum_rows_of_exactly_their_length(sanitized, tmp_path, kind):
+    """The checksum shim on rows in allocations of exactly their length
+    (the length sweep, 64 KB and 2 MB rows of 0xFF and of zeros, a row of
+    a 2 MB buffer's first 65537 bytes): no sanitizer report, equal to
+    zlib."""
+    rng = np.random.default_rng(31)
+    rows = [rng.integers(0, 256, k, dtype=np.uint8)
+            for k in list(range(0, 70)) + [255, 256, 257, 1023, 1024, 1025,
+                                           4097, 65535, 65536]]
+    rows += [np.full(k, v, np.uint8) for k in (65536, 1 << 21)
+             for v in (0xFF, 0)]
+    rows.append(np.full(65537, 0xFF, np.uint8))
+    zadv = np.ascontiguousarray(CK._host_tables()["zadv"], np.uint32)
+    rounds = [([4, max(len(r), 1 << 21), len(r), int(kind == "adler32")],
+               [r, zadv]) for r in rows]
+    buf = _run(sanitized, tmp_path, rounds)
+    got = np.frombuffer(buf, np.int64).tolist()
+    assert got == [getattr(zlib, kind)(r.tobytes()) for r in rows]

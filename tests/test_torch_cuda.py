@@ -7,6 +7,7 @@ from the repository root with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import os
 import random
 import zlib
 
@@ -559,6 +560,11 @@ def test_device_encoder_on_cuda_equals_cpu(dev, monkeypatch, algo):
     out = {d.type: codec.compress_chunks(chunks, params, d)
            for d in (torch.device("cpu"), dev)}
     assert out["cuda"] == out["cpu"]
+    # the card's pass went through the chain-walk kernel (and, for
+    # deflate, the checksum kernel): one launch each for the batch
+    assert _parity_launches(lambda: codec.compress_chunks(
+        chunks, params, dev)) == {"chain_walk": 1,
+                                  "checksums": int(algo == "deflate")}
     if algo == "deflate":
         for c, r in zip(chunks, out["cuda"]):
             assert zlib.decompressobj(-15).decompress(r.payload) == c
@@ -580,6 +586,185 @@ def test_spec_decoder_on_cuda_equals_cpu(dev, monkeypatch):
         assert got == dd.inflate_batch(payloads, hints, torch.device("cpu"),
                                        kind=kind)
         assert [g[0] for g in got] == datas
+    # the card's rounds went through the chain-walk and checksum kernels
+    rounds = _spec_rounds(monkeypatch)
+    n = _parity_launches(lambda: dd.inflate_batch(payloads, hints, dev,
+                                                  kind="crc32"))
+    assert rounds and n == {"chain_walk": len(rounds),
+                            "checksums": len(rounds)}
+
+
+def _parity_launches(fn) -> dict:
+    """The chain-walk and checksum kernels' launches while fn runs."""
+    from qatzip_tpu_torch.ops import chain as CH
+    from qatzip_tpu_torch.ops import checksums as ck
+
+    n0 = CH.KERNEL.launches, ck.KERNEL.launches
+    fn()
+    torch.cuda.synchronize()
+    return {"chain_walk": CH.KERNEL.launches - n0[0],
+            "checksums": ck.KERNEL.launches - n0[1]}
+
+
+def _spec_rounds(monkeypatch) -> list:
+    """A list that gets an entry for each speculative round from now on."""
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+
+    rounds = []
+    real = dd._run_device_round_spec
+
+    def counted(batch, device):
+        rounds.append(len(batch))
+        return real(batch, device)
+
+    monkeypatch.setattr(dd, "_run_device_round_spec", counted)
+    return rounds
+
+
+def _captured_maps(fn) -> list:
+    """The (map, seg) pairs fn hands to chain.chain_walk."""
+    from qatzip_tpu_torch.ops import chain as CH
+
+    maps = []
+    real = CH.chain_walk
+
+    def record(f, seg):
+        maps.append((f.clone(), seg))
+        return real(f, seg)
+
+    CH.chain_walk = record
+    try:
+        fn()
+    finally:
+        CH.chain_walk = real
+    return maps
+
+
+def _engine_map(dev, which: str):
+    """A map the engine builds on the card at its real shape: the device
+    encoder's batch of 128 chunks of 64 KB ([128, 65536], seg 256), or a
+    speculative round of 8 zlib-L1 streams of 64 KB ([8, 2^19], seg
+    512)."""
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+    from qatzip_tpu_torch.ops import deflate_encode as de
+
+    n = 65536
+    if which == "encoder":
+        blob = np.frombuffer(_text(128 * n, 31), np.uint8).reshape(128, n)
+        data = torch.zeros((128, n + 8), dtype=torch.uint8, device=dev)
+        data[:, :n] = torch.from_numpy(blob.copy()).to(dev)
+        lens = torch.full((128,), n, dtype=torch.int32, device=dev)
+        maps = _captured_maps(lambda: de.analyze_blocks(data, lens, 8, 16))
+    else:
+        payloads = []
+        for s in range(8):
+            co = zlib.compressobj(1, zlib.DEFLATED, -15)
+            payloads.append(co.compress(_text(n, 40 + s)) + co.flush())
+        os.environ["QATZIP_TPU_INFLATE"] = "spec"
+        try:
+            maps = _captured_maps(lambda: dd.inflate_batch(
+                payloads, [n] * 8, dev, kind="crc32"))
+        finally:
+            os.environ.pop("QATZIP_TPU_INFLATE", None)
+    return maps[0]
+
+
+@pytest.mark.parametrize("case", ["encoder", "decoder", "steps of 1",
+                                  "all n", "random", "partial warp"])
+def test_chain_kernel_equals_plain(dev, case):
+    """The chain-walk kernel against chain_walk_ref on the same map on the
+    card: the engines' own maps at their shapes, steps of 1 and jumps to n
+    at both, random steps, and 5 rows of 20 segments (a warp partly
+    idle)."""
+    from qatzip_tpu_torch.ops import chain as CH
+
+    shapes = {"steps of 1": (8, 1 << 19, 512), "all n": (128, 65536, 256),
+              "random": (128, 65536, 256), "partial warp": (5, 5120, 256)}
+    if case in ("encoder", "decoder"):
+        f, seg = _engine_map(dev, case)
+    else:
+        B, n, seg = shapes[case]
+        pos = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+        if case == "steps of 1":
+            f = (pos + 1).expand(B, n).contiguous()
+        elif case == "all n":
+            f = torch.full((B, n), n, dtype=torch.int32, device=dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(7)
+            step = torch.randint(1, 300, (B, n), generator=g, device=dev,
+                                 dtype=torch.int32)
+            f = torch.clamp(pos + step, max=n)
+    n0 = CH.KERNEL.launches
+    got = CH.chain_walk(f, seg)
+    assert CH.KERNEL.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, CH.chain_walk_ref(f, seg))
+
+
+def test_checksum_kernel_equals_plain(dev):
+    """The checksum kernel against the plain versions and zlib on the
+    card: a ragged [128, 65536] batch in rows 8 bytes wider than n (the
+    encoder's staging), the length sweep at n 1024, rows of 0xFF at full
+    length, and rows 1027 bytes apart (not 8-byte aligned, read a byte a
+    load); one launch a call."""
+    from qatzip_tpu_torch.ops import checksums as ck
+
+    rng = np.random.default_rng(5)
+    n = 65536
+    lens = [0, 1, 3, 4, 255, 256, 257, 1023, 1024, 1025, n - 1, n] + list(
+        rng.integers(0, n + 1, 116))
+    cases = [(rng.integers(0, 256, (128, n + 8), dtype=np.uint8), lens, n),
+             (rng.integers(0, 256, (80, 1024), dtype=np.uint8),
+              list(range(65)) + [127, 128, 129, 255, 256, 257, 511, 512, 513,
+                                 777, 1000, 1022, 1023, 1024, 3], 1024),
+             (np.full((4, n), 0xFF, np.uint8), [n, n - 1, n // 2, 7], n),
+             (rng.integers(0, 256, (41, 1027), dtype=np.uint8),
+              list(range(0, 1025, 27)) + [1024, 1023, 1], 1024)]
+    for host, ln, n in cases:
+        data = torch.from_numpy(host).to(dev)
+        lt = torch.tensor(ln, dtype=torch.int32, device=dev)
+        for kind in ("crc32", "adler32"):
+            fn = getattr(ck, f"{kind}_blocks")
+            n0 = ck.KERNEL.launches
+            got = fn(data, lt, n)
+            assert ck.KERNEL.launches == n0 + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, getattr(ck, f"{kind}_blocks_ref")(
+                data, lt, n))
+            assert got.cpu().tolist() == [
+                getattr(zlib, kind)(host[i, :k].tobytes())
+                for i, k in enumerate(ln)]
+
+
+def test_parity_engines_never_run_the_plain_versions_on_cuda(dev,
+                                                             monkeypatch):
+    """With the chain walk's and the checksums' plain versions made to
+    raise, the device encoder and the speculative decoder still run on
+    the card: a CUDA tensor never reaches a plain version."""
+    from qatzip_tpu_torch.ops import chain as CH
+    from qatzip_tpu_torch.ops import checksums as ck
+    from qatzip_tpu_torch.ops import deflate_decode as dd
+    from qatzip_tpu_torch.ops import device_codecs as dc
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran")
+
+    for mod, name in ((CH, "chain_walk_ref"), (ck, "crc32_blocks_ref"),
+                      (ck, "adler32_blocks_ref")):
+        monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setenv("QATZIP_TPU_ENCODER", "device")
+    monkeypatch.setenv("QATZIP_TPU_INFLATE", "spec")
+    data = _text(4 * 16384, 13)
+    chunks = [data[i:i + 16384] for i in range(0, len(data), 16384)]
+    out = dc.DeflateDeviceCodec().compress_chunks(chunks, _internal(
+        "deflate"), dev)
+    assert [r.checksum for r in out] == [zlib.crc32(c) for c in chunks]
+    payloads = [r.payload for r in out]
+    for kind in ("crc32", "adler32"):
+        got = dd.inflate_batch(payloads, [16384] * 4, dev, kind=kind)
+        assert [g[0] for g in got] == chunks
+        assert [g[2] for g in got] == [getattr(zlib, kind)(c)
+                                       for c in chunks]
 
 
 def test_device_checksums_on_cuda(dev):

@@ -31,6 +31,7 @@ from qatzip_tpu.ops import deflate_tables as RT
 from qatzip_tpu_torch.engine import core
 from qatzip_tpu_torch.engine.health import health
 from qatzip_tpu_torch.ops import checksums as ck
+from qatzip_tpu_torch.ops._build import KernelError
 from qatzip_tpu_torch.ops import codes
 from qatzip_tpu_torch.ops import deflate_decode as dd
 from qatzip_tpu_torch.ops import deflate_encode as de
@@ -147,6 +148,40 @@ def test_checksum_length_sweep():
     assert (got_a == np.asarray(rck.adler32_blocks(data, lens, N))).all()
     assert [int(g) for g in got_c] == [zlib.crc32(b) for b in blobs]
     assert [int(g) for g in got_a] == [zlib.adler32(b) for b in blobs]
+
+
+@pytest.mark.parametrize("fn,n", [(ck.crc32_blocks, 1000),
+                                  (ck.crc32_blocks, 2),
+                                  (ck.adler32_blocks, 1000),
+                                  (ck.adler32_blocks, 64),
+                                  (ck.crc32_blocks, 1 << 26)])
+def test_checksums_refuse_shapes_the_plain_versions_do_not_take(fn, n):
+    """CRC32 takes n // 4 a power of 2, Adler-32 n a multiple of 128, both
+    below 2^25: other n raise ValueError on every device, before any
+    version runs; so do data narrower than n and lengths of another
+    shape."""
+    data = torch.zeros((2, max(n, 8)), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        fn(data, torch.zeros(2, dtype=torch.int32), n)
+    with pytest.raises(ValueError):
+        fn(data[:, :4], torch.zeros(2, dtype=torch.int32), N)
+    with pytest.raises(ValueError):
+        fn(torch.zeros((2, N), dtype=torch.uint8),
+           torch.zeros(3, dtype=torch.int32), N)
+
+
+@pytest.mark.parametrize("fn", [ck.crc32_blocks, ck.adler32_blocks])
+def test_checksums_raise_for_a_device_without_the_kernel(fn):
+    """No quiet fallback: a tensor off the CPU that is not a CUDA tensor
+    raises, and the plain version runs only for CPU tensors."""
+    data = torch.zeros((2, N), dtype=torch.uint8, device="meta")
+    lens = torch.zeros(2, dtype=torch.int32, device="meta")
+    n0 = ck.KERNEL.launches
+    with pytest.raises(KernelError, match="no checksum kernel"):
+        fn(data, lens, N)
+    fn(torch.zeros((2, N), dtype=torch.uint8),
+       torch.zeros(2, dtype=torch.int32), N)
+    assert ck.KERNEL.launches == n0
 
 
 # --------------------------------------------------------- device encoder
