@@ -90,12 +90,16 @@ Run from the repository root:  python3 chip_smoke.py
    checksum kernel once a gzip-ext batch); the speculative decoder
    (QATZIP_TPU_INFLATE=spec) on the 32 MB gzip-ext stream (exact, its
    device CRC32s equal zlib's, both kernels launched once a round); the
-   device checksums on a [128, 65536] batch of ragged lengths against
-   zlib and their plain versions; the chain-walk kernel against its plain
+   device checksums on a [128, 65536] batch of ragged lengths and on a
+   spec round's [8, 65536] against zlib and their plain versions, with
+   int32 and int64 lengths; the chain-walk kernel against its plain
    version on the maps the encoder and the decoder build from the
-   corpus's first chunks and on maps of steps of 1 at both shapes, timed
-   beside its bytes and latency bounds (phase B's load time probed on a
-   [1, 2^22] map); the device profile of each engine's 32 MB pass
+   corpus's first chunks (its cluster path) and on maps of steps of 1 at
+   [128, 65536], [8, 2^18], [8, 2^19] (the cluster path) and [8, 2^20] (the
+   three-launch row path), timed by phase beside its bytes and latency
+   bounds (the row path's phase-B load time probed on a [1, 2^22] map; the
+   dependent shared-memory load in a CTA's own and in its cluster
+   sibling's memory by qz_chain_probe); the device profile of each engine's 32 MB pass
    (``parity profile`` lines); block-DP over [cuda:0]
    (compress_blocks_sharded equal to encode_blocks, graft_entry.entry()
    launching the select kernel, graft_entry.dryrun_multichip(1),
@@ -1372,15 +1376,42 @@ def _chain_maps(fn) -> list:
     return maps
 
 
+def _smem_load_ns(torch, dev, gpu: str) -> dict:
+    """The dependent shared-memory load alone (chain.probe_clocks): in the
+    CTA's own memory (the cluster path's phases) and in its cluster
+    sibling's (distributed shared memory), clocks a load from clock64 and
+    ns a load from the slope of two chases timed with CUDA events."""
+    from qatzip_tpu_torch.ops import chain as CH
+
+    out = {}
+    for where, remote in (("local", False), ("remote", True)):
+        clocks = CH.probe_clocks(remote, 1 << 16, dev) / (1 << 16)
+        buf = torch.zeros(2, dtype=torch.int64, device=dev)
+        ms = {steps: _graph_ms(lambda steps=steps: CH.PROBE(
+            buf.data_ptr(), int(remote), steps,
+            torch.cuda.current_stream(dev).cuda_stream), 3)
+            for steps in (1 << 12, 1 << 16)}
+        ns = (ms[1 << 16] - ms[1 << 12]) * 1e6 / ((1 << 16) - (1 << 12))
+        out[where] = {"clocks": clocks, "ns": ns}
+        print(f"chain walk dependent shared-memory load, {where}: "
+              f"{clocks:.2f} clocks, {ns:.3f} ns ({gpu})")
+    return out
+
+
 def _parity_chain(torch, dev, captured: list, gpu: str) -> dict:
     """The chain-walk kernel against chain_walk_ref on the card: the maps
     the device encoder ([128, 65536], seg 256) and the speculative decoder
-    ([8, 2^19], seg 512) build from the corpus's first chunks, and maps of
-    steps of 1 at both shapes; each timed with CUDA events beside the plain
-    version, its bytes bound and its latency bound (phase B's nseg
-    dependent loads a row, at the load time probed here on a [1, 2^22] map
-    of steps of 1 in segments of 32, where phase B is 131072 loads and the
-    other phases are negligible).  Returns the kernel's record."""
+    ([8, 2^18], seg 512) build from the corpus's first chunks, and maps of
+    steps of 1 at [128, 65536], [8, 2^18], [8, 2^19] (the cluster path, one
+    launch) and [8, 2^20] (the row path, three); each timed with CUDA events
+    beside the plain version, by phase, with its bytes bound and the
+    latency bound of its path: on the cluster path the dependent
+    shared-memory loads of a row's longest chain (a part of a segment in
+    phase A, the share's entries in B, a segment's walk in C) at the load
+    time probed here, a wave of clusters at a time; on the row path phase
+    B's nseg dependent loads a row through L2, at the load time probed on
+    a [1, 2^22] map of steps of 1 in segments of 32 (131072 loads, the
+    other phases negligible).  Returns the kernel's record."""
     import qatzip_tpu_torch as qt
     from qatzip_tpu_torch.ops import chain as CH
     from qatzip_tpu_torch.ops import deflate_decode as dd
@@ -1405,17 +1436,24 @@ def _parity_chain(torch, dev, captured: list, gpu: str) -> dict:
                 .expand(B, n).contiguous())
 
     probe = steps1(1, CHAIN_PROBE)
+    _check(CH.check_kernel_limits(CHAIN_PROBE, 32) == "rows",
+           "the [1, 2^22] probe left the row path")
     probe_ms = _graph_ms(lambda: CH.chain_walk(probe, 32), 5)
     load_ns = probe_ms * 1e6 / (CHAIN_PROBE // 32)
-    print(f"chain walk phase B dependent load: {load_ns:.2f} ns (a [1, "
-          f"{CHAIN_PROBE}] map of steps of 1 in segments of 32, "
+    print(f"chain walk row path phase B dependent load: {load_ns:.2f} ns (a "
+          f"[1, {CHAIN_PROBE}] map of steps of 1 in segments of 32, "
           f"{CHAIN_PROBE // 32} loads, {probe_ms:.4f} ms; {gpu})")
+    smem = _smem_load_ns(torch, dev, gpu)
     cases = [("encoder map", *enc[0]), ("decoder map", *dec[0]),
              ("steps of 1, encoder shape", steps1(LANES, CHUNK), 256),
-             ("steps of 1, decoder shape", steps1(8, 1 << 19), 512)]
+             ("steps of 1, [8, 2^18]", steps1(8, 1 << 18), 512),
+             ("steps of 1, [8, 2^19]", steps1(8, 1 << 19), 512),
+             ("steps of 1, [8, 2^20]", steps1(8, 1 << 20), 512)]
     shapes = {}
     for label, f, seg in cases:
         B, n = f.shape
+        path = CH.check_kernel_limits(n, seg)
+        info = CH.launch_info(n, seg)
         got = CH.chain_walk(f, seg)
         want = CH.chain_walk_ref(f, seg)
         torch.cuda.synchronize()
@@ -1441,21 +1479,32 @@ def _parity_chain(torch, dev, captured: list, gpu: str) -> dict:
         # phase A a compare and a select a position, phase C a compare and
         # a load a step, phase B a compare a segment
         ops_ms = (4 * B * n + B * (n // seg)) / FP32_OPS_S * 1e3
-        lat_ms = (n // seg) * load_ns / 1e6
+        if path == "cluster":
+            waves = -(-B // max(info["active_clusters"], 1))
+            chain = seg // info["parts"] + info["spc"] + seg
+            lat_ms = waves * chain * smem["local"]["ns"] / 1e6
+            lat_what = (f"{waves} wave(s) x {chain} dependent shared-memory "
+                        f"loads x {smem['local']['ns']:.3f} ns")
+        else:
+            lat_ms = (n // seg) * load_ns / 1e6
+            lat_what = f"{n // seg} loads x {load_ns:.2f} ns"
         shapes[label] = {
-            "shape": [B, n], "seg": seg, "max_abs_err": err, "ms": ms,
-            "wrapper_ms": wrapper_ms, "phase_ms": phase_ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "shape": [B, n], "seg": seg, "path": path, "launch": info,
+            "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+            "phase_ms": phase_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "latency_bound_ms": lat_ms}
-        print(f"chain walk {label} {(B, n)} seg {seg}: equal; kernel "
-              f"{ms:.4f} ms (3 launches from a CUDA graph; phases "
+        launches = "1 launch" if path == "cluster" else "3 launches"
+        print(f"chain walk {label} {(B, n)} seg {seg}, {path} path "
+              f"({info['c']} CTAs a cluster, {info['spc']} segments a CTA, "
+              f"{info['active_clusters']} clusters at once): equal; kernel "
+              f"{ms:.4f} ms ({launches} from a CUDA graph; phases "
               + ", ".join(f"{k} {v:.4f}" for k, v in phase_ms.items())
               + f"), through the wrapper {wrapper_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.6f} ms "
               f"(bytes {bytes_ms:.6f}, operations {ops_ms:.6f}); latency "
-              f"bound {lat_ms:.4f} ms ({n // seg} loads x {load_ns:.2f} ns) "
-              f"({gpu})")
+              f"bound {lat_ms:.4f} ms ({lat_what}) ({gpu})")
     main = shapes["encoder map"]
     return {"name": "chain_walk", "route": "cuda",
             "source": "qatzip_tpu_torch/csrc/chain.cu",
@@ -1466,56 +1515,75 @@ def _parity_chain(torch, dev, captured: list, gpu: str) -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "latency_bound_ms": main["latency_bound_ms"],
-            "phase_b_load_ns": load_ns, "shapes": shapes}
+            "row_path_load_ns": load_ns, "smem_load": smem,
+            "shapes": shapes}
 
 
 def _parity_checksums(torch, data, lt, host, lens: list, gpu: str) -> dict:
-    """The checksum kernel against the plain versions on step 7's ragged
-    [128, 65536] batch (its rows 8 bytes wider than a chunk, as the
-    encoder stages them), timed with CUDA events beside its bound (the
-    rows' bytes read once).  Returns the kernel's record."""
+    """The checksum kernel against the plain versions and zlib on step 7's
+    ragged [128, 65536] batch (its rows 8 bytes wider than a chunk, as the
+    encoder stages them) and on a spec round's 8 full rows of 64 KB, with
+    int32 and int64 lengths (one launch a call either way), timed with
+    CUDA events beside its bound (the rows' bytes read once).  Returns the
+    kernel's record."""
     from qatzip_tpu_torch.ops import checksums as cks
     from qatzip_tpu_torch.tools.h100 import FP32_OPS_S, HBM_BYTES_S
 
-    nbytes = sum(lens)
-    kinds = {}
-    for kind in ("crc32", "adler32"):
-        fn = getattr(cks, f"{kind}_blocks")
-        ref = getattr(cks, f"{kind}_blocks_ref")
-        got = fn(data, lt, CHUNK)
-        want = ref(data, lt, CHUNK)
-        torch.cuda.synchronize()
-        _check(torch.equal(got, want), f"{kind} kernel != plain")
-        _check(got.cpu().tolist() == [
-            getattr(zlib, kind)(host[i, :n].tobytes())
-            for i, n in enumerate(lens)], f"{kind} kernel != zlib")
-        ms = _graph_ms(lambda: fn(data, lt, CHUNK), 20)
-        wrapper_ms = _time_ms(lambda: fn(data, lt, CHUNK), 20)
-        plain_ms = _time_ms(lambda: ref(data, lt, CHUNK), 5)
-        bytes_ms = nbytes / HBM_BYTES_S * 1e3
-        # a table lookup, a shift and an XOR a byte (CRC32), two adds a
-        # byte (Adler-32)
-        ops_ms = 3 * nbytes / FP32_OPS_S * 1e3
-        kinds[kind] = {
-            "max_abs_err": int((got - want).abs().max()), "ms": ms,
-            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        print(f"checksums {kind} [{LANES}, {CHUNK}], {nbytes} bytes: equal to "
-              f"plain and zlib; kernel {ms:.4f} ms from a CUDA graph "
-              f"({nbytes / ms / 1e6:.4f} GB/s), through the wrapper "
-              f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-              f"{max(bytes_ms, ops_ms):.6f} ms ({gpu})")
-    main = kinds["crc32"]
+    full = data[:8, :CHUNK].contiguous()
+    batches = {f"ragged [{LANES}, {CHUNK}]": (data, lt, host, lens),
+               f"[8, {CHUNK}]": (full, torch.full((8,), CHUNK,
+                                                 dtype=torch.int32,
+                                                 device=data.device),
+                                 full.cpu().numpy(), [CHUNK] * 8)}
+    shapes = {}
+    for label, (d, lengths, h, ln) in batches.items():
+        nbytes = sum(ln)
+        plan = cks.launch_plan(d.shape[0], CHUNK)
+        for kind in ("crc32", "adler32"):
+            fn = getattr(cks, f"{kind}_blocks")
+            ref = getattr(cks, f"{kind}_blocks_ref")
+            want = ref(d, lengths, CHUNK)
+            n0 = cks.KERNEL.launches
+            for dtype in (torch.int32, torch.int64):
+                got = fn(d, lengths.to(dtype), CHUNK)
+                torch.cuda.synchronize()
+                _check(torch.equal(got, want), f"{kind} kernel != plain on "
+                       f"{label} ({dtype})")
+            _check(cks.KERNEL.launches == n0 + 2, f"{kind}: not one launch "
+                   f"a call")
+            _check(got.cpu().tolist() == [
+                getattr(zlib, kind)(h[i, :k].tobytes())
+                for i, k in enumerate(ln)], f"{kind} kernel != zlib")
+            ms = _graph_ms(lambda: fn(d, lengths, CHUNK), 20)
+            wrapper_ms = _time_ms(lambda: fn(d, lengths, CHUNK), 20)
+            plain_ms = _time_ms(lambda: ref(d, lengths, CHUNK), 5)
+            bytes_ms = nbytes / HBM_BYTES_S * 1e3
+            # a table lookup, a shift and an XOR a byte (CRC32), two adds a
+            # byte (Adler-32)
+            ops_ms = 3 * nbytes / FP32_OPS_S * 1e3
+            shapes[f"{kind} {label}"] = {
+                "max_abs_err": int((got - want).abs().max()), "ms": ms,
+                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "plan": plan}
+            print(f"checksums {kind} {label}, {nbytes} bytes ({plan['p']} "
+                  f"CTAs a row, {plan['active_clusters']} clusters at "
+                  f"once): equal to plain and zlib, int32 and int64 "
+                  f"lengths; kernel {ms:.4f} ms from a CUDA graph "
+                  f"({nbytes / ms / 1e6:.4f} GB/s), through the wrapper "
+                  f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+                  f"{max(bytes_ms, ops_ms):.6f} ms ({gpu})")
+    main = shapes[f"crc32 ragged [{LANES}, {CHUNK}]"]
     return {"name": "checksums", "route": "cuda",
             "source": "qatzip_tpu_torch/csrc/checksum.cu",
             "replaces": "qatzip_tpu/ops/checksums.py:91",
             "also_replaces": "qatzip_tpu/ops/checksums.py:139",
             "path": "parity",
-            "max_abs_err": max(v["max_abs_err"] for v in kinds.values()),
+            "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "kinds": kinds}
+            "library_ms": None, "shapes": shapes}
 
 
 def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
@@ -1529,6 +1597,7 @@ def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
     import qatzip_tpu_torch as qt
     from qatzip_tpu_torch import graft_entry
     from qatzip_tpu_torch.engine import core
+    from qatzip_tpu_torch.ops import chain as CH
     from qatzip_tpu_torch.ops import checksums as cks
     from qatzip_tpu_torch.ops import deflate_decode as dd
     from qatzip_tpu_torch.ops import deflate_encode as de
@@ -1619,8 +1688,19 @@ def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
         rounds.append(len(batch))
         return spec_round(batch, device)
 
+    # the chain walk's path a round, by its map's width (the decoder's
+    # rounds are 2^18 or 2^19 positions wide by their longest payload)
+    paths: dict = {}
+    walk = CH.chain_walk
+
+    def note_path(f, seg):
+        key = f"{CH.check_kernel_limits(f.shape[1], seg)} n={f.shape[1]}"
+        paths[key] = paths.get(key, 0) + 1
+        return walk(f, seg)
+
     dc.DeflateDeviceCodec.decompress_chunks = capture_dec
     dd._run_device_round_spec = count_round
+    CH.chain_walk = note_path
     os.environ["QATZIP_TPU_INFLATE"] = "spec"
     try:
         st = _ApiStep(torch, "parity speculative decoder decompress", gpu,
@@ -1628,11 +1708,13 @@ def phase_parity_dist(torch, corpus: bytes, dev, tmpdir: str) -> dict:
         back = qt.decompress(comp, fmt=gz, hw_buff_sz=CHUNK)
         st.done(len(src), {"chain_walk": len(rounds),
                            "checksums": len(rounds)},
-                extra=f"; {len(rounds)} rounds of {max(rounds)} streams")
+                extra=f"; {len(rounds)} rounds of {max(rounds)} streams; "
+                f"chain walk paths {json.dumps(paths, sort_keys=True)}")
     finally:
         os.environ.pop("QATZIP_TPU_INFLATE", None)
         dc.DeflateDeviceCodec.decompress_chunks = dec
         dd._run_device_round_spec = spec_round
+        CH.chain_walk = walk
     _check(back == src, "the speculative decoder's round trip differs")
     _check(records["parity speculative decoder decompress"]["chain_walk"]
            == len(rounds) > 0, "the chain-walk kernel did not launch once "

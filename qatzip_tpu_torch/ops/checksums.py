@@ -22,9 +22,10 @@ length, 0 included.
   torch versions (the tree and the ladder are some hundreds of launches a
   call on the card).
 * :func:`crc32_blocks` and :func:`adler32_blocks` run them for tensors on
-  the CPU, and for CUDA tensors launch ``csrc/checksum.cu`` (a CTA a row,
-  a thread a slice of it, one launch a call) or raise.  Both refuse the
-  shapes the plain versions do not take (:func:`check_shape`).
+  the CPU, and for CUDA tensors launch ``csrc/checksum.cu`` (a cluster of
+  CTAs a row, a slice a thread, one launch a call, int32 or int64
+  lengths as given) or raise.  Both refuse the shapes the plain versions
+  do not take (:func:`check_shape`).
 """
 from __future__ import annotations
 
@@ -37,9 +38,12 @@ import torch
 from qatzip_tpu_torch.ops._build import Kernel, KernelError
 
 KERNEL = Kernel("qz_checksum",
-                [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
-                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                 ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
+PLAN = Kernel("qz_checksum_plan", [ctypes.c_int] * 2 + [ctypes.c_void_p])
 MAX_N = 1 << 25   # the kernel's ladder advances by up to 2^25 - 1 bytes
+TAB_WORDS = 2048  # kernel_tables(): the slice-by-8 tables' words come first
 
 _POLY = 0xEDB88320
 _M32 = 0xFFFFFFFF
@@ -194,12 +198,54 @@ def check_shape(data: torch.Tensor, lengths: torch.Tensor, n: int,
         raise ValueError(f"the checksums take n below {MAX_N}, not {n}")
 
 
+def _unstep(c: int) -> int:
+    """The register before one bit step of the reflected CRC (the step is
+    invertible: the polynomial's top bit says which bit left)."""
+    b = c >> 31
+    return (((c ^ (_POLY if b else 0)) << 1) | b) & _M32
+
+
+@functools.lru_cache(maxsize=1)
+def kernel_tables() -> np.ndarray:
+    """uint32 [2048 + 25 * 32 + 8 * 32]: the kernel's tables
+    (csrc/checksum.cuh): the slice-by-8 tables (table j holds the register
+    after a byte and j zero bytes), the zero-advance matrices' columns, and
+    the columns of the inverse advances over 0-7 zero bytes."""
+    t0 = []
+    for x in range(256):
+        c = x
+        for _ in range(8):
+            c = (c >> 1) ^ (_POLY if c & 1 else 0)
+        t0.append(c)
+    tabs = [t0]
+    for _ in range(7):
+        tabs.append([(v >> 8) ^ t0[v & 0xFF] for v in tabs[-1]])
+    unpad = []
+    for pad in range(8):
+        for b in range(32):
+            c = 1 << b
+            for _ in range(8 * pad):
+                c = _unstep(c)
+            unpad.append(c)
+    return np.concatenate([np.array(tabs, np.uint32).reshape(-1),
+                           _host_tables()["zadv"].reshape(-1),
+                           np.array(unpad, np.uint32)]).astype(np.uint32)
+
+
 @functools.lru_cache(maxsize=None)
-def _zadv(device: torch.device) -> torch.Tensor:
-    """The zero-advance matrices' columns, int32 [25 * 32] u32 bits, on
-    ``device``: the kernel's copy of _host_tables()["zadv"]."""
-    z = _host_tables()["zadv"].reshape(-1)
-    return torch.from_numpy(z.view(np.int32).copy()).to(device)
+def _kernel_tables(device: torch.device) -> torch.Tensor:
+    """kernel_tables() on ``device`` as int32, built once a device."""
+    return torch.from_numpy(kernel_tables().view(np.int32).copy()).to(device)
+
+
+def launch_plan(rows: int, n: int) -> dict:
+    """The card's launch shape for rows of up to n bytes
+    (qz_checksum_plan): CTAs a row (a cluster), log2 of a thread's slice
+    and of the bytes the slices span, the clusters the card holds at
+    once."""
+    info = (ctypes.c_int * 4)()
+    PLAN(rows, n, ctypes.addressof(info))
+    return dict(zip(("p", "slice_lg", "span_lg", "active_clusters"), info))
 
 
 def _launch(data: torch.Tensor, lengths: torch.Tensor, n: int,
@@ -209,12 +255,16 @@ def _launch(data: torch.Tensor, lengths: torch.Tensor, n: int,
         raise KernelError(f"no checksum kernel for device {dev}")
     if data.stride(1) != 1:
         data = data.contiguous()
-    lens = lengths.to(torch.int32).contiguous()
+    lens = lengths
+    if lens.dtype not in (torch.int32, torch.int64):
+        lens = lens.to(torch.int32)
+    if not lens.is_contiguous():
+        lens = lens.contiguous()
     out = torch.empty(data.shape[0], dtype=torch.int64, device=dev)
     if data.shape[0]:
         KERNEL(data.data_ptr(), data.stride(0), lens.data_ptr(),
-               _zadv(dev).data_ptr(), out.data_ptr(), data.shape[0], n,
-               int(kind == "adler32"),
+               int(lens.dtype == torch.int64), _kernel_tables(dev).data_ptr(),
+               out.data_ptr(), data.shape[0], n, int(kind == "adler32"),
                torch.cuda.current_stream(dev).cuda_stream)
     return out
 

@@ -204,6 +204,24 @@ def test_kernel_limits_take_the_engines_shapes(n, seg):
     chain.check_kernel_limits(n, seg)
 
 
+@pytest.mark.parametrize("n,seg,path", [
+    (65536, 256, "cluster"), (1 << 18, 512, "cluster"), (4096, 256, "cluster"),
+    (1 << 19, 512, "cluster"), (1 << 18, 64, "cluster"), (1 << 17, 32, "cluster"),
+    (1 << 20, 512, "rows"), (1 << 19, 64, "rows"), (1 << 22, 32, "rows"),
+    (1 << 23, 512, "rows")])
+def test_kernel_limits_name_the_path(n, seg, path):
+    """The documented cut between the kernel's two paths: rows of up to
+    16 * min(32768, 256 * seg) positions take one cluster launch (the
+    encoder's 2^16 and the decoder's rounds up to 2^19), longer rows the
+    three-launch row path."""
+    assert chain.check_kernel_limits(n, seg) == path
+    c, spc = chain.cluster_plan(n, seg)
+    assert (c > 0) == (path == "cluster")
+    if c:
+        assert c <= chain.CLUSTER_MAX and spc * seg <= chain.CLUSTER_SHARE
+        assert (c - 1) * spc < n // seg <= c * spc
+
+
 def test_chain_walk_refuses_other_types():
     with pytest.raises(ValueError):
         chain.chain_walk(torch.zeros((2, 512), dtype=torch.float32), 256)

@@ -550,12 +550,12 @@ extern "C" void shim_bitonic(int32_t* x, int tiles, uint32_t n,
         }
 }
 
-// The three launches of csrc/chain.cu run serially through chain.cuh's own
-// functions: phase A a warp at a time (its lanes stage their words into a
-// shared memory full of garbage, then find their exits, then store them),
-// phase B a row at a time, phase C a warp at a time (every lane walks 32
-// steps into a tile full of garbage, then every lane stores its column).
-// out int32 [rows, n], ent int32 [rows, n / seg].
+// The row path's three launches of csrc/chain.cu run serially through
+// chain.cuh's own functions: phase A a warp at a time (its lanes stage
+// their words into a shared memory full of garbage, then find their exits,
+// then store them), phase B a row at a time, phase C a warp at a time
+// (every lane walks 32 steps into a tile full of garbage, then every lane
+// stores its column).  out int32 [rows, n], ent int32 [rows, n / seg].
 extern "C" void shim_chain(const int32_t* f, int32_t* out, int32_t* ent,
                            int rows, int n, int seg) {
   int seg_lg = 0;
@@ -598,34 +598,176 @@ extern "C" void shim_chain(const int32_t* f, int32_t* out, int32_t* ent,
   }
 }
 
-// The launch of csrc/checksum.cu run serially, a row's CTA at a time: its
-// threads build the CRC tables table by table (as between the kernel's
-// barriers), then each thread computes its share, and the shares combine
-// in thread order.  out int64 [rows].
+// qz_chain_plan for a share of `share` words: info[0] CTAs a cluster (0:
+// the row path), [1] segments a CTA, [2] threads a segment in phase A, [3]
+// shared bytes.
+extern "C" void shim_chain_plan(int n, int seg, int share, int* info) {
+  const QzChainPlan pl = qz_chain_plan(n, seg, share);
+  info[0] = pl.c;
+  info[1] = pl.spc;
+  info[2] = pl.parts;
+  info[3] = pl.smem;
+}
+
+// The cluster path's launch of csrc/chain.cu run serially, a row's cluster
+// at a time, each CTA's shared memory a vector of exactly its plan's bytes
+// full of garbage, in qz_chain_cluster_kernel's order: every CTA's threads
+// stage its share (in thread order), every segment's parts find their
+// exits, then the doubling rounds (each thread in order, a round at a
+// time); then the CTAs' thread 0 walk their shares from their first positions (the guesses),
+// and then, in rank order, from the entry the CTA before handed over (the
+// handoff word) until the walks meet; then each CTA restages its share and
+// its warps walk and store.  share: words a CTA at most (QZ_CHAIN_SHARE on
+// the card; less cuts small rows into many CTAs).  met[row * c + rank]
+// gets the segments the CTA's second walk took before it met the first
+// (cnt where it never did).  Returns the CTAs a cluster, 0 (nothing run)
+// where the plan takes the row path.
+extern "C" int shim_chain_cluster(const int32_t* f, int32_t* out, int rows,
+                                  int n, int seg, int share, int32_t* met) {
+  int seg_lg = 0;
+  while ((1 << seg_lg) < seg) ++seg_lg;
+  const QzChainPlan pl = qz_chain_plan(n, seg, share);
+  if (pl.c == 0) return 0;
+  const QzChainSmem m = qz_chain_smem(pl, seg);
+  const int nseg = n >> seg_lg;
+  for (int row = 0; row < rows; ++row) {
+    std::vector<std::vector<uint32_t>> sm(pl.c);
+    std::vector<int> s0(pl.c), cnt(pl.c);
+    std::vector<int32_t> spec(pl.c);
+    for (int r = 0; r < pl.c; ++r) {
+      sm[r].assign(pl.smem / sizeof(uint32_t), 0xA5A5A5A5u);
+      s0[r] = qz_chain_share(pl, nseg, r, &cnt[r]);
+      sm[r][m.handoff] = (uint32_t)-1;
+      const uint32_t first = (uint32_t)s0[r] << seg_lg;
+      for (int t = 0; t < QZ_CHAIN_THREADS; ++t)
+        qz_chain_stage4(f + (int64_t)row * n + first, sm[r].data(),
+                         cnt[r] << seg_lg, seg_lg, first, t, QZ_CHAIN_THREADS);
+      for (int round = 0; round == 0 || (1 << (round - 1)) < pl.parts;
+           ++round)
+        for (int t = 0; t < QZ_CHAIN_THREADS; ++t) {
+          const int sl = t % pl.spc, q = t / pl.spc;
+          if (sl >= cnt[r] || q >= pl.parts) continue;
+          uint32_t* s = sm[r].data() + sl * (seg + 1);
+          if (round == 0)
+            qz_chain_exits_part(s, seg, pl.parts, q);
+          else
+            qz_chain_exits_double(s, seg, pl.parts, q);
+        }
+      int32_t* ent = (int32_t*)(sm[r].data() + m.ent);
+      spec[r] = qz_chain_share_entries(sm[r].data(), ent, (int32_t)first,
+                                       s0[r], cnt[r], seg_lg);
+    }
+    int32_t e = 0;
+    for (int r = 0; r < pl.c; ++r) {
+      if (r > 0) e = (int32_t)sm[r][m.handoff];
+      int32_t* ent = (int32_t*)(sm[r].data() + m.ent);
+      // the segments before the walks meet: the first whose guessed entry
+      // equals the true one
+      std::vector<int32_t> guess(ent, ent + cnt[r]);
+      e = qz_chain_share_verify(sm[r].data(), ent, e, s0[r], cnt[r], seg_lg,
+                                spec[r]);
+      int took = 0;
+      while (took < cnt[r] && guess[took] != ent[took]) ++took;
+      met[row * pl.c + r] = took;
+      if (r + 1 < pl.c) sm[r + 1][m.handoff] = (uint32_t)e;
+    }
+    for (int r = 0; r < pl.c; ++r) {
+      const uint32_t first = (uint32_t)s0[r] << seg_lg;
+      const int64_t base = (int64_t)row * n + first;
+      const int32_t* ent = (const int32_t*)(sm[r].data() + m.ent);
+      for (int t = 0; t < QZ_CHAIN_THREADS; ++t)
+        qz_chain_stage4(f + base, sm[r].data(), cnt[r] << seg_lg, seg_lg,
+                         first, t, QZ_CHAIN_THREADS);
+      for (int g = 0; g < cnt[r]; g += QZ_CHAIN_LANES) {
+        const int nact = std::min(QZ_CHAIN_LANES, cnt[r] - g);
+        int32_t* tile = (int32_t*)(sm[r].data() + m.tile) +
+                        g * QZ_CHAIN_TILE;
+        uint32_t off[QZ_CHAIN_LANES];
+        for (int lane = 0; lane < nact; ++lane)
+          off[lane] = (uint32_t)ent[g + lane] -
+                      (first + ((uint32_t)(g + lane) << seg_lg));
+        for (int k0 = 0; k0 < seg; k0 += QZ_CHAIN_LANES) {
+          for (int lane = 0; lane < nact; ++lane) {
+            const int sw = g + lane;
+            off[lane] = qz_chain_walk32_local(
+                sm[r].data() + sw * (seg + 1),
+                first + ((uint32_t)sw << seg_lg), off[lane], seg,
+                tile + lane * QZ_CHAIN_TILE);
+          }
+          for (int lane = 0; lane < QZ_CHAIN_LANES; ++lane)
+            qz_chain_flush(tile, out + base, g, nact, seg, k0, lane);
+        }
+      }
+    }
+  }
+  return pl.c;
+}
+
+// qz_ck_plan (p 0) or qz_ck_plan_p: info[0] CTAs a row, [1] log2 of a
+// slice's bytes, [2] log2 of the bytes the slices span.
+extern "C" void shim_checksum_plan(int rows, int n, int p, int* info) {
+  const QzCkPlan pl = p ? qz_ck_plan_p(p, n) : qz_ck_plan(rows, n);
+  info[0] = pl.p;
+  info[1] = pl.s_lg;
+  info[2] = pl.n_lg;
+}
+
+// checksum.cu's qz_ck_warp_join over lanes [0, n_in) of v (CRC32
+// registers), as the shuffles run it: at each level lane l joins the value
+// lane l + 2^j held before the level (lanes in increasing order update in
+// place; a lane past n_in keeps its own value).
+static void shim_crc_tree(const uint32_t* zadv, int k0, int n_in,
+                          std::vector<uint32_t>& v) {
+  for (int l = 0; (1 << l) < n_in; ++l)
+    for (int lane = 0; lane < n_in; ++lane) {
+      const int from = lane + (1 << l) < n_in ? lane + (1 << l) : lane;
+      v[lane] = qz_crc_join(zadv, k0 + l, v[lane], v[from]);
+    }
+}
+
+// The launch of csrc/checksum.cu run serially: each row's cluster of P
+// CTAs (p 0: the launch's own plan), each CTA's threads in order through
+// qz_ck_thread, then the joins in the kernel's order (the warp trees, the
+// tree over the CTA's 8 warps, rank 0's tree over the CTAs, the finish;
+// Adler sums add).  len int32 [rows], or int64 where len64.  out int64
+// [rows].
 extern "C" void shim_checksum(const uint8_t* data, int64_t stride,
-                              const int32_t* len, const uint32_t* zadv,
-                              int64_t* out, int rows, int n, int kind) {
-  const QzCkArgs a = {data, stride, len, zadv, out, rows, n, kind};
-  std::vector<uint32_t> tab(QZ_CK_TAB, 0xA5A5A5A5u);
+                              const void* len, int len64,
+                              const uint32_t* tables, int64_t* out, int rows,
+                              int n, int kind, int p) {
+  const QzCkArgs a = {data, stride, len, len64, tables, out, rows, n, kind};
+  const QzCkPlan pl = p ? qz_ck_plan_p(p, n) : qz_ck_plan(rows, n);
+  std::vector<uint32_t> tab(tables, tables + QZ_CK_TABLE_WORDS);
+  const uint32_t* zadv = tab.data() + QZ_CK_TAB;
+  const int W = QZ_CK_THREADS / 32;
   for (int row = 0; row < rows; ++row) {
     const int L = qz_ck_len(a, row);
-    const uint8_t* p = data + row * stride;
-    if (kind == 0) {
-      for (int k = 0; k < 4; ++k)
-        for (int t = 0; t < 256; ++t)
-          tab[256 * k + t] = qz_crc_tab_entry(tab.data(), k, (uint32_t)t);
-      uint32_t raw = 0;
-      for (int t = 0; t < QZ_CK_THREADS; ++t)
-        raw ^= qz_crc_part(tab.data(), zadv, p, L, t);
-      out[row] = qz_crc_finish(zadv, raw, L);
-    } else {
-      uint32_t s1 = 0, s2 = 0;
-      for (int t = 0; t < QZ_CK_THREADS; ++t) {
-        uint32_t v1, v2;
-        qz_adler_part(p, L, t, &v1, &v2);
-        s1 += v1;
-        s2 += v2;
+    const uint8_t* d = data + row * stride;
+    std::vector<uint32_t> ctas(pl.p);
+    uint32_t s1 = 0, s2 = 0;
+    for (int r = 0; r < pl.p; ++r) {
+      std::vector<uint32_t> warps(W);
+      for (int w = 0; w < W; ++w) {
+        std::vector<uint32_t> lanes(32);
+        for (int lane = 0; lane < 32; ++lane) {
+          uint32_t v2 = 0;
+          qz_ck_thread(pl, tab.data(), kind, d, L, r, 32 * w + lane,
+                       &lanes[lane], &v2);
+          if (kind == 1) {
+            s1 = qz_adler_add(s1, lanes[lane]);
+            s2 = qz_adler_add(s2, v2);
+          }
+        }
+        if (kind == 0) shim_crc_tree(zadv, pl.s_lg, 32, lanes);
+        warps[w] = lanes[0];
       }
+      if (kind == 0) shim_crc_tree(zadv, pl.s_lg + 5, W, warps);
+      ctas[r] = warps[0];
+    }
+    if (kind == 0) {
+      shim_crc_tree(zadv, pl.s_lg + 8, pl.p, ctas);
+      out[row] = qz_crc_finish(tab.data() + QZ_CK_UNPAD_AT, ctas[0], L);
+    } else {
       out[row] = qz_adler_finish(s1, s2, L);
     }
   }
@@ -673,8 +815,13 @@ def shim(tmp_path_factory):
     so.shim_bitonic.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
         ctypes.c_uint32] * 4
     so.shim_chain.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-    so.shim_checksum.argtypes = [ctypes.c_void_p, ctypes.c_int64] + [
-        ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    so.shim_chain_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    so.shim_chain_cluster.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    so.shim_checksum_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    so.shim_checksum.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
     return so
 
 
@@ -1488,20 +1635,126 @@ def test_chain_header_partial_warps_and_widths(shim, B, n, seg):
     assert (_shim_chain(shim, f, seg) == want).all()
 
 
+def _shim_cluster(shim, f: np.ndarray, seg: int,
+                  share: int = CH.CLUSTER_SHARE, met: list | None = None
+                  ) -> np.ndarray:
+    """csrc/chain.cu's cluster launch through the shim: int32 [B, nseg,
+    seg]; the plan must take the cluster path.  ``met`` gets [B, C]: the
+    segments each CTA's walk from its true entry took before it met the
+    walk from its guess."""
+    f = np.ascontiguousarray(f, np.int32)
+    B, n = f.shape
+    c = CH.cluster_plan(n, seg, share)[0]
+    assert c > 0
+    out = np.empty((B, n), np.int32)
+    took = np.zeros((B, c), np.int32)
+    assert shim.shim_chain_cluster(_ptr(f), _ptr(out), B, n, seg, share,
+                                   _ptr(took)) == c
+    if met is not None:
+        met.append(took)
+    return out.reshape(B, n // seg, seg)
+
+
+@pytest.mark.parametrize("k", range(9))
+@pytest.mark.parametrize("share", [CH.CLUSTER_SHARE, 1024])
+def test_chain_cluster_header_matches_torch_reference(shim, chain_cases, k,
+                                                      share):
+    """The cluster path run serially, a CTA at a time, equals
+    chain_walk_ref on every kind of map, at the card's share (one CTA a
+    row here) and at shares of 1024 words (2-8 CTAs a row, the entries
+    handed from CTA to CTA)."""
+    label, f, seg = chain_cases[k]
+    want = CH.chain_walk_ref(torch.from_numpy(f), seg).numpy()
+    assert (_shim_cluster(shim, f, seg, share) == want).all(), label
+
+
+@pytest.mark.parametrize("B,n,seg,share,most", [
+    (2, 8192, 32, 512, 1500),      # 16 CTAs of 16 segments
+    (3, 4096, 32, 512, 1500),      # 8 CTAs of 16 segments; jumps over two
+    (2, 8192, 64, 1024, 3000),     # 8 CTAs of 16 segments
+    (4, 2560, 32, 512, 600),       # 5 CTAs, the last of 16 segments
+    (2, 1440, 32, 256, 200),       # 6 CTAs of 8 segments, the last of 5
+    (1, 2048, 256, 1024, 2048),    # 2 CTAs of 4 segments, jumps to n
+    (5, 5120, 256, CH.CLUSTER_SHARE, 300)])   # 1 CTA of 20 segments
+def test_chain_cluster_entries_walk_across_shares(shim, B, n, seg, share,
+                                                  most):
+    """Maps whose chains jump over whole segments and whole CTA shares, on
+    clusters of 1-16 CTAs with a last CTA that holds fewer segments: the
+    entries each CTA hands to the next, and the walks, equal
+    chain_walk_ref."""
+    from tests.test_torch_chain import random_map
+
+    f = random_map(B, n, B * n + seg, most=most)
+    want = CH.chain_walk_ref(torch.from_numpy(f), seg).numpy()
+    assert (_shim_cluster(shim, f, seg, share) == want).all()
+
+
+def test_chain_cluster_walks_meet_their_guesses(shim, chain_cases):
+    """Phase B walks each CTA's share from its first position before the
+    true entry arrives, then from the entry until the two walks meet.  On
+    the decoder's map, steps of 1 and the encoder's rows of text, random
+    and iterative data they meet within two segments (so the walk from CTA
+    to CTA is short); the parse of a constant row is periodic (258-byte
+    matches) and its two walks keep their phase: the second walk takes
+    the whole share, as a walk without a guess would.  So does a map of
+    two chains that never meet (odd positions from 0, even ones from every
+    guess); the walk is right either way."""
+    for label, f, seg in chain_cases:
+        if label.startswith(("encoder", "decoder", "steps")):
+            met = []
+            _shim_cluster(shim, f, seg, 1024, met)
+            rows = [2] if label.startswith("encoder") else []
+            assert np.delete(met[0], rows, axis=0).max() <= 2, label
+    n, seg = 4096, 32
+    f = np.minimum(np.arange(n) + 2, n).astype(np.int32)[None, :]
+    f[0, 0] = 1
+    met = []
+    got = _shim_cluster(shim, f, seg, 512, met)
+    assert (got == CH.chain_walk_ref(torch.from_numpy(f), seg).numpy()).all()
+    assert (met[0][0, 1:] == 16).all()
+
+
+def _shim_plan(shim, n: int, seg: int, share: int) -> tuple:
+    info = np.zeros(4, np.int32)
+    shim.shim_chain_plan(n, seg, share, _ptr(info))
+    return tuple(int(v) for v in info)
+
+
+def test_chain_cluster_plan_splits_rows_as_the_wrapper_says(shim):
+    """qz_chain_plan's split of a row into CTAs and segments equals
+    chain.cluster_plan (which picks the wrapper's path) on every shape
+    the engines and chip_smoke give it and a grid around them; every CTA
+    holds at least one segment, the shared memory fits the H100's 227 KB,
+    and each CTA's 256 threads cover its segments' parts."""
+    grid = [(n, seg, share) for seg in (32, 64, 128, 256, 512, 1024)
+            for n in (seg, 3 * seg, 4096, 5120, 65536, 1 << 17, 1 << 18,
+                      (1 << 18) + 1024, 1 << 19, 1 << 22) if n % seg == 0
+            for share in (CH.CLUSTER_SHARE, 1024)]
+    for n, seg, share in grid:
+        c, spc, parts, smem = _shim_plan(shim, n, seg, share)
+        assert (c, spc) == CH.cluster_plan(n, seg, share), (n, seg, share)
+        if c:
+            assert (c - 1) * spc < n // seg <= c * spc <= c * 256
+            assert smem <= 232448 and parts * spc <= 256
+            assert seg // parts >= 4
+    assert CH.cluster_plan(65536, 256) == (2, 128)
+    assert CH.cluster_plan(1 << 18, 512) == (8, 64)
+    assert CH.cluster_plan(1 << 19, 512) == (16, 64)
+    assert CH.cluster_plan(1 << 20, 512) == (0, 0)
+    assert CH.cluster_plan(1 << 22, 32) == (0, 0)
+
+
 # ------------------------------------------------------------- checksums
-def _zadv() -> np.ndarray:
-    return np.ascontiguousarray(CK._host_tables()["zadv"], np.uint32)
-
-
-def _shim_checksum(shim, data: np.ndarray, lens, n: int,
-                   kind: str) -> list:
+def _shim_checksum(shim, data: np.ndarray, lens, n: int, kind: str,
+                   p: int = 0, len64: bool = False) -> list:
     """csrc/checksum.cu's launch through the shim, rows of data at its
-    row stride."""
+    row stride: the launch's own slicing (p 0) or p CTAs a row."""
     data = np.ascontiguousarray(data, np.uint8)
-    lens = np.ascontiguousarray(lens, np.int32)
+    lens = np.ascontiguousarray(lens, np.int64 if len64 else np.int32)
     out = np.zeros(len(lens), np.int64)
-    shim.shim_checksum(_ptr(data), data.shape[1], _ptr(lens), _ptr(_zadv()),
-                       _ptr(out), len(lens), n, int(kind == "adler32"))
+    shim.shim_checksum(_ptr(data), data.shape[1], _ptr(lens), int(len64),
+                       _ptr(CK.kernel_tables()), _ptr(out), len(lens), n,
+                       int(kind == "adler32"), p)
     return [int(v) for v in out]
 
 
@@ -1557,3 +1810,78 @@ def test_checksum_header_runs_at_full_length(shim, kind, fill):
     for k in (big, big - 3):
         assert _shim_checksum(shim, row, [k], big, kind) == [
             getattr(zlib, kind)(row[0, :k].tobytes())]
+
+
+@pytest.mark.parametrize("kind", ["crc32", "adler32"])
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,width", [(65536, 65544), (8192, 8195)])
+def test_checksum_header_multi_cta_slicing_and_joins(shim, kind, p, n,
+                                                     width):
+    """The slicing over p CTAs a row and the joins of the slices (the warp
+    trees, the CTA's, the cluster's, the finish) at lengths 0, 1, 7, 8,
+    n - 1 and n and around a slice's, a warp's and a CTA's bytes, on rows
+    8-byte aligned (8 bytes a load) and rows 8195 bytes apart (a byte a
+    load): equal to zlib, with int32 and int64 lengths."""
+    info = np.zeros(3, np.int32)
+    shim.shim_checksum_plan(1, n, p, _ptr(info))
+    s, slices = 1 << int(info[1]), 1 << (int(info[2]) - int(info[1]))
+    assert int(info[0]) == p and s * slices >= n and s >= 8
+    assert slices == 256 * p
+    lengths = sorted({k for k in (0, 1, 7, 8, 9, s - 1, s, s + 1, 32 * s,
+                                  32 * s + 5, 256 * s - 3, n - 1, n)
+                      if 0 <= k <= n})
+    data = _rows(lengths, width, 40 + p)
+    want = [getattr(zlib, kind)(data[i, :k].tobytes())
+            for i, k in enumerate(lengths)]
+    for len64 in (False, True):
+        assert _shim_checksum(shim, data, lengths, n, kind, p, len64) == want
+
+
+def test_checksum_plan_fills_the_card(shim):
+    """The launch's CTAs a row: 8 for a spec round's 8 rows of 64 KB, 1 for
+    an encoder batch's 128 rows, 2 for 64, 1 for rows under 8 KB; the
+    slices span at least n."""
+    info = np.zeros(3, np.int32)
+    for rows, n, p in ((8, 65536, 8), (128, 65536, 1), (64, 65536, 2),
+                       (1, 65536, 8), (512, 65536, 1), (80, 1024, 1),
+                       (8, 1 << 24, 8)):
+        shim.shim_checksum_plan(rows, n, 0, _ptr(info))
+        assert int(info[0]) == p, (rows, n)
+        assert 1 << int(info[2]) >= n
+
+
+def _raw_crc(data: bytes, c: int = 0) -> int:
+    """The reflected CRC-32 register after data from c, bit by bit."""
+    for byte in data:
+        c ^= byte
+        for _ in range(8):
+            c = (c >> 1) ^ (0xEDB88320 if c & 1 else 0)
+    return c
+
+
+def _apply(cols, v: int) -> int:
+    out = 0
+    for b in range(32):
+        if (v >> b) & 1:
+            out ^= int(cols[b])
+    return out
+
+
+def test_checksum_kernel_tables():
+    """The kernel's tables (checksums.kernel_tables): slice-by-8 table j
+    holds the register after a byte and j zero bytes; the zero-advance
+    matrices advance a register over 2^k zero bytes; the unpad matrices
+    undo an advance over 0-7 zero bytes."""
+    t = CK.kernel_tables()
+    assert t.dtype == np.uint32 and t.size == 2048 + 25 * 32 + 8 * 32
+    rng = np.random.default_rng(9)
+    for j in range(8):
+        for x in (0, 1, 0x80, 0xFF, int(rng.integers(256))):
+            assert int(t[256 * j + x]) == _raw_crc(bytes([x] + [0] * j))
+    zadv = t[2048:2048 + 800].reshape(25, 32)
+    unpad = t[2848:].reshape(8, 32)
+    for v in (1, 0xFFFFFFFF, int(rng.integers(1 << 32))):
+        for k in (0, 3, 7):
+            assert _apply(zadv[k], v) == _raw_crc(bytes(1 << k), v)
+        for pad in range(8):
+            assert _apply(unpad[pad], _raw_crc(bytes(pad), v)) == v

@@ -55,9 +55,10 @@ _MAIN = r"""
 // Rounds from argv[1], outputs to argv[2].  A round starts with 8 int32:
 // kind 0 (inflate: lanes, nw, max_steps), kind 1 (select: B, n, n_full,
 // depth, to_pos, vec), kind 2 (LZ4: one row of n bytes, outcap, lz4s,
-// base, len), kind 3 (chain walk: rows, n, seg) or kind 4 (checksum: one
-// row of len bytes, n, kind), then its arrays; every array is read into a
-// vector of its exact size.
+// base, len), kind 3 (chain walk: rows, n, seg, share; share 0 the row
+// path, else the cluster path at that share) or kind 4 (checksum: one row
+// of len bytes, n, kind, CTAs a row), then its arrays; every array is read
+// into a vector of its exact size.
 template <class T>
 static std::vector<T> take(FILE* f, size_t n) {
   std::vector<T> v(n);
@@ -101,17 +102,22 @@ int main(int argc, char** argv) {
       const size_t rows = h[1], n = h[2], seg = h[3];
       auto f = take<int32_t>(in, rows * n);
       std::vector<int32_t> o(rows * n), ent(rows * (n / seg));
-      shim_chain(f.data(), o.data(), ent.data(), (int)rows, (int)n,
-                 (int)seg);
+      std::vector<int32_t> met(rows * QZ_CHAIN_CLUSTER_MAX);
+      if (h[4])
+        shim_chain_cluster(f.data(), o.data(), (int)rows, (int)n, (int)seg,
+                           h[4], met.data());
+      else
+        shim_chain(f.data(), o.data(), ent.data(), (int)rows, (int)n,
+                   (int)seg);
       put(out, o);
     } else if (h[0] == 4) {
       const size_t len = h[2];
       auto row = take<uint8_t>(in, len);
-      auto zadv = take<uint32_t>(in, QZ_CK_ZADV * 32);
+      auto tables = take<uint32_t>(in, QZ_CK_TABLE_WORDS);
       std::vector<int32_t> lens(1, (int32_t)len);
       std::vector<int64_t> o(1);
-      shim_checksum(row.data(), (int64_t)len, lens.data(), zadv.data(),
-                    o.data(), 1, h[1], h[3]);
+      shim_checksum(row.data(), (int64_t)len, lens.data(), 0, tables.data(),
+                    o.data(), 1, h[1], h[3], h[4]);
       put(out, o);
     } else if (h[0] == 2) {
       const size_t n = h[1], outcap = h[2];
@@ -478,8 +484,8 @@ def test_lz4_ring_edges_one_a_round(sanitized, tmp_path, lz4s):
                 blk, lz4s, 2, LD.MAX_OUT), r
 
 
-def _chain_rounds(cases):
-    return [([3, f.shape[0], f.shape[1], seg], [np.ascontiguousarray(
+def _chain_rounds(cases, share: int = 0):
+    return [([3, f.shape[0], f.shape[1], seg, share], [np.ascontiguousarray(
         f, np.int32)]) for _, f, seg in cases]
 
 
@@ -493,20 +499,51 @@ def _read_chain(buf, rounds) -> list:
     return got
 
 
-def test_chain_walks_of_every_map_kind(sanitized, tmp_path):
-    """The chain shim's three phases on each kind of map of
-    tests/test_torch_chain.py (random, steps of 1, all n, the engines'
-    maps) and on rows of one segment, each map in an allocation of its
-    own: no sanitizer report, equal to chain_walk_ref."""
+@pytest.mark.parametrize("share", [0, CH.CLUSTER_SHARE, 512])
+def test_chain_walks_of_every_map_kind(sanitized, tmp_path, share):
+    """The chain shim on each kind of map of tests/test_torch_chain.py
+    (random, steps of 1, all n, the engines' maps) and on rows of one
+    segment, each map in an allocation of its own, on the row path's
+    three phases (share 0) and the cluster path's (one CTA a row at the
+    card's share, up to 8 at 512 words, each CTA's shared memory a vector
+    of exactly its bytes): no sanitizer report, equal to
+    chain_walk_ref."""
     from tests.test_torch_chain import maps, random_map
 
     cases = maps() + [("one segment", random_map(3, 512, 4, most=600), 512),
                       ("33 rows", random_map(33, 64, 5, most=70), 32)]
-    rounds = _chain_rounds(cases)
+    if share:
+        cases = [c for c in cases
+                 if CH.cluster_plan(c[1].shape[1], c[2], share)[0]]
+        assert len(cases) >= 9
+    rounds = _chain_rounds(cases, share)
     got = _read_chain(_run(sanitized, tmp_path, rounds), rounds)
     for (label, f, seg), g in zip(cases, got):
         want = CH.chain_walk_ref(torch.from_numpy(f), seg).numpy()
         assert (g == want.reshape(-1)).all(), label
+
+
+@pytest.mark.parametrize("share", [0, CH.CLUSTER_SHARE, 512])
+def test_chain_maps_outside_the_precondition_stay_in_bounds(sanitized,
+                                                            tmp_path, share):
+    """Maps that break i < f[i] <= n (values below the position, negative,
+    past n, a chain that stands still) on both paths: positions are
+    unspecified, but no read leaves the row, the segment or the shared
+    memory, and the walk ends."""
+    rng = np.random.default_rng(77)
+    n = 2048
+    cases = [("any int32", rng.integers(-2**31, 2**31, (2, n),
+                                        dtype=np.int64).astype(np.int32),
+              256),
+             ("around n", rng.integers(-40, n + 40, (3, n)).astype(np.int32),
+              32),
+             ("stands still", np.tile(np.arange(n, dtype=np.int32), (1, 1)),
+              64),
+             ("backwards", np.tile(np.arange(n, dtype=np.int32) - 5, (2, 1)),
+              128)]
+    rounds = _chain_rounds(cases, share)
+    got = _read_chain(_run(sanitized, tmp_path, rounds), rounds)
+    assert [g.size for g in got] == [f.size for _, f, _ in cases]
 
 
 def test_a_read_past_the_map_is_reported(sanitized, tmp_path):
@@ -534,7 +571,8 @@ def test_a_read_past_the_map_is_reported(sanitized, tmp_path):
 def test_checksum_rows_of_exactly_their_length(sanitized, tmp_path, kind):
     """The checksum shim on rows in allocations of exactly their length
     (the length sweep, 64 KB and 2 MB rows of 0xFF and of zeros, a row of
-    a 2 MB buffer's first 65537 bytes): no sanitizer report, equal to
+    a 2 MB buffer's first 65537 bytes), sliced as the launch would for
+    one row (8 CTAs), over 1 CTA and over 8: no sanitizer report, equal to
     zlib."""
     rng = np.random.default_rng(31)
     rows = [rng.integers(0, 256, k, dtype=np.uint8)
@@ -543,9 +581,9 @@ def test_checksum_rows_of_exactly_their_length(sanitized, tmp_path, kind):
     rows += [np.full(k, v, np.uint8) for k in (65536, 1 << 21)
              for v in (0xFF, 0)]
     rows.append(np.full(65537, 0xFF, np.uint8))
-    zadv = np.ascontiguousarray(CK._host_tables()["zadv"], np.uint32)
-    rounds = [([4, max(len(r), 1 << 21), len(r), int(kind == "adler32")],
-               [r, zadv]) for r in rows]
+    tables = CK.kernel_tables()
+    rounds = [([4, max(len(r), 1 << 21), len(r), int(kind == "adler32"), p],
+               [r, tables]) for p in (0, 1, 8) for r in rows]
     buf = _run(sanitized, tmp_path, rounds)
     got = np.frombuffer(buf, np.int64).tolist()
-    assert got == [getattr(zlib, kind)(r.tobytes()) for r in rows]
+    assert got == [getattr(zlib, kind)(r.tobytes()) for r in rows] * 3

@@ -736,6 +736,101 @@ def test_checksum_kernel_equals_plain(dev):
                 for i, k in enumerate(ln)]
 
 
+@pytest.mark.parametrize("B,n,seg,path", [
+    (128, 65536, 256, "cluster"), (8, 1 << 18, 512, "cluster"),
+    (8, 1 << 19, 512, "cluster"), (8, 1 << 20, 512, "rows"),
+    (1, 1 << 22, 32, "rows")])
+@pytest.mark.parametrize("kind", ["steps of 1", "random"])
+def test_chain_kernel_paths_at_the_cut(dev, B, n, seg, path, kind):
+    """Both paths at the cut between them and on either side of it: the
+    encoder's shape, 2^18 and 2^19 (a cluster of 16 CTAs) take one cluster
+    launch, 2^20 and the [1, 2^22] probe the three-launch row path; each
+    equal to chain_walk_ref, one counted call, and the card holds the
+    cluster."""
+    from qatzip_tpu_torch.ops import chain as CH
+
+    assert CH.check_kernel_limits(n, seg) == path
+    info = CH.launch_info(n, seg)
+    assert (info["c"] > 0) == (path == "cluster")
+    if path == "cluster":
+        assert info["active_clusters"] > 0
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    if kind == "steps of 1":
+        f = (pos + 1).expand(B, n).contiguous()
+    else:
+        g = torch.Generator(device=dev).manual_seed(B + n)
+        f = torch.clamp(pos + torch.randint(1, 2 * seg, (B, n), generator=g,
+                                            device=dev, dtype=torch.int32),
+                        max=n)
+    n0 = CH.KERNEL.launches
+    got = CH.chain_walk(f, seg)
+    assert CH.KERNEL.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, CH.chain_walk_ref(f, seg))
+
+
+def test_chain_kernel_refusals_raise(dev):
+    """A launch the entry refuses raises KernelError, never a plain run: a
+    cluster launch of no rows, a map not 16-byte aligned handed straight
+    to the cluster entry, and the row path without its scratch."""
+    from qatzip_tpu_torch.ops import _build
+    from qatzip_tpu_torch.ops import chain as CH
+
+    f = torch.ones((1, 65536 + 4), dtype=torch.int32, device=dev)
+    out = torch.empty((1, 65536), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with pytest.raises(_build.KernelError, match="invalid argument"):
+        CH.KERNEL(f.data_ptr(), out.data_ptr(), None, 0, 65536, 256,
+                  CH.ALL_PHASES, stream)
+    with pytest.raises(_build.KernelError, match="misaligned"):
+        CH.KERNEL(f.data_ptr() + 4, out.data_ptr(), None, 1, 65536, 256,
+                  CH.ALL_PHASES, stream)
+    big = torch.ones((1, 1 << 20), dtype=torch.int32, device=dev)
+    with pytest.raises(_build.KernelError):
+        CH.KERNEL(big.data_ptr(), big.data_ptr(), None, 1, 1 << 20, 512,
+                  CH.ALL_PHASES, stream)
+
+
+def test_chain_probe_loads(dev):
+    """The dependent shared-memory load probe runs, and a load from the
+    cluster sibling's shared memory takes longer than one from the CTA's
+    own."""
+    from qatzip_tpu_torch.ops import chain as CH
+
+    local = CH.probe_clocks(False, 4096, dev) / 4096
+    remote = CH.probe_clocks(True, 4096, dev) / 4096
+    assert 10 < local < remote < 2000
+
+
+@pytest.mark.parametrize("rows", [1, 8, 128])
+def test_checksum_kernel_rows_at_odd_stride(dev, rows):
+    """The checksums at 1, 8 and 128 rows (8, 8 and 1 CTAs a row) on rows
+    65539 bytes apart (not 8-byte aligned) and on aligned rows, with
+    int32 and int64 lengths: one launch a call, equal to the plain
+    versions and to zlib."""
+    from qatzip_tpu_torch.ops import checksums as ck
+
+    rng = np.random.default_rng(rows)
+    n = 65536
+    lens = ([0, 1, 7, 8, n - 1, n] + list(rng.integers(0, n + 1, rows)))[
+        :rows]
+    for width in (n + 3, n):
+        host = rng.integers(0, 256, (rows, width), dtype=np.uint8)
+        data = torch.from_numpy(host).to(dev)
+        for dtype in (torch.int32, torch.int64):
+            lt = torch.tensor(lens, dtype=dtype, device=dev)
+            for kind in ("crc32", "adler32"):
+                n0 = ck.KERNEL.launches
+                got = getattr(ck, f"{kind}_blocks")(data, lt, n)
+                assert ck.KERNEL.launches == n0 + 1
+                torch.cuda.synchronize()
+                assert torch.equal(got, getattr(ck, f"{kind}_blocks_ref")(
+                    data, lt, n))
+                assert got.cpu().tolist() == [
+                    getattr(zlib, kind)(host[i, :k].tobytes())
+                    for i, k in enumerate(lens)]
+
+
 def test_parity_engines_never_run_the_plain_versions_on_cuda(dev,
                                                              monkeypatch):
     """With the chain walk's and the checksums' plain versions made to
