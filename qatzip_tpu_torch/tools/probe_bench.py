@@ -1,27 +1,40 @@
 """Check and time the construct probes' Hopper kernels on a CUDA card.
 
-    python3 -m qatzip_tpu_torch.tools.probe_bench
+    python3 -m qatzip_tpu_torch.tools.probe_bench [--against DIR ...]
 
 Builds ``libqzprobes.so`` (qatzip_tpu_torch/tools/probes.cu), then runs
 every case of ``CASES``: the probes at the TPU probes' own shapes, and the
 chain, step, token and refill probes also at the inflate path's (512
 lanes, one round of a 32 MB request; 8 KB of tables a lane).  A case first
 holds its kernel against the plain version on the same inputs at a small
-trip count K (equal, or AssertionError), timing both there with CUDA
-events, beside one PyTorch call that computes the same where there is one;
-then it times the kernel at two trip counts and prints the slope, ns a
-unit = (t(K_hi) - t(K_lo)) / (K_hi - K_lo) (the TPU probes' own method,
+trip count K (equal, or AssertionError), then times the kernel there two
+ways, beside one PyTorch call that computes the same where there is one,
+timed the same two ways: host-paced (``ms``: 5 calls launched through
+Python in turn, CUDA events around them) and graph-replayed (``graph_ms``:
+one replay of a CUDA graph of 20 calls, the device's time alone).  Then it
+times the kernel at two trip counts and prints the slope, ns a unit =
+(t(K_hi) - t(K_lo)) / (K_hi - K_lo) (the TPU probes' own method,
 tools/probe_inflate_step5.py:53), beside the clock64() ticks a unit of one
-thread.  The inputs come from a torch.Generator seeded per case.
-chip_smoke.py runs the same cases (``run``) and puts their records in its
-kernels line.
+thread.  First come the launch floor (an empty kernel, both ways), which
+every record carries, and the host pieces of a launch (the bare ctypes
+call, the stream read, an allocation, whole wrappers), microseconds a call
+by time.perf_counter.  The inputs come from a torch.Generator seeded per
+case.  ``--against`` builds each named checkout's probes.cu (an earlier
+commit unpacked with ``git archive`` under ``build/``) and times its ROLL
+and REFILL wrappers and kernels beside this checkout's in turns (old, new,
+new, old).  chip_smoke.py runs the same cases (``run``) and puts their
+records in its kernels line.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
+import importlib.util
 import json
+import os
 import subprocess
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
@@ -30,6 +43,7 @@ from qatzip_tpu_torch.ops import _build
 from qatzip_tpu_torch.ops import sort as SO
 from qatzip_tpu_torch.tools import probes as P
 from qatzip_tpu_torch.tools.h100 import FP32_OPS_S, HBM_BYTES_S
+from qatzip_tpu_torch.tools.parity_bench import graph_ms
 
 SRC = "qatzip_tpu_torch/tools/probes.cu"
 INFLATE_LANES = 512     # DeflateDeviceCodec.LOCKSTEP_BATCH: a round's lanes
@@ -42,7 +56,10 @@ class Case:
     K, clk)`` calls the wrapper (the kernel for CUDA inputs); ``plain(x,
     K)`` the plain version; ``units`` what one K is; ``work(x, K)`` the
     (bytes, integer operations) the function needs; ``library(x)`` one
-    PyTorch call computing the same at K = k (or None)."""
+    PyTorch call computing the same at K = k (or None).  ``host``: the
+    inputs the wrapper takes on the CPU (a refill's offsets); plain and
+    library take every input on the card.  ``args``: a ROLL or REFILL
+    wrapper's own arguments, for :func:`against`."""
     name: str
     kernel: str
     replaces: str
@@ -57,6 +74,8 @@ class Case:
     work: Callable
     library: Callable | None = None
     source: str = SRC
+    host: tuple = ()
+    args: dict = field(default_factory=dict)
 
 
 def _u32(gen, shape) -> torch.Tensor:
@@ -199,13 +218,14 @@ def _roll_case(S, shift, axis, replaces):
     def make(gen):
         return (_ints(gen, 0, 1 << 30, (S, 128)),)
 
-    return Case(f"probe_tile_roll_{S}x128_axis{axis}", "qz_probe_tile",
+    return Case(f"probe_tile_roll_{S}x128_axis{axis}", "qz_probe_roll",
                 replaces, f"[{S}, 128], shift {shift}, axis {axis}",
                 "call", make,
                 lambda x, K, clk=None: P.probe_roll(x[0], shift, axis),
                 lambda x, K: P.roll(x[0], shift, axis), 1, None, None,
                 lambda x, K: (2 * _nbytes(x[0]), 0),
-                lambda x: torch.roll(x[0], shift, axis))
+                lambda x: torch.roll(x[0], shift, axis),
+                args={"shift": shift, "axis": axis})
 
 
 def _transpose_case():
@@ -241,7 +261,7 @@ def _refill_case(name, replaces, B, NW, win, how, alt=0, blocks=False,
         o = x[1].to(torch.int64).reshape(-1, 1) + ((k - 1) & 1) * alt
         return torch.gather(x[0], 1, o + torch.arange(win, device=o.device))
 
-    return Case(f"probe_tile_{name}_{B}l_{how}", "qz_probe_tile", replaces,
+    return Case(f"probe_tile_{name}_{B}l_{how}", "qz_probe_refill", replaces,
                 f"{B} lanes, stream {NW} words, window {win}"
                 + (f", blocks of {alt}" if blocks else ""),
                 "refill a lane", make,
@@ -249,7 +269,8 @@ def _refill_case(name, replaces, B, NW, win, how, alt=0, blocks=False,
                                                       alt=alt, how=how,
                                                       clk=clk),
                 lambda x, K: P._refill(x[0], x[1], win, K, alt), k, k_lo,
-                k_hi, work, library)
+                k_hi, work, library, host=(1,),
+                args={"win": win, "alt": alt, "how": how})
 
 
 def _bitonic_case(segment, replaces):
@@ -396,10 +417,13 @@ def _cases() -> list:
 
 
 CASES = _cases()
+GRAPH_REPS = 20     # calls a graph holds in graph_ms
+FLOOR_REPS = 100    # host-paced calls of the empty kernel a floor
 
 
 def _time_ms(fn, reps: int) -> float:
-    """Mean ms a call of fn on the current stream, after one warm call."""
+    """Mean ms a call of fn on the current stream, after one warm call:
+    host-paced, each call launched through Python in turn."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -411,16 +435,78 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def launch_floor(dev) -> dict:
+    """The empty kernel's ms a launch, host-paced and graph-replayed."""
+    return {"ms": _time_ms(lambda: P.launch_floor(dev), FLOOR_REPS),
+            "graph_ms": graph_ms(lambda: P.launch_floor(dev), GRAPH_REPS)}
+
+
+def host_pieces(dev, n: int = 5000) -> dict:
+    """Microseconds a call of each host piece of a probe's launch, by
+    time.perf_counter over n calls after a warm one (launches drained by a
+    synchronize inside the span): the bare ctypes call (the empty entry
+    told not to launch), that call launching the empty kernel, the launch
+    floor's wrapper, the stream read (torch's Stream object and the raw
+    handle), an allocation (two ways), and the ROLL and REFILL wrappers
+    beside their PyTorch calls on their TPU probes' shapes.  dev: a CUDA
+    device with its index."""
+    fn = _build.library(_build.PROBES).qz_probe_empty
+    fn.argtypes, fn.restype = P.EMPTY.argtypes, ctypes.c_int
+    raw = P._raw_stream(dev)
+    gen = torch.Generator().manual_seed(0)
+    x = _ints(gen, 0, 1 << 30, (8, 128)).to(dev)
+    stream = _u32(gen, (128, 4096)).to(dev)
+    off = _ints(gen, 0, 4096 - 128, (128,))
+    off_dev = off.to(dev)
+    ar = torch.arange(128, device=dev)
+
+    def gather():
+        return torch.gather(stream, 1, off_dev.to(torch.int64)[:, None] + ar)
+
+    pieces = {
+        "ctypes call": lambda: fn(0, None),
+        "ctypes call + empty launch": lambda: fn(1, raw),
+        "launch_floor wrapper": lambda: P.launch_floor(dev),
+        "current_stream().cuda_stream": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "raw stream handle": lambda: P._raw_stream(dev),
+        "torch.empty [8, 128]": lambda: torch.empty(
+            (8, 128), dtype=torch.int32, device=dev),
+        "torch.empty_like [8, 128]": lambda: torch.empty_like(x),
+        "probe_roll [8, 128] lanes": lambda: P.probe_roll(x, 1, 1),
+        "torch.roll [8, 128] lanes": lambda: torch.roll(x, 1, 1),
+        "probe_refill 128 lanes ld": lambda: P.probe_refill(stream, off, 128),
+        "torch.gather refill 128 lanes": gather,
+    }
+    out = {}
+    for name, f in pieces.items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
 def _tuple(r):
     return r if isinstance(r, tuple) else (r,)
 
 
-def run_case(case: Case, dev, seed: int) -> dict:
+def _inputs(case: Case, dev, seed: int) -> tuple:
+    """(the wrapper's inputs, every input on dev) of a case."""
+    cpu = case.make(torch.Generator().manual_seed(seed))
+    on = tuple(t.to(dev) for t in cpu)
+    return tuple(c if i in case.host else d
+                 for i, (c, d) in enumerate(zip(cpu, on))), on
+
+
+def run_case(case: Case, dev, seed: int, floor: dict | None = None) -> dict:
     """Check, time and slope-time one case; returns its record."""
-    gen = torch.Generator().manual_seed(seed)
-    x = tuple(t.to(dev) for t in case.make(gen))
+    x, xd = _inputs(case, dev, seed)
     got = _tuple(case.run(x, case.k))
-    want = _tuple(case.plain(x, case.k))
+    want = _tuple(case.plain(xd, case.k))
     torch.cuda.synchronize()
     err = 0
     for g, w in zip(got, want, strict=True):
@@ -429,22 +515,28 @@ def run_case(case: Case, dev, seed: int) -> dict:
         err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
                            .abs().max()) if g.numel() else 0)
     ms = _time_ms(lambda: case.run(x, case.k), 5)
+    g_ms = graph_ms(lambda: case.run(x, case.k), GRAPH_REPS)
     t0 = time.perf_counter()
-    case.plain(x, case.k)
+    case.plain(xd, case.k)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    nbytes, ops = case.work(x, case.k)
+    nbytes, ops = case.work(xd, case.k)
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = ops / FP32_OPS_S * 1e3
-    lib_ms = (_time_ms(lambda: case.library(x), 5) if case.library
-              else None)
+    lib = case.library
     rec = {"name": case.name, "kernel": case.kernel, "route": "cuda",
            "source": case.source,
            "replaces": case.replaces, "path": None, "shape": case.shape,
-           "k": case.k, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
+           "k": case.k, "max_abs_err": err, "ms": ms, "graph_ms": g_ms,
+           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": lib_ms, "unit": case.units}
+           "library_ms": _time_ms(lambda: lib(xd), 5) if lib else None,
+           "library_graph_ms": (graph_ms(lambda: lib(xd), GRAPH_REPS)
+                                if lib else None),
+           "unit": case.units}
+    if floor is not None:
+        rec.update(launch_floor_ms=floor["ms"],
+                   launch_floor_graph_ms=floor["graph_ms"])
     if case.k_lo is not None:
         clk = torch.zeros(1, dtype=torch.int64, device=dev)
         t_lo = _time_ms(lambda: case.run(x, case.k_lo, clk), 5)
@@ -458,12 +550,21 @@ def run_case(case: Case, dev, seed: int) -> dict:
     return rec
 
 
+def _ms(v) -> str:
+    return "-" if v is None else f"{v:.4f}"
+
+
 def line(rec: dict) -> str:
     s = (f"probe {rec['name']} ({rec['shape']}): equal to plain at K "
-         f"{rec['k']}; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+         f"{rec['k']}; kernel {rec['ms']:.4f} ms host-paced, "
+         f"{rec['graph_ms']:.4f} graph-replayed; plain {rec['plain_ms']:.4f}"
          f" ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
     if rec["library_ms"] is not None:
-        s += f", library call {rec['library_ms']:.4f} ms"
+        s += (f", library call {rec['library_ms']:.4f} host-paced, "
+              f"{rec['library_graph_ms']:.4f} graph-replayed")
+    if "launch_floor_ms" in rec:
+        s += (f"; launch floor {rec['launch_floor_ms']:.4f} host-paced, "
+              f"{rec['launch_floor_graph_ms']:.4f} graph-replayed")
     if "ns_per_unit" in rec:
         s += (f"; slope K {rec['k_lo']}..{rec['k_hi']}: "
               f"{rec['ns_per_unit']:.3f} ns and "
@@ -473,12 +574,54 @@ def line(rec: dict) -> str:
 
 def run(dev=torch.device("cuda", 0), log=print) -> list:
     """Every case on dev (the card unless given); returns their records,
-    printing a line each."""
+    printing a line each, the launch floor and the host pieces first."""
+    floor = launch_floor(dev)
+    log(f"probe launch floor (an empty kernel): {floor['ms']:.4f} ms "
+        f"host-paced, {floor['graph_ms']:.4f} graph-replayed")
+    pieces = host_pieces(dev)
+    log("probe host pieces, us a call: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in pieces.items()))
     recs = []
     for i, case in enumerate(CASES):
-        recs.append(run_case(case, dev, seed=i))
+        recs.append(run_case(case, dev, seed=i, floor=floor))
         log(line(recs[-1]))
     return recs
+
+
+def graph_safe(dev, log=print) -> int:
+    """The ROLL and REFILL cases' wrappers under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a call that synchronises
+    raises), then captured in a CUDA graph and replayed: each result equal
+    to plain.  Returns the cases checked."""
+    cases = [c for c in CASES
+             if c.kernel in ("qz_probe_roll", "qz_probe_refill")]
+    for i, case in enumerate(cases):
+        x, xd = _inputs(case, dev, seed=i)
+        want = _tuple(case.plain(xd, case.k))
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = _tuple(case.run(x, case.k))
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                captured = _tuple(case.run(x, case.k))
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(a, w) for a, w in zip(got, want, strict=True))
+        for o in captured:
+            o.fill_(-1)
+        g.replay()
+        torch.cuda.synchronize()
+        if not (ok and all(torch.equal(b, w)
+                           for b, w in zip(captured, want, strict=True))):
+            raise AssertionError(f"{case.name}: != plain under sync debug "
+                                 "mode or from a graph")
+    log(f"probe graph safety: {len(cases)} ROLL and REFILL cases raise "
+        "nothing under sync debug mode \"error\" and replay from a CUDA "
+        "graph equal to plain")
+    return len(cases)
 
 
 def step_skeleton_ns(recs: list, lanes: int) -> float:
@@ -495,14 +638,132 @@ def dep_load_ns(recs: list) -> float:
                 f"probe_chain_dep_{INFLATE_LANES}l_{INFLATE_WORDS}w")
 
 
+# -- old against new ----------------------------------------------------------
+
+OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "probe_bench")
+
+
+def _load_other(label: str, root: str, lib: str):
+    """Another checkout's tools/probes.py, its kernels bound to lib (its
+    own probes.cu, built)."""
+    path = os.path.join(root, "qatzip_tpu_torch", "tools", "probes.py")
+    spec = importlib.util.spec_from_file_location(f"_probes_{label}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    so = ctypes.CDLL(lib)
+    for k in mod.KERNELS.values():
+        fn = getattr(so, k.symbol)
+        fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
+        k._fn = fn
+    return mod
+
+
+def build_against(roots: dict) -> dict:
+    """{label: checkout root} -> {label: its probes module}; this
+    checkout's library through ops/_build, the others' into OUT, one nvcc
+    each, all started together."""
+    procs = []
+    for label, root in roots.items():
+        lib = os.path.join(OUT, label, _build.PROBES)
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        src = os.path.join(root, "qatzip_tpu_torch", "tools", "probes.cu")
+        procs.append((label, root, lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", src, "-o", lib],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    _build.build(force=True, name=_build.PROBES)
+    mods = {}
+    for label, root, lib, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise _build.KernelError(f"nvcc failed for {label}:\n{err}")
+        mods[label] = _load_other(label, root, lib)
+    mods["this"] = P
+    return mods
+
+
+def _calls(mod, case: Case, x: tuple, xd: tuple):
+    """(the wrapper as a caller calls it, a capture-safe call of the same
+    kernel) of a ROLL or REFILL case in mod; a checkout whose refill reads
+    its offsets from the card takes them there, and its wrapper (which
+    reads them back) is captured through its launch alone."""
+    a = case.args
+    if case.kernel == "qz_probe_roll":
+        def roll(K=1):
+            return mod.probe_roll(x[0], a["shift"], a["axis"])
+        return roll, roll
+    offs = x[1] if hasattr(mod, "REFILL") else xd[1]
+
+    def call(K=1):
+        return mod.probe_refill(x[0], offs, a["win"], K, alt=a["alt"],
+                                how=a["how"])
+    if offs is x[1]:
+        return call, call
+    out = torch.empty((x[0].shape[0], a["win"]), dtype=torch.int32,
+                      device=x[0].device)
+
+    def launch(K=1):
+        return mod._tile(f"refill_{a['how']}", x[0], out, *x[0].shape, K=K,
+                         off=offs, alt=a["alt"], win=a["win"])
+    return call, launch
+
+
+def against(mods: dict, dev, log=print) -> list:
+    """The ROLL and REFILL cases through each checkout's wrapper and
+    library, in turns (the others, this, this, the others): each equal to
+    plain, then host-paced and graph-replayed ms (20 calls each) and, for
+    a refill, the slope over K 256..2048.  Returns a record a case and
+    checkout turn."""
+    order = list(mods) + list(reversed(mods))
+    recs = []
+    for i, case in enumerate(CASES):
+        if case.kernel not in ("qz_probe_roll", "qz_probe_refill"):
+            continue
+        x, xd = _inputs(case, dev, seed=i)
+        want = case.plain(xd, case.k)
+        calls = {}
+        for label, mod in mods.items():
+            call, launch = _calls(mod, case, x, xd)
+            if not torch.equal(call(case.k), want):
+                raise AssertionError(f"{label} {case.name} != plain")
+            calls[label] = (call, launch)
+        cells = []
+        for label in order:
+            call, launch = calls[label]
+            rec = {"name": case.name, "checkout": label,
+                   "ms": _time_ms(lambda: call(case.k), 20),
+                   "graph_ms": graph_ms(lambda: launch(case.k), GRAPH_REPS)}
+            if case.k_lo is not None:
+                t = [_time_ms(lambda K=K: call(K), 5)
+                     for K in (case.k_lo, case.k_hi)]
+                rec["ns_per_unit"] = ((t[1] - t[0]) * 1e6
+                                      / (case.k_hi - case.k_lo))
+            recs.append(rec)
+            cells.append(f"{label} {rec['ms']:.4f} / {rec['graph_ms']:.4f}"
+                         + (f" ({rec['ns_per_unit']:.1f} ns a refill)"
+                            if "ns_per_unit" in rec else ""))
+        log(f"against {case.name}: ms host-paced / graph-replayed: "
+            + "; ".join(cells))
+    return recs
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", nargs="*", default=[],
+                    help="roots of other checkouts whose ROLL and REFILL "
+                         "to time beside this one's")
+    args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     t0 = time.perf_counter()
-    _build.build(force=True, name=_build.PROBES)
+    mods = build_against({os.path.basename(os.path.normpath(r)): r
+                          for r in args.against})
     print(f"probe build: {time.perf_counter() - t0:.2f} s")
-    recs = run()
+    dev = torch.device("cuda", 0)
+    graph_safe(dev)
+    recs = run(dev)
+    if args.against:
+        recs += against(mods, dev)
     print(json.dumps(recs))
 
 

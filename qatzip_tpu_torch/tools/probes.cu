@@ -13,7 +13,7 @@
 // bytes to reach the memory rate, so the bounds chip_smoke.py prints are
 // far below the times, and the time a step is the number to read.
 //
-// Four kernels, each a template over what it probes:
+// The kernels, each a template over what it probes, behind seven C entries:
 //   qz_probe_chain  table lookups: dependent (DEP), W independent (INDEP),
 //                   down a lane's column (COLUMN), one thread's serial walk
 //                   (WALK); the table in shared memory or read with __ldg.
@@ -23,14 +23,20 @@
 //                   tokens stored not at all, one 4-byte store a step
 //                   (LONE), or staged TILE steps and flushed 16 bytes a
 //                   thread (TILE).
-//   qz_probe_tile   a tile through one CTA: ROLL on either axis,
-//                   TRANSPOSE, a window REFILL by loads, cp.async or a TMA
-//                   bulk copy, BITONIC sorts of its segments.
-// Each C entry launches on the given stream and returns cudaGetLastError()
-// (cudaErrorInvalidValue for a mode it does not have).  A non-null clk
-// receives the clock64() ticks of thread 0 of block 0 around its loop.
+//   qz_probe_tile   a tile through one CTA: TRANSPOSE, BITONIC sorts of its
+//                   segments.
+//   qz_probe_roll   ROLL on either axis: rows by a global-to-global copy,
+//                   lanes by warp shuffles.
+//   qz_probe_refill a window REFILL by loads, cp.async or a TMA bulk copy,
+//                   the offsets in the launch's parameters.
+//   qz_probe_empty  an empty kernel: the least time any launch takes.
+// Each C entry takes only the arguments its kernels read, launches on the
+// given stream and returns cudaGetLastError() (cudaErrorInvalidValue for a
+// mode or shape it does not take).  A non-null clk receives the clock64()
+// ticks of thread 0 of block 0 around its loop.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "probes.cuh"
 
@@ -389,59 +395,17 @@ extern "C" int qz_probe_step(int mode, int store, const void* win,
 
 // -- qz_probe_tile ------------------------------------------------------------
 
-enum { QZP_ROLL_ROWS = 0, QZP_ROLL_LANES = 1, QZP_TRANSPOSE = 2,
-       QZP_REFILL_LD = 3, QZP_REFILL_CP = 4, QZP_REFILL_TMA = 5,
-       QZP_BITONIC = 6 };
+enum { QZP_TRANSPOSE = 0, QZP_BITONIC = 1 };
 
 struct QzpTile {
-  const uint32_t* x;  // ROLL, TRANSPOSE, BITONIC: [rows, cols] tiles;
-                      // REFILL: the streams [rows, cols]
+  const uint32_t* x;  // [tiles, rows, cols]
   uint32_t* out;
   int rows, cols;
-  int shift;           // ROLL, in [0, size)
-  int K;               // TRANSPOSE, REFILL, BITONIC: trip count
-  const int32_t* off;  // REFILL: [rows] word offsets
-  int alt;             // REFILL: words added to off on odd refills
-  int win;             // REFILL: window words
-  QzpSegments seg;     // BITONIC: segments of a tile
-  int tiles;           // BITONIC: tiles of [rows, cols]
+  int K;            // trip count
+  QzpSegments seg;  // BITONIC: segments of a tile
+  int tiles;        // BITONIC: tiles of [rows, cols]
   long long* clk;
 };
-
-// ROLL on the lane axis of [rows, 128]: a warp a row, 4 words a thread;
-// output word 4t + j is input word (4t + j - shift) & 127, which thread
-// ((4t + j - shift) & 127) >> 2 holds as its word (j - shift) & 3, the
-// same word for every thread.
-__global__ void qzp_roll_lanes(QzpTile a) {
-  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int t = threadIdx.x & 31;
-  if (r >= a.rows) return;
-  const uint4 v = *(const uint4*)(a.x + (int64_t)r * 128 + 4 * t);
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  uint32_t o[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int src = (4 * t + j - a.shift) & 127, e = (j - a.shift) & 3;
-    const uint32_t mine = e == 0 ? w[0] : e == 1 ? w[1] : e == 2 ? w[2] : w[3];
-    o[j] = __shfl_sync(0xFFFFFFFFu, mine, src >> 2);
-  }
-  *(uint4*)(a.out + (int64_t)r * 128 + 4 * t) = make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// ROLL on the row axis: a CTA stages 8 rows in shared memory and writes
-// row i to row (i + shift) mod rows.
-__global__ void qzp_roll_rows(QzpTile a) {
-  __shared__ uint32_t sm[8 * 128];
-  const int r0 = blockIdx.x * 8;
-  const int n = (a.rows - r0 < 8 ? a.rows - r0 : 8) * a.cols;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    sm[i] = a.x[(int64_t)r0 * a.cols + i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = (r0 + i / a.cols + a.shift) % a.rows;
-    a.out[(int64_t)r * a.cols + i % a.cols] = sm[i];
-  }
-}
 
 // TRANSPOSE K times (x = x.T + 1) of an [n, n] tile, n <= 128 a power of
 // 2, between two shared-memory buffers with rows padded to n + 1 words (no
@@ -468,75 +432,6 @@ __global__ void qzp_transpose(QzpTile a) {
   if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
   for (int i = threadIdx.x; i < n * n; i += blockDim.x)
     a.out[i] = src[(i >> lg) * p + (i & (n - 1))];
-}
-
-// REFILL: a CTA (a warp) a lane; K times it copies the lane's window of
-// win words at off (+ alt on odd refills) from its stream into shared
-// memory, then writes the last window out.  LD: plain loads.  CP and TMA
-// copy the 16-byte-aligned span around the window (the stream rows are
-// 16-byte aligned, cols % 4 == 0): CP with cp.async 16 bytes a thread,
-// TMA with one cp.async.bulk that completes on an mbarrier.
-template <int MODE>
-__global__ void qzp_refill(QzpTile a) {
-  extern __shared__ __align__(16) uint32_t sm[];
-  __shared__ __align__(8) uint64_t bar;
-  const int b = blockIdx.x, t = threadIdx.x;
-  const uint32_t* row = a.x + (int64_t)b * a.cols;
-  const unsigned bar_a = (unsigned)__cvta_generic_to_shared(&bar);
-  if (MODE == QZP_REFILL_TMA && t == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_a));
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  int head = 0;
-  unsigned phase = 0;
-  const long long t0 = clock64();
-  for (int k = 0; k < a.K; ++k) {
-    const int o = a.off[b] + (k & 1) * a.alt;
-    if (MODE == QZP_REFILL_LD) {
-      for (int w = t; w < a.win; w += blockDim.x) sm[w] = __ldg(row + o + w);
-    } else {
-      const int base = o & ~3;
-      const int nvec = ((o & 3) + a.win + 3) >> 2;
-      head = o & 3;
-      if (MODE == QZP_REFILL_CP) {
-        for (int v = t; v < nvec; v += blockDim.x) {
-          const unsigned d = (unsigned)__cvta_generic_to_shared(sm + 4 * v);
-          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                       "l"(row + base + 4 * v));
-        }
-        asm volatile("cp.async.wait_all;\n" ::: "memory");
-      } else {
-        if (t == 0) {
-          const unsigned d = (unsigned)__cvta_generic_to_shared(sm);
-          asm volatile(
-              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                  bar_a),
-              "r"(nvec * 16)
-              : "memory");
-          asm volatile(
-              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-              "bytes [%0], [%1], %2, [%3];\n" ::"r"(d),
-              "l"(row + base), "r"(nvec * 16), "r"(bar_a)
-              : "memory");
-        }
-        unsigned done = 0;
-        while (!done)
-          asm volatile(
-              "{\n .reg .pred p;\n"
-              " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-              " selp.u32 %0, 1, 0, p;\n}\n"
-              : "=r"(done)
-              : "r"(bar_a), "r"(phase)
-              : "memory");
-        phase ^= 1u;
-      }
-    }
-    __syncthreads();
-  }
-  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
-  for (int w = t; w < a.win; w += blockDim.x)
-    a.out[(int64_t)b * a.win + w] = sm[head + w];
 }
 
 // BITONIC: a CTA a tile of [rows, cols] int32; K times, every segment
@@ -576,46 +471,23 @@ static int qzp_launch(F* kernel, int blocks, int threads, size_t bytes,
   return (int)cudaGetLastError();
 }
 
-// probe_pallas.py:68 p_roll, probe_pallas3.py:26 pallas_roll (ROLL);
 // probe_inflate_step5.py:63 pallas1 for mk_transpose (TRANSPOSE);
-// probe_inflate_step.py:121 refill_dma, probe_inflate_step3.py:104
-// refill_vmem, probe_inflate_step4.py:53 refill3d (REFILL);
 // probe_pallas3.py:77 p_bitonic, :113 p_rows, :145 p_cols (BITONIC).
 extern "C" int qz_probe_tile(int mode, const void* x, void* out, int rows,
-                             int cols, int shift, int K, const void* off,
-                             int alt, int win, int seg_n, int seg_stride,
+                             int cols, int K, int seg_n, int seg_stride,
                              int elem_stride, int tiles, void* clk,
                              void* stream) {
-  const QzpTile a = {(const uint32_t*)x, (uint32_t*)out, rows, cols, shift,
-                     K, (const int32_t*)off, alt, win,
+  const QzpTile a = {(const uint32_t*)x, (uint32_t*)out, rows, cols, K,
                      {(uint32_t)seg_n, (uint32_t)seg_stride,
                       (uint32_t)elem_stride},
                      tiles, (long long*)clk};
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t refill_bytes = ((size_t)win + 8) * 4;
   switch (mode) {
-    case QZP_ROLL_LANES:
-      if (cols != 128) return (int)cudaErrorInvalidValue;
-      return qzp_launch(qzp_roll_lanes, (rows + 3) / 4, 128, 0, a, s);
-    case QZP_ROLL_ROWS:
-      if (cols > 128) return (int)cudaErrorInvalidValue;
-      return qzp_launch(qzp_roll_rows, (rows + 7) / 8, 128, 0, a, s);
     case QZP_TRANSPOSE:
       if (rows != cols || rows > 128 || rows & (rows - 1))
         return (int)cudaErrorInvalidValue;
       return qzp_launch(qzp_transpose, 1, 1024,
                         (size_t)2 * rows * (rows + 1) * 4, a, s);
-    case QZP_REFILL_LD:
-      return qzp_launch(qzp_refill<QZP_REFILL_LD>, rows, 32, refill_bytes, a,
-                        s);
-    case QZP_REFILL_CP:
-    case QZP_REFILL_TMA:
-      if (cols % 4) return (int)cudaErrorInvalidValue;
-      return mode == QZP_REFILL_CP
-                 ? qzp_launch(qzp_refill<QZP_REFILL_CP>, rows, 32,
-                              refill_bytes, a, s)
-                 : qzp_launch(qzp_refill<QZP_REFILL_TMA>, rows, 32,
-                              refill_bytes, a, s);
     case QZP_BITONIC: {
       const int n = rows * cols;
       return qzp_launch(qzp_bitonic, tiles, n / 2 < 1024 ? n / 2 : 1024,
@@ -623,6 +495,231 @@ extern "C" int qz_probe_tile(int mode, const void* x, void* out, int rows,
     }
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// -- qz_probe_roll ------------------------------------------------------------
+//
+// np.roll of an int32 [rows, cols] tile.  Bound by bytes: each word read
+// once and written once (8 KB at [8, 128], 512 KB at [512, 128]), far below
+// what a launch costs, so the design spends nothing but the copy: no
+// shared memory, no barrier, 16-byte loads and stores.
+
+// Row axis: a row permutation copied global to global, a thread a vector
+// (16 bytes, or a word where the rows are not 16-byte aligned), threadIdx.x
+// the vector of its row, threadIdx.y the row of the CTA.
+template <class V>
+__global__ void qzp_roll_rows(const V* __restrict__ x, V* __restrict__ out,
+                              int rows, int shift) {
+  const int r = blockIdx.x * blockDim.y + threadIdx.y;
+  if (r >= rows) return;
+  const int vpr = blockDim.x;
+  out[(int64_t)r * vpr + threadIdx.x] =
+      x[(int64_t)qzp_roll_src_row(r, shift, rows) * vpr + threadIdx.x];
+}
+
+// Lane axis of [rows, 128]: a warp a row, 4 words a thread, one 16-byte
+// load and store; each output word one __shfl_sync from the thread that
+// holds it (qzp_roll_lane_src), up to 32 rows a CTA.
+__global__ void qzp_roll_lanes(const uint4* __restrict__ x,
+                               uint4* __restrict__ out, int rows, int shift) {
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int t = threadIdx.x & 31;
+  if (r >= rows) return;
+  const uint4 v = x[(int64_t)r * 32 + t];
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const QzpLaneSrc src = qzp_roll_lane_src(t, j, shift);
+    const uint32_t mine = src.word == 0 ? v.x : src.word == 1 ? v.y
+                          : src.word == 2 ? v.z : v.w;
+    o[j] = __shfl_sync(0xFFFFFFFFu, mine, src.lane);
+  }
+  out[(int64_t)r * 32 + t] = make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+static bool qzp_aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// probe_pallas.py:68 p_roll (axis 1), probe_pallas3.py:26 pallas_roll
+// (either axis).  shift in [0, the axis' size); axis 0: cols <= 128;
+// axis 1: cols == 128 and 16-byte aligned rows.
+extern "C" int qz_probe_roll(const void* x, void* out, int rows, int cols,
+                             int shift, int axis, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = cols % 4 == 0 && qzp_aligned16(x) && qzp_aligned16(out);
+  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  if (axis == 1) {
+    if (cols != 128 || !vec || shift < 0 || shift >= 128)
+      return (int)cudaErrorInvalidValue;
+    const int warps = qzp_roll_lanes_warps(rows);
+    qzp_roll_lanes<<<(rows + warps - 1) / warps, 32 * warps, 0, s>>>(
+        (const uint4*)x, (uint4*)out, rows, shift);
+    return (int)cudaGetLastError();
+  }
+  if (axis != 0 || cols > 128 || shift < 0 || shift >= rows)
+    return (int)cudaErrorInvalidValue;
+  const QzpRollPlan p = qzp_roll_rows_plan(rows, cols, vec ? 4 : 1);
+  if (vec)
+    qzp_roll_rows<uint4><<<p.blocks, dim3(p.vpr, p.rpc), 0, s>>>(
+        (const uint4*)x, (uint4*)out, rows, shift);
+  else
+    qzp_roll_rows<uint32_t><<<p.blocks, dim3(p.vpr, p.rpc), 0, s>>>(
+        (const uint32_t*)x, (uint32_t*)out, rows, shift);
+  return (int)cudaGetLastError();
+}
+
+// -- qz_probe_refill ----------------------------------------------------------
+//
+// A CTA (a warp) a lane; K times it copies the lane's window of win words
+// at off (+ alt on odd refills) from its stream row into shared memory,
+// then writes the last window out.  The offsets travel in the kernel's
+// parameter space, copied there by the entry from a host array: the
+// counterpart of the TPU probe's SMEM scalars, read with no load from
+// device memory and no readback before the launch.  Bound by latency: each
+// refill waits out one round trip to L2 before its barrier.
+//   LD   loads through registers, 16 bytes a thread over the window's
+//        16-byte-aligned span (qzp_refill_span) where the rows are 16-byte
+//        aligned, else a word a thread;
+//   CP   cp.async of the span, 16 bytes a thread;
+//   TMA  one cp.async.bulk of the span that completes on an mbarrier.
+
+#define QZP_MAX_LANES 512
+
+enum { QZP_REFILL_LD = 0, QZP_REFILL_CP = 1, QZP_REFILL_TMA = 2 };
+
+struct QzpRefill {
+  const uint32_t* x;  // the streams [rows, cols]
+  uint32_t* out;      // the last windows [rows, win]
+  int cols, alt, win, K;
+  long long* clk;
+  int32_t off[QZP_MAX_LANES];  // word offsets, a lane each
+};
+
+template <int HOW, bool VEC>
+__global__ void __launch_bounds__(32)
+    qzp_refill(const __grid_constant__ QzpRefill a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  __shared__ __align__(8) uint64_t bar;
+  const int b = blockIdx.x, t = threadIdx.x;
+  const uint32_t* row = a.x + (int64_t)b * a.cols;
+  const int off = a.off[b];
+  const unsigned bar_a = (unsigned)__cvta_generic_to_shared(&bar);
+  if (HOW == QZP_REFILL_TMA && t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_a));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int head = 0;
+  unsigned phase = 0;
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k) {
+    const int o = qzp_refill_at(off, k, a.alt);
+    if (HOW == QZP_REFILL_LD && !VEC) {
+      for (int w = t; w < a.win; w += 32) {
+        uint32_t v;
+        asm volatile("ld.global.nc.u32 %0, [%1];\n"
+                     : "=r"(v) : "l"(row + o + w));
+        sm[w] = v;
+      }
+    } else {
+      const QzpSpan sp = qzp_refill_span(o, a.win);
+      head = sp.head;
+      if (HOW == QZP_REFILL_LD) {
+        for (int v = t; v < sp.nvec; v += 32) {
+          uint4 q;
+          asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(q.x), "=r"(q.y), "=r"(q.z), "=r"(q.w)
+                       : "l"(row + sp.base + 4 * v));
+          *(uint4*)(sm + 4 * v) = q;
+        }
+      } else if (HOW == QZP_REFILL_CP) {
+        for (int v = t; v < sp.nvec; v += 32) {
+          const unsigned d = (unsigned)__cvta_generic_to_shared(sm + 4 * v);
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                       "l"(row + sp.base + 4 * v));
+        }
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+      } else {
+        if (t == 0) {
+          const unsigned d = (unsigned)__cvta_generic_to_shared(sm);
+          asm volatile(
+              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                  bar_a),
+              "r"(sp.nvec * 16)
+              : "memory");
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+              "bytes [%0], [%1], %2, [%3];\n" ::"r"(d),
+              "l"(row + sp.base), "r"(sp.nvec * 16), "r"(bar_a)
+              : "memory");
+        }
+        unsigned done = 0;
+        while (!done)
+          asm volatile(
+              "{\n .reg .pred p;\n"
+              " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+              " selp.u32 %0, 1, 0, p;\n}\n"
+              : "=r"(done)
+              : "r"(bar_a), "r"(phase)
+              : "memory");
+        phase ^= 1u;
+      }
+    }
+    __syncthreads();
+  }
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  for (int w = t; w < a.win; w += 32)
+    a.out[(int64_t)b * a.win + w] = sm[head + w];
+}
+
+template <int HOW, bool VEC>
+static int qzp_launch_refill(const QzpRefill& a, int rows, cudaStream_t s) {
+  const size_t bytes = ((size_t)a.win + 8) * 4;
+  const int rc = qzp_smem(qzp_refill<HOW, VEC>, bytes);
+  if (rc) return rc;
+  qzp_refill<HOW, VEC><<<rows, 32, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// probe_inflate_step.py:121 refill_dma, probe_inflate_step3.py:104
+// refill_vmem, probe_inflate_step4.py:53 refill3d.  off: a HOST array of
+// rows word offsets (rows <= 512), copied into the launch's parameters;
+// the caller keeps every window inside its row.  CP and TMA need 16-byte
+// aligned rows.
+extern "C" int qz_probe_refill(int how, const void* x, void* out, int rows,
+                               int cols, const int32_t* off, int alt, int win,
+                               int K, void* clk, void* stream) {
+  if (rows < 1 || rows > QZP_MAX_LANES || win < 1 || K < 1)
+    return (int)cudaErrorInvalidValue;
+  QzpRefill a = {(const uint32_t*)x, (uint32_t*)out, cols, alt, win, K,
+                 (long long*)clk, {}};
+  memcpy(a.off, off, (size_t)rows * sizeof(int32_t));
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = cols % 4 == 0 && qzp_aligned16(x);
+  switch (how) {
+    case QZP_REFILL_LD:
+      return vec ? qzp_launch_refill<QZP_REFILL_LD, true>(a, rows, s)
+                 : qzp_launch_refill<QZP_REFILL_LD, false>(a, rows, s);
+    case QZP_REFILL_CP:
+      if (!vec) return (int)cudaErrorInvalidValue;
+      return qzp_launch_refill<QZP_REFILL_CP, true>(a, rows, s);
+    case QZP_REFILL_TMA:
+      if (!vec) return (int)cudaErrorInvalidValue;
+      return qzp_launch_refill<QZP_REFILL_TMA, true>(a, rows, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// -- qz_probe_empty -----------------------------------------------------------
+//
+// The launch floor: an empty kernel of one warp.  launch 0 returns at once
+// (the bare ctypes call), 1 launches it on stream.  Replaces no TPU kernel.
+
+__global__ void qzp_empty() {}
+
+extern "C" int qz_probe_empty(int launch, void* stream) {
+  if (!launch) return 0;
+  qzp_empty<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* qz_cuda_error_string(int code) {

@@ -242,3 +242,77 @@ __host__ __device__ inline void qzp_compare_exchange(int32_t* x, uint32_t lo,
     x[hi] = a;
   }
 }
+
+// -- ROLL and REFILL ---------------------------------------------------------
+
+// probe_pallas3.py:pallas_roll on the row axis: output row r of a tile of
+// rows rows is input row (r - shift) mod rows, shift in [0, rows); one
+// compare a row, no division.
+__host__ __device__ inline int qzp_roll_src_row(int r, int shift, int rows) {
+  const int s = r - shift;
+  return s < 0 ? s + rows : s;
+}
+
+// The row roll's launch: a thread a vector of vec words (4: 16 bytes, or 1),
+// vpr threads a row (threadIdx.x), rpc rows a CTA (threadIdx.y) so that a
+// CTA holds up to 256 threads, blocks CTAs for the tile.
+struct QzpRollPlan {
+  int vpr;
+  int rpc;
+  int blocks;
+};
+
+__host__ __device__ inline QzpRollPlan qzp_roll_rows_plan(int rows, int cols,
+                                                          int vec) {
+  QzpRollPlan p;
+  p.vpr = cols / vec;
+  p.rpc = 256 / p.vpr;
+  p.rpc = p.rpc < 1 ? 1 : p.rpc > rows ? rows : p.rpc;
+  p.blocks = (rows + p.rpc - 1) / p.rpc;
+  return p;
+}
+
+// ROLL on the lane axis of a 128-word row held 4 words a thread by a warp:
+// output word 4t + j is input word (4t + j - shift) & 127, which thread
+// `lane` holds as its word `word` = (j - shift) & 3, the same word for every
+// thread (so one __shfl_sync moves it).
+struct QzpLaneSrc {
+  int lane;
+  int word;
+};
+
+__host__ __device__ inline QzpLaneSrc qzp_roll_lane_src(int t, int j,
+                                                        int shift) {
+  QzpLaneSrc s;
+  s.lane = ((4 * t + j - shift) & 127) >> 2;
+  s.word = (j - shift) & 3;
+  return s;
+}
+
+// The lane roll's launch: a warp a row, up to 32 rows a CTA.
+__host__ __device__ inline int qzp_roll_lanes_warps(int rows) {
+  return rows < 32 ? rows : 32;
+}
+
+// REFILL k of a lane starts at word off, plus alt on odd refills.
+__host__ __device__ inline int qzp_refill_at(int off, int k, int alt) {
+  return off + (k & 1) * alt;
+}
+
+// The 16-byte-aligned span around a window of win words at word o of a row
+// whose words 4i start 16-byte vectors: nvec vectors from word base, the
+// window head words into them.  base + 4 nvec <= the window's end rounded
+// up to 4 words, so the span stays in a row of a multiple of 4 words.
+struct QzpSpan {
+  int base;
+  int head;
+  int nvec;
+};
+
+__host__ __device__ inline QzpSpan qzp_refill_span(int o, int win) {
+  QzpSpan s;
+  s.base = o & ~3;
+  s.head = o & 3;
+  s.nvec = (s.head + win + 3) >> 2;
+  return s;
+}

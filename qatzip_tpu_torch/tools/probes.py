@@ -9,10 +9,11 @@ under Mosaic.  Each of their ``pl.pallas_call`` kernels has here
   from the same int32 / uint32 inputs (uint32 data travels as int32 tensors
   of the same bits; the arithmetic runs on int64 and wraps to 32 bits, as
   torch has no uint32 shift on the CPU);
-* a counterpart among the four Hopper kernels of ``probes.cu``
+* a counterpart among the Hopper kernels of ``probes.cu``
   (``libqzprobes.so``, built apart from the path's kernels by
   ``ops/_build``), launched by :func:`probe_chain`, :func:`probe_alu`,
-  :func:`probe_step` and the ``probe_*`` tile wrappers below.
+  :func:`probe_step`, :func:`probe_roll`, :func:`probe_refill` and the
+  tile wrappers below; :func:`launch_floor` launches an empty kernel.
 
 A wrapper given tensors on the CPU runs the plain version; given CUDA
 tensors it launches the kernel or raises :class:`KernelError`.  The two
@@ -37,10 +38,14 @@ CHAIN = Kernel("qz_probe_chain", [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _U,
 ALU = Kernel("qz_probe_alu", [_I, _P, _P, _I, _I, _P, _P], lib=PROBES)
 STEP = Kernel("qz_probe_step", [_I, _I] + [_P] * 6 + [_I] * 8 + [_P] * 2,
               lib=PROBES)
-TILE = Kernel("qz_probe_tile", [_I, _P, _P, _I, _I, _I, _I, _P] + [_I] * 6
-              + [_P, _P], lib=PROBES)
-KERNELS = {"qz_probe_chain": CHAIN, "qz_probe_alu": ALU,
-           "qz_probe_step": STEP, "qz_probe_tile": TILE}
+TILE = Kernel("qz_probe_tile", [_I, _P, _P] + [_I] * 7 + [_P, _P],
+              lib=PROBES)
+ROLL = Kernel("qz_probe_roll", [_P, _P, _I, _I, _I, _I, _P], lib=PROBES)
+REFILL = Kernel("qz_probe_refill", [_I, _P, _P, _I, _I, _P, _I, _I, _I, _P,
+                                    _P], lib=PROBES)
+EMPTY = Kernel("qz_probe_empty", [_I, _P], lib=PROBES)
+KERNELS = {k.symbol: k for k in (CHAIN, ALU, STEP, TILE, ROLL, REFILL, EMPTY)}
+MAX_LANES = 512   # QZP_MAX_LANES: the offsets a refill's parameters hold
 
 # -- 32-bit arithmetic on int64 ----------------------------------------------
 
@@ -237,8 +242,9 @@ def bitonic(x: torch.Tensor, segment: str) -> torch.Tensor:
 def _refill(stream: torch.Tensor, off: torch.Tensor, win: int, K: int = 1,
             alt: int = 0) -> torch.Tensor:
     """The window of win words at off (+ alt after an odd number of earlier
-    refills) of each row of stream, as the K-th refill leaves it."""
-    o = _s(off).reshape(-1, 1) + ((K - 1) & 1) * alt
+    refills) of each row of stream, as the K-th refill leaves it; off on
+    any device."""
+    o = _s(off).to(stream.device).reshape(-1, 1) + ((K - 1) & 1) * alt
     idx = o + torch.arange(win, device=stream.device)
     return torch.gather(stream, 1, idx)
 
@@ -393,9 +399,14 @@ def _on(*ts: torch.Tensor) -> torch.device:
     return dev
 
 
+def _raw_stream(dev: torch.device) -> int:
+    """The raw handle of dev's current stream (a CUDA device with its
+    index), read without building a torch Stream object."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def _args(dev: torch.device, clk):
-    return (None if clk is None else clk.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    return None if clk is None else clk.data_ptr(), _raw_stream(dev)
 
 
 _CHAIN_MODES = {"dep": 0, "indep4": 1, "indep8": 2, "column": 3, "walk": 4}
@@ -521,31 +532,32 @@ def probe_step(mode: str, store: str, win, tll, td, state: torch.Tensor,
     return out, toks
 
 
-_TILE = {"roll_rows": 0, "roll_lanes": 1, "transpose": 2, "refill_ld": 3,
-         "refill_cp": 4, "refill_tma": 5, "bitonic": 6}
+_TILE = {"transpose": 0, "bitonic": 1}
 
 
-def _tile(mode: str, x, out, rows, cols, *, shift=0, K=1, off=None, alt=0,
-          win=0, seg=(0, 0, 0), tiles=1, clk=None) -> torch.Tensor:
-    TILE(_TILE[mode], x.data_ptr(), out.data_ptr(), rows, cols, shift, K,
-         None if off is None else off.data_ptr(), alt, win, *seg, tiles,
-         *_args(x.device, clk))
+def _tile(mode: str, x, out, rows, cols, *, K=1, seg=(0, 0, 0), tiles=1,
+          clk=None) -> torch.Tensor:
+    TILE(_TILE[mode], x.data_ptr(), out.data_ptr(), rows, cols, K, *seg,
+         tiles, *_args(x.device, clk))
     return out
 
 
 def probe_roll(x: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
-    """:func:`roll` of an int32 [S, C] tile (qz_probe_tile ROLL): the lane
-    axis (C = 128) by warp shuffles, the row axis (C <= 128) through shared
-    memory."""
-    if _on(x).type == "cpu":
+    """:func:`roll` of an int32 [S, C] tile (qz_probe_roll): the lane axis
+    (C = 128) by warp shuffles, the row axis (C <= 128) by a row
+    permutation copied 16 bytes a thread."""
+    if not x.is_cuda:
+        _on(x)
         return roll(x, shift, axis)
-    if x.dim() != 2:
-        raise ValueError("probe_roll takes an [S, C] tile")
-    xx = x.contiguous()
+    if x.dtype != torch.int32 or x.dim() != 2:
+        raise ValueError("probe_roll takes an int32 [S, C] tile")
+    xx = x if x.is_contiguous() else x.contiguous()
     rows, cols = xx.shape
-    return _tile("roll_lanes" if axis in (1, -1) else "roll_rows", xx,
-                 torch.empty_like(xx), rows, cols,
-                 shift=shift % xx.shape[axis])
+    out = torch.empty_like(xx)
+    if xx.numel():
+        ROLL(xx.data_ptr(), out.data_ptr(), rows, cols,
+             shift % xx.shape[axis], axis & 1, _raw_stream(xx.device))
+    return out
 
 
 def probe_transpose(x: torch.Tensor, K: int,
@@ -559,29 +571,53 @@ def probe_transpose(x: torch.Tensor, K: int,
                  xx.shape[1], K=K, clk=clk)
 
 
-def probe_refill(stream: torch.Tensor, off: torch.Tensor, win: int,
-                 K: int = 1, *, alt: int = 0, how: str = "ld",
+_REFILL = {"ld": 0, "cp": 1, "tma": 2}
+
+
+def probe_refill(stream: torch.Tensor, off, win: int, K: int = 1, *,
+                 alt: int = 0, how: str = "ld",
                  clk: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`_refill`: K refills of each lane's window of win words at
     off (+ alt on odd refills) from its row of stream into shared memory
-    (qz_probe_tile REFILL), a warp a lane, by plain loads (``ld``),
-    cp.async (``cp``) or a TMA bulk copy (``tma``); returns the last
-    window of each lane, [B, win]."""
-    dev = _on(stream, off)
-    if dev.type == "cpu":
-        return _refill(stream, off, win, K, alt)
-    ss, oo = stream.contiguous(), off.contiguous().reshape(-1)
-    B, NW = ss.shape
-    if oo.numel() != B:
+    (qz_probe_refill), a warp a lane, by plain loads (``ld``), cp.async
+    (``cp``) or a TMA bulk copy (``tma``); returns the last window of each
+    lane, [B, win].  For a stream on the card, off (an int per lane) is a
+    CPU tensor or an array: the launch carries it in its parameters, and
+    the windows' bounds are checked here from it, with no readback."""
+    oo = torch.as_tensor(off)
+    if stream.is_cuda and oo.is_cuda:
+        raise ValueError("a refill on the card takes its offsets on the CPU")
+    if stream.dtype != torch.int32 or stream.dim() != 2:
+        raise ValueError("a refill takes int32 [B, n] streams")
+    B, NW = stream.shape
+    if oo.numel() != B or B == 0:
         raise ValueError("a refill takes an offset a lane")
-    hi = int(oo.max()) + (alt if K > 1 else 0) + win
-    if int(oo.min()) < 0 or hi > NW:
+    lo, hi = torch.aminmax(oo)
+    step = alt if K > 1 else 0
+    if int(lo) + min(step, 0) < 0 or int(hi) + max(step, 0) + win > NW:
         raise ValueError("a refill window lies outside its stream")
+    if not stream.is_cuda:
+        _on(stream)
+        return _refill(stream, oo, win, K, alt)
+    if B > MAX_LANES:
+        raise ValueError(f"a refill on the card takes at most {MAX_LANES} "
+                         "lanes")
+    if oo.dtype != torch.int32 or not oo.is_contiguous():
+        oo = oo.to(torch.int32).contiguous()
+    ss = stream if stream.is_contiguous() else stream.contiguous()
     if how != "ld" and (NW % 4 or ss.data_ptr() % 16):
         raise ValueError("cp.async and TMA refills need 16-byte rows")
-    out = torch.empty((B, win), dtype=torch.int32, device=dev)
-    return _tile(f"refill_{how}", ss, out, B, NW, K=K, off=oo, alt=alt,
-                 win=win, clk=clk)
+    out = torch.empty((B, win), dtype=torch.int32, device=ss.device)
+    REFILL(_REFILL[how], ss.data_ptr(), out.data_ptr(), B, NW, oo.data_ptr(),
+           alt, win, K, *_args(ss.device, clk))
+    return out
+
+
+def launch_floor(dev: torch.device) -> None:
+    """One launch of an empty kernel on the current stream of dev (a CUDA
+    device with its index; qz_probe_empty): the least time any launch
+    takes."""
+    EMPTY(1, _raw_stream(dev))
 
 
 def probe_bitonic(x: torch.Tensor, segment: str, K: int = 1,

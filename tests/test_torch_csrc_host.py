@@ -12,6 +12,7 @@ decoder, the checksum shim also against zlib.  The kernels themselves run
 only on the card (chip_smoke.py).
 """
 import ctypes
+import os
 import shutil
 import subprocess
 import zlib
@@ -548,6 +549,81 @@ extern "C" void shim_bitonic(int32_t* x, int tiles, uint32_t n,
           qzp_bitonic_pair(g, p, k, j, &lo, &hi, &asc);
           qzp_compare_exchange(x + t * n, lo, hi, asc);
         }
+}
+
+// ROLL on the row axis as qz_probe_roll launches it, run serially: every
+// (CTA, threadIdx.y, threadIdx.x) of qzp_roll_rows_plan copies its vec
+// words from the row qzp_roll_src_row names; writes counts the stores to
+// each output word.  Returns the CTAs, or -1 for a CTA past 256 threads.
+extern "C" int shim_roll_rows(const uint32_t* x, uint32_t* out, int* writes,
+                              int rows, int cols, int shift, int vec) {
+  const QzpRollPlan p = qzp_roll_rows_plan(rows, cols, vec);
+  if (p.vpr * p.rpc > 256 || p.vpr * vec != cols) return -1;
+  for (int b = 0; b < p.blocks; ++b)
+    for (int y = 0; y < p.rpc; ++y)
+      for (int t = 0; t < p.vpr; ++t) {
+        const int r = b * p.rpc + y;
+        if (r >= rows) continue;
+        const int src = qzp_roll_src_row(r, shift, rows);
+        for (int e = 0; e < vec; ++e) {
+          out[r * cols + t * vec + e] = x[src * cols + t * vec + e];
+          ++writes[r * cols + t * vec + e];
+        }
+      }
+  return p.blocks;
+}
+
+// ROLL on the lane axis: each warp's 32 threads hold 4 words of their row,
+// and output word 4t + j is the word of the lane qzp_roll_lane_src names,
+// as __shfl_sync delivers it.  Returns the warps a CTA.
+extern "C" int shim_roll_lanes(const uint32_t* x, uint32_t* out, int rows,
+                               int shift) {
+  for (int r = 0; r < rows; ++r)
+    for (int t = 0; t < 32; ++t)
+      for (int j = 0; j < 4; ++j) {
+        const QzpLaneSrc src = qzp_roll_lane_src(t, j, shift);
+        out[r * 128 + 4 * t + j] = x[r * 128 + 4 * src.lane + src.word];
+      }
+  return qzp_roll_lanes_warps(rows);
+}
+
+// REFILL as qz_probe_refill runs it, a lane at a time: K refills into a
+// shared memory of win + 8 words full of garbage, by words (vec 0: the LD
+// kernel on rows that are not 16-byte aligned) or by the 16-byte vectors of
+// the window's span (vec 1: LD, CP and TMA), a warp's 32 threads in turn;
+// then the window out.  Returns -1 if a read leaves the lane's row or a
+// store leaves the shared memory.
+extern "C" int shim_refill(const uint32_t* x, uint32_t* out,
+                           const int32_t* off, int rows, int cols, int alt,
+                           int win, int K, int vec) {
+  std::vector<uint32_t> sm(win + 8);
+  for (int b = 0; b < rows; ++b) {
+    std::fill(sm.begin(), sm.end(), 0xA5A5A5A5u);
+    const uint32_t* row = x + (size_t)b * cols;
+    int head = 0;
+    for (int k = 0; k < K; ++k) {
+      const int o = qzp_refill_at(off[b], k, alt);
+      if (!vec) {
+        for (int t = 0; t < 32; ++t)
+          for (int w = t; w < win; w += 32) {
+            if (o + w < 0 || o + w >= cols) return -1;
+            sm[w] = row[o + w];
+          }
+        continue;
+      }
+      const QzpSpan sp = qzp_refill_span(o, win);
+      head = sp.head;
+      if (sp.base < 0 || sp.base % 4 || sp.base + 4 * sp.nvec > cols ||
+          4 * sp.nvec > win + 8)
+        return -1;
+      for (int t = 0; t < 32; ++t)
+        for (int v = t; v < sp.nvec; v += 32)
+          for (int e = 0; e < 4; ++e)
+            sm[4 * v + e] = row[sp.base + 4 * v + e];
+    }
+    for (int w = 0; w < win; ++w) out[(size_t)b * win + w] = sm[head + w];
+  }
+  return 0;
 }
 
 // The row path's three launches of csrc/chain.cu run serially through
@@ -1283,6 +1359,94 @@ def test_probe_bitonic_schedule_sorts_each_segment(shim, S, L, segment):
            if segment == "flat" else np.sort(x, axis=2 if segment == "rows"
                                              else 1))
     assert (want == ref).all()
+
+
+_PALLAS_ROLL = [(16, 1, 0), (16, 4, 0), (512, 1, 0), (512, 64, 0),
+                (512, 256, 0), (512, 448, 0), (8, 32, 1), (8, 96, 1),
+                (8, 127, 1)]
+
+
+# the nine cases of probe_pallas3.py's main (p_roll's [8, 128] lanes among
+# them), rows of 16-byte vectors and of words
+@pytest.mark.parametrize("S,shift,axis", _PALLAS_ROLL)
+def test_probe_roll_schedule_matches_plain(shim, S, shift, axis):
+    """Each output word stored once, from the word np.roll names; rows
+    move in CTAs of at most 256 threads, lanes up to 32 rows a CTA."""
+    x = np.random.default_rng(S + shift).integers(
+        0, 1 << 32, (S, 128), dtype=np.uint64).astype(np.uint32)
+    want = PR.roll(_ti(x), shift, axis).numpy()
+    assert (want == np.roll(x.view(np.int32), shift, axis)).all()
+    if axis == 1:
+        got = np.zeros_like(x)
+        assert shim.shim_roll_lanes(_ptr(x), _ptr(got), S, shift) == min(S,
+                                                                         32)
+        assert (got.view(np.int32) == want).all()
+        return
+    for vec in (4, 1):
+        got, writes = np.zeros_like(x), np.zeros(x.shape, np.int32)
+        ctas = shim.shim_roll_rows(_ptr(x), _ptr(got), _ptr(writes), S, 128,
+                                   shift, vec)
+        assert ctas == -(-S // (256 * vec // 128))
+        assert (writes == 1).all()
+        assert (got.view(np.int32) == want).all()
+
+
+# ragged tiles: a row of 3 or 25 vectors, and rows that are not 16-byte
+# aligned (words)
+@pytest.mark.parametrize("S,cols,shift,vec", [(5, 12, 2, 4), (5, 12, 4, 1),
+                                              (300, 100, 299, 4),
+                                              (77, 100, 1, 1), (1, 4, 0, 4)])
+def test_probe_roll_rows_ragged_tiles(shim, S, cols, shift, vec):
+    x = np.random.default_rng(S).integers(0, 1 << 32, (S, cols),
+                                          dtype=np.uint64).astype(np.uint32)
+    got, writes = np.zeros_like(x), np.zeros(x.shape, np.int32)
+    assert shim.shim_roll_rows(_ptr(x), _ptr(got), _ptr(writes), S, cols,
+                               shift, vec) > 0
+    assert (writes == 1).all()
+    assert (got.view(np.int32) == PR.roll(_ti(x), shift, 0).numpy()).all()
+
+
+# windows of 1 word to 128, offsets of every residue mod 4, odd refills
+# moved by 0, 3 (unaligned) or 64 words; rows of 16-byte vectors (vec 1) or
+# of a ragged 509 words (vec 0)
+@pytest.mark.parametrize("win", [1, 61, 64, 127, 128])
+@pytest.mark.parametrize("vec", [0, 1])
+def test_probe_refill_span_matches_plain(shim, win, vec):
+    rng = np.random.default_rng(win * 2 + vec)
+    rows, cols = 12, 512 if vec else 509
+    x = rng.integers(0, 1 << 32, (rows, cols), dtype=np.uint64).astype(
+        np.uint32)
+    for alt in (0, 3, 64):
+        off = rng.integers(0, cols - win - alt + 1, rows).astype(np.int32)
+        off[:4] = (off[:4] & ~3) + np.arange(4)
+        off[4] = cols - win - alt   # the last window that fits
+        for K in (1, 2, 3):
+            got = np.zeros((rows, win), np.uint32)
+            assert shim.shim_refill(_ptr(x), _ptr(got), _ptr(off), rows, cols,
+                                    alt, win, K, vec) == 0
+            want = PR._refill(_ti(x), _ti(off), win, K, alt)
+            assert (got.view(np.int32) == want.numpy()).all()
+
+
+def test_probe_entries_take_only_their_arguments():
+    """Each C entry of probes.cu takes exactly the ctypes arguments its
+    wrapper declares (a pointer, an unsigned or an int each), ROLL and
+    REFILL only their own; the row roll's kernel keeps no shared memory
+    and no barrier."""
+    import re
+
+    src = open(os.path.join(_build.TOOLS, "probes.cu")).read()
+    kinds = {ctypes.c_void_p: "p", ctypes.c_uint: "u", ctypes.c_int: "i"}
+    for k in PR.KERNELS.values():
+        m = re.search(r'extern "C" int %s\(([^)]*)\)' % k.symbol, src)
+        params = [a.strip() for a in m.group(1).split(",") if a.strip()]
+        declared = ["p" if "*" in a else "u" if a.startswith("unsigned")
+                    else "i" for a in params]
+        assert declared == [kinds[t] for t in k.argtypes], k.symbol
+    assert len(PR.ROLL.argtypes) == 7 and len(PR.REFILL.argtypes) == 11
+    body = src[src.index("__global__ void qzp_roll_rows"):
+               src.index("__global__ void qzp_roll_lanes")]
+    assert "__shared__" not in body and "__syncthreads" not in body
 
 
 # ---------------------------------------------------------------------------

@@ -514,26 +514,100 @@ def test_probe_tokens_tile_fits_wide_ctas(dev, lpc):
 
 def test_probe_tiles_equal_plain(dev):
     """ROLL on both axes, TRANSPOSE, REFILL by loads, cp.async and TMA (by
-    offset and by block index), BITONIC on the three segment shapes."""
+    offset and by block index; the offsets stay on the CPU), BITONIC on
+    the three segment shapes."""
     from qatzip_tpu_torch.tools import probes as P
 
     rng = np.random.default_rng(7)
     for S, shift, axis in ((16, 4, 0), (512, 448, 0), (8, 127, 1),
                            (512, -3, 1)):
         x = _i32(rng, (S, 128))
-        _probe_check(dev, P.TILE, lambda a: P.probe_roll(a, shift, axis), x)
+        _probe_check(dev, P.ROLL, lambda a: P.probe_roll(a, shift, axis), x)
     x = _i32(rng, (128, 128))
     for K in (1, 2, 5):
         _probe_check(dev, P.TILE, lambda a: P.probe_transpose(a, K), x)
     stream = _i32(rng, (64, 1024))
     off = _i32(rng, (64,), 0, 1024 - 200)
     for how in ("ld", "cp", "tma"):
-        for K, alt in ((1, 0), (4, 0), (3, 64)):
-            _probe_check(dev, P.TILE, lambda a, b: P.probe_refill(
-                a, b, 128, K, alt=alt, how=how), stream, off)
+        for K, alt in ((1, 0), (4, 0), (3, 64), (2, 3)):
+            _probe_check(dev, P.REFILL, lambda a: P.probe_refill(
+                a, off, 128, K, alt=alt, how=how), stream)
+    odd = _i32(rng, (64, 1021))   # rows not 16-byte aligned: a word a thread
+    _probe_check(dev, P.REFILL, lambda a: P.probe_refill(a, off, 61, 3,
+                                                         alt=5), odd)
     x = _i32(rng, (5, 8, 128))
     for segment in ("flat", "rows", "cols"):
         _probe_check(dev, P.TILE, lambda a: P.probe_bitonic(a, segment, 2), x)
+
+
+def test_probe_roll_and_refill_sync_free_and_graph_replayed(dev):
+    """ROLL and REFILL raise nothing under sync debug mode "error", are
+    captured in a CUDA graph and replay equal to plain; a refill refuses
+    offsets on the card and windows outside the stream before launching."""
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(8)
+    rolls = [(_i32(rng, (S, 128)).to(dev), shift, axis)
+             for S, shift, axis in ((512, 64, 0), (16, 1, 0), (8, 1, 1),
+                                    (40, 127, 1))]
+    stream = _i32(rng, (128, 256 * 64)).to(dev)
+    off = _i32(rng, (128,), 0, 254) * 64
+    refills = [(how, K, alt) for how in ("ld", "cp", "tma")
+               for K, alt in ((1, 0), (2, 64), (5, 64))]
+
+    def calls():
+        return ([P.probe_roll(x, shift, axis) for x, shift, axis in rolls]
+                + [P.probe_refill(stream, off, 128, K, alt=alt, how=how)
+                   for how, K, alt in refills])
+
+    want = ([P.roll(x.cpu(), shift, axis) for x, shift, axis in rolls]
+            + [P._refill(stream.cpu(), off, 128, K, alt)
+               for how, K, alt in refills])
+    before = P.ROLL.launches, P.REFILL.launches
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            captured = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert (P.ROLL.launches, P.REFILL.launches) == (
+        before[0] + 2 * len(rolls), before[1] + 2 * len(refills))
+    for o in captured:
+        o.fill_(-1)
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, captured, want, strict=True):
+        assert torch.equal(a.cpu(), w) and torch.equal(b.cpu(), w)
+    launches = P.REFILL.launches
+    with pytest.raises(ValueError, match="offsets on the CPU"):
+        P.probe_refill(stream, off.to(dev), 128)
+    with pytest.raises(ValueError, match="outside its stream"):
+        P.probe_refill(stream, off + 64 * 128, 128)
+    assert P.REFILL.launches == launches
+
+
+def test_probe_roll_rows_keeps_no_shared_memory(dev):
+    """The row roll's kernel is a copy from global to global: its code
+    holds no shared-memory access and no barrier."""
+    import subprocess
+
+    from qatzip_tpu_torch.ops import _build
+
+    lib = _build.build(name=_build.PROBES)
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if f.startswith("_Z13qzp_roll_rows")]
+    assert len(funcs) == 2   # 16-byte vectors, and words
+    for f in funcs:
+        ops = f.split("\n", 1)[1]
+        for op in ("LDS", "STS", "BAR"):
+            assert op not in ops, f.split("\n", 1)[0]
 
 
 # ------------------------------------------- parity engines and parallel/

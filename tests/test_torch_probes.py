@@ -128,8 +128,9 @@ def test_refill_dma(tpu, interpret):
     off = rng.integers(0, NW - WIN, (1, B)).astype(np.int32)
     want = tpu["inflate_step"].refill_dma(B, NW, WIN)(off, stream)
     _eq(P.refill_dma(_t(off), _t(stream), WIN), want)
-    for how in ("ld", "cp", "tma"):
+    for how in ("ld", "cp", "tma"):   # offsets a CPU tensor or an array
         _eq(P.probe_refill(_t(stream), _t(off), WIN, how=how), want)
+        _eq(P.probe_refill(_t(stream), off[0], WIN, how=how), want)
 
 
 def test_refill_vmem(tpu, interpret, monkeypatch):
@@ -138,8 +139,10 @@ def test_refill_vmem(tpu, interpret, monkeypatch):
     rng = _rng(5)
     stream = _i32(rng, (8, 512))
     off = rng.integers(0, 512 - 64, (8,)).astype(np.int32)
-    _eq(P.refill_vmem(_t(off), _t(stream), 64),
-        m.refill_vmem(512, 64)(off, stream))
+    want = m.refill_vmem(512, 64)(off, stream)
+    _eq(P.refill_vmem(_t(off), _t(stream), 64), want)
+    for how in ("ld", "cp", "tma"):
+        _eq(P.probe_refill(_t(stream), off, 64, how=how), want)
 
 
 @pytest.mark.parametrize("nrefills", [1, 2, 3])
@@ -152,8 +155,30 @@ def test_refill3d(tpu, interpret, monkeypatch, nrefills):
     want = m.refill3d(16, nrefills)(stream, blkv)
     _eq(P.refill3d(_t(stream), _t(blkv), nrefills), want)
     flat = _t(stream).reshape(8, 16 * 64)
-    got = P.probe_refill(flat, _t(blkv) * 64, 128, nrefills, alt=64)
-    _eq(got.reshape(8, 2, 64), want)
+    for how in ("ld", "cp", "tma"):
+        got = P.probe_refill(flat, _t(blkv) * 64, 128, nrefills, alt=64,
+                             how=how)
+        _eq(got.reshape(8, 2, 64), want)
+
+
+# a window before the stream, past its end, an odd refill moved past the
+# end by alt, and one moved before the start by a negative alt
+@pytest.mark.parametrize("first,last,K,alt", [
+    (-1, 0, 1, 0), (0, 256 - 127, 1, 0), (0, 256 - 128 - 60, 2, 64),
+    (3, 100, 3, -4)])
+def test_refill_window_outside_the_stream_is_refused(first, last, K, alt):
+    """The bounds come from the host offsets, before any launch: a
+    ValueError, no launch counted."""
+    stream = _t(_i32(_rng(14), (4, 256)))
+    off = np.array([first, 5, 9, last], np.int32)
+    before = P.REFILL.launches
+    for how in ("ld", "cp", "tma"):
+        with pytest.raises(ValueError, match="outside its stream"):
+            P.probe_refill(stream, off, 128, K, alt=alt, how=how)
+    assert P.REFILL.launches == before
+    ok = np.clip(off, 4, 256 - 128 - 64)   # the same call, inside
+    _eq(P.probe_refill(stream, ok, 128, K, alt=alt),
+        P._refill(stream, _t(ok), 128, K, alt))
 
 
 def test_step_loop(tpu, interpret, monkeypatch):
