@@ -40,11 +40,12 @@ Run from the repository root:  python3 chip_smoke.py
    measure); the kernel's ptxas report (registers, shared memory, spills)
    and the CTAs the card holds a SM; then the first group through
    decode_blocks, equal to its chunks.  The construct probes
-   (tools/probe_bench.py): ROLL and REFILL under sync debug mode "error"
-   and replayed from a CUDA graph, the launch floor (an empty kernel) and
-   the host pieces of a launch, then every probe equal to its plain
-   version, timed host-paced and graph-replayed beside its PyTorch call,
-   and slope-timed.
+   (tools/probe_bench.py): ROLL, REFILL, TRANSPOSE and DEP under sync
+   debug mode "error" and replayed from a CUDA graph, the launch floor (an
+   empty kernel) and the host pieces of a launch, then every probe equal
+   to its plain version, timed host-paced and graph-replayed beside its
+   PyTorch call, and slope-timed (TRANSPOSE with the SMs its cluster ran
+   on).
 3. Calibration (engine/devcal.calibrate, 8 MB, into a record of its own):
    the CPU funnel, the device codec's raw and packed compress and its
    decompress, the inflate kernel and the match finder alone.  No device or
@@ -329,12 +330,12 @@ def phase_select(torch, corpus: bytes, dev) -> list:
 
 
 def phase_probes(torch, dev) -> list:
-    """The construct probes' library built; the ROLL and REFILL wrappers
-    under sync debug mode "error" and replayed from a CUDA graph; then the
-    launch floor, the host pieces of a launch and every case of
-    tools/probe_bench.py: the kernel equal to its plain version, timed
-    host-paced and graph-replayed beside its PyTorch call, and slope-timed.
-    Returns the cases' records."""
+    """The construct probes' library built; the ROLL, REFILL, TRANSPOSE
+    and DEP wrappers under sync debug mode "error" and replayed from a CUDA
+    graph; then the launch floor, the host pieces of a launch and every
+    case of tools/probe_bench.py: the kernel equal to its plain version,
+    timed host-paced and graph-replayed beside its PyTorch call, and
+    slope-timed.  Returns the cases' records."""
     from qatzip_tpu_torch.ops import _build
     from qatzip_tpu_torch.tools import probe_bench as PB
 

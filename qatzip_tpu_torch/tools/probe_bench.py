@@ -20,9 +20,10 @@ every record carries, and the host pieces of a launch (the bare ctypes
 call, the stream read, an allocation, whole wrappers), microseconds a call
 by time.perf_counter.  The inputs come from a torch.Generator seeded per
 case.  ``--against`` builds each named checkout's probes.cu (an earlier
-commit unpacked with ``git archive`` under ``build/``) and times its ROLL
-and REFILL wrappers and kernels beside this checkout's in turns (old, new,
-new, old).  chip_smoke.py runs the same cases (``run``) and puts their
+commit unpacked with ``git archive`` under ``build/``) and times its ROLL,
+REFILL, TRANSPOSE and DEP (p_gather and the two slopes chip_smoke reads)
+wrappers and kernels beside this checkout's in turns (old, new, new,
+old).  chip_smoke.py runs the same cases (``run``) and puts their
 records in its kernels line.
 """
 from __future__ import annotations
@@ -58,8 +59,10 @@ class Case:
     (bytes, integer operations) the function needs; ``library(x)`` one
     PyTorch call computing the same at K = k (or None).  ``host``: the
     inputs the wrapper takes on the CPU (a refill's offsets); plain and
-    library take every input on the card.  ``args``: a ROLL or REFILL
-    wrapper's own arguments, for :func:`against`."""
+    library take every input on the card.  ``args``: a ROLL, REFILL or
+    DEP wrapper's own arguments, for :func:`against`.  ``cluster``: the
+    CTAs of a cluster kernel, each of which writes the SM it ran on into
+    ``clk[1 + rank]``."""
     name: str
     kernel: str
     replaces: str
@@ -76,6 +79,7 @@ class Case:
     source: str = SRC
     host: tuple = ()
     args: dict = field(default_factory=dict)
+    cluster: int = 0
 
 
 def _u32(gen, shape) -> torch.Tensor:
@@ -108,12 +112,13 @@ def _chain_case(name, mode, replaces, shape, t_shape, i_shape, k, k_lo, k_hi,
         n = t_shape[0] if mode == "column" else t_shape[-1]
         return _ints(gen, 0, hi, t_shape), _ints(gen, 0, n, i_shape)
 
-    return Case(name, "qz_probe_chain", replaces, shape, units, make,
+    return Case(name, "qz_probe_dep" if mode == "dep" else "qz_probe_chain",
+                replaces, shape, units, make,
                 lambda x, K, clk=None: P.probe_chain(mode, x[0], x[1], K,
                                                      smem=smem, post=post,
                                                      clk=clk),
                 lambda x, K: _PLAIN_CHAIN[mode](x, K, post), k, k_lo, k_hi,
-                _elementwise(ops), library)
+                _elementwise(ops), library, args={"smem": smem})
 
 
 _PLAIN_CHAIN = {
@@ -229,16 +234,19 @@ def _roll_case(S, shift, axis, replaces):
 
 
 def _transpose_case():
+    """The TPU probe's [128, 128] tile."""
     def make(gen):
         return (_u32(gen, (128, 128)),)
 
-    return Case("probe_tile_transpose", "qz_probe_tile",
+    return Case("probe_tile_transpose", "qz_probe_transpose",
                 "tools/probe_inflate_step5.py:63 (mk_transpose)",
-                "[128, 128]", "transpose + 1", make,
+                "[128, 128], a cluster of 16 CTAs, st.async on the partner's "
+                "mbarrier", "transpose + 1", make,
                 lambda x, K, clk=None: P.probe_transpose(x[0], K, clk),
                 lambda x, K: P.transpose(x[0], K), 1, 64, 512,
                 lambda x, K: (2 * _nbytes(x[0]), K * x[0].numel()),
-                lambda x: x[0].t() + 1)
+                lambda x: x[0].t() + 1,
+                cluster=P.transpose_plan(128)["ctas"])
 
 
 def _refill_case(name, replaces, B, NW, win, how, alt=0, blocks=False,
@@ -419,6 +427,13 @@ def _cases() -> list:
 CASES = _cases()
 GRAPH_REPS = 20     # calls a graph holds in graph_ms
 FLOOR_REPS = 100    # host-paced calls of the empty kernel a floor
+CLK_WORDS = 64      # a slope's clk: the ticks, then a cluster's SMs
+# the cases whose wrappers run sync-free, from a graph and --against
+REDESIGNED = ("qz_probe_roll", "qz_probe_refill", "qz_probe_transpose",
+              "qz_probe_dep")
+AGAINST_DEP = ("probe_chain_gather128", "probe_chain_gather1024",
+               "probe_chain_dep", f"probe_chain_dep_{INFLATE_LANES}l_"
+               f"{INFLATE_WORDS}w")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -441,17 +456,29 @@ def launch_floor(dev) -> dict:
             "graph_ms": graph_ms(lambda: P.launch_floor(dev), GRAPH_REPS)}
 
 
-def host_pieces(dev, n: int = 5000) -> dict:
+def _bare(symbol: str, argtypes: list):
+    """The probes library's C entry symbol as a bare ctypes function."""
+    fn = getattr(_build.library(_build.PROBES), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def host_pieces(dev, n: int = 5000, others: dict | None = None) -> dict:
     """Microseconds a call of each host piece of a probe's launch, by
     time.perf_counter over n calls after a warm one (launches drained by a
     synchronize inside the span): the bare ctypes call (the empty entry
     told not to launch), that call launching the empty kernel, the launch
     floor's wrapper, the stream read (torch's Stream object and the raw
-    handle), an allocation (two ways), and the ROLL and REFILL wrappers
-    beside their PyTorch calls on their TPU probes' shapes.  dev: a CUDA
-    device with its index."""
-    fn = _build.library(_build.PROBES).qz_probe_empty
-    fn.argtypes, fn.restype = P.EMPTY.argtypes, ctypes.c_int
+    handle), an allocation (two ways), DEP's wrapper pieces (the device
+    and type checks, two contiguous reshapes, a 14- and an 11-argument
+    ctypes call that the entry refuses at once), and the ROLL, REFILL,
+    TRANSPOSE and DEP wrappers beside their PyTorch calls on their TPU
+    probes' shapes; others: {label: another checkout's probes module},
+    whose TRANSPOSE and DEP wrappers are timed too.  dev: a CUDA device
+    with its index."""
+    fn = _bare("qz_probe_empty", P.EMPTY.argtypes)
+    chain = _bare("qz_probe_chain", P.CHAIN.argtypes)
+    dep = _bare("qz_probe_dep", P.DEP.argtypes)
     raw = P._raw_stream(dev)
     gen = torch.Generator().manual_seed(0)
     x = _ints(gen, 0, 1 << 30, (8, 128)).to(dev)
@@ -459,6 +486,9 @@ def host_pieces(dev, n: int = 5000) -> dict:
     off = _ints(gen, 0, 4096 - 128, (128,))
     off_dev = off.to(dev)
     ar = torch.arange(128, device=dev)
+    tile = _u32(gen, (128, 128)).to(dev)
+    tbl = _ints(gen, 0, 1 << 20, (8, 128)).to(dev)
+    idx = _ints(gen, 0, 128, (8, 128)).to(dev)
 
     def gather():
         return torch.gather(stream, 1, off_dev.to(torch.int64)[:, None] + ar)
@@ -473,11 +503,28 @@ def host_pieces(dev, n: int = 5000) -> dict:
         "torch.empty [8, 128]": lambda: torch.empty(
             (8, 128), dtype=torch.int32, device=dev),
         "torch.empty_like [8, 128]": lambda: torch.empty_like(x),
+        "_on(t, idx)": lambda: P._on(tbl, idx),
+        "two contiguous().reshape": lambda: (
+            idx.contiguous().reshape(-1, 128), tbl.contiguous().reshape(
+                -1, 128)),
+        "ctypes 14-argument call, refused": lambda: chain(
+            99, 1, None, 0, 0, None, None, 0, 0, 0, 0, 0, None, raw),
+        "ctypes 11-argument call, refused": lambda: dep(
+            1, None, 0, 0, None, None, 0, 0, 0, None, raw),
         "probe_roll [8, 128] lanes": lambda: P.probe_roll(x, 1, 1),
         "torch.roll [8, 128] lanes": lambda: torch.roll(x, 1, 1),
         "probe_refill 128 lanes ld": lambda: P.probe_refill(stream, off, 128),
         "torch.gather refill 128 lanes": gather,
+        "probe_transpose [128, 128]": lambda: P.probe_transpose(tile, 1),
+        "x.t() + 1 [128, 128]": lambda: tile.t() + 1,
+        "probe_chain dep [8, 128]": lambda: P.probe_chain("dep", tbl, idx, 1),
+        "torch.gather [8, 128]": lambda: torch.gather(tbl, 1, idx.long()),
     }
+    for label, mod in (others or {}).items():
+        pieces[f"{label} probe_transpose [128, 128]"] = (
+            lambda mod=mod: mod.probe_transpose(tile, 1))
+        pieces[f"{label} probe_chain dep [8, 128]"] = (
+            lambda mod=mod: mod.probe_chain("dep", tbl, idx, 1))
     out = {}
     for name, f in pieces.items():
         f()
@@ -538,7 +585,7 @@ def run_case(case: Case, dev, seed: int, floor: dict | None = None) -> dict:
         rec.update(launch_floor_ms=floor["ms"],
                    launch_floor_graph_ms=floor["graph_ms"])
     if case.k_lo is not None:
-        clk = torch.zeros(1, dtype=torch.int64, device=dev)
+        clk = torch.zeros(CLK_WORDS, dtype=torch.int64, device=dev)
         t_lo = _time_ms(lambda: case.run(x, case.k_lo, clk), 5)
         c_lo = int(clk[0])
         t_hi = _time_ms(lambda: case.run(x, case.k_hi, clk), 5)
@@ -547,6 +594,9 @@ def run_case(case: Case, dev, seed: int, floor: dict | None = None) -> dict:
         rec.update(k_lo=case.k_lo, k_hi=case.k_hi,
                    ns_per_unit=(t_hi - t_lo) / dk * 1e6,
                    clocks_per_unit=(c_hi - c_lo) / dk)
+        if case.cluster:
+            rec.update(cluster_ctas=case.cluster, sms=len(set(
+                clk[1:1 + case.cluster].tolist())))
     return rec
 
 
@@ -569,32 +619,38 @@ def line(rec: dict) -> str:
         s += (f"; slope K {rec['k_lo']}..{rec['k_hi']}: "
               f"{rec['ns_per_unit']:.3f} ns and "
               f"{rec['clocks_per_unit']:.2f} clocks a {rec['unit']}")
+    if "sms" in rec:
+        s += f"; a cluster of {rec['cluster_ctas']} CTAs on {rec['sms']} SMs"
     return s
 
 
-def run(dev=torch.device("cuda", 0), log=print) -> list:
-    """Every case on dev (the card unless given); returns their records,
-    printing a line each, the launch floor and the host pieces first."""
+def run(dev=torch.device("cuda", 0), log=print,
+        others: dict | None = None, only=None) -> list:
+    """Every case on dev (the card unless given; only: the cases' names,
+    if given); returns their records, printing a line each, the launch
+    floor and the host pieces (beside others' wrappers, as
+    :func:`host_pieces`) first."""
     floor = launch_floor(dev)
     log(f"probe launch floor (an empty kernel): {floor['ms']:.4f} ms "
         f"host-paced, {floor['graph_ms']:.4f} graph-replayed")
-    pieces = host_pieces(dev)
+    pieces = host_pieces(dev, others=others)
     log("probe host pieces, us a call: " + ", ".join(
         f"{k} {v:.3f}" for k, v in pieces.items()))
     recs = []
     for i, case in enumerate(CASES):
+        if only and case.name not in only:
+            continue
         recs.append(run_case(case, dev, seed=i, floor=floor))
         log(line(recs[-1]))
     return recs
 
 
 def graph_safe(dev, log=print) -> int:
-    """The ROLL and REFILL cases' wrappers under
+    """The ROLL, REFILL, TRANSPOSE and DEP cases' wrappers under
     ``torch.cuda.set_sync_debug_mode("error")`` (a call that synchronises
     raises), then captured in a CUDA graph and replayed: each result equal
     to plain.  Returns the cases checked."""
-    cases = [c for c in CASES
-             if c.kernel in ("qz_probe_roll", "qz_probe_refill")]
+    cases = [c for c in CASES if c.kernel in REDESIGNED]
     for i, case in enumerate(cases):
         x, xd = _inputs(case, dev, seed=i)
         want = _tuple(case.plain(xd, case.k))
@@ -618,9 +674,9 @@ def graph_safe(dev, log=print) -> int:
                            for b, w in zip(captured, want, strict=True))):
             raise AssertionError(f"{case.name}: != plain under sync debug "
                                  "mode or from a graph")
-    log(f"probe graph safety: {len(cases)} ROLL and REFILL cases raise "
-        "nothing under sync debug mode \"error\" and replay from a CUDA "
-        "graph equal to plain")
+    log(f"probe graph safety: {len(cases)} ROLL, REFILL, TRANSPOSE and DEP "
+        "cases raise nothing under sync debug mode \"error\" and replay "
+        "from a CUDA graph equal to plain")
     return len(cases)
 
 
@@ -681,9 +737,19 @@ def build_against(roots: dict) -> dict:
     return mods
 
 
+def _against_cases(only=None) -> list:
+    """The cases --against times: ROLL, REFILL and TRANSPOSE, p_gather and
+    the two DEP slopes that chip_smoke reads; only: their names, if
+    given."""
+    return [c for c in CASES
+            if (c.kernel in ("qz_probe_roll", "qz_probe_refill",
+                             "qz_probe_transpose") or c.name in AGAINST_DEP)
+            and (not only or c.name in only)]
+
+
 def _calls(mod, case: Case, x: tuple, xd: tuple):
     """(the wrapper as a caller calls it, a capture-safe call of the same
-    kernel) of a ROLL or REFILL case in mod; a checkout whose refill reads
+    kernel) of an --against case in mod; a checkout whose refill reads
     its offsets from the card takes them there, and its wrapper (which
     reads them back) is captured through its launch alone."""
     a = case.args
@@ -691,6 +757,14 @@ def _calls(mod, case: Case, x: tuple, xd: tuple):
         def roll(K=1):
             return mod.probe_roll(x[0], a["shift"], a["axis"])
         return roll, roll
+    if case.kernel == "qz_probe_transpose":
+        def tr(K=1):
+            return mod.probe_transpose(x[0], K)
+        return tr, tr
+    if case.kernel == "qz_probe_dep":
+        def dep(K=1):
+            return mod.probe_chain("dep", x[0], x[1], K, smem=a["smem"])
+        return dep, dep
     offs = x[1] if hasattr(mod, "REFILL") else xd[1]
 
     def call(K=1):
@@ -707,18 +781,17 @@ def _calls(mod, case: Case, x: tuple, xd: tuple):
     return call, launch
 
 
-def against(mods: dict, dev, log=print) -> list:
-    """The ROLL and REFILL cases through each checkout's wrapper and
-    library, in turns (the others, this, this, the others): each equal to
-    plain, then host-paced and graph-replayed ms (20 calls each) and, for
-    a refill, the slope over K 256..2048.  Returns a record a case and
-    checkout turn."""
+def against(mods: dict, dev, log=print, only=None) -> list:
+    """The ROLL, REFILL, TRANSPOSE, p_gather and DEP slope cases through
+    each checkout's wrapper and library, in turns (the others, this,
+    this, the others): each equal to plain, then host-paced and
+    graph-replayed ms (20 calls each) and, where the case has one, the
+    slope over its K_lo..K_hi (5 host-paced calls at each); only: the
+    cases' names, if given.  Returns a record a case and checkout turn."""
     order = list(mods) + list(reversed(mods))
     recs = []
-    for i, case in enumerate(CASES):
-        if case.kernel not in ("qz_probe_roll", "qz_probe_refill"):
-            continue
-        x, xd = _inputs(case, dev, seed=i)
+    for case in _against_cases(only):
+        x, xd = _inputs(case, dev, seed=CASES.index(case))
         want = case.plain(xd, case.k)
         calls = {}
         for label, mod in mods.items():
@@ -739,18 +812,20 @@ def against(mods: dict, dev, log=print) -> list:
                                       / (case.k_hi - case.k_lo))
             recs.append(rec)
             cells.append(f"{label} {rec['ms']:.4f} / {rec['graph_ms']:.4f}"
-                         + (f" ({rec['ns_per_unit']:.1f} ns a refill)"
+                         + (f" ({rec['ns_per_unit']:.1f} ns)"
                             if "ns_per_unit" in rec else ""))
-        log(f"against {case.name}: ms host-paced / graph-replayed: "
-            + "; ".join(cells))
+        log(f"against {case.name} (ms host-paced / graph-replayed (ns a "
+            f"{case.units})): " + "; ".join(cells))
     return recs
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", nargs="*", default=[],
-                    help="roots of other checkouts whose ROLL and REFILL "
-                         "to time beside this one's")
+                    help="roots of other checkouts whose ROLL, REFILL, "
+                         "TRANSPOSE and DEP to time beside this one's")
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="the cases to time, by name (all)")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -761,9 +836,10 @@ def main() -> None:
     print(f"probe build: {time.perf_counter() - t0:.2f} s")
     dev = torch.device("cuda", 0)
     graph_safe(dev)
-    recs = run(dev)
+    recs = run(dev, others={k: m for k, m in mods.items() if m is not P},
+               only=args.only)
     if args.against:
-        recs += against(mods, dev)
+        recs += against(mods, dev, only=args.only)
     print(json.dumps(recs))
 
 

@@ -13,18 +13,24 @@
 // bytes to reach the memory rate, so the bounds chip_smoke.py prints are
 // far below the times, and the time a step is the number to read.
 //
-// The kernels, each a template over what it probes, behind seven C entries:
-//   qz_probe_chain  table lookups: dependent (DEP), W independent (INDEP),
-//                   down a lane's column (COLUMN), one thread's serial walk
-//                   (WALK); the table in shared memory or read with __ldg.
+// The kernels, each a template over what it probes, behind nine C entries:
+//   qz_probe_dep    dependent table lookups (DEP), a table row staged once
+//                   a cluster into each CTA's shared memory, or the table
+//                   read with __ldg.
+//   qz_probe_chain  table lookups: W independent (INDEP), down a lane's
+//                   column (COLUMN), one thread's serial walk (WALK); the
+//                   table in shared memory or read with __ldg.
 //   qz_probe_alu    register-only integer chains (HASH, EW, DOUBLE).
 //   qz_probe_step   a decode step (STEP3, STEP5, TOKENS) with per-lane
 //                   window and tables in shared memory, 1-32 lanes a CTA,
 //                   tokens stored not at all, one 4-byte store a step
 //                   (LONE), or staged TILE steps and flushed 16 bytes a
 //                   thread (TILE).
-//   qz_probe_tile   a tile through one CTA: TRANSPOSE, BITONIC sorts of its
-//                   segments.
+//   qz_probe_tile   BITONIC sorts of a tile's segments in one CTA.
+//   qz_probe_transpose  TRANSPOSE over a thread-block cluster, a 32 x 32
+//                   block a CTA, swapped with its partner through
+//                   distributed shared memory (st.async on the partner's
+//                   mbarrier).
 //   qz_probe_roll   ROLL on either axis: rows by a global-to-global copy,
 //                   lanes by warp shuffles.
 //   qz_probe_refill a window REFILL by loads, cp.async or a TMA bulk copy,
@@ -33,12 +39,16 @@
 // Each C entry takes only the arguments its kernels read, launches on the
 // given stream and returns cudaGetLastError() (cudaErrorInvalidValue for a
 // mode or shape it does not take).  A non-null clk receives the clock64()
-// ticks of thread 0 of block 0 around its loop.
+// ticks of thread 0 of block 0 around its loop (TRANSPOSE: then the SM of
+// each CTA of its cluster).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include "probes.cuh"
+
+namespace cg = cooperative_groups;
 
 #define QZP_MAX_SMEM (227 * 1024)
 
@@ -51,17 +61,30 @@ static int qzp_smem(F* kernel, size_t bytes) {
   return 0;
 }
 
+static bool qzp_aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 __device__ inline bool qzp_timer_thread() {
   return threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0;
 }
 
+// The two halves of the cluster barrier that a CTA passes before it stores
+// into a sibling's shared memory: every CTA of the cluster has started (and
+// set up what its siblings use) once the wait sees all of them arrive.
+__device__ inline void qzp_cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ inline void qzp_cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // -- qz_probe_chain -----------------------------------------------------------
 
-enum { QZP_DEP = 0, QZP_INDEP4 = 1, QZP_INDEP8 = 2, QZP_COLUMN = 3,
-       QZP_WALK = 4 };
+// the modes of qz_probe_chain (DEP: qz_probe_dep)
+enum { QZP_INDEP4 = 1, QZP_INDEP8 = 2, QZP_COLUMN = 3, QZP_WALK = 4 };
 
 struct QzpChain {
-  const uint32_t* t;  // DEP/INDEP/WALK: [t_rows, t_cols] rows (t_rows 1 or
+  const uint32_t* t;  // INDEP/WALK: [t_rows, t_cols] rows (t_rows 1 or
                       // rows); COLUMN: [t_rows, t_cols], a column a lane
   int t_rows, t_cols;
   const uint32_t* idx;  // [rows, cols]
@@ -71,8 +94,8 @@ struct QzpChain {
   long long* clk;
 };
 
-// DEP / INDEP: block (x, y) takes elements x * blockDim.x ... of row y and
-// reads the row's table (row y, or row 0 of a one-row table).
+// INDEP: block (x, y) takes elements x * blockDim.x ... of row y and reads
+// the row's table (row y, or row 0 of a one-row table).
 template <int MODE, bool SMEM>
 __global__ void qzp_chain_rows(QzpChain a) {
   extern __shared__ __align__(16) uint32_t sm[];
@@ -89,9 +112,7 @@ __global__ void qzp_chain_rows(QzpChain a) {
   uint32_t v = a.idx[(int64_t)r * a.cols + j];
   const long long t0 = clock64();
   for (int k = 0; k < a.K; ++k) {
-    if (MODE == QZP_DEP)
-      v = SMEM ? qzp_dep_step(row, v, a.mask) : __ldg(row + (v & a.mask));
-    else if (SMEM)
+    if (SMEM)
       v = qzp_indep_step<MODE == QZP_INDEP4 ? 4 : 8>(row, v, a.mask);
     else {
       uint32_t acc = v;
@@ -161,9 +182,7 @@ static int qzp_launch_rows(const QzpChain& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// probe_inflate_step.py:53 dep_gather_loop, :74 indep_gather_loop;
-// probe_inflate_step3.py:44 dep_loop; probe_pallas.py:82 p_gather,
-// :107 p_walk; probe_pallas4.py:48 p_chain, :79 p_tbl, :124 p_chain_grid;
+// probe_inflate_step.py:74 indep_gather_loop; probe_pallas.py:107 p_walk;
 // probe_inflate_step5.py:63 pallas1 for mk_subshuf, mk_onehot, mk_groupsel.
 extern "C" int qz_probe_chain(int mode, int smem, const void* t, int t_rows,
                               int t_cols, const void* idx, void* out,
@@ -174,8 +193,6 @@ extern "C" int qz_probe_chain(int mode, int smem, const void* t, int t_rows,
                       mask, post, (long long*)clk};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (mode * 2 + (smem ? 1 : 0)) {
-    case QZP_DEP * 2: return qzp_launch_rows<QZP_DEP, false>(a, s);
-    case QZP_DEP * 2 + 1: return qzp_launch_rows<QZP_DEP, true>(a, s);
     case QZP_INDEP4 * 2: return qzp_launch_rows<QZP_INDEP4, false>(a, s);
     case QZP_INDEP4 * 2 + 1: return qzp_launch_rows<QZP_INDEP4, true>(a, s);
     case QZP_INDEP8 * 2: return qzp_launch_rows<QZP_INDEP8, false>(a, s);
@@ -205,6 +222,136 @@ extern "C" int qz_probe_chain(int mode, int smem, const void* t, int t_rows,
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// -- qz_probe_dep -------------------------------------------------------------
+//
+// DEP: K dependent lookups idx = t[r, idx & (w - 1)] a thread, over int32
+// [rows, cols] indexes and a [1, w] or [rows, w] table.  Bound by latency:
+// one dependent load after another, the table in shared memory (smem) or
+// read through __ldg.  CTAs of at most four warps (qzp_dep_plan); the CTAs
+// that read one table row form a cluster that stages it once
+// (qzp_dep_stage): once every sibling has started (a cluster barrier
+// arrived at on entry), each loads its share with 16-byte loads and
+// stores it into every CTA of the cluster through distributed shared
+// memory, then passes a second barrier; a cluster of one CTA stages into
+// its own and passes a __syncthreads.  Every lookup after that is local.  The loop a thread
+// runs is the same at every K and for every case (one chain a thread, no
+// independent chains beside it), so a slope over two K is one dependent
+// load: probe_chain_dep (a 128-word row, a CTA of 128 threads), the
+// inflate's probe_chain_dep_512l_2048w (an 8 KB row, a CTA of one warp)
+// and p_gather at [8, 1024] (a cluster of 8 CTAs of 128 threads a row)
+// time the same design at their headline K as at their slope's.
+
+struct QzpDep {
+  const uint32_t* t;  // [t_rows, w], t_rows 1 or rows
+  int t_rows, w;
+  const uint32_t* idx;  // [rows, cols]
+  uint32_t* out;        // [rows, cols]
+  int rows, cols, K;
+  bool vec;   // 16-byte staging: w a multiple of 4, t 16-byte aligned
+  int parts;  // the CTAs of a cluster, which share one staging
+  long long* clk;
+};
+
+// Stores each staged load into the shared memory of every CTA of the
+// cluster (this CTA's own where the cluster is one CTA).
+struct QzpDepSink {
+  uint32_t* sm;
+  int parts;
+
+  __device__ uint32_t* at(int d) const {
+    return parts == 1 ? sm : cg::this_cluster().map_shared_rank(sm, d);
+  }
+  __device__ void word(int c, uint32_t a) const {
+    for (int d = 0; d < parts; ++d) at(d)[c] = a;
+  }
+  __device__ void vec(int v, uint32_t a, uint32_t b, uint32_t c,
+                      uint32_t e) const {
+    for (int d = 0; d < parts; ++d)
+      ((uint4*)at(d))[v] = make_uint4(a, b, c, e);
+  }
+};
+
+template <bool SMEM>
+__global__ void __launch_bounds__(1024) qzp_dep(QzpDep a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const uint32_t mask = (uint32_t)a.w - 1u;
+  if (SMEM && a.parts > 1) qzp_cluster_arrive_relaxed();
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  const uint32_t* row =
+      a.t + (a.t_rows == 1 ? 0 : (int64_t)blockIdx.y * a.w);
+  if (SMEM) {
+    const int n = blockDim.x * blockDim.y;
+    const int rank = a.parts == 1 ? 0 : (int)cg::this_cluster().block_rank();
+    if (a.parts > 1) qzp_cluster_wait();   // every sibling has started
+    qzp_dep_stage(row, a.w, a.vec,
+                  rank * n + threadIdx.y * blockDim.x + threadIdx.x,
+                  a.parts * n, QzpDepSink{sm, a.parts});
+    if (a.parts == 1)
+      __syncthreads();
+    else
+      cg::this_cluster().sync();   // every CTA's row staged, and after it
+                                   // no CTA stores into another
+    row = sm;
+  }
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= a.rows || j >= a.cols) return;
+  uint32_t v = a.idx[(int64_t)r * a.cols + j];
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k)
+    v = SMEM ? qzp_dep_step(row, v, mask) : __ldg(row + (v & mask));
+  if (a.clk && qzp_timer_thread() && threadIdx.y == 0)
+    *a.clk = clock64() - t0;
+  a.out[(int64_t)r * a.cols + j] = v;
+}
+
+// Lets the staged kernel take the card's whole shared memory and clusters
+// of QZP_DEP_CLUSTER CTAs; once a process (each launch asks for its table
+// row's bytes).
+static int qzp_dep_prepare() {
+  const int rc = (int)cudaFuncSetAttribute(
+      qzp_dep<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      QZP_MAX_SMEM);
+  if (rc) return rc;
+  return (int)cudaFuncSetAttribute(
+      qzp_dep<true>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// probe_inflate_step.py:53 dep_gather_loop; probe_inflate_step3.py:44
+// dep_loop; probe_pallas.py:82 p_gather; probe_pallas4.py:48 p_chain,
+// :79 p_tbl, :124 p_chain_grid.  w a power of 2; t_rows 1 or rows.
+extern "C" int qz_probe_dep(int smem, const void* t, int t_rows, int w,
+                            const void* idx, void* out, int rows, int cols,
+                            int K, void* clk, void* stream) {
+  static const int ready = qzp_dep_prepare();
+  if (ready) return ready;
+  if (rows < 1 || cols < 1 || w < 1 || (w & (w - 1)) ||
+      (t_rows != 1 && t_rows != rows) || (smem && w > QZP_MAX_SMEM / 4) ||
+      cols > QZP_DEP_CLUSTER * 1024)
+    return (int)cudaErrorInvalidValue;
+  const QzpDepPlan p = qzp_dep_plan(rows, cols, t_rows);
+  if (p.gy > 65535) return (int)cudaErrorInvalidValue;
+  const int parts = smem ? p.gx : 1;
+  const QzpDep a = {(const uint32_t*)t, t_rows, w, (const uint32_t*)idx,
+                    (uint32_t*)out, rows, cols, K,
+                    w % 4 == 0 && qzp_aligned16(t), parts, (long long*)clk};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.gx;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.gx, p.gy);
+  cfg.blockDim = dim3(p.tx, p.ty);
+  cfg.dynamicSmemBytes = smem ? (size_t)w * 4 : 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = parts > 1 ? 1 : 0;
+  const cudaError_t err = smem ? cudaLaunchKernelEx(&cfg, qzp_dep<true>, a)
+                               : cudaLaunchKernelEx(&cfg, qzp_dep<false>, a);
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 // -- qz_probe_alu -------------------------------------------------------------
@@ -395,44 +542,15 @@ extern "C" int qz_probe_step(int mode, int store, const void* win,
 
 // -- qz_probe_tile ------------------------------------------------------------
 
-enum { QZP_TRANSPOSE = 0, QZP_BITONIC = 1 };
-
 struct QzpTile {
   const uint32_t* x;  // [tiles, rows, cols]
   uint32_t* out;
   int rows, cols;
   int K;            // trip count
-  QzpSegments seg;  // BITONIC: segments of a tile
-  int tiles;        // BITONIC: tiles of [rows, cols]
+  QzpSegments seg;  // segments of a tile
+  int tiles;        // tiles of [rows, cols]
   long long* clk;
 };
-
-// TRANSPOSE K times (x = x.T + 1) of an [n, n] tile, n <= 128 a power of
-// 2, between two shared-memory buffers with rows padded to n + 1 words (no
-// bank conflict on either side).
-__global__ void qzp_transpose(QzpTile a) {
-  extern __shared__ __align__(16) uint32_t sm[];
-  const int n = a.rows, p = n + 1, lg = (int)qzp_log2((uint32_t)n);
-  uint32_t* src = sm;
-  uint32_t* dst = sm + n * p;
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x)
-    src[(i >> lg) * p + (i & (n - 1))] = a.x[i];
-  __syncthreads();
-  const long long t0 = clock64();
-  for (int k = 0; k < a.K; ++k) {
-    for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
-      const int r = i >> lg, c = i & (n - 1);
-      dst[c * p + r] = src[r * p + c] + 1u;
-    }
-    __syncthreads();
-    uint32_t* tmp = src;
-    src = dst;
-    dst = tmp;
-  }
-  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x)
-    a.out[i] = src[(i >> lg) * p + (i & (n - 1))];
-}
 
 // BITONIC: a CTA a tile of [rows, cols] int32; K times, every segment
 // sorted ascending by the network in shared memory, a thread a
@@ -462,39 +580,180 @@ __global__ void qzp_bitonic(QzpTile a) {
     a.out[(int64_t)blockIdx.x * n + i] = (uint32_t)x[i];
 }
 
-template <class F>
-static int qzp_launch(F* kernel, int blocks, int threads, size_t bytes,
-                      const QzpTile& a, cudaStream_t s) {
-  const int rc = qzp_smem(kernel, bytes);
-  if (rc) return rc;
-  kernel<<<blocks, threads, bytes, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// probe_inflate_step5.py:63 pallas1 for mk_transpose (TRANSPOSE);
 // probe_pallas3.py:77 p_bitonic, :113 p_rows, :145 p_cols (BITONIC).
-extern "C" int qz_probe_tile(int mode, const void* x, void* out, int rows,
-                             int cols, int K, int seg_n, int seg_stride,
+extern "C" int qz_probe_tile(const void* x, void* out, int rows, int cols,
+                             int K, int seg_n, int seg_stride,
                              int elem_stride, int tiles, void* clk,
                              void* stream) {
   const QzpTile a = {(const uint32_t*)x, (uint32_t*)out, rows, cols, K,
                      {(uint32_t)seg_n, (uint32_t)seg_stride,
                       (uint32_t)elem_stride},
                      tiles, (long long*)clk};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (mode) {
-    case QZP_TRANSPOSE:
-      if (rows != cols || rows > 128 || rows & (rows - 1))
-        return (int)cudaErrorInvalidValue;
-      return qzp_launch(qzp_transpose, 1, 1024,
-                        (size_t)2 * rows * (rows + 1) * 4, a, s);
-    case QZP_BITONIC: {
-      const int n = rows * cols;
-      return qzp_launch(qzp_bitonic, tiles, n / 2 < 1024 ? n / 2 : 1024,
-                        (size_t)n * 4, a, s);
-    }
+  const int n = rows * cols, threads = n / 2 < 1024 ? n / 2 : 1024;
+  const size_t bytes = (size_t)n * 4;
+  const int rc = qzp_smem(qzp_bitonic, bytes);
+  if (rc) return rc;
+  qzp_bitonic<<<tiles, threads, bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// -- qz_probe_transpose -------------------------------------------------------
+//
+// K times x = x.T + 1 of an int32 [n, n] tile, 4 <= n <= 128 a power of 2,
+// over a thread-block cluster (qzp_tr_plan): at n = 128 sixteen CTAs of
+// 256 threads, a 32 x 32 block each, on sixteen SMs.  A step moves every
+// word once through shared memory: each CTA reads its block from one of
+// its two buffers and stores it transposed, + 1, into the other buffer of
+// the partner CTA that owns the mirrored block, through distributed shared
+// memory, 16 bytes a thread (qzp_tr_gather); then the buffers swap roles.
+// Bound by latency: a step waits for the slowest of its remote stores.
+// Each store is an st.async that counts its bytes on the receiving CTA's
+// mbarrier of that buffer (one a buffer, armed for one block a phase); a
+// CTA waits on its own mbarrier and nothing else.  No barrier across the
+// cluster: the transpose pairs CTA (i, j) with (j, i) and nothing more (a
+// cluster barrier a step, with plain remote stores, took 2.1x as long on
+// an H100; a relaxed arrive does not order those stores).  A step's data
+// cannot overtake the step before: a CTA's stores of step k + 1 follow its
+// wait for step k, which needs every store of the partner's step k, each
+// made after that partner read the buffer the next step writes (the
+// stored words are the words read), so one buffer's step k + 2 lands only
+// after its step k was read.  A CTA exits once its last block has
+// arrived: no sibling writes into it after that.
+
+__device__ inline unsigned qzp_smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// A shared address of this CTA as the same place in CTA rank's
+__device__ inline unsigned qzp_mapa(unsigned a, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// Arms a phase of this CTA's mbarrier for bytes of remote stores.  The
+// arrive keeps its default order (release at CTA scope): it needs none
+// with the siblings, which reach this phase only through this thread's
+// later stores; at cluster scope it is a MEMBAR.ALL.GPU a step (645 ns a
+// transpose against 420 on an H100, by tools/probe_bench.py).
+__device__ inline void qzp_expect(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes) : "memory");
+}
+
+__device__ inline void qzp_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// 16 bytes at shared::cluster address a of another CTA, counted on its
+// mbarrier bar
+__device__ inline void qzp_st_async(unsigned a, const uint32_t* v,
+                                    unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(a), "r"(v[0]), "r"(v[1]), "r"(v[2]),
+      "r"(v[3]), "r"(bar) : "memory");
+}
+
+// clk: the clock64() ticks of thread 0 of CTA 0 around the steps in
+// clk[0], and the SM (%smid) each CTA q ran on in clk[1 + q].
+__global__ void __launch_bounds__(256)
+    qzp_transpose(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                  int n, int K, long long* clk, QzpTrPlan p) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  __shared__ __align__(8) uint64_t bar[2];   // buffer j's arrivals
+  const int q = (int)cg::this_cluster().block_rank(), t = threadIdx.x;
+  const int words = p.b * p.stride;   // a buffer; buffer 1 follows buffer 0
+  const unsigned block = (unsigned)(p.b * p.b * 4);
+  const unsigned bar0 = qzp_smem_addr(bar);
+  if (t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (K > 0) qzp_expect(bar0 + 8, block);   // step 0 fills buffer 1
+    if (K > 1) qzp_expect(bar0, block);       // step 1 fills buffer 0
   }
-  return (int)cudaErrorInvalidValue;
+  qzp_cluster_arrive_relaxed();   // this CTA's mbarriers are set
+  for (int i = t; i * 4 < p.b * p.b; i += blockDim.x) {
+    const int r = i * 4 / p.b, c = i * 4 % p.b;
+    *(uint4*)(sm + r * p.stride + c) =
+        __ldg((const uint4*)(x + qzp_tr_global(p, n, q, r, c)));
+  }
+  __syncthreads();
+  qzp_cluster_wait();
+  const int partner = qzp_tr_partner(q, p.nb);
+  const unsigned far_sm = qzp_mapa(qzp_smem_addr(sm), partner);
+  const unsigned far_bar = qzp_mapa(bar0, partner);
+  unsigned parity = 0;   // bit j: the phase buffer j waits for next
+  int cur = 0;
+  const long long t0 = clock64();
+  for (int k = 0; k < K; ++k) {
+    const int nxt = cur ^ 1;
+    uint32_t v[4];
+    const int o = qzp_tr_gather(p, t, sm + cur * words, v);
+    if (o >= 0)
+      qzp_st_async(far_sm + 4u * (unsigned)(nxt * words + o), v,
+                   far_bar + 8u * nxt);
+    qzp_wait(bar0 + 8u * nxt, (parity >> nxt) & 1u);
+    parity ^= 1u << nxt;
+    if (t == 0 && k + 2 < K) qzp_expect(bar0 + 8u * nxt, block);
+    cur = nxt;
+  }
+  if (clk && t == 0) {
+    if (q == 0) clk[0] = clock64() - t0;
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;\n" : "=r"(smid));
+    clk[1 + q] = smid;
+  }
+  const uint32_t* last = sm + cur * words;
+  for (int i = t; i * 4 < p.b * p.b; i += blockDim.x) {
+    const int r = i * 4 / p.b, c = i * 4 % p.b;
+    *(uint4*)(out + qzp_tr_global(p, n, q, r, c)) =
+        *(const uint4*)(last + r * p.stride + c);
+  }
+}
+
+// Lets the kernel take clusters of more than 8 CTAs; once a process.
+static int qzp_transpose_prepare() {
+  return (int)cudaFuncSetAttribute(
+      qzp_transpose, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// probe_inflate_step5.py:63 pallas1 for mk_transpose.  x and out 16-byte
+// aligned; clk null, or int64 [1 + the cluster's CTAs].
+extern "C" int qz_probe_transpose(const void* x, void* out, int n, int K,
+                                  void* clk, void* stream) {
+  static const int ready = qzp_transpose_prepare();
+  if (ready) return ready;
+  if (n < 4 || n > 128 || (n & (n - 1)) || !qzp_aligned16(x) ||
+      !qzp_aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const QzpTrPlan p = qzp_tr_plan(n);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.ctas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.ctas);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = (size_t)2 * p.b * p.stride * 4;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, qzp_transpose, (const uint32_t*)x,
+                         (uint32_t*)out, n, K, (long long*)clk, p);
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 // -- qz_probe_roll ------------------------------------------------------------
@@ -536,8 +795,6 @@ __global__ void qzp_roll_lanes(const uint4* __restrict__ x,
   }
   out[(int64_t)r * 32 + t] = make_uint4(o[0], o[1], o[2], o[3]);
 }
-
-static bool qzp_aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // probe_pallas.py:68 p_roll (axis 1), probe_pallas3.py:26 pallas_roll
 // (either axis).  shift in [0, the axis' size); axis 0: cols <= 128;

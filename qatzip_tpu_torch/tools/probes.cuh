@@ -57,6 +57,64 @@ __host__ __device__ inline uint32_t qzp_walk_step(const uint32_t* x,
   return acc + x[(acc & (rows - 1u)) * cols + (i & (cols - 1u))];
 }
 
+// DEP's launch (qz_probe_dep): a thread an index, tx threads along a row
+// of indexes (the row rounded up to a warp, at most QZP_DEP_THREADS), ty
+// index rows a CTA (a one-row table: up to QZP_DEP_THREADS / tx), gx CTAs
+// a row and gy along the rows.  A CTA of at most four warps keeps a row's
+// random shared-memory lookups spread over SMs: 32 warps on one SM queue
+// on its banks, and a lookup then costs their throughput, not one load's
+// latency.  The gx CTAs of a row of indexes form a cluster, which stages
+// their table row once between them (qzp_dep_stage); each cluster that
+// shares a one-row table stages it once.  Rows of more than
+// QZP_DEP_CLUSTER * QZP_DEP_THREADS indexes take wider CTAs, so that a
+// cluster stays within the QZP_DEP_CLUSTER CTAs an H100 holds.
+#define QZP_DEP_THREADS 128
+#define QZP_DEP_CLUSTER 16
+
+struct QzpDepPlan {
+  int tx;
+  int ty;
+  int gx;
+  int gy;
+};
+
+__host__ __device__ inline QzpDepPlan qzp_dep_plan(int rows, int cols,
+                                                   int t_rows) {
+  QzpDepPlan p;
+  const int c32 = (cols + 31) & ~31;
+  p.tx = c32 < QZP_DEP_THREADS ? c32 : QZP_DEP_THREADS;
+  if (cols > QZP_DEP_CLUSTER * p.tx)
+    p.tx = ((cols + QZP_DEP_CLUSTER - 1) / QZP_DEP_CLUSTER + 31) & ~31;
+  p.gx = (cols + p.tx - 1) / p.tx;
+  p.ty = t_rows == 1 ? QZP_DEP_THREADS / p.tx : 1;
+  p.ty = p.ty < 1 ? 1 : p.ty < rows ? p.ty : rows;
+  p.gy = (rows + p.ty - 1) / p.ty;
+  return p;
+}
+
+// Thread i of the n threads of a cluster stages its share of a table row g
+// of w words: 16-byte vectors i, i + n, ... where vec (w a multiple of 4,
+// g 16-byte aligned), else words; every load once, handed to the sink,
+// which stores it into the shared memory of each CTA of the cluster
+// (sink.vec(v, a, b, c, d): words 4v .. 4v + 3; sink.word(c, a)).
+template <class Sink>
+__host__ __device__ inline void qzp_dep_stage(const uint32_t* g, int w,
+                                              bool vec, int i, int n,
+                                              const Sink& sink) {
+  if (!vec) {
+    for (int c = i; c < w; c += n) sink.word(c, g[c]);
+    return;
+  }
+  for (int v = i; v < w / 4; v += n) {
+#ifdef __CUDA_ARCH__
+    const uint4 u = __ldg((const uint4*)g + v);
+    sink.vec(v, u.x, u.y, u.z, u.w);
+#else
+    sink.vec(v, g[4 * v], g[4 * v + 1], g[4 * v + 2], g[4 * v + 3]);
+#endif
+  }
+}
+
 // -- register-only chains ----------------------------------------------------
 
 // probe_inflate_step.py:elemwise_loop (its int32 body with 32-bit wrap)
@@ -241,6 +299,61 @@ __host__ __device__ inline void qzp_compare_exchange(int32_t* x, uint32_t lo,
     x[lo] = b;
     x[hi] = a;
   }
+}
+
+// -- TRANSPOSE over a thread-block cluster ----------------------------------
+
+// probe_inflate_step5.py:mk_transpose, K times x = x.T + 1 of an [n, n]
+// tile (4 <= n <= 128 a power of 2), cut into blocks of b = min(n, 32)
+// words a side, nb = n / b blocks a side, one block a CTA of a cluster of
+// nb * nb CTAs: CTA q owns block (q / nb, q % nb).  A CTA keeps two
+// buffers of b rows of stride = b + 4 words (so that a warp's 16-byte
+// stores of column c at rows 4w fall on 32 distinct banks); its threads
+// move 4 words (16 bytes) at once and cover the block's b * b / 4
+// vectors, at least a warp.
+struct QzpTrPlan {
+  int b;
+  int nb;
+  int ctas;
+  int stride;
+  int threads;
+};
+
+__host__ __device__ inline QzpTrPlan qzp_tr_plan(int n) {
+  QzpTrPlan p;
+  p.b = n < 32 ? n : 32;
+  p.nb = n / p.b;
+  p.ctas = p.nb * p.nb;
+  p.stride = p.b + 4;
+  p.threads = p.b * p.b / 4;
+  p.threads = p.threads < 32 ? 32 : p.threads;
+  return p;
+}
+
+// The CTA that owns block (j, i) of CTA q's block (i, j): where q's block,
+// transposed, goes.  A diagonal CTA is its own partner.
+__host__ __device__ inline int qzp_tr_partner(int q, int nb) {
+  return (q % nb) * nb + q / nb;
+}
+
+// The word of the [n, n] tile at row r, column c of CTA q's block
+__host__ __device__ inline int qzp_tr_global(const QzpTrPlan& p, int n, int q,
+                                             int r, int c) {
+  return ((q / p.nb) * p.b + r) * n + (q % p.nb) * p.b + c;
+}
+
+// Thread t's share of one step: column c of its own buffer's rows r0 ..
+// r0 + 3, each + 1, into v; returns where they go in the partner's
+// buffer, as 4 consecutive words (row c, from column r0), or -1 for a
+// thread past the block.  Thread t takes vector t of the block's
+// b * b / 4; a warp reads 32 consecutive columns of a row at a time.
+__host__ __device__ inline int qzp_tr_gather(const QzpTrPlan& p, int t,
+                                             const uint32_t* src,
+                                             uint32_t* v) {
+  const int c = t % p.b, r0 = t / p.b * 4;
+  if (r0 >= p.b) return -1;
+  for (int e = 0; e < 4; ++e) v[e] = src[(r0 + e) * p.stride + c] + 1u;
+  return c * p.stride + r0;
 }
 
 // -- ROLL and REFILL ---------------------------------------------------------

@@ -33,18 +33,22 @@ _M32 = 0xFFFFFFFF
 HASH_MUL = 2654435761
 _I, _P, _U = ctypes.c_int, ctypes.c_void_p, ctypes.c_uint
 
+DEP = Kernel("qz_probe_dep", [_I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
+             lib=PROBES)
 CHAIN = Kernel("qz_probe_chain", [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _U,
                                   _U, _P, _P], lib=PROBES)
 ALU = Kernel("qz_probe_alu", [_I, _P, _P, _I, _I, _P, _P], lib=PROBES)
 STEP = Kernel("qz_probe_step", [_I, _I] + [_P] * 6 + [_I] * 8 + [_P] * 2,
               lib=PROBES)
-TILE = Kernel("qz_probe_tile", [_I, _P, _P] + [_I] * 7 + [_P, _P],
-              lib=PROBES)
+TILE = Kernel("qz_probe_tile", [_P, _P] + [_I] * 7 + [_P, _P], lib=PROBES)
+TRANSPOSE = Kernel("qz_probe_transpose", [_P, _P, _I, _I, _P, _P],
+                   lib=PROBES)
 ROLL = Kernel("qz_probe_roll", [_P, _P, _I, _I, _I, _I, _P], lib=PROBES)
 REFILL = Kernel("qz_probe_refill", [_I, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                                     _P], lib=PROBES)
 EMPTY = Kernel("qz_probe_empty", [_I, _P], lib=PROBES)
-KERNELS = {k.symbol: k for k in (CHAIN, ALU, STEP, TILE, ROLL, REFILL, EMPTY)}
+KERNELS = {k.symbol: k for k in (DEP, CHAIN, ALU, STEP, TILE, TRANSPOSE, ROLL,
+                                 REFILL, EMPTY)}
 MAX_LANES = 512   # QZP_MAX_LANES: the offsets a refill's parameters hold
 
 # -- 32-bit arithmetic on int64 ----------------------------------------------
@@ -409,18 +413,46 @@ def _args(dev: torch.device, clk):
     return None if clk is None else clk.data_ptr(), _raw_stream(dev)
 
 
-_CHAIN_MODES = {"dep": 0, "indep4": 1, "indep8": 2, "column": 3, "walk": 4}
+_CHAIN_MODES = {"indep4": 1, "indep8": 2, "column": 3, "walk": 4}
+
+
+def _dep(t: torch.Tensor, idx: torch.Tensor, K: int, smem: bool,
+         clk: torch.Tensor | None) -> torch.Tensor:
+    """DEP on the card (qz_probe_dep): every check once, no reshape (the
+    kernel reads [rows, cols] and [t_rows, w] from the contiguous
+    storage), the output like idx."""
+    dev = t.get_device()
+    if (t.dtype != torch.int32 or idx.dtype != torch.int32
+            or idx.get_device() != dev):
+        raise ValueError("dep takes int32 tables and indexes on one device")
+    w, cols = t.shape[-1], idx.shape[-1]
+    if w < 1 or w & (w - 1):
+        raise ValueError("probe tables are a power of 2 wide")
+    tt = t if t.is_contiguous() else t.contiguous()
+    ii = idx if idx.is_contiguous() else idx.contiguous()
+    out = torch.empty_like(ii)
+    if not cols or not ii.numel():
+        return out
+    rows, t_rows = ii.numel() // cols, tt.numel() // w
+    if t_rows not in (1, rows):
+        raise ValueError("a chain table has 1 row or a row an index row")
+    DEP(int(smem), tt.data_ptr(), t_rows, w, ii.data_ptr(), out.data_ptr(),
+        rows, cols, K, None if clk is None else clk.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev))
+    return out
 
 
 def probe_chain(mode: str, t: torch.Tensor, idx: torch.Tensor | None, K: int,
                 *, smem: bool = True, post: int | None = None,
                 clk: torch.Tensor | None = None) -> torch.Tensor:
-    """Table lookups, K a lane (qz_probe_chain): ``dep`` and ``indep4`` /
-    ``indep8`` as :func:`dep_gather_loop` / :func:`indep_gather_loop`
-    (tables of 1 or R rows), ``column`` as :func:`_column` (post: the mask
-    after each sum, default N - 1), ``walk`` as :func:`scalar_walk` (idx
-    unused).  smem: the table staged in shared memory, else read with
-    __ldg."""
+    """Table lookups, K a lane: ``dep`` (qz_probe_dep) and ``indep4`` /
+    ``indep8`` (qz_probe_chain) as :func:`dep_gather_loop` /
+    :func:`indep_gather_loop` (tables of 1 or R rows), ``column`` as
+    :func:`_column` (post: the mask after each sum, default N - 1),
+    ``walk`` as :func:`scalar_walk` (idx unused).  smem: the table staged
+    in shared memory, else read with __ldg."""
+    if mode == "dep" and t.is_cuda:
+        return _dep(t, idx, K, smem, clk)
     if mode == "walk":
         dev = _on(t)
     else:
@@ -437,6 +469,8 @@ def probe_chain(mode: str, t: torch.Tensor, idx: torch.Tensor | None, K: int,
             return _column(t, idx, K, post)
         if mode == "walk":
             return scalar_walk(t, K)
+        raise ValueError(f"no chain mode {mode}")
+    if mode not in _CHAIN_MODES:
         raise ValueError(f"no chain mode {mode}")
     if w & (w - 1) or (mode == "walk" and t.shape[0] & (t.shape[0] - 1)):
         raise ValueError("probe tables are a power of 2 wide")
@@ -532,16 +566,6 @@ def probe_step(mode: str, store: str, win, tll, td, state: torch.Tensor,
     return out, toks
 
 
-_TILE = {"transpose": 0, "bitonic": 1}
-
-
-def _tile(mode: str, x, out, rows, cols, *, K=1, seg=(0, 0, 0), tiles=1,
-          clk=None) -> torch.Tensor:
-    TILE(_TILE[mode], x.data_ptr(), out.data_ptr(), rows, cols, K, *seg,
-         tiles, *_args(x.device, clk))
-    return out
-
-
 def probe_roll(x: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
     """:func:`roll` of an int32 [S, C] tile (qz_probe_roll): the lane axis
     (C = 128) by warp shuffles, the row axis (C <= 128) by a row
@@ -560,15 +584,47 @@ def probe_roll(x: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
     return out
 
 
+def transpose_plan(n: int) -> dict:
+    """qzp_tr_plan: the cluster that transposes an [n, n] tile on the card
+    (4 <= n <= 128), a block of b x b words a CTA, nb blocks a side,
+    ``ctas`` = nb * nb CTAs of ``threads`` threads, moving 16 bytes at
+    once, buffer rows of ``stride`` words."""
+    b = min(n, 32)
+    return {"b": b, "nb": n // b, "ctas": (n // b) ** 2, "stride": b + 4,
+            "threads": max(32, b * b // 4)}
+
+
 def probe_transpose(x: torch.Tensor, K: int,
                     clk: torch.Tensor | None = None) -> torch.Tensor:
-    """:func:`transpose` of an int32 [n, n] tile, n <= 128, in one CTA's
-    shared memory (qz_probe_tile TRANSPOSE)."""
-    if _on(x).type == "cpu":
+    """:func:`transpose` of an int32 [n, n] tile, n <= 128 a power of 2,
+    over a thread-block cluster of (n / 32)^2 CTAs (qz_probe_transpose),
+    each CTA storing its block into its partner's shared memory by
+    st.async counted on the partner's mbarrier.  The kernel moves 16 bytes
+    at once: a tile that is not 16-byte aligned is copied first, and one
+    of n < 4 is run zero-padded to [4, 4].  clk, if given: int64 of at
+    least 1 + the cluster's CTAs; it receives the ticks of the steps and
+    the SM of each CTA."""
+    if not x.is_cuda:
+        _on(x)
         return transpose(x, K)
-    xx = x.contiguous()
-    return _tile("transpose", xx, torch.empty_like(xx), xx.shape[0],
-                 xx.shape[1], K=K, clk=clk)
+    n = x.shape[0] if x.dim() == 2 and x.shape[1] == x.shape[0] else 0
+    if x.dtype != torch.int32 or not 1 <= n <= 128 or n & (n - 1):
+        raise ValueError("probe_transpose takes an int32 [n, n] tile, "
+                         "n <= 128 a power of 2")
+    if n < 4:
+        pad = x.new_zeros(4, 4)
+        pad[:n, :n] = x
+        return probe_transpose(pad, K, clk)[:n, :n].contiguous()
+    if clk is not None and clk.numel() < 1 + transpose_plan(n)["ctas"]:
+        raise ValueError("a transpose's clk holds 1 + its CTAs")
+    xx = x if x.is_contiguous() else x.contiguous()
+    if xx.data_ptr() % 16:
+        xx = xx.clone()
+    out = torch.empty_like(xx)
+    TRANSPOSE(xx.data_ptr(), out.data_ptr(), n, K,
+              None if clk is None else clk.data_ptr(),
+              torch._C._cuda_getCurrentRawStream(xx.get_device()))
+    return out
 
 
 _REFILL = {"ld": 0, "cp": 1, "tma": 2}
@@ -633,5 +689,7 @@ def probe_bitonic(x: torch.Tensor, segment: str, K: int = 1,
     seg = {"flat": (S * L, 0, 1), "rows": (L, L, 1),
            "cols": (S, 1, L)}[segment]
     xx = x.contiguous()
-    return _tile("bitonic", xx, torch.empty_like(xx), S, L, K=K, seg=seg,
-                 tiles=xx.numel() // (S * L), clk=clk)
+    out = torch.empty_like(xx)
+    TILE(xx.data_ptr(), out.data_ptr(), S, L, K, *seg,
+         xx.numel() // (S * L), *_args(xx.device, clk))
+    return out

@@ -626,6 +626,155 @@ extern "C" int shim_refill(const uint32_t* x, uint32_t* out,
   return 0;
 }
 
+// TRANSPOSE as qz_probe_transpose runs it, serially: each CTA of the
+// cluster (qzp_tr_plan) loads its block into buffer 0 of its own shared
+// memory (two buffers full of garbage, then 8 guard words), then each step
+// runs one CTA at a time, its threads in turn, through qzp_tr_gather into
+// its partner's other buffer; then the blocks out.  Returns the CTAs, or
+// -1 if a step changed a buffer that the step reads or a guard word, or an
+// output word was not stored exactly once.
+extern "C" int shim_transpose(const uint32_t* x, uint32_t* out, int n,
+                              int K) {
+  const QzpTrPlan p = qzp_tr_plan(n);
+  const int words = p.b * p.stride, per = 2 * words + 8;
+  std::vector<uint32_t> sm((size_t)p.ctas * per, 0xA5A5A5A5u);
+  std::vector<int> writes((size_t)n * n, 0);
+  for (int q = 0; q < p.ctas; ++q)
+    for (int t = 0; t < p.threads; ++t)
+      for (int i = t; i * 4 < p.b * p.b; i += p.threads) {
+        const int r = i * 4 / p.b, c = i * 4 % p.b;
+        for (int e = 0; e < 4; ++e)
+          sm[q * per + r * p.stride + c + e] =
+              x[qzp_tr_global(p, n, q, r, c) + e];
+      }
+  int cur = 0;
+  for (int k = 0; k < K; ++k) {
+    const std::vector<uint32_t> before(sm);
+    for (int q = 0; q < p.ctas; ++q) {
+      const uint32_t* src = sm.data() + q * per + cur * words;
+      uint32_t* dst =
+          sm.data() + qzp_tr_partner(q, p.nb) * per + (cur ^ 1) * words;
+      for (int t = 0; t < p.threads; ++t) {
+        uint32_t v[4];
+        const int o = qzp_tr_gather(p, t, src, v);
+        if (o >= 0)
+          for (int e = 0; e < 4; ++e) dst[o + e] = v[e];
+      }
+    }
+    for (int q = 0; q < p.ctas; ++q) {
+      for (int w = 0; w < words; ++w)
+        if (sm[q * per + cur * words + w] != before[q * per + cur * words + w])
+          return -1;
+      for (int w = 2 * words; w < per; ++w)
+        if (sm[q * per + w] != 0xA5A5A5A5u) return -1;
+    }
+    cur ^= 1;
+  }
+  for (int q = 0; q < p.ctas; ++q)
+    for (int t = 0; t < p.threads; ++t)
+      for (int i = t; i * 4 < p.b * p.b; i += p.threads) {
+        const int r = i * 4 / p.b, c = i * 4 % p.b;
+        for (int e = 0; e < 4; ++e) {
+          const int g = qzp_tr_global(p, n, q, r, c) + e;
+          out[g] = sm[q * per + cur * words + r * p.stride + c + e];
+          ++writes[g];
+        }
+      }
+  for (int w : writes)
+    if (w != 1) return -1;
+  return p.ctas;
+}
+
+// qzp_tr_plan's fields: b, nb, ctas, stride, threads
+extern "C" void shim_tr_plan(int n, int* out) {
+  const QzpTrPlan p = qzp_tr_plan(n);
+  const int f[5] = {p.b, p.nb, p.ctas, p.stride, p.threads};
+  for (int i = 0; i < 5; ++i) out[i] = f[i];
+}
+
+// The shared-memory words thread t of a step reads (src, its own buffer)
+// and writes (dst, the partner's), from qzp_tr_gather over a source
+// buffer holding its own offsets; returns the words written.
+extern "C" int shim_tr_thread(int n, int t, int* src_off, int* dst_off) {
+  const QzpTrPlan p = qzp_tr_plan(n);
+  std::vector<uint32_t> src(p.b * p.stride);
+  for (size_t w = 0; w < src.size(); ++w) src[w] = (uint32_t)w;
+  uint32_t v[4];
+  const int o = qzp_tr_gather(p, t, src.data(), v);
+  if (o < 0) return 0;
+  for (int e = 0; e < 4; ++e) {
+    dst_off[e] = o + e;
+    src_off[e] = (int)v[e] - 1;
+  }
+  return 4;
+}
+
+// qzp_dep_stage's sink in the shim: each CTA of a cluster's shared memory
+// a host array; counts the stores to each word of each.
+struct ShimDepSink {
+  std::vector<std::vector<uint32_t>>* sm;
+  std::vector<std::vector<int>>* stores;
+
+  void word(int c, uint32_t a) const {
+    for (size_t d = 0; d < sm->size(); ++d) {
+      (*sm)[d][c] = a;
+      ++(*stores)[d][c];
+    }
+  }
+  void vec(int v, uint32_t a, uint32_t b, uint32_t c, uint32_t e) const {
+    const uint32_t x[4] = {a, b, c, e};
+    for (int i = 0; i < 4; ++i) word(4 * v + i, x[i]);
+  }
+};
+
+// DEP as qz_probe_dep launches it (qzp_dep_plan), serially: each cluster
+// of gx CTAs (a row of them) stages its table row through qzp_dep_stage,
+// every thread of every CTA in turn, into the CTAs' shared memories (w
+// words each, full of garbage), then each thread of each CTA runs its
+// chain in its own; writes counts the stores to each output word, plan
+// gets tx, ty, gx, gy.  Returns the table rows staged (one a cluster), or
+// -1 for a CTA past QZP_DEP_THREADS threads (unless its row is wider than
+// a cluster of them), a cluster past QZP_DEP_CLUSTER CTAs, or a word of a
+// CTA's shared memory not stored exactly once.
+extern "C" int shim_dep(const uint32_t* t, int t_rows, int w,
+                        const uint32_t* idx, uint32_t* out, int* writes,
+                        int rows, int cols, int K, int vec, int* plan) {
+  const QzpDepPlan p = qzp_dep_plan(rows, cols, t_rows);
+  const int f[4] = {p.tx, p.ty, p.gx, p.gy};
+  for (int i = 0; i < 4; ++i) plan[i] = f[i];
+  const int n = p.tx * p.ty;
+  if ((n > QZP_DEP_THREADS && cols <= QZP_DEP_CLUSTER * QZP_DEP_THREADS) ||
+      n > 1024 || p.gx > QZP_DEP_CLUSTER)
+    return -1;
+  int staged = 0;
+  for (int by = 0; by < p.gy; ++by) {
+    std::vector<std::vector<uint32_t>> sm(p.gx,
+                                          std::vector<uint32_t>(w, 0xA5A5A5A5u));
+    std::vector<std::vector<int>> stores(p.gx, std::vector<int>(w, 0));
+    const uint32_t* row = t + (t_rows == 1 ? 0 : (size_t)by * w);
+    for (int rank = 0; rank < p.gx; ++rank)
+      for (int tid = 0; tid < n; ++tid)
+        qzp_dep_stage(row, w, vec != 0, rank * n + tid, p.gx * n,
+                      ShimDepSink{&sm, &stores});
+    ++staged;
+    for (const auto& s : stores)
+      for (int c : s)
+        if (c != 1) return -1;
+    for (int bx = 0; bx < p.gx; ++bx)
+      for (int y = 0; y < p.ty; ++y)
+        for (int x = 0; x < p.tx; ++x) {
+          const int r = by * p.ty + y, j = bx * p.tx + x;
+          if (r >= rows || j >= cols) continue;
+          uint32_t v = idx[(size_t)r * cols + j];
+          for (int k = 0; k < K; ++k)
+            v = qzp_dep_step(sm[bx].data(), v, (uint32_t)w - 1u);
+          out[(size_t)r * cols + j] = v;
+          ++writes[(size_t)r * cols + j];
+        }
+  }
+  return staged;
+}
+
 // The row path's three launches of csrc/chain.cu run serially through
 // chain.cuh's own functions: phase A a warp at a time (its lanes stage
 // their words into a shared memory full of garbage, then find their exits,
@@ -890,6 +1039,11 @@ def shim(tmp_path_factory):
         ctypes.c_void_p]
     so.shim_bitonic.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
         ctypes.c_uint32] * 4
+    so.shim_transpose.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    so.shim_tr_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    so.shim_tr_thread.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    so.shim_dep.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     so.shim_chain.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     so.shim_chain_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     so.shim_chain_cluster.argtypes = [ctypes.c_void_p] * 2 + [
@@ -1428,11 +1582,100 @@ def test_probe_refill_span_matches_plain(shim, win, vec):
             assert (got.view(np.int32) == want.numpy()).all()
 
 
+# every tile qz_probe_transpose takes (the wrapper pads n < 4 to 4); K 0-5
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64, 128])
+def test_probe_transpose_cluster_matches_plain(shim, n):
+    """The cluster's block map run a CTA's step at a time: no step writes
+    a buffer it reads, every output word is stored once, and K steps
+    equal K plain transposes; the plan is the wrapper's and puts 16 CTAs
+    on the TPU probe's [128, 128] tile."""
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, 1 << 32, (n, n), dtype=np.uint64).astype(np.uint32)
+    plan = np.zeros(5, np.int32)
+    shim.shim_tr_plan(n, _ptr(plan))
+    want_plan = PR.transpose_plan(n)
+    assert list(plan) == [want_plan[k] for k in ("b", "nb", "ctas",
+                                                 "stride", "threads")]
+    assert plan[2] == max(1, (n // 32) ** 2) and plan[4] <= 256
+    for K in range(6):
+        got = np.zeros_like(x)
+        assert shim.shim_transpose(_ptr(x), _ptr(got), n, K) == plan[2]
+        want = PR.transpose(_ti(x), K).numpy()
+        assert (got.view(np.int32) == want).all()
+
+
+def test_probe_transpose_step_has_no_bank_conflicts(shim):
+    """At a 32 x 32 block, a warp's reads of its own buffer fall on 32
+    banks for each of a thread's words, and its stores into the partner's
+    buffer on 32 banks a transaction (8 threads' 16-byte stores); each
+    thread stores 4 consecutive words of one row, the same column of its
+    4 rows."""
+    p = PR.transpose_plan(128)
+    for w0 in range(0, p["threads"], 32):
+        offs = []
+        for t in range(w0, w0 + 32):
+            so, do = np.zeros(4, np.int32), np.zeros(4, np.int32)
+            assert shim.shim_tr_thread(128, t, _ptr(so), _ptr(do)) == 4
+            assert (np.diff(do) == 1).all() and (np.diff(so) == p["stride"]
+                                                 ).all()
+            offs.append((so, do))
+        for e in range(4):
+            assert len({int(so[e]) % 32 for so, _ in offs}) == 32
+        for g in range(4):
+            part = offs[g * 8:(g + 1) * 8]
+            banks = [int(w) % 32 for _, do in part for w in do]
+            assert sorted(banks) == list(range(32))
+
+
+# per-row tables (the TPU probes' shapes, p_gather's [8, 1024] a cluster
+# of 8 CTAs a row, the inflate's 8 KB a lane), one-row tables (p_tbl's,
+# a ragged width, short rows packed), rows wider than a cluster of
+# 128-thread CTAs, tables too narrow for 16-byte staging
+@pytest.mark.parametrize("rows,cols,t_rows,w", [
+    (8, 128, 8, 128), (8, 1024, 8, 1024), (16, 128, 16, 128),
+    (64, 1, 64, 2048), (512, 128, 1, 1024), (16, 300, 1, 2048),
+    (3, 2000, 3, 64), (2, 5000, 2, 256), (5, 7, 1, 2), (1, 33, 1, 8),
+    (40, 64, 1, 512), (4, 2048, 4, 2048), (2, 16384, 2, 128),
+    (1, 1, 1, 1), (9, 129, 1, 4)])
+def test_probe_dep_plan_stages_each_table_row_once(shim, rows, cols, t_rows,
+                                                   w):
+    """The CTAs of a row of indexes form a cluster of at most 16 that
+    stages its table row once: every word loaded once (16-byte vectors
+    where the width allows) and stored once into each CTA's shared
+    memory; a CTA holds at most 128 threads unless its row of indexes is
+    wider than 16 of them; one cluster a table row where the table has a
+    row an index row; each output stored once, equal to
+    dep_gather_loop."""
+    rng = np.random.default_rng(rows + cols + w)
+    t = rng.integers(0, 1 << 32, (t_rows, w), dtype=np.uint64).astype(
+        np.uint32)
+    idx = rng.integers(0, 1 << 32, (rows, cols), dtype=np.uint64).astype(
+        np.uint32)
+    want = PR.dep_gather_loop(_ti(t), _ti(idx), 5).numpy()
+    for vec in ((0, 1) if w % 4 == 0 else (0,)):
+        got, writes = np.zeros_like(idx), np.zeros(idx.shape, np.int32)
+        plan = np.zeros(4, np.int32)
+        staged = shim.shim_dep(_ptr(t), t_rows, w, _ptr(idx), _ptr(got),
+                               _ptr(writes), rows, cols, 5, vec, _ptr(plan))
+        tx, ty, gx, gy = (int(v) for v in plan)
+        assert staged == gy and tx * ty <= (128 if cols <= 16 * 128
+                                            else 1024)
+        assert gx == -(-cols // tx) and gx <= 16
+        if t_rows == rows and rows > 1:
+            assert ty == 1 and gy == rows   # a cluster a table row
+        else:
+            assert gy == -(-rows // min(rows, max(1, 128 // tx)))
+        assert (writes == 1).all()
+        assert (got.view(np.int32) == want).all()
+
+
 def test_probe_entries_take_only_their_arguments():
     """Each C entry of probes.cu takes exactly the ctypes arguments its
-    wrapper declares (a pointer, an unsigned or an int each), ROLL and
-    REFILL only their own; the row roll's kernel keeps no shared memory
-    and no barrier."""
+    wrapper declares (a pointer, an unsigned or an int each), ROLL,
+    REFILL, TRANSPOSE and DEP only their own; TRANSPOSE and DEP set their
+    kernels' attributes once a process, in a static initialiser, never at
+    a launch; the row roll's kernel keeps no shared memory and no
+    barrier."""
     import re
 
     src = open(os.path.join(_build.TOOLS, "probes.cu")).read()
@@ -1443,7 +1686,15 @@ def test_probe_entries_take_only_their_arguments():
         declared = ["p" if "*" in a else "u" if a.startswith("unsigned")
                     else "i" for a in params]
         assert declared == [kinds[t] for t in k.argtypes], k.symbol
-    assert len(PR.ROLL.argtypes) == 7 and len(PR.REFILL.argtypes) == 11
+    assert [len(k.argtypes) for k in (PR.ROLL, PR.REFILL, PR.TRANSPOSE,
+                                      PR.DEP)] == [7, 11, 6, 11]
+    for entry, prepare in (("qz_probe_transpose", "qzp_transpose_prepare"),
+                           ("qz_probe_dep", "qzp_dep_prepare")):
+        start = src.index(f'extern "C" int {entry}(')
+        body = src[start:src.index("\n}\n", start)]
+        assert f"static const int ready = {prepare}();" in body
+        assert "cudaFuncSetAttribute" not in body and "qzp_smem" not in body
+        assert src.count(f"{prepare}()") == 2   # defined once, called once
     body = src[src.index("__global__ void qzp_roll_rows"):
                src.index("__global__ void qzp_roll_lanes")]
     assert "__shared__" not in body and "__syncthreads" not in body

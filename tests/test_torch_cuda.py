@@ -442,8 +442,8 @@ def test_probe_chain_rows_equal_plain(dev, mode, smem, t_rows, w, n):
 
     rng = np.random.default_rng(w + n)
     t, idx = _i32(rng, (t_rows, w)), _i32(rng, (16, n))
-    _probe_check(dev, P.CHAIN, lambda a, b: P.probe_chain(
-        mode, a, b, 9, smem=smem), t, idx)
+    _probe_check(dev, P.DEP if mode == "dep" else P.CHAIN,
+                 lambda a, b: P.probe_chain(mode, a, b, 9, smem=smem), t, idx)
 
 
 @pytest.mark.parametrize("n,rows,post", [(8, 8, 0xFFFFFFFF), (64, 1, 63),
@@ -513,9 +513,10 @@ def test_probe_tokens_tile_fits_wide_ctas(dev, lpc):
 
 
 def test_probe_tiles_equal_plain(dev):
-    """ROLL on both axes, TRANSPOSE, REFILL by loads, cp.async and TMA (by
-    offset and by block index; the offsets stay on the CPU), BITONIC on
-    the three segment shapes."""
+    """ROLL on both axes, TRANSPOSE (clusters of 1, 4 and 16 CTAs; a tile
+    of n < 4, padded, and one that is not 16-byte aligned, copied first),
+    REFILL by loads, cp.async and TMA (by offset and by block index; the
+    offsets stay on the CPU), BITONIC on the three segment shapes."""
     from qatzip_tpu_torch.tools import probes as P
 
     rng = np.random.default_rng(7)
@@ -523,9 +524,15 @@ def test_probe_tiles_equal_plain(dev):
                            (512, -3, 1)):
         x = _i32(rng, (S, 128))
         _probe_check(dev, P.ROLL, lambda a: P.probe_roll(a, shift, axis), x)
-    x = _i32(rng, (128, 128))
+    flat = _i32(rng, (128 * 128 + 1,))   # a tile one word past 16 bytes
+    for n in (2, 8, 32, 64, 128):
+        x = _i32(rng, (n, n))
+        for K in (1, 2, 5):
+            _probe_check(dev, P.TRANSPOSE,
+                         lambda a: P.probe_transpose(a, K), x)
     for K in (1, 2, 5):
-        _probe_check(dev, P.TILE, lambda a: P.probe_transpose(a, K), x)
+        _probe_check(dev, P.TRANSPOSE, lambda a: P.probe_transpose(
+            a[1:].view(128, 128), K), flat)
     stream = _i32(rng, (64, 1024))
     off = _i32(rng, (64,), 0, 1024 - 200)
     for how in ("ld", "cp", "tma"):
@@ -588,6 +595,71 @@ def test_probe_roll_and_refill_sync_free_and_graph_replayed(dev):
     with pytest.raises(ValueError, match="outside its stream"):
         P.probe_refill(stream, off + 64 * 128, 128)
     assert P.REFILL.launches == launches
+
+
+def test_probe_transpose_and_dep_sync_free_and_graph_replayed(dev):
+    """TRANSPOSE and DEP (p_gather's tables, [8, 1024] a cluster of 8 CTAs
+    a row; one-row tables, staged once a cluster along the rows; the
+    inflate's 8 KB rows; rows wider than a cluster of 128-thread CTAs;
+    through shared memory and __ldg) raise nothing under sync debug mode
+    "error", are captured in a CUDA graph and replay equal to plain; the
+    [128, 128] transpose runs as a cluster of 16 CTAs on more than one SM
+    (each CTA writes its SM into clk)."""
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(9)
+    tiles = [(_i32(rng, (n, n)).to(dev), K)
+             for n, K in ((128, 1), (128, 5), (64, 2), (8, 3))]
+    deps = [(_i32(rng, (8, w), 0, 1 << 20).to(dev),
+             _i32(rng, (8, w), 0, w).to(dev), 1, True) for w in (128, 1024)]
+    deps += [(_i32(rng, (1, 1024)).to(dev), _i32(rng, (512, 128)).to(dev), 1,
+              True),
+             (_i32(rng, (512, 2048)).to(dev), _i32(rng, (512, 1)).to(dev), 8,
+              True),
+             (_i32(rng, (16, 128)).to(dev), _i32(rng, (16, 128)).to(dev), 16,
+              False),
+             (_i32(rng, (1, 512)).to(dev), _i32(rng, (40, 64)).to(dev), 7,
+              True),
+             (_i32(rng, (2, 256)).to(dev), _i32(rng, (2, 5000)).to(dev), 3,
+              True)]
+
+    def calls():
+        return ([P.probe_transpose(x, K) for x, K in tiles]
+                + [P.probe_chain("dep", t, i, K, smem=smem)
+                   for t, i, K, smem in deps])
+
+    want = ([P.transpose(x.cpu(), K) for x, K in tiles]
+            + [P.dep_gather_loop(t.cpu(), i.cpu(), K) for t, i, K, _ in deps])
+    before = P.TRANSPOSE.launches, P.DEP.launches
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            captured = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert (P.TRANSPOSE.launches, P.DEP.launches) == (
+        before[0] + 2 * len(tiles), before[1] + 2 * len(deps))
+    for o in captured:
+        o.fill_(-1)
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, captured, want, strict=True):
+        assert torch.equal(a.cpu(), w) and torch.equal(b.cpu(), w)
+    plan = P.transpose_plan(128)
+    assert plan["ctas"] == 16
+    clk = torch.zeros(1 + plan["ctas"], dtype=torch.int64, device=dev)
+    out = P.probe_transpose(tiles[0][0], 4, clk)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), P.transpose(tiles[0][0].cpu(), 4))
+    assert int(clk[0]) > 0 and len(set(clk[1:].tolist())) > 1
+    with pytest.raises(ValueError, match="clk holds"):
+        P.probe_transpose(tiles[0][0], 1, clk[:2])
+    with pytest.raises(ValueError, match="n <= 128"):
+        P.probe_transpose(_i32(rng, (256, 256)).to(dev), 1)
 
 
 def test_probe_roll_rows_keeps_no_shared_memory(dev):

@@ -255,11 +255,35 @@ def test_groupsel(tpu, interpret):
 
 @pytest.mark.parametrize("K", [1, 2, 3])
 def test_transpose(tpu, interpret, K):
+    """The TPU probe's [128, 128] tile in interpret mode; the port's other
+    tile sizes (a cluster of 4 CTAs, one CTA, a block smaller than 32)
+    against a numpy transcription of its body."""
     rng = _rng(K)
     x = _i32(rng, (128, 128))
     want = tpu["inflate_step5"].mk_transpose()(K)(x)
     _eq(P.transpose(_t(x), K), want)
     _eq(P.probe_transpose(_t(x), K), want)
+    for n in (8, 32, 64):
+        y = _i32(rng, (n, n))
+        want = y.astype(np.int64)
+        for _ in range(K):
+            want = want.T + 1
+        want = ((want + 2**31) % 2**32 - 2**31).astype(np.int32)
+        _eq(P.transpose(_t(y), K), want)
+        _eq(P.probe_transpose(_t(y), K), want)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64, 128])
+def test_transpose_plan(n):
+    """The cluster that probe_transpose launches: 32 x 32 blocks, one a
+    CTA, (n / 32)^2 CTAs (16 at the TPU probe's n = 128, each of 256
+    threads moving 16 bytes at once), a single CTA up to n = 32."""
+    p = P.transpose_plan(n)
+    assert p["b"] == min(n, 32) and p["nb"] * p["b"] == n
+    assert p["ctas"] == max(1, (n // 32) ** 2)
+    if n == 128:
+        assert (p["ctas"], p["threads"], p["stride"]) == (16, 256, 36)
+    assert p["threads"] * 4 >= p["b"] ** 2 and p["stride"] % 4 == 0
 
 
 @pytest.mark.parametrize("root_cells", [128, 256])
