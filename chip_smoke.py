@@ -40,12 +40,13 @@ Run from the repository root:  python3 chip_smoke.py
    measure); the kernel's ptxas report (registers, shared memory, spills)
    and the CTAs the card holds a SM; then the first group through
    decode_blocks, equal to its chunks.  The construct probes
-   (tools/probe_bench.py): ROLL, REFILL, TRANSPOSE and DEP under sync
-   debug mode "error" and replayed from a CUDA graph, the launch floor (an
-   empty kernel) and the host pieces of a launch, then every probe equal
-   to its plain version, timed host-paced and graph-replayed beside its
-   PyTorch call, and slope-timed (TRANSPOSE with the SMs its cluster ran
-   on).
+   (tools/probe_bench.py): the STEP5 and TOKENS tile kernels' loops read
+   from the library's SASS; ROLL, REFILL, TRANSPOSE, DEP, STEP5 and TOKENS
+   under sync debug mode "error" and replayed from a CUDA graph, the
+   launch floor (an empty kernel) and the host pieces of a launch, then
+   every probe equal to its plain version, timed host-paced and
+   graph-replayed beside its PyTorch call, and slope-timed (TRANSPOSE with
+   the SMs its cluster ran on).
 3. Calibration (engine/devcal.calibrate, 8 MB, into a record of its own):
    the CPU funnel, the device codec's raw and packed compress and its
    decompress, the inflate kernel and the match finder alone.  No device or
@@ -330,12 +331,15 @@ def phase_select(torch, corpus: bytes, dev) -> list:
 
 
 def phase_probes(torch, dev) -> list:
-    """The construct probes' library built; the ROLL, REFILL, TRANSPOSE
-    and DEP wrappers under sync debug mode "error" and replayed from a CUDA
-    graph; then the launch floor, the host pieces of a launch and every
-    case of tools/probe_bench.py: the kernel equal to its plain version,
-    timed host-paced and graph-replayed beside its PyTorch call, and
-    slope-timed.  Returns the cases' records."""
+    """The construct probes' library built, and the STEP5 and TOKENS tile
+    kernels' loops read from its SASS (instructions, shared-memory loads
+    and the dependent chain a step); the ROLL, REFILL, TRANSPOSE, DEP,
+    STEP5 and TOKENS wrappers under sync debug mode "error" and replayed
+    from a CUDA graph; then the launch floor, the host pieces of a launch
+    and every case of tools/probe_bench.py: the kernel equal to its plain
+    version, timed host-paced and graph-replayed beside its PyTorch call,
+    and slope-timed (ns and clock64() ticks a unit).  Returns the cases'
+    records."""
     from qatzip_tpu_torch.ops import _build
     from qatzip_tpu_torch.tools import probe_bench as PB
 
@@ -343,6 +347,10 @@ def phase_probes(torch, dev) -> list:
     path = _build.build(force=True, name=_build.PROBES)
     _build.library(_build.PROBES)
     print(f"probe build: {time.perf_counter() - t0:.2f} s ({path})")
+    sass = PB.sass_report({"this": path})
+    _check(len(sass) == len(PB.SASS_KERNELS)
+           and all("chain" in r for r in sass),
+           "the STEP5 and TOKENS tile kernels' loops not found in the SASS")
     PB.graph_safe(dev)
     t0 = time.perf_counter()
     recs = PB.run(dev)
@@ -356,8 +364,9 @@ def _inflate_round(torch, corpus: bytes, dev, lanes: int,
     """One lockstep round over the first block of each of the first
     ``lanes`` chunks at zlib level 1: the kernel against the plain version
     (once, it takes ~30 s) on all five outputs, then timed; beside it the
-    STEP5 probe's measured ns a step (at these lanes, one lane a CTA) and
-    the DEP probe's dependent shared-memory load."""
+    STEP5 probe's measured ns a step (the port's redesigned skeleton, at
+    these lanes, one lane a CTA) and the DEP probe's dependent
+    shared-memory load."""
     from qatzip_tpu_torch.ops import deflate_decode as dd
     from qatzip_tpu_torch.ops import inflate as PI
     from qatzip_tpu_torch.tools import probe_bench as PB
@@ -411,10 +420,11 @@ def _inflate_round(torch, corpus: bytes, dev, lanes: int,
           f"plain {plain_ms:.1f} ms (one run); lane utilisation {util:.4f} "
           f"(token steps / (nsteps x lanes)); bound "
           f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes; operations "
-          f"{ops_ms:.4f} ms); measured primitives: the TPU's STEP5 "
-          f"skeleton {step_ns:.3f} ns a step (not a floor: it does work "
-          f"this step does not), a dependent shared-memory load "
-          f"{dep_ns:.3f} ns")
+          f"{ops_ms:.4f} ms); measured primitives: the port's STEP5 "
+          f"skeleton (the TPU probe's step over entries widened while "
+          f"staged, compile-time shapes) {step_ns:.3f} ns a step (not a "
+          f"floor: it does work this step does not), a dependent "
+          f"shared-memory load {dep_ns:.3f} ns")
     return {"name": "inflate_decode", "route": "cuda",
             "source": "qatzip_tpu_torch/csrc/inflate.cu",
             "replaces": "qatzip_tpu/ops/pallas_inflate_kernel.py:228",

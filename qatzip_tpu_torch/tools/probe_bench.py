@@ -33,6 +33,7 @@ import ctypes
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import time
 from dataclasses import dataclass, field
@@ -62,7 +63,10 @@ class Case:
     library take every input on the card.  ``args``: a ROLL, REFILL or
     DEP wrapper's own arguments, for :func:`against`.  ``cluster``: the
     CTAs of a cluster kernel, each of which writes the SM it ran on into
-    ``clk[1 + rank]``."""
+    ``clk[1 + rank]``.  ``dep_loads``: the dependent shared-memory loads
+    of one unit, whose latency bounds it (0: not latency-bound).  A
+    case's ``args["call"](mod, x, K, clk)``, where given, calls the
+    wrapper of another checkout's probes module mod (:func:`against`)."""
     name: str
     kernel: str
     replaces: str
@@ -80,6 +84,7 @@ class Case:
     host: tuple = ()
     args: dict = field(default_factory=dict)
     cluster: int = 0
+    dep_loads: int = 0
 
 
 def _u32(gen, shape) -> torch.Tensor:
@@ -177,9 +182,9 @@ def _step5_case(lanes, rc, lpc, store="none"):
         return (_u32(gen, (W, lanes)), _u32(gen, (rc + sc, lanes)),
                 _u32(gen, (rc + sc, lanes)), _ints(gen, 0, 1000, (1, lanes)))
 
-    def run(x, K, clk=None):
-        out, toks = P.probe_step("step5", store, *x, K, lanes_per_cta=lpc,
-                                 root_cells=rc, sub_cells=sc, clk=clk)
+    def call(mod, x, K, clk=None):
+        out, toks = mod.probe_step("step5", store, *x, K, lanes_per_cta=lpc,
+                                   root_cells=rc, sub_cells=sc, clk=clk)
         return (out, toks) if store != "none" else out
 
     def plain(x, K):
@@ -196,7 +201,8 @@ def _step5_case(lanes, rc, lpc, store="none"):
                 "tools/probe_inflate_step5.py:249",
                 f"{lanes} lanes ({where}), W {W}, root {rc} + sub {sc} cells, "
                 f"{lpc} lanes a CTA, tokens {store}", "step a lane", make,
-                run, plain, 4, 512, 2048, work)
+                lambda x, K, clk=None: call(P, x, K, clk), plain, 4, 512,
+                2048, work, args={"call": call}, dep_loads=5)
 
 
 def _tokens_case(lanes, lpc, store):
@@ -206,17 +212,20 @@ def _tokens_case(lanes, lpc, store):
         return (_ints(gen, 0, 3, (lanes // 128, 128)),
                 _ints(gen, 0, 128, (lanes // 128, 128)))
 
+    def call(mod, x, K, clk=None):
+        return mod.probe_step("tokens", store, None, x[0], None, x[1], K,
+                              lanes_per_cta=lpc, tile=tile, clk=clk)[1]
+
     return Case(f"probe_step_tokens_{lanes}l_lpc{lpc}_{store}",
                 "qz_probe_step", "tools/probe_inflate_step4.py:92",
                 f"{lanes} lanes, {lpc} lanes a CTA, tile {tile}, store "
                 f"{store}",
                 "step a lane (a token stored)", make,
-                lambda x, K, clk=None: P.probe_step(
-                    "tokens", store, None, x[0], None, x[1], K,
-                    lanes_per_cta=lpc, tile=tile, clk=clk)[1],
+                lambda x, K, clk=None: call(P, x, K, clk),
                 lambda x, K: P.tokens_dma(x[0], x[1], K)[0], tile, 1024,
                 4096, lambda x, K: (_nbytes(*x) + K * lanes * 4,
-                                    K * lanes * 3))
+                                    K * lanes * 3), args={"call": call},
+                dep_loads=1)
 
 
 def _roll_case(S, shift, axis, replaces):
@@ -428,12 +437,22 @@ CASES = _cases()
 GRAPH_REPS = 20     # calls a graph holds in graph_ms
 FLOOR_REPS = 100    # host-paced calls of the empty kernel a floor
 CLK_WORDS = 64      # a slope's clk: the ticks, then a cluster's SMs
-# the cases whose wrappers run sync-free, from a graph and --against
+# the cases whose wrappers run sync-free and from a graph, and that
+# --against times: these kernels' and, by case name, STEP5's and TOKENS'
 REDESIGNED = ("qz_probe_roll", "qz_probe_refill", "qz_probe_transpose",
               "qz_probe_dep")
+STEP_REDESIGNED = ("probe_step_step5_", "probe_step_tokens_")
+# the dependent shared-memory load that latency bounds are counted in
+DEP_LOAD = f"probe_chain_dep_{INFLATE_LANES}l_{INFLATE_WORDS}w"
 AGAINST_DEP = ("probe_chain_gather128", "probe_chain_gather1024",
                "probe_chain_dep", f"probe_chain_dep_{INFLATE_LANES}l_"
                f"{INFLATE_WORDS}w")
+
+
+def redesigned(case: Case) -> bool:
+    """A case of a redesigned probe (graph-safe, timed by --against)."""
+    return (case.kernel in REDESIGNED
+            or case.name.startswith(STEP_REDESIGNED))
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -612,6 +631,9 @@ def line(rec: dict) -> str:
     if rec["library_ms"] is not None:
         s += (f", library call {rec['library_ms']:.4f} host-paced, "
               f"{rec['library_graph_ms']:.4f} graph-replayed")
+    if "latency_bound_ms" in rec:
+        s += (f", latency bound {rec['latency_bound_ms']:.6f} ms (K x "
+              "dependent loads a unit x the dependent load)")
     if "launch_floor_ms" in rec:
         s += (f"; launch floor {rec['launch_floor_ms']:.4f} host-paced, "
               f"{rec['launch_floor_graph_ms']:.4f} graph-replayed")
@@ -636,21 +658,27 @@ def run(dev=torch.device("cuda", 0), log=print,
     pieces = host_pieces(dev, others=others)
     log("probe host pieces, us a call: " + ", ".join(
         f"{k} {v:.3f}" for k, v in pieces.items()))
-    recs = []
+    recs, dep_ns = [], None
     for i, case in enumerate(CASES):
         if only and case.name not in only:
             continue
         recs.append(run_case(case, dev, seed=i, floor=floor))
+        if case.name == DEP_LOAD:
+            dep_ns = recs[-1]["ns_per_unit"]
+        if case.dep_loads and dep_ns is not None:
+            recs[-1].update(latency_bound_ms=case.k * case.dep_loads
+                            * dep_ns * 1e-6)
         log(line(recs[-1]))
     return recs
 
 
 def graph_safe(dev, log=print) -> int:
-    """The ROLL, REFILL, TRANSPOSE and DEP cases' wrappers under
+    """The ROLL, REFILL, TRANSPOSE, DEP, STEP5 and TOKENS cases' wrappers
+    under
     ``torch.cuda.set_sync_debug_mode("error")`` (a call that synchronises
     raises), then captured in a CUDA graph and replayed: each result equal
     to plain.  Returns the cases checked."""
-    cases = [c for c in CASES if c.kernel in REDESIGNED]
+    cases = [c for c in CASES if redesigned(c)]
     for i, case in enumerate(cases):
         x, xd = _inputs(case, dev, seed=i)
         want = _tuple(case.plain(xd, case.k))
@@ -674,9 +702,9 @@ def graph_safe(dev, log=print) -> int:
                            for b, w in zip(captured, want, strict=True))):
             raise AssertionError(f"{case.name}: != plain under sync debug "
                                  "mode or from a graph")
-    log(f"probe graph safety: {len(cases)} ROLL, REFILL, TRANSPOSE and DEP "
-        "cases raise nothing under sync debug mode \"error\" and replay "
-        "from a CUDA graph equal to plain")
+    log(f"probe graph safety: {len(cases)} ROLL, REFILL, TRANSPOSE, DEP, "
+        "STEP5 and TOKENS cases raise nothing under sync debug mode "
+        "\"error\" and replay from a CUDA graph equal to plain")
     return len(cases)
 
 
@@ -690,8 +718,7 @@ def step_skeleton_ns(recs: list, lanes: int) -> float:
 def dep_load_ns(recs: list) -> float:
     """The measured dependent shared-memory load at the inflate's shape
     (512 lanes, a thread a CTA, 8 KB tables), ns."""
-    return next(r["ns_per_unit"] for r in recs if r["name"] ==
-                f"probe_chain_dep_{INFLATE_LANES}l_{INFLATE_WORDS}w")
+    return next(r["ns_per_unit"] for r in recs if r["name"] == DEP_LOAD)
 
 
 # -- old against new ----------------------------------------------------------
@@ -738,12 +765,12 @@ def build_against(roots: dict) -> dict:
 
 
 def _against_cases(only=None) -> list:
-    """The cases --against times: ROLL, REFILL and TRANSPOSE, p_gather and
-    the two DEP slopes that chip_smoke reads; only: their names, if
-    given."""
+    """The cases --against times: ROLL, REFILL, TRANSPOSE, STEP5 and
+    TOKENS, p_gather and the two DEP slopes that chip_smoke reads; only:
+    their names, if given."""
     return [c for c in CASES
-            if (c.kernel in ("qz_probe_roll", "qz_probe_refill",
-                             "qz_probe_transpose") or c.name in AGAINST_DEP)
+            if ((redesigned(c) and c.kernel != "qz_probe_dep")
+                or c.name in AGAINST_DEP)
             and (not only or c.name in only)]
 
 
@@ -753,6 +780,10 @@ def _calls(mod, case: Case, x: tuple, xd: tuple):
     its offsets from the card takes them there, and its wrapper (which
     reads them back) is captured through its launch alone."""
     a = case.args
+    if "call" in a:
+        def step(K=1, clk=None):
+            return a["call"](mod, x, K, clk)
+        return step, step
     if case.kernel == "qz_probe_roll":
         def roll(K=1):
             return mod.probe_roll(x[0], a["shift"], a["axis"])
@@ -782,21 +813,25 @@ def _calls(mod, case: Case, x: tuple, xd: tuple):
 
 
 def against(mods: dict, dev, log=print, only=None) -> list:
-    """The ROLL, REFILL, TRANSPOSE, p_gather and DEP slope cases through
-    each checkout's wrapper and library, in turns (the others, this,
-    this, the others): each equal to plain, then host-paced and
-    graph-replayed ms (20 calls each) and, where the case has one, the
-    slope over its K_lo..K_hi (5 host-paced calls at each); only: the
-    cases' names, if given.  Returns a record a case and checkout turn."""
+    """The ROLL, REFILL, TRANSPOSE, STEP5, TOKENS, p_gather and DEP slope
+    cases through each checkout's wrapper and library, in turns (the
+    others, this, this, the others): each equal to plain, then host-paced
+    and graph-replayed ms (20 calls each) and, where the case has one, the
+    slope over its K_lo..K_hi (5 host-paced calls at each) and, for STEP5
+    and TOKENS, the kernel's clock64() ticks a unit over the same K; only:
+    the cases' names, if given.  Returns a record a case and checkout
+    turn."""
     order = list(mods) + list(reversed(mods))
     recs = []
     for case in _against_cases(only):
         x, xd = _inputs(case, dev, seed=CASES.index(case))
-        want = case.plain(xd, case.k)
+        want = _tuple(case.plain(xd, case.k))
         calls = {}
         for label, mod in mods.items():
             call, launch = _calls(mod, case, x, xd)
-            if not torch.equal(call(case.k), want):
+            got = _tuple(call(case.k))
+            if not all(torch.equal(g, w)
+                       for g, w in zip(got, want, strict=True)):
                 raise AssertionError(f"{label} {case.name} != plain")
             calls[label] = (call, launch)
         cells = []
@@ -810,12 +845,150 @@ def against(mods: dict, dev, log=print, only=None) -> list:
                      for K in (case.k_lo, case.k_hi)]
                 rec["ns_per_unit"] = ((t[1] - t[0]) * 1e6
                                       / (case.k_hi - case.k_lo))
+            if "call" in case.args:
+                clk = torch.zeros(CLK_WORDS, dtype=torch.int64, device=dev)
+                ticks = []
+                for K in (case.k_lo, case.k_hi):
+                    call(K, clk)
+                    torch.cuda.synchronize()
+                    ticks.append(int(clk[0]))
+                rec["clocks_per_unit"] = ((ticks[1] - ticks[0])
+                                          / (case.k_hi - case.k_lo))
             recs.append(rec)
             cells.append(f"{label} {rec['ms']:.4f} / {rec['graph_ms']:.4f}"
-                         + (f" ({rec['ns_per_unit']:.1f} ns)"
-                            if "ns_per_unit" in rec else ""))
-        log(f"against {case.name} (ms host-paced / graph-replayed (ns a "
-            f"{case.units})): " + "; ".join(cells))
+                         + (f" ({rec['ns_per_unit']:.1f} ns"
+                            if "ns_per_unit" in rec else "")
+                         + (f", {rec['clocks_per_unit']:.1f} clocks"
+                            if "clocks_per_unit" in rec else "")
+                         + (")" if "ns_per_unit" in rec else ""))
+        log(f"against {case.name} (ms host-paced / graph-replayed (ns"
+            f"{', clocks' if 'call' in case.args else ''} a {case.units})): "
+            + "; ".join(cells))
+    return recs
+
+
+# -- the step's code ----------------------------------------------------------
+
+# The STEP5 kernel at one lane a CTA, root 256, no tokens, and the TOKENS
+# tile kernel, by their mangled names' heads (the STEP5 kernel: a template
+# of its own; an older checkout's: qzp_step<1, 0>), and the loads of a step.
+SASS_KERNELS = {
+    "step5": (("_Z9qzp_step5I10QzpS5ShapeILi128ELi256ELi256EELi1ELi0EE",
+               "_Z8qzp_stepILi1ELi0EE"), 7),
+    "tokens tile": (("_Z8qzp_stepILi2ELi2EE",), 1),
+}
+
+
+def sass_functions(lib: str) -> dict:
+    """{mangled name: its SASS instructions (address, predicate, opcode,
+    operands)} of a library, by cuobjdump; a label line as (None,
+    "label", name, "")."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    funcs = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        ins = []
+        for ln in body.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", ln)
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                          r"([A-Z][\w.]*)\s*([^;]*);", ln)
+            if lab:
+                ins.append((None, "label", lab.group(1), ""))
+            elif m:
+                ins.append((int(m.group(1), 16), (m.group(2) or "").strip(),
+                            m.group(3), m.group(4)))
+        funcs[name.strip()] = ins
+    return funcs
+
+
+_NO_DEST = ("ST", "RED", "BRA", "BAR", "EXIT", "NOP", "RET", "CALL", "BSYNC",
+            "BSSY", "WARPSYNC", "MEMBAR", "FENCE", "UBLKCP", "SYNCS", "CCTL",
+            "ERRBAR", "DEPBAR")
+
+
+def _regs(text: str) -> list:
+    return re.findall(r"\bU?[RP]\d+\b", text)
+
+
+def loop_chain(ins: list, loads_per_step: int) -> dict:
+    """The loop of a kernel's SASS with the most shared-memory loads
+    (LDS): its instructions and LDS, the steps it holds (LDS over
+    loads_per_step), and its longest chain of register dependences carried
+    round the loop (instructions an iteration: how much deeper a register
+    is after the third copy of the body than after the second, the
+    dependences followed through three copies), each a step.  A branch
+    names its target by label or by address."""
+    at = {}
+    for i, x in enumerate(ins):
+        key = x[2] if x[1] == "label" else x[0]
+        at.setdefault(key, i)
+    best = None
+    for j, (_, pred, op, opnds) in enumerate(ins):
+        if pred == "label" or not op.startswith("BRA"):
+            continue
+        tgt = re.search(r"\.L_x_\d+|0x[0-9a-f]+", opnds)
+        if not tgt:
+            continue
+        key = (tgt.group(0) if tgt.group(0).startswith(".")
+               else int(tgt.group(0), 16))
+        if at.get(key, j) >= j:
+            continue
+        body = [x[1:] for x in ins[at[key]:j + 1] if x[1] != "label"]
+        lds = sum(1 for x in body if x[1].startswith("LDS"))
+        if best is None or lds > best[1]:
+            best = (body, lds)
+    if best is None or not best[1]:
+        return {}
+    body, lds = best
+    depth, last = {}, {}   # instruction depth; a register's last writer's
+    ends = []   # each copy's {register: its last writer's depth}
+    for rep in range(3):
+        for i, (pred, op, opnds) in enumerate(body):
+            parts = [p.strip() for p in opnds.split(",")]
+            ndest = (0 if op.startswith(_NO_DEST)
+                     else 2 if op.startswith(("ISETP", "FSETP", "PLOP3"))
+                     and len(parts) > 1 else 1)
+            dests = [r for p in parts[:ndest] for r in _regs(p)]
+            srcs = _regs(pred) + [r for p in parts[ndest:]
+                                  for r in _regs(p)]
+            d = 1 + max((depth[last[r]] for r in srcs if r in last),
+                        default=0)
+            depth[(rep, i)] = d
+            for r in dests:
+                if r not in ("PT", "RZ"):
+                    last[r] = (rep, i)
+                    if ".64" in op or ".WIDE" in op:
+                        n = int(re.sub(r"\D", "", r))
+                        last[r[:-len(str(n))] + str(n + 1)] = (rep, i)
+        ends.append({r: depth[w] for r, w in last.items() if w[0] == rep})
+    steps = max(1, lds // loads_per_step)
+    carried = max((d - ends[1][r] for r, d in ends[2].items()
+                   if r in ends[1]), default=0)
+    return {"instructions": len(body) / steps, "lds": lds / steps,
+            "steps_in_loop": steps, "chain": carried / steps}
+
+
+def sass_report(libs: dict, log=print) -> list:
+    """loop_chain of the STEP5 and TOKENS tile kernels in each library
+    ({label: path}), a line each."""
+    recs = []
+    for label, lib in libs.items():
+        funcs = sass_functions(lib)
+        for kind, (heads, loads) in SASS_KERNELS.items():
+            name = next((n for h in heads for n in funcs
+                         if n.startswith(h)), None)
+            if name is None:
+                continue
+            rec = {"checkout": label, "kernel": kind, "function": name,
+                   **loop_chain(funcs[name], loads)}
+            recs.append(rec)
+            log(f"probe sass {label} {kind} ({name}): "
+                + ", ".join(f"{k} {v:.1f}" if isinstance(v, float)
+                            else f"{k} {v}" for k, v in rec.items()
+                            if k not in ("checkout", "kernel", "function"))
+                + " a step")
     return recs
 
 
@@ -823,7 +996,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", nargs="*", default=[],
                     help="roots of other checkouts whose ROLL, REFILL, "
-                         "TRANSPOSE and DEP to time beside this one's")
+                         "TRANSPOSE, DEP, STEP5 and TOKENS to time beside "
+                         "this one's")
     ap.add_argument("--only", nargs="*", default=None,
                     help="the cases to time, by name (all)")
     args = ap.parse_args()
@@ -834,6 +1008,9 @@ def main() -> None:
     mods = build_against({os.path.basename(os.path.normpath(r)): r
                           for r in args.against})
     print(f"probe build: {time.perf_counter() - t0:.2f} s")
+    sass_report({"this": os.path.join(_build.BUILD_DIR, _build.PROBES),
+                 **{label: os.path.join(OUT, label, _build.PROBES)
+                    for label in mods if mods[label] is not P}})
     dev = torch.device("cuda", 0)
     graph_safe(dev)
     recs = run(dev, others={k: m for k, m in mods.items() if m is not P},

@@ -22,10 +22,14 @@
 //                   table in shared memory or read with __ldg.
 //   qz_probe_alu    register-only integer chains (HASH, EW, DOUBLE).
 //   qz_probe_step   a decode step (STEP3, STEP5, TOKENS) with per-lane
-//                   window and tables in shared memory, 1-32 lanes a CTA,
-//                   tokens stored not at all, one 4-byte store a step
-//                   (LONE), or staged TILE steps and flushed 16 bytes a
-//                   thread (TILE).
+//                   window and tables in shared memory, 1-32 lanes a CTA
+//                   (TOKENS: up to 128), tokens stored not at all, one
+//                   4-byte store a step (LONE), or (TOKENS) into a
+//                   double-buffered tile, each buffer flushed by one bulk
+//                   asynchronous tensor copy (TILE).  STEP5 is built for
+//                   its cases' shapes; its CTA of at least 128 threads
+//                   stages with every load in flight, widening the table
+//                   entries on the way.
 //   qz_probe_tile   BITONIC sorts of a tile's segments in one CTA.
 //   qz_probe_transpose  TRANSPOSE over a thread-block cluster, a 32 x 32
 //                   block a CTA, swapped with its partner through
@@ -42,6 +46,7 @@
 // ticks of thread 0 of block 0 around its loop (TRANSPOSE: then the SM of
 // each CTA of its cluster).
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -49,8 +54,6 @@
 #include "probes.cuh"
 
 namespace cg = cooperative_groups;
-
-#define QZP_MAX_SMEM (227 * 1024)
 
 template <class F>
 static int qzp_smem(F* kernel, size_t bytes) {
@@ -62,6 +65,10 @@ static int qzp_smem(F* kernel, size_t bytes) {
 }
 
 static bool qzp_aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+__device__ inline unsigned qzp_smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
 __device__ inline bool qzp_timer_thread() {
   return threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0;
@@ -397,6 +404,31 @@ extern "C" int qz_probe_alu(int mode, const void* x, void* out, int n, int K,
 }
 
 // -- qz_probe_step ------------------------------------------------------------
+//
+// STEP3 and TOKENS (qzp_step): a CTA takes lpc consecutive lanes (lpc
+// divides 128 and lanes), a lane a thread, and stages its row's 128-word
+// arrays (TOKENS reads only tll).  TOKENS stores a token a step alone
+// (LONE), or (TILE) into one of two [rows][lpc] buffers after the staged
+// words (qzp_tok_rows: rows is the tile where both fit).  When a buffer is
+// full, thread 0 waits until its bulk copy of the other buffer has read it
+// (cp.async.bulk.wait_group.read 0: the one group it can have in flight),
+// every thread fences its stores to the async proxy and passes a barrier,
+// which also tells every thread that the other buffer is free; then thread
+// 0 stores the whole buffer by one 2-D bulk tensor copy (shared to global,
+// through a tensor map of the tokens [K, lanes] with a [rows][lpc] box,
+// encoded by the entry at each launch) and commits it, and the steps go on
+// in the other buffer while the copy drains.  Before exit thread 0 waits
+// for its copies to complete.  No step waits for a flush but through that
+// wait, a buffer's worth of steps after the copy was issued.  (A bulk copy
+// a row, rows issued by every thread, took 202 clocks a step against 58 on
+// an H100: a cp.async.bulk takes its operands in uniform registers, so a
+// warp issues its threads' copies one at a time.)
+//
+// STEP5 (qzp_step5, probes.cuh): a kernel a shape of QzpS5Shape and lanes a
+// CTA; the CTA's QzpS5Plan threads stage its lanes' columns with all their
+// loads in flight, widening the tables (qzp_s5_stage), then its first LPC
+// threads run a lane each (qzp_s5_step): five levels of dependent
+// shared-memory loads a step and the integer work between them.
 
 enum { QZP_STEP3 = 0, QZP_STEP5 = 1, QZP_TOKENS = 2 };
 enum { QZP_STORE_NONE = 0, QZP_STORE_LONE = 1, QZP_STORE_TILE = 2 };
@@ -412,126 +444,280 @@ struct QzpStepArgs {
   const int32_t* state;  // bitpos (STEP3, STEP5) or idx (TOKENS), [lanes]
   int32_t* out;          // [lanes]
   uint32_t* tokens;      // [K, lanes]
-  int lanes, lpc, K, tile;
-  QzpStep5 p;
+  int lanes, lpc, K;
+  int rows;              // TILE: the rows of each token buffer
   long long* clk;
 };
 
-// A CTA takes lpc consecutive lanes (lpc divides 128 and lanes), a lane a
-// thread.  Row arrays: the CTA stages its row's 128-word arrays.  Column
-// arrays: it stages its lanes' columns [row][lpc].  TILE: a [tile][lpc]
-// token tile after them, flushed every tile steps with 16-byte stores.
+__device__ inline void qzp_bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk groups have read their sources (.read) or completed
+template <bool READ>
+__device__ inline void qzp_bulk_wait_all() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// a [rows][lpc] box of shared memory at s to the tokens at (lane l0, step
+// k0) through the tensor map tm, a bulk copy of this thread's open group
+__device__ inline void qzp_bulk_store_tile(const CUtensorMap* tm, int l0,
+                                           int k0, const uint32_t* s) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];\n" ::"l"(tm),
+      "r"(l0), "r"(k0), "r"(qzp_smem_addr(s)) : "memory");
+}
+
+// this thread's shared-memory stores made visible to the async proxy (the
+// bulk copies)
+__device__ inline void qzp_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 template <int MODE, int STORE>
-__global__ void qzp_step(QzpStepArgs a) {
+__global__ void qzp_step(QzpStepArgs a, const __grid_constant__ CUtensorMap tm) {
   extern __shared__ __align__(16) uint32_t sm[];
   const int l0 = blockIdx.x * a.lpc, t = threadIdx.x, lane = l0 + t;
   const int lpc = a.lpc;
-  uint32_t* tile_buf;
-  if (MODE == QZP_STEP5) {
-    const int rows = a.p.W + 2 * (a.p.rc + a.p.sc);
-    for (int i = t; i < rows * lpc; i += lpc) {
-      const int r = i / lpc, c = i - r * lpc;
-      const uint32_t* g =
-          r < a.p.W ? a.win + (int64_t)r * a.lanes
-          : r < a.p.W + a.p.rc + a.p.sc
-              ? a.tll + (int64_t)(r - a.p.W) * a.lanes
-              : a.td + (int64_t)(r - a.p.W - a.p.rc - a.p.sc) * a.lanes;
-      sm[i] = g[l0 + c];
-    }
-    tile_buf = sm + rows * lpc;
-  } else {
-    const int64_t row0 = (int64_t)(l0 >> 7) << 7;
-    for (int i = t; i < 3 * 128; i += lpc) {
-      const uint32_t* g = i < 128 ? a.win : i < 256 ? a.tll : a.td;
-      if (MODE == QZP_STEP3 || (i >= 128 && i < 256))
-        sm[i] = g[row0 + (i & 127)];
-    }
-    tile_buf = sm + 3 * 128;
+  const int64_t row0 = (int64_t)(l0 >> 7) << 7;
+  for (int i = t; i < QZP_TOK_STAGED; i += lpc) {
+    const uint32_t* g = i < 128 ? a.win : i < 256 ? a.tll : a.td;
+    if (MODE == QZP_STEP3 || (i >= 128 && i < 256))
+      sm[i] = g[row0 + (i & 127)];
   }
   __syncthreads();
   int32_t s = a.state[lane], acc = 0;
   uint32_t* tok = a.tokens + lane;
-  int kt = 0;  // TILE: the step's row of the tile
+  uint32_t* buf = sm + QZP_TOK_STAGED;   // TILE: two [rows][lpc] buffers
+  int kt = 0, b = 0;                     // TILE: the step's row and buffer
   const long long t0 = clock64();
   for (int k = 0; k < a.K; ++k) {
     uint32_t v = 0;
     if (MODE == QZP_STEP3)
       qzp_step3((const int32_t*)sm, (const int32_t*)sm + 128,
                 (const int32_t*)sm + 256, 1, s, acc);
-    if (MODE == QZP_STEP5) {
-      const int base = a.p.W * lpc;
-      v = qzp_step5(sm + t, sm + base + t,
-                    sm + base + (a.p.rc + a.p.sc) * lpc + t, lpc, a.p, s);
-    }
-    if (MODE == QZP_TOKENS) {
-      v = sm[128 + ((uint32_t)s & 127u)];
-      s = (int32_t)((uint32_t)s + v);
-    }
+    if (MODE == QZP_TOKENS) v = qzp_tok_step(sm + 128, s);
     if (STORE == QZP_STORE_LONE) {
       *tok = v;
       tok += a.lanes;
     }
     if (STORE == QZP_STORE_TILE) {
-      tile_buf[kt * lpc + t] = v;
-      if (++kt == a.tile) {
-        // thread t flushes 16 bytes at a time: lpc / 4 vectors a row
+      buf[(b * a.rows + kt) * lpc + t] = v;
+      if (++kt == a.rows) {
+        if (t == 0) qzp_bulk_wait_all<true>();   // the other buffer read
+        qzp_fence_proxy_async();
         __syncthreads();
-        const int k0 = k + 1 - a.tile, per_row = lpc >> 2;
-        for (int r = t / per_row; r < a.tile; r += 4) {
-          const int c = (t % per_row) << 2;
-          *(uint4*)(a.tokens + (int64_t)(k0 + r) * a.lanes + l0 + c) =
-              *(const uint4*)(tile_buf + r * lpc + c);
+        if (t == 0) {
+          qzp_bulk_store_tile(&tm, l0, k + 1 - a.rows, buf + b * a.rows * lpc);
+          qzp_bulk_commit();
         }
         kt = 0;
-        __syncthreads();
+        b ^= 1;
       }
     }
   }
+  if (STORE == QZP_STORE_TILE && t == 0) qzp_bulk_wait_all<false>();
   if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
-  a.out[lane] = MODE == QZP_STEP3    ? (int32_t)((uint32_t)acc + (uint32_t)s)
-                : MODE == QZP_TOKENS ? a.K
-                                     : s;
+  a.out[lane] = MODE == QZP_STEP3 ? (int32_t)((uint32_t)acc + (uint32_t)s)
+                                  : a.K;
+}
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point
+// query (the library links no libcuda); once a process.
+typedef CUresult (*QzpEncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+static QzpEncodeTiled qzp_encode_tiled() {
+  void* fn = nullptr;
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                              cudaEnableDefault) != cudaSuccess)
+    return nullptr;
+  return (QzpEncodeTiled)fn;
+}
+
+// TILE's tensor map: the tokens [K, lanes] of 4-byte words, a box of
+// [rows][lpc]
+static int qzp_tokens_map(const QzpStepArgs& a, CUtensorMap* tm) {
+  static const QzpEncodeTiled encode = qzp_encode_tiled();
+  if (!encode) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)a.lanes, (cuuint64_t)a.K};
+  const cuuint64_t stride[1] = {(cuuint64_t)a.lanes * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)a.lpc, (cuuint32_t)a.rows};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(tm, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2, a.tokens, dims, stride,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
 }
 
 template <int MODE, int STORE>
 static int qzp_launch_step(const QzpStepArgs& a, cudaStream_t s) {
-  // STEP5: lpc columns of its rows; else one row of 3 x 128 words.  TILE
-  // adds a [tile][lpc] token tile.
-  const size_t words =
-      (MODE == QZP_STEP5 ? (size_t)(a.p.W + 2 * (a.p.rc + a.p.sc)) * a.lpc
-                         : 384) +
-      (STORE == QZP_STORE_TILE ? (size_t)a.tile * a.lpc : 0);
-  const size_t bytes = words * 4;
-  const int rc = qzp_smem(qzp_step<MODE, STORE>, bytes);
-  if (rc) return rc;
-  qzp_step<MODE, STORE><<<a.lanes / a.lpc, a.lpc, bytes, s>>>(a);
+  const size_t bytes =
+      (QZP_TOK_STAGED +
+       (STORE == QZP_STORE_TILE ? (size_t)2 * a.rows * a.lpc : 0)) * 4;
+  CUtensorMap tm;
+  memset(&tm, 0, sizeof(tm));
+  if (STORE == QZP_STORE_TILE && a.K > 0) {
+    const int rc = qzp_tokens_map(a, &tm);
+    if (rc) return rc;
+  }
+  qzp_step<MODE, STORE><<<a.lanes / a.lpc, a.lpc, bytes, s>>>(a, tm);
   return (int)cudaGetLastError();
 }
 
+// STEP5's loads from device memory: VEC words of the CTA's lanes (from
+// lane l0 + it.c) of a source row, through the read-only path
+struct QzpS5Load {
+  const uint32_t* win;
+  const uint32_t* tll;
+  const uint32_t* td;
+  int lanes;
+  int l0;
+
+  __device__ const uint32_t* at(const QzpS5Item& it) const {
+    const uint32_t* g = it.src == 0 ? win : it.src == 1 ? tll : td;
+    return g + (int64_t)it.row * lanes + l0 + it.c;
+  }
+  __device__ void operator()(const QzpS5Item& it, uint32_t (&v)[4]) const {
+    const uint4 u = __ldg((const uint4*)at(it));
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  }
+  __device__ void operator()(const QzpS5Item& it, uint32_t (&v)[1]) const {
+    v[0] = __ldg(at(it));
+  }
+};
+
+struct QzpS5Store {
+  uint32_t* sm;
+
+  template <int V>
+  __device__ void put(int w, const uint32_t* v) const {
+    if constexpr (V == 4)
+      *(uint4*)(sm + w) = make_uint4(v[0], v[1], v[2], v[3]);
+    else
+      sm[w] = v[0];
+  }
+};
+
+// A 4-byte load at a shared-memory byte address
+struct QzpLds {
+  __device__ uint32_t operator()(uint32_t a) const {
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
+    return v;
+  }
+};
+
+template <class Sh, int LPC, int STORE>
+__global__ void __launch_bounds__(QzpS5Plan<Sh, LPC>::THREADS)
+    qzp_step5(QzpStepArgs a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int l0 = blockIdx.x * LPC, t = threadIdx.x;
+  qzp_s5_stage<Sh, LPC>(t, QzpS5Load{a.win, a.tll, a.td, a.lanes, l0},
+                        QzpS5Store{sm});
+  __syncthreads();
+  if (t >= LPC) return;
+  int32_t s = a.state[l0 + t];
+  uint32_t* tok = a.tokens + l0 + t;
+  const uint32_t base = qzp_smem_addr(sm), toff = 4u * (uint32_t)t;
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k) {
+    const uint32_t v = qzp_s5_step<Sh, LPC>(base, toff, s, QzpLds{});
+    if (STORE == QZP_STORE_LONE) {
+      *tok = v;
+      tok += a.lanes;
+    }
+  }
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  a.out[l0 + t] = s;
+}
+
+template <class Sh, int LPC>
+static int qzp_launch_step5(const QzpStepArgs& a, int store,
+                            cudaStream_t s) {
+  using P = QzpS5Plan<Sh, LPC>;
+  const int grid = a.lanes / LPC;
+  if (store == QZP_STORE_LONE)
+    qzp_step5<Sh, LPC, QZP_STORE_LONE><<<grid, P::THREADS, P::BYTES, s>>>(a);
+  else
+    qzp_step5<Sh, LPC, QZP_STORE_NONE><<<grid, P::THREADS, P::BYTES, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <class F>
+static int qzp_smem_max(F* kernel) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, QZP_MAX_SMEM);
+}
+
+// Lets the token tile and every STEP5 kernel take the card's whole shared
+// memory; once a process.
+static int qzp_step_prepare() {
+  int rc = qzp_smem_max(qzp_step<QZP_TOKENS, QZP_STORE_TILE>);
+  const int lpcs[3] = {1, 8, 32};
+  for (int rcells = 128; rcells <= 256 && !rc; rcells *= 2)
+    for (int i = 0; i < 3 && !rc; ++i)
+      rc = qzp_s5_dispatch(128, rcells, 256, lpcs[i], [](auto sh, auto l) {
+        using Sh = decltype(sh);
+        constexpr int L = decltype(l)::value;
+        const int r = qzp_smem_max(qzp_step5<Sh, L, QZP_STORE_NONE>);
+        return r ? r : qzp_smem_max(qzp_step5<Sh, L, QZP_STORE_LONE>);
+      });
+  return rc;
+}
+
 // probe_inflate_step3.py:81 step_loop (STEP3); probe_inflate_step5.py:249
-// mk_lane_major_step (STEP5); probe_inflate_step4.py:92 tokens_dma
-// (TOKENS).
+// mk_lane_major_step (STEP5: W 128, rc 128 or 256, sc 256, lpc 1, 8 or 32,
+// 16-byte aligned columns where lpc >= 4);
+// probe_inflate_step4.py:92 tokens_dma (TOKENS; TILE: lpc a multiple of 4,
+// K a multiple of tile, 16-byte aligned tokens).
 extern "C" int qz_probe_step(int mode, int store, const void* win,
                              const void* tll, const void* td,
                              const void* state, void* out, void* tokens,
                              int lanes, int lpc, int K, int W, int rc, int sc,
-                             int rbits, int tile, void* clk, void* stream) {
-  const QzpStepArgs a = {(const uint32_t*)win, (const uint32_t*)tll,
-                         (const uint32_t*)td, (const int32_t*)state,
-                         (int32_t*)out, (uint32_t*)tokens, lanes, lpc, K,
-                         tile, {W, rc, sc, rbits}, (long long*)clk};
+                             int tile, void* clk, void* stream) {
+  static const int ready = qzp_step_prepare();
+  if (ready) return ready;
+  QzpStepArgs a = {(const uint32_t*)win, (const uint32_t*)tll,
+                   (const uint32_t*)td,  (const int32_t*)state,
+                   (int32_t*)out,        (uint32_t*)tokens,
+                   lanes,                lpc,
+                   K,                    0,
+                   (long long*)clk};
   if (lpc < 1 || lpc > 128 || 128 % lpc || lanes % lpc)
     return (int)cudaErrorInvalidValue;
-  if (store == QZP_STORE_TILE && (lpc % 4 || tile < 1 || K % tile))
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (mode == QZP_STEP5) {
+    if ((store != QZP_STORE_NONE && store != QZP_STORE_LONE) ||
+        (lpc >= 4 && !(qzp_aligned16(win) && qzp_aligned16(tll) &&
+                       qzp_aligned16(td))))
+      return (int)cudaErrorInvalidValue;
+    const int rc5 = qzp_s5_dispatch(W, rc, sc, lpc, [&](auto sh, auto l) {
+      return qzp_launch_step5<decltype(sh), decltype(l)::value>(a, store, s);
+    });
+    return rc5 < 0 ? (int)cudaErrorInvalidValue : rc5;
+  }
+  if (store == QZP_STORE_TILE) {
+    if (lpc % 4 || tile < 1 || K % tile || !qzp_aligned16(tokens))
+      return (int)cudaErrorInvalidValue;
+    a.rows = qzp_tok_rows(tile, lpc);
+  }
   switch (mode * 3 + store) {
     case QZP_STEP3 * 3 + QZP_STORE_NONE:
       return qzp_launch_step<QZP_STEP3, QZP_STORE_NONE>(a, s);
-    case QZP_STEP5 * 3 + QZP_STORE_NONE:
-      return qzp_launch_step<QZP_STEP5, QZP_STORE_NONE>(a, s);
-    case QZP_STEP5 * 3 + QZP_STORE_LONE:
-      return qzp_launch_step<QZP_STEP5, QZP_STORE_LONE>(a, s);
     case QZP_TOKENS * 3 + QZP_STORE_LONE:
       return qzp_launch_step<QZP_TOKENS, QZP_STORE_LONE>(a, s);
     case QZP_TOKENS * 3 + QZP_STORE_TILE:
@@ -619,10 +805,6 @@ extern "C" int qz_probe_tile(const void* x, void* out, int rows, int cols,
 // stored words are the words read), so one buffer's step k + 2 lands only
 // after its step k was read.  A CTA exits once its last block has
 // arrived: no sibling writes into it after that.
-
-__device__ inline unsigned qzp_smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
 
 // A shared address of this CTA as the same place in CTA rank's
 __device__ inline unsigned qzp_mapa(unsigned a, int rank) {

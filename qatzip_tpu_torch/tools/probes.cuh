@@ -162,98 +162,362 @@ __host__ __device__ inline void qzp_step3(const int32_t* win,
   acc ^= bits;
 }
 
-// The shape of a lane-major step: a window of W words, and litlen and
-// distance tables of rc root cells then sc subtable cells, u16 entries two
-// a u32 cell; rbits the root index bits (2 rc = 1 << rbits).  W, rc and sc
-// are powers of 2.
-struct QzpStep5 {
-  int W;
-  int rc;
-  int sc;
-  int rbits;
-};
+// -- STEP5: the lane-major step over widened entries ---------------------------
+//
+// probe_inflate_step5.py:mk_lane_major_step ("onehot" mode), one lane: three
+// window words, a root + subtable litlen resolve, RFC 1951's length closed
+// form, a root + subtable distance resolve and its closed form, a token;
+// branch-free.  The lane's window and tables arrive as columns of u32 words
+// (win [W, lanes], tll and td [rc + sc, lanes]: rc root cells, then sc
+// subtable cells, u16 entries two a cell).  The kernel stages its lanes'
+// columns into shared memory and rewrites the tables on the way, so that a
+// step derives nothing from an entry that the staging could derive:
+//   * a root half becomes a 32-bit word of its own (qzp_s5_root): a
+//     subtable pointer as its subtable base and index mask, any other entry
+//     as bit 31 over its fields re-encoded in 16 bits;
+//   * a subtable cell keeps its two halves, each re-encoded in 16 bits
+//     (qzp_s5_lit16, qzp_s5_dist16): the bits the entry consumes in bits
+//     0-4, so that the next funnel shift takes the entry itself, and the
+//     closed forms' bases and extra bits after them.
+// The shapes are compile-time (QzpS5Shape): the floor modulo of the window
+// index is a multiply-high, every mask a constant.
 
 // (1 << n) - 1 for n < 32
 __host__ __device__ inline uint32_t qzp_mask(uint32_t n) {
   return (1u << n) - 1u;
 }
 
-// (hi:lo) >> sh for sh < 32, the low word
+// (hi:lo) >> (sh & 31), the low word (a funnel shift)
 __host__ __device__ inline uint32_t qzp_funnel(uint32_t lo, uint32_t hi,
                                                uint32_t sh) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, sh);
+#else
+  sh &= 31u;
   return (lo >> sh) | ((hi << (31u - sh)) << 1);
+#endif
 }
 
-// The fetch of mk_lane_major_step's "onehot" mode: entry idx mod n.
-__host__ __device__ inline uint32_t qzp_fetch(const uint32_t* t, int stride,
-                                              int32_t idx, int n) {
-  return t[(uint32_t)(idx & (n - 1)) * (uint32_t)stride];
+__host__ __device__ constexpr int qzp_lg(int x) {
+  return x <= 1 ? 0 : 1 + qzp_lg(x >> 1);
 }
 
-// The u16 entry of a cell pair index
-__host__ __device__ inline uint32_t qzp_half(uint32_t cell, int32_t i) {
-  return (cell >> (((uint32_t)i & 1u) << 4)) & 0xFFFFu;
+// A step's shape: a window of W words, rc root cells and sc subtable cells
+// a table (powers of 2; 2 rc = 1 << RBITS).  A lane's column in shared
+// memory holds, a row of LPC words each (lane t of its CTA at word t):
+// the window, the litlen roots (2 rc widened words), the litlen subtable
+// (sc cells), the distance roots, the distance subtable.
+template <int W_, int RC_, int SC_>
+struct QzpS5Shape {
+  static constexpr int W = W_, RC = RC_, SC = SC_, RBITS = qzp_lg(2 * RC_);
+  static constexpr int LROOT = W, LSUB = LROOT + 2 * RC, DROOT = LSUB + SC,
+                       DSUB = DROOT + 2 * RC, ROWS = DSUB + SC;
+  static constexpr int SRC_ROWS = W + 2 * (RC + SC);   // win, tll, td
+  // a multiple of W - 2 above 2^26, so that (bitpos >> 5) + BIAS is the
+  // probe's floor modulo's dividend made non-negative (and below 2^28)
+  static constexpr uint32_t BIAS =
+      ((1u << 26) + (uint32_t)W - 3u) / (uint32_t)(W - 2) * (uint32_t)(W - 2);
+  // x / (W - 2) = mulhi(x, MAGIC) >> MSHIFT for every x < 2^28: MAGIC =
+  // ceil(2^(32 + MSHIFT) / (W - 2)) exceeds the quotient by less than
+  // 2^(4 + MSHIFT) / (W - 2)
+  static constexpr int MSHIFT = qzp_lg(W - 2);
+  static constexpr uint64_t MAGIC =
+      ((uint64_t)1 << (32 + MSHIFT)) / (uint64_t)(W - 2) + 1u;
+  static_assert(MAGIC < ((uint64_t)1 << 32) &&
+                    MAGIC * (uint64_t)(W - 2) - ((uint64_t)1 << (32 + MSHIFT)) <
+                        ((uint64_t)1 << (4 + MSHIFT)),
+                "the window index's divisor");
+};
+
+// The shapes the kernels are built for: the TPU probe's root of 128 cells
+// and the inflate's 256, a 128-word window and 256 subtable cells.
+using QzpS5R128 = QzpS5Shape<128, 128, 256>;
+using QzpS5R256 = QzpS5Shape<128, 256, 256>;
+
+template <int N>
+struct QzpInt {
+  static constexpr int value = N;
+};
+
+// f(Sh{}, QzpInt<LPC>{}) for the shape and lanes a CTA (1, 8 or 32: the
+// probe's cases) the kernels are built for; -1 for any other.
+template <class Sh, class F>
+inline int qzp_s5_lpc(int lpc, F& f) {
+  switch (lpc) {
+    case 1: return f(Sh{}, QzpInt<1>{});
+    case 8: return f(Sh{}, QzpInt<8>{});
+    case 32: return f(Sh{}, QzpInt<32>{});
+  }
+  return -1;
 }
 
-// probe_inflate_step5.py:mk_lane_major_step ("onehot" mode), one lane:
-// three window words, a root + subtable litlen resolve, RFC 1951's length
-// closed form, a root + subtable distance resolve and its closed form, a
-// token; branch-free.  win, tll and td are the lane's columns (entry r at
-// [r * stride]).  Advances bitpos and returns the step's token.
-__host__ __device__ inline uint32_t qzp_step5(const uint32_t* win,
-                                              const uint32_t* tll,
-                                              const uint32_t* td, int stride,
-                                              const QzpStep5& p,
-                                              int32_t& bitpos) {
-  const uint32_t* tsub = tll + (int64_t)p.rc * stride;
-  const uint32_t* dsub = td + (int64_t)p.rc * stride;
-  int32_t wi = (bitpos >> 5) % (p.W - 2);  // the probe's floor modulo
-  wi += wi < 0 ? p.W - 2 : 0;
+template <class F>
+inline int qzp_s5_dispatch(int W, int rc, int sc, int lpc, F f) {
+  if (W != 128 || sc != 256) return -1;
+  if (rc == 128) return qzp_s5_lpc<QzpS5R128>(lpc, f);
+  if (rc == 256) return qzp_s5_lpc<QzpS5R256>(lpc, f);
+  return -1;
+}
+
+// A litlen half h (clen bits 0-3, kind 4-5, symbol 6-13) re-encoded: used1
+// = clen + the length's extra bits (bits 0-4), eb + 1 for a length (kind
+// 1; else 0, bits 5-7), lbase - 3 (bits 8-15; 258 for symbols from 28).
+__host__ __device__ inline uint32_t qzp_s5_lit16(uint32_t h) {
+  const uint32_t clen = h & 15u, kind = (h >> 4) & 3u, sym = (h >> 6) & 0xFFu;
+  uint32_t e_len = sym > 4u ? (sym - 4u) >> 2 : 0u;
+  e_len = e_len < 5u ? e_len : 5u;
+  uint32_t lbase = sym < 4u ? sym + 3u : ((4u + (sym & 3u)) << e_len) + 3u;
+  e_len = sym >= 28u ? 0u : e_len;
+  lbase = sym >= 28u ? 258u : lbase;
+  const uint32_t eb = kind == 1u ? e_len : 0u;
+  return (clen + eb) | ((kind == 1u ? e_len + 1u : 0u) << 5) |
+         ((lbase - 3u) << 8);
+}
+
+// A distance half re-encoded: dclen + deb (bits 0-4), deb (5-8), the
+// symbol (9-13).
+__host__ __device__ inline uint32_t qzp_s5_dist16(uint32_t h) {
+  const uint32_t ds = (h >> 6) & 31u;
+  const uint32_t deb = ds < 4u ? 0u : (ds - 2u) >> 1;
+  return ((h & 15u) + deb) | (deb << 5) | (ds << 9);
+}
+
+// A root half widened: a subtable pointer (kind 3) as its subtable base
+// ((h >> 6) & 0xFF) << 1 from bit 16 + sh and the low 9 bits of its index
+// mask (1 << clen) - 1 from bit sh, bit 31 clear (sh <= 6); any other
+// entry as bit 31 over fin16, its re-encoded fields.  A subtable of 256
+// cells takes only the low 9 bits of an index (cell and half), and the
+// step wants them shifted by sh (qzp_s5_resolve).
+__host__ __device__ inline uint32_t qzp_s5_root(uint32_t h, uint32_t fin16,
+                                               uint32_t sh) {
+  return ((h >> 4) & 3u) == 3u
+             ? ((((h >> 6) & 0xFFu) << 17) | (qzp_mask(h & 15u) & 0x1FFu))
+                   << sh
+             : 0x80000000u | fin16;
+}
+
+// A subtable cell with both halves re-encoded
+__host__ __device__ inline uint32_t qzp_s5_cell(uint32_t cell, bool lit) {
+  const uint32_t lo = cell & 0xFFFFu, hi = cell >> 16;
+  return lit ? qzp_s5_lit16(lo) | (qzp_s5_lit16(hi) << 16)
+             : qzp_s5_dist16(lo) | (qzp_s5_dist16(hi) << 16);
+}
+
+// The match length of a resolved litlen entry e (its re-encoded fields in
+// bits 0-15) over the stream bits b0
+__host__ __device__ inline uint32_t qzp_s5_mlen(uint32_t e, uint32_t b0) {
+  const uint32_t ebp = (e >> 5) & 7u;
+  const uint32_t eb = ebp - (ebp != 0u ? 1u : 0u);
+  return ((e >> 8) & 0xFFu) + 3u +
+         ((b0 >> ((e & 31u) - eb)) & qzp_mask(eb));
+}
+
+// The distance + 1 of a resolved distance entry ed over the bits after the
+// length
+__host__ __device__ inline uint32_t qzp_s5_dist1(uint32_t ed, uint32_t bits2) {
+  const uint32_t deb = (ed >> 5) & 15u, ds = (ed >> 9) & 31u;
+  const uint32_t dbase1 = ds < 4u ? ds : (2u + (ds & 1u)) << ((ds - 2u) >> 1);
+  return dbase1 + ((bits2 >> ((ed & 31u) - deb)) & qzp_mask(deb));
+}
+
+// The bits a step consumes, before the probe's & 15: the litlen entry's,
+// and the distance's after a length
+__host__ __device__ inline uint32_t qzp_s5_adv(uint32_t e, uint32_t ed) {
+  return (e & 31u) + (((e >> 5) & 7u) != 0u ? ed & 31u : 0u);
+}
+
+// (a * b) >> 32
+__host__ __device__ inline uint32_t qzp_mulhi(uint32_t a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  return __umulhi(a, b);
+#else
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+#endif
+}
+
+// A root + subtable resolve over bits through ld (a 4-byte shared-memory
+// load at a byte address): the root's widened word, then the subtable cell
+// it points at, whose half the pointer's low index bit picks; the root
+// word itself where it is no pointer.  The lane's word of row r of the
+// CTA's shared memory lies at base + (r << ROW | toff) (rows of S words,
+// the lane's toff = 4 t), root and sub the tables' first rows.  The
+// pointer's fields come shifted by ROW - 1 (qzp_s5_root), so that the sum
+// is the subtable index shifted so, whose cell bits mask straight into an
+// address; bits above the index's 9 may carry junk.  For an entry that is
+// no pointer the subtable load reads a cell the select then drops.
+template <class Sh, int S, class Rd>
+__host__ __device__ inline uint32_t qzp_s5_resolve(uint32_t base,
+                                                   uint32_t toff, int root,
+                                                   int sub, uint32_t bits,
+                                                   const Rd& ld) {
+  constexpr uint32_t ROW = qzp_lg(S) + 2;   // log2 of a row's bytes
+  static_assert(Sh::SC == 256, "the widened pointer keeps 9 index bits");
+  const uint32_t r = ld(base + (uint32_t)(root << ROW) +
+                        (((bits << ROW) & ((2u * Sh::RC - 1u) << ROW)) | toff));
+  // the index bits above the root's, at bit ROW - 1 on (the root's own
+  // below them meet the pointer's clear low bits), beside the load
+  const uint32_t hi = bits >> (Sh::RBITS - (ROW - 1));
+  const uint32_t s = (r >> 16) + (hi & r);
+  const uint32_t cell = ld(base + (uint32_t)(sub << ROW) +
+                           ((s & ((Sh::SC - 1u) << ROW)) | toff));
+  return (int32_t)r < 0 ? r : cell >> (((s >> (ROW - 1)) & 1u) << 4);
+}
+
+// One step of lane t (toff = 4 t) of a CTA whose shared memory starts at
+// byte address base: advances bitpos and returns the token.  Five
+// dependent levels of loads: the three window words, the litlen root, its
+// subtable, the distance root, its subtable.  Every address is the CTA's
+// base, a constant row the load takes as its offset, and a shifted index
+// with the lane's bits.
+template <class Sh, int S, class Rd>
+__host__ __device__ inline uint32_t qzp_s5_step(uint32_t base, uint32_t toff,
+                                                int32_t& bitpos,
+                                                const Rd& ld) {
+  constexpr uint32_t ROW = qzp_lg(S) + 2;
+  const uint32_t x = (uint32_t)(bitpos >> 5) + Sh::BIAS;
+  const uint32_t q = qzp_mulhi(x, (uint32_t)Sh::MAGIC) >> Sh::MSHIFT;
   const uint32_t sh = (uint32_t)bitpos & 31u;
-  const uint32_t w0 = qzp_fetch(win, stride, wi, p.W);
-  const uint32_t w1 = qzp_fetch(win, stride, wi + 1, p.W);
-  const uint32_t w2 = qzp_fetch(win, stride, wi + 2, p.W);
-  const uint32_t b0 = qzp_funnel(w0, w1, sh);
-  const uint32_t b1 = qzp_funnel(w1, w2, sh);
-  // litlen: root, then subtable
-  const int32_t idxr = (int32_t)(b0 & qzp_mask((uint32_t)p.rbits));
-  uint32_t e = qzp_half(qzp_fetch(tll, stride, idxr >> 1, p.rc), idxr);
-  const int32_t sidx = (int32_t)(((e >> 6) & 0xFFu) << 1) +
-                       (int32_t)((b0 >> p.rbits) & qzp_mask(e & 15u));
-  const uint32_t e2 = qzp_half(qzp_fetch(tsub, stride, sidx >> 1, p.sc), sidx);
-  e = ((e >> 4) & 3u) == 3u ? e2 : e;
-  const int32_t clen = (int32_t)(e & 15u);
-  const int32_t kind = (int32_t)((e >> 4) & 3u);
-  const int32_t sym = (int32_t)((e >> 6) & 0xFFu);
-  int32_t e_len = (sym - 4 > 0 ? sym - 4 : 0) >> 2;
-  e_len = e_len < 5 ? e_len : 5;
-  int32_t lbase = sym < 4 ? sym + 3 : ((4 + (sym & 3)) << e_len) + 3;
-  e_len = sym >= 28 ? 0 : e_len;
-  lbase = sym >= 28 ? 258 : lbase;
-  const int32_t eb = kind == 1 ? e_len : 0;
-  const int32_t lex = (int32_t)((b0 >> clen) & qzp_mask((uint32_t)eb));
-  const int32_t mlen = lbase + lex;
-  const int32_t used1 = clen + eb;
-  const uint32_t bits2 = qzp_funnel(b0, b1, (uint32_t)used1);
-  // distance: root, then subtable
-  const int32_t didx = (int32_t)(bits2 & qzp_mask((uint32_t)p.rbits));
-  uint32_t ed = qzp_half(qzp_fetch(td, stride, didx >> 1, p.rc), didx);
-  const int32_t dsidx = (int32_t)(((ed >> 6) & 0xFFu) << 1) +
-                        (int32_t)((bits2 >> p.rbits) & qzp_mask(ed & 15u));
-  const uint32_t ed2 =
-      qzp_half(qzp_fetch(dsub, stride, dsidx >> 1, p.sc), dsidx);
-  ed = ((ed >> 4) & 3u) == 3u ? ed2 : ed;
-  const int32_t dclen = (int32_t)(ed & 15u);
-  const int32_t ds = (int32_t)((ed >> 6) & 31u);
-  const int32_t e_d = (ds - 2 > 0 ? ds - 2 : 0) >> 1;
-  const int32_t dbase1 = ds < 4 ? ds : (2 + (ds & 1)) << e_d;
-  const int32_t deb = ds < 4 ? 0 : e_d;
-  const int32_t dex = (int32_t)((bits2 >> dclen) & qzp_mask((uint32_t)deb));
-  const int32_t dist1 = dbase1 + dex;
-  const int32_t adv = used1 + (kind == 1 ? dclen + deb : 0);
-  const uint32_t tok = 2u | ((uint32_t)mlen << 2) | ((uint32_t)dist1 << 11);
-  bitpos = (int32_t)((uint32_t)bitpos + (uint32_t)(adv & 15) + (tok & 1u));
+  // the row x % (W - 2), as (x << ROW) - (q (W - 2) << ROW) mod 2^32
+  const uint32_t w =
+      base + (((x << ROW) | toff) - ((q * (uint32_t)(Sh::W - 2)) << ROW));
+  const uint32_t w0 = ld(w), w1 = ld(w + (1u << ROW)),
+                 w2 = ld(w + (2u << ROW));
+  const uint32_t b0 = qzp_funnel(w0, w1, sh), b1 = qzp_funnel(w1, w2, sh);
+  const uint32_t e =
+      qzp_s5_resolve<Sh, S>(base, toff, Sh::LROOT, Sh::LSUB, b0, ld);
+  const uint32_t bits2 = qzp_funnel(b0, b1, e);   // by used1, e's bits 0-4
+  const uint32_t ed =
+      qzp_s5_resolve<Sh, S>(base, toff, Sh::DROOT, Sh::DSUB, bits2, ld);
+  const uint32_t tok =
+      2u | (qzp_s5_mlen(e, b0) << 2) | (qzp_s5_dist1(ed, bits2) << 11);
+  bitpos = (int32_t)((uint32_t)bitpos + (qzp_s5_adv(e, ed) & 15u) +
+                     (tok & 1u));
   return tok;
+}
+
+// The staging of a CTA of LPC lanes: THREADS threads (at least 128; only
+// the first LPC then run a lane each) load the CTA's lanes' words of every
+// source row, VEC words at once (16 bytes where LPC >= 4, along the row of
+// lanes).  Item i is vector i % VPR of source row i / VPR; thread t takes
+// items t, t + THREADS, ... (PER of them) and issues all its loads before
+// its first store.  THREADS grows with LPC so that PER stays at most
+// SRC_ROWS / 128 rounded up (9).
+template <class Sh, int LPC>
+struct QzpS5Plan {
+  static constexpr int VEC = LPC >= 4 ? 4 : 1;
+  static constexpr int VPR = LPC / VEC;
+  static constexpr int ITEMS = Sh::SRC_ROWS * VPR;
+  static constexpr int THREADS = VEC == 4 ? 128 * VPR : 128;
+  static constexpr int PER = (ITEMS + THREADS - 1) / THREADS;
+  static constexpr int BYTES = Sh::ROWS * LPC * 4;   // shared memory
+};
+
+// Item i: its source (0 win, 1 tll, 2 td), its row there, the first of its
+// lanes in the CTA
+struct QzpS5Item {
+  int src;
+  int row;
+  int c;
+};
+
+template <class Sh, int LPC>
+__host__ __device__ inline QzpS5Item qzp_s5_item(int i) {
+  using P = QzpS5Plan<Sh, LPC>;
+  const int r = i / P::VPR;
+  QzpS5Item it;
+  it.c = (i % P::VPR) * P::VEC;
+  it.src = r < Sh::W ? 0 : r < Sh::W + Sh::RC + Sh::SC ? 1 : 2;
+  it.row = it.src == 0 ? r
+           : it.src == 1 ? r - Sh::W
+                         : r - Sh::W - Sh::RC - Sh::SC;
+  return it;
+}
+
+// Stores item it's loaded words v through st.put<VEC>(word, v) (VEC words
+// from shared-memory word `word`): a window vector as it is, a root cell's as
+// two widened vectors (rows 2q and 2q + 1 of its roots), a subtable
+// cell's re-encoded.
+template <class Sh, int LPC, class St>
+__host__ __device__ inline void qzp_s5_put(const QzpS5Item& it,
+                                           const uint32_t* v, const St& st) {
+  constexpr int V = QzpS5Plan<Sh, LPC>::VEC;
+  if (it.src == 0) {
+    st.template put<V>(it.row * LPC + it.c, v);
+    return;
+  }
+  const bool lit = it.src == 1;
+  uint32_t a[V], b[V];
+  if (it.row < Sh::RC) {
+    constexpr uint32_t SH = qzp_lg(LPC) + 1;   // a row's bytes' log2 - 1
+    for (int j = 0; j < V; ++j) {
+      const uint32_t lo = v[j] & 0xFFFFu, hi = v[j] >> 16;
+      a[j] = qzp_s5_root(lo, lit ? qzp_s5_lit16(lo) : qzp_s5_dist16(lo), SH);
+      b[j] = qzp_s5_root(hi, lit ? qzp_s5_lit16(hi) : qzp_s5_dist16(hi), SH);
+    }
+    const int row = (lit ? Sh::LROOT : Sh::DROOT) + 2 * it.row;
+    st.template put<V>(row * LPC + it.c, a);
+    st.template put<V>((row + 1) * LPC + it.c, b);
+    return;
+  }
+  for (int j = 0; j < V; ++j) a[j] = qzp_s5_cell(v[j], lit);
+  st.template put<V>(((lit ? Sh::LSUB : Sh::DSUB) + it.row - Sh::RC) * LPC +
+                         it.c,
+                     a);
+}
+
+// Thread t's share of the staging: its PER loads through ld(item, words),
+// then its stores through st.
+template <class Sh, int LPC, class Ld, class St>
+__host__ __device__ inline void qzp_s5_stage(int t, const Ld& ld,
+                                             const St& st) {
+  using P = QzpS5Plan<Sh, LPC>;
+  uint32_t v[P::PER][P::VEC];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int j = 0; j < P::PER; ++j) {
+    const int i = t + j * P::THREADS;
+    if (i < P::ITEMS) ld(qzp_s5_item<Sh, LPC>(i), v[j]);
+  }
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int j = 0; j < P::PER; ++j) {
+    const int i = t + j * P::THREADS;
+    if (i < P::ITEMS) qzp_s5_put<Sh, LPC>(qzp_s5_item<Sh, LPC>(i), v[j], st);
+  }
+}
+
+// -- TOKENS: a token a step, through a double-buffered tile -------------------
+
+// probe_inflate_step4.py:tokens_dma, one lane's step over its row's
+// 128-word table: the token, and idx advanced by it
+__host__ __device__ inline uint32_t qzp_tok_step(const uint32_t* t,
+                                                 int32_t& idx) {
+  const uint32_t v = t[(uint32_t)idx & 127u];
+  idx = (int32_t)((uint32_t)idx + v);
+  return v;
+}
+
+#define QZP_MAX_SMEM (227 * 1024)
+#define QZP_TOK_STAGED 384   // the words staged before the token buffers
+
+// The rows of each of the two token buffers ([rows][lpc] words each, after
+// the staged words): the tile where both fit in a CTA's shared memory and
+// a bulk tensor copy's box (at most 256 rows), else the largest divisor of
+// the tile that does (a buffer is flushed when full, so K % tile == 0
+// keeps every flush whole).
+__host__ __device__ inline int qzp_tok_rows(int tile, int lpc) {
+  for (int d = 1; d <= tile; ++d)
+    if (tile % d == 0 && tile / d <= 256 &&
+        (QZP_TOK_STAGED + 2 * (tile / d) * lpc) * 4 <= QZP_MAX_SMEM)
+      return tile / d;
+  return 0;
+}
+
+// The buffer step k writes, and its row there
+__host__ __device__ inline int qzp_tok_buffer(int k, int rows) {
+  return (k / rows) & 1;
 }
 
 // -- bitonic network over segments -------------------------------------------

@@ -38,7 +38,7 @@ DEP = Kernel("qz_probe_dep", [_I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
 CHAIN = Kernel("qz_probe_chain", [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _U,
                                   _U, _P, _P], lib=PROBES)
 ALU = Kernel("qz_probe_alu", [_I, _P, _P, _I, _I, _P, _P], lib=PROBES)
-STEP = Kernel("qz_probe_step", [_I, _I] + [_P] * 6 + [_I] * 8 + [_P] * 2,
+STEP = Kernel("qz_probe_step", [_I, _I] + [_P] * 6 + [_I] * 7 + [_P] * 2,
               lib=PROBES)
 TILE = Kernel("qz_probe_tile", [_P, _P] + [_I] * 7 + [_P, _P], lib=PROBES)
 TRANSPOSE = Kernel("qz_probe_transpose", [_P, _P, _I, _I, _P, _P],
@@ -50,6 +50,10 @@ EMPTY = Kernel("qz_probe_empty", [_I, _P], lib=PROBES)
 KERNELS = {k.symbol: k for k in (DEP, CHAIN, ALU, STEP, TILE, TRANSPOSE, ROLL,
                                  REFILL, EMPTY)}
 MAX_LANES = 512   # QZP_MAX_LANES: the offsets a refill's parameters hold
+MAX_SMEM = 227 * 1024   # QZP_MAX_SMEM: the shared memory a CTA may take
+# STEP5's kernels are built for one window and subtable size, these root
+# sizes and lanes a CTA (QzpS5Shape, qzp_s5_dispatch)
+STEP5_W, STEP5_SUB, STEP5_ROOTS, STEP5_LPC = 128, 256, (128, 256), (1, 8, 32)
 
 # -- 32-bit arithmetic on int64 ----------------------------------------------
 
@@ -306,6 +310,36 @@ def step_loop(win: torch.Tensor, tll: torch.Tensor, td: torch.Tensor,
     return _i32(acc + bp)
 
 
+def _funnel(lo: torch.Tensor, hi: torch.Tensor,
+            sh: torch.Tensor) -> torch.Tensor:
+    """((hi:lo) >> sh) mod 2^32 for uint32 lo and hi (int64), sh < 32."""
+    return ((lo >> sh) | _high_part(hi, sh)) & _M32
+
+
+def _litlen(e: torch.Tensor, b0: torch.Tensor) -> tuple:
+    """A resolved u16 litlen entry e (clen bits 0-3, kind 4-5, symbol 6-13)
+    over the stream bits b0, as mk_lane_major_step reads it: (the match
+    length, used1 = clen + the length's extra bits, whether it is a length
+    (kind 1)), int64."""
+    clen, kind, sym = e & 15, (e >> 4) & 3, (e >> 6) & 0xFF
+    e_len = torch.clamp(torch.clamp(sym - 4, min=0) >> 2, max=5)
+    lbase = torch.where(sym < 4, sym + 3, ((4 + (sym & 3)) << e_len) + 3)
+    e_len = torch.where(sym >= 28, 0, e_len)
+    lbase = torch.where(sym >= 28, 258, lbase)
+    eb = torch.where(kind == 1, e_len, 0)
+    return lbase + ((b0 >> clen) & _ones_below(eb)), clen + eb, kind == 1
+
+
+def _dist(ed: torch.Tensor, bits2: torch.Tensor) -> tuple:
+    """A resolved u16 distance entry over the bits after the length: (the
+    distance + 1, dclen + its extra bits), int64."""
+    dclen, ds = ed & 15, (ed >> 6) & 31
+    e_d = torch.clamp(ds - 2, min=0) >> 1
+    dbase1 = torch.where(ds < 4, ds, (2 + (ds & 1)) << e_d)
+    deb = torch.where(ds < 4, 0, e_d)
+    return dbase1 + ((bits2 >> dclen) & _ones_below(deb)), dclen + deb
+
+
 def lane_major_step(win: torch.Tensor, tll: torch.Tensor, td: torch.Tensor,
                     bp: torch.Tensor, K: int, root_cells: int,
                     sub_cells: int) -> tuple:
@@ -332,34 +366,23 @@ def lane_major_step(win: torch.Tensor, tll: torch.Tensor, td: torch.Tensor,
         wi = torch.remainder(bitpos >> 5, W - 2)
         sh = bitpos & 31
         w0, w1, w2 = (fetch(w_, wi + d, W) for d in range(3))
-        b0 = ((w0 >> sh) | _high_part(w1, sh)) & _M32
-        b1 = ((w1 >> sh) | _high_part(w2, sh)) & _M32
+        b0 = _funnel(w0, w1, sh)
+        b1 = _funnel(w1, w2, sh)
         idxr = b0 & ((1 << rbits) - 1)
         e = half(fetch(lroot, idxr >> 1, rc), idxr)
         sidx = (((e >> 6) & 0xFF) << 1) + ((b0 >> rbits) & _ones_below(e & 15))
         e2 = half(fetch(lsub, sidx >> 1, sc), sidx)
         e = torch.where(((e >> 4) & 3) == 3, e2, e)
-        clen, kind, sym = e & 15, (e >> 4) & 3, (e >> 6) & 0xFF
-        e_len = torch.clamp(torch.clamp(sym - 4, min=0) >> 2, max=5)
-        lbase = torch.where(sym < 4, sym + 3, ((4 + (sym & 3)) << e_len) + 3)
-        e_len = torch.where(sym >= 28, 0, e_len)
-        lbase = torch.where(sym >= 28, 258, lbase)
-        eb = torch.where(kind == 1, e_len, 0)
-        mlen = lbase + ((b0 >> clen) & _ones_below(eb))
-        used1 = clen + eb
-        bits2 = ((b0 >> used1) | _high_part(b1, used1)) & _M32
+        mlen, used1, is_len = _litlen(e, b0)
+        bits2 = _funnel(b0, b1, used1)
         didx = bits2 & ((1 << rbits) - 1)
         ed = half(fetch(droot, didx >> 1, rc), didx)
         dsidx = (((ed >> 6) & 0xFF) << 1) + ((bits2 >> rbits)
                                              & _ones_below(ed & 15))
         ed2 = half(fetch(dsub, dsidx >> 1, sc), dsidx)
         ed = torch.where(((ed >> 4) & 3) == 3, ed2, ed)
-        dclen, ds = ed & 15, (ed >> 6) & 31
-        e_d = torch.clamp(ds - 2, min=0) >> 1
-        dbase1 = torch.where(ds < 4, ds, (2 + (ds & 1)) << e_d)
-        deb = torch.where(ds < 4, 0, e_d)
-        dist1 = dbase1 + ((bits2 >> dclen) & _ones_below(deb))
-        adv = used1 + torch.where(kind == 1, dclen + deb, 0)
+        dist1, dadv = _dist(ed, bits2)
+        adv = used1 + torch.where(is_len, dadv, 0)
         tok = (2 | (mlen << 2) | (dist1 << 11)) & _M32
         bitpos = _s(_i32(bitpos + (adv & 15) + (tok & 1)))
         tokens.append(tok.reshape(-1))
@@ -519,6 +542,39 @@ _STEP_MODES = {"step3": 0, "step5": 1, "tokens": 2}
 _STORES = {"none": 0, "lone": 1, "tile": 2}
 
 
+def step5_check(W: int, root_cells: int, sub_cells: int,
+                lanes_per_cta: int) -> None:
+    """ValueError unless STEP5's kernels are built for the shape (a window
+    of 128 words, 128 or 256 root cells, 256 subtable cells) and the lanes
+    a CTA (1, 8 or 32)."""
+    if (W != STEP5_W or sub_cells != STEP5_SUB
+            or root_cells not in STEP5_ROOTS
+            or lanes_per_cta not in STEP5_LPC):
+        raise ValueError(
+            f"step5 runs on the card at W {STEP5_W}, root cells "
+            f"{STEP5_ROOTS}, sub cells {STEP5_SUB} and lanes a CTA "
+            f"{STEP5_LPC}; got W {W}, root {root_cells}, sub {sub_cells}, "
+            f"{lanes_per_cta} lanes a CTA")
+
+
+def tokens_rows(tile: int, lanes_per_cta: int) -> int:
+    """qzp_tok_rows: the rows of each of the token tile's two buffers on
+    the card, the tile where both fit beside the 384 staged words in a
+    CTA's shared memory and a bulk tensor copy's box (256 rows), else the
+    largest divisor of the tile that does."""
+    for d in range(1, tile + 1):
+        if (tile % d == 0 and tile // d <= 256
+                and (384 + 2 * (tile // d) * lanes_per_cta) * 4 <= MAX_SMEM):
+            return tile // d
+    return 0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned (a copy where it is not)."""
+    t = t if t.is_contiguous() else t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def probe_step(mode: str, store: str, win, tll, td, state: torch.Tensor,
                K: int, *, lanes_per_cta: int = 1, tile: int = 0,
                root_cells: int = 0, sub_cells: int = 0,
@@ -527,9 +583,13 @@ def probe_step(mode: str, store: str, win, tll, td, state: torch.Tensor,
     lanes (threads) a CTA.  Returns (out, tokens): ``step3`` as
     :func:`step_loop` (win, tll, td, state [R, 128]; tokens None);
     ``step5`` as :func:`lane_major_step` (state [1, L]; tokens [K, L] with
-    store ``lone``, else None); ``tokens`` as :func:`tokens_dma` (tll is
+    store ``lone``, else None; on the card only the shapes of
+    :func:`step5_check`, staged by a CTA of at least 128 threads that
+    widens the tables' entries); ``tokens`` as :func:`tokens_dma` (tll is
     its t, win and td unused; out the step count a lane), store ``lone``
-    (a 4-byte store a step) or ``tile`` (tile steps staged, then flushed)."""
+    (a 4-byte store a step) or ``tile`` (K a multiple of tile; on the card
+    a double-buffered tile of :func:`tokens_rows` rows a buffer, each
+    flushed by one bulk asynchronous tensor copy)."""
     arrays = [a for a in (win, tll, td, state) if a is not None]
     dev = _on(*arrays)
     if dev.type == "cpu":
@@ -544,16 +604,23 @@ def probe_step(mode: str, store: str, win, tll, td, state: torch.Tensor,
             return torch.full(state.shape, steps, dtype=torch.int32), toks
         raise ValueError(f"no step mode {mode}")
     lanes = state.numel()
-    rbits = (2 * root_cells).bit_length() - 1 if root_cells else 0
     W = win.shape[0] if mode == "step5" else 0
     if mode == "step5":
-        if state.shape[0] != 1 or any(a.shape[1] != lanes
+        step5_check(W, root_cells, sub_cells, lanes_per_cta)
+        if state.shape[0] != 1 or any(a.shape != (a.shape[0], lanes)
                                       for a in (win, tll, td)):
             raise ValueError("step5 takes one row of lanes and a column of "
                              "each array a lane")
+        if any(a.shape[0] != root_cells + sub_cells for a in (tll, td)):
+            raise ValueError("step5's tables hold root + sub cells")
     elif state.shape[-1] != 128 or tll.shape != state.shape:
         raise ValueError(f"{mode} takes [R, 128] arrays")
-    ins = [a.contiguous() if a is not None else None
+    if store == "tile" and (tile < 1 or K % tile or lanes_per_cta % 4):
+        raise ValueError("a token tile takes K a multiple of the tile and "
+                         "lanes a CTA a multiple of 4")
+    if lanes % lanes_per_cta:
+        raise ValueError("the lanes are a multiple of the lanes a CTA")
+    ins = [_aligned(a) if a is not None else None
            for a in (win, tll, td, state)]
     out = torch.empty(state.shape, dtype=torch.int32, device=dev)
     toks = (torch.empty((K, lanes), dtype=torch.int32, device=dev)
@@ -561,7 +628,7 @@ def probe_step(mode: str, store: str, win, tll, td, state: torch.Tensor,
     STEP(_STEP_MODES[mode], _STORES[store],
          *(a.data_ptr() if a is not None else None for a in ins),
          out.data_ptr(), toks.data_ptr() if toks is not None else None,
-         lanes, lanes_per_cta, K, W, root_cells, sub_cells, rbits, tile,
+         lanes, lanes_per_cta, K, W, root_cells, sub_cells, tile,
          *_args(dev, clk))
     return out, toks
 

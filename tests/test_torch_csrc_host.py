@@ -509,17 +509,246 @@ extern "C" void shim_step3(const int32_t* win, const int32_t* tll,
   }
 }
 
-// STEP5 over columns (win [W, lanes], tll and td [rc + sc, lanes]); bp
-// advances, the tokens go to toks [K, lanes]
-extern "C" void shim_step5(const uint32_t* win, const uint32_t* tll,
-                           const uint32_t* td, int32_t* bp, uint32_t* toks,
-                           int lanes, int K, int W, int rc, int sc,
-                           int rbits) {
-  const QzpStep5 p = {W, rc, sc, rbits};
-  for (int l = 0; l < lanes; ++l)
+// STEP5 as qz_probe_step launches it (QzpS5Plan), serially: each CTA's
+// THREADS threads in turn run qzp_s5_stage, each its loads (from the host
+// columns) and then its stores, into a shared memory of exactly the plan's
+// BYTES full of garbage; every word must be stored once.  Then each of the
+// CTA's LPC lanes runs K steps of qzp_s5_step, its loads noted a step at a
+// time (the 7 loads of a step are 7 instructions of the lane's warp).
+// bp advances, the tokens go to toks [K, lanes].  Returns the most
+// distinct words one of those instructions reads in one bank (1: no bank
+// conflict), or -1 if a load leaves its source or its lane's column, or a
+// word is not stored exactly once.
+struct ShimS5Load {
+  const uint32_t* src[3];
+  int rows[3];
+  int lanes, l0;
+  bool* bad;
+
+  template <int V>
+  void operator()(const QzpS5Item& it, uint32_t (&v)[V]) const {
+    if (it.row < 0 || it.row >= rows[it.src] || l0 + it.c + V > lanes ||
+        it.c % V) {
+      *bad = true;
+      return;
+    }
+    for (int j = 0; j < V; ++j)
+      v[j] = src[it.src][(size_t)it.row * lanes + l0 + it.c + j];
+  }
+};
+
+struct ShimS5Store {
+  std::vector<uint32_t>* sm;
+  std::vector<int>* stores;
+  bool* bad;
+
+  template <int V>
+  void put(int w, const uint32_t* v) const {
+    if (w < 0 || w % V || w + V > (int)sm->size()) {
+      *bad = true;
+      return;
+    }
+    for (int j = 0; j < V; ++j) {
+      (*sm)[w + j] = v[j];
+      ++(*stores)[w + j];
+    }
+  }
+};
+
+struct ShimS5Read {
+  const std::vector<uint32_t>* sm;   // byte address a: word a / 4
+  std::vector<int>* seen;            // the words a step's loads read
+  bool* bad;
+
+  uint32_t operator()(uint32_t a) const {
+    if (a % 4 || a / 4 >= sm->size()) {
+      *bad = true;
+      return 0;
+    }
+    seen->push_back((int)(a / 4));
+    return (*sm)[a / 4];
+  }
+};
+
+// the most distinct words of one bank among words (a warp's one load)
+static int shim_word_ways(const std::vector<int>& words) {
+  int most = 0;
+  for (int bank = 0; bank < 32; ++bank) {
+    std::vector<int> w;
+    for (int x : words)
+      if (x % 32 == bank && std::find(w.begin(), w.end(), x) == w.end())
+        w.push_back(x);
+    most = std::max(most, (int)w.size());
+  }
+  return most;
+}
+
+template <class Sh, int LPC>
+static int shim_s5_run(const uint32_t* win, const uint32_t* tll,
+                       const uint32_t* td, int32_t* bp, uint32_t* toks,
+                       int lanes, int K) {
+  using P = QzpS5Plan<Sh, LPC>;
+  bool bad = false;
+  int ways = 1;
+  for (int l0 = 0; l0 < lanes; l0 += LPC) {
+    std::vector<uint32_t> sm(P::BYTES / 4, 0xA5A5A5A5u);
+    std::vector<int> stores(sm.size(), 0);
+    const ShimS5Load ld = {{win, tll, td},
+                           {Sh::W, Sh::RC + Sh::SC, Sh::RC + Sh::SC},
+                           lanes, l0, &bad};
+    for (int t = 0; t < P::THREADS; ++t)
+      qzp_s5_stage<Sh, LPC>(t, ld, ShimS5Store{&sm, &stores, &bad});
+    for (int c : stores)
+      if (c != 1) return -1;
+    // seen[t][k]: lane t's step k's 7 loads
+    std::vector<std::vector<std::vector<int>>> seen(
+        LPC, std::vector<std::vector<int>>(K));
+    for (int t = 0; t < LPC; ++t)
+      for (int k = 0; k < K; ++k) {
+        toks[(size_t)k * lanes + l0 + t] = qzp_s5_step<Sh, LPC>(
+            0u, 4u * (uint32_t)t, bp[l0 + t],
+            ShimS5Read{&sm, &seen[t][k], &bad});
+        for (int w : seen[t][k])
+          if (w % LPC != t) bad = true;   // a lane reads its column only
+      }
     for (int k = 0; k < K; ++k)
-      toks[k * lanes + l] =
-          qzp_step5(win + l, tll + l, td + l, lanes, p, bp[l]);
+      for (int j = 0; j < 7; ++j) {
+        std::vector<int> words;
+        for (int t = 0; t < LPC; ++t) {
+          if (seen[t][k].size() != 7) return -1;
+          words.push_back(seen[t][k][j]);
+        }
+        ways = std::max(ways, shim_word_ways(words));
+      }
+  }
+  return bad ? -1 : ways;
+}
+
+extern "C" int shim_step5(const uint32_t* win, const uint32_t* tll,
+                          const uint32_t* td, int32_t* bp, uint32_t* toks,
+                          int lanes, int K, int W, int rc, int sc, int lpc) {
+  return qzp_s5_dispatch(W, rc, sc, lpc, [&](auto sh, auto l) {
+    return shim_s5_run<decltype(sh), decltype(l)::value>(win, tll, td, bp,
+                                                         toks, lanes, K);
+  });
+}
+
+// QzpS5Plan at a shape and lanes a CTA: threads, vec, per, bytes, items
+// (-1s for one the kernels are not built for)
+extern "C" void shim_s5_plan(int rc, int lpc, int* out) {
+  for (int i = 0; i < 5; ++i) out[i] = -1;
+  qzp_s5_dispatch(128, rc, 256, lpc, [&](auto sh, auto l) {
+    using P = QzpS5Plan<decltype(sh), decltype(l)::value>;
+    const int f[5] = {P::THREADS, P::VEC, P::PER, P::BYTES, P::ITEMS};
+    for (int i = 0; i < 5; ++i) out[i] = f[i];
+    return 0;
+  });
+}
+
+// The widened entries against the u16 ones, a half h[i] at a time over the
+// stream bits b0[i], b1[i] (root index bits rbits): out[9 * i + ...] gets
+// 0: h as a root is a pointer (bit 31 clear); 1: the low 9 bits of its
+// subtable index over b0 as qzp_s5_resolve sums it from the root word
+// widened for every row width (shifts 1-6; 0xFFFFFFFF where two differ);
+// for h as a final litlen entry reached through a
+// subtable cell (half 0 and half 1 agree, else 0xFFFFFFFF) with hd[i] as
+// the distance entry (likewise), 2: the match length, 3: bits2 (b0, b1
+// shifted by used1), 4: dist1, 5: adv, 6: tok & 1; 7, 8: a non-pointer
+// root's match length and adv (0 for a pointer).
+extern "C" void shim_s5_entries(const uint32_t* h, const uint32_t* hd,
+                                const uint32_t* b0, const uint32_t* b1,
+                                int n, int rbits, uint32_t* out) {
+  for (int i = 0; i < n; ++i) {
+    uint32_t* o = out + 9 * (size_t)i;
+    const uint32_t L = qzp_s5_lit16(h[i]), D = qzp_s5_dist16(hd[i]);
+    const uint32_t r = qzp_s5_root(h[i], L, 1), rd = qzp_s5_root(hd[i], D, 1);
+    o[0] = (int32_t)r >= 0;
+    for (uint32_t sh = 1; sh <= 6; ++sh) {
+      const uint32_t w = qzp_s5_root(h[i], L, sh);
+      const uint32_t s =
+          (((w >> 16) + ((b0[i] >> (rbits - sh)) & w)) >> sh) & 0x1FFu;
+      o[1] = sh == 1 || o[1] == s ? s : 0xFFFFFFFFu;
+    }
+    uint32_t got[2][5];
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t junk = 0x5A5Au;
+      const uint32_t e =
+          qzp_s5_cell(half ? (h[i] << 16) | junk : (junk << 16) | h[i], true) >>
+          (16 * half);
+      const uint32_t ed =
+          qzp_s5_cell(half ? (hd[i] << 16) | junk : (junk << 16) | hd[i],
+                      false) >>
+          (16 * half);
+      const uint32_t bits2 = qzp_funnel(b0[i], b1[i], e);
+      const uint32_t mlen = qzp_s5_mlen(e, b0[i]);
+      const uint32_t dist1 = qzp_s5_dist1(ed, bits2);
+      const uint32_t tok = 2u | (mlen << 2) | (dist1 << 11);
+      const uint32_t g[5] = {mlen, bits2, dist1, qzp_s5_adv(e, ed), tok & 1u};
+      for (int j = 0; j < 5; ++j) got[half][j] = g[j];
+    }
+    for (int j = 0; j < 5; ++j)
+      o[2 + j] = got[0][j] == got[1][j] ? got[0][j] : 0xFFFFFFFFu;
+    const bool ptr = (int32_t)r >= 0, dptr = (int32_t)rd >= 0;
+    o[7] = ptr ? 0u : qzp_s5_mlen(r, b0[i]);
+    o[8] = ptr || dptr ? 0u : qzp_s5_adv(r, rd);
+  }
+}
+
+// TOKENS' tile as qz_probe_step runs it, serially, a CTA of lpc lanes at a
+// time: for each buffer's rows steps, every thread's steps (qzp_tok_step)
+// into the buffer qzp_tok_buffer names; then the flush: thread 0's wait
+// for its copy in flight (which copies the buffer as it is now: -1 if a
+// step wrote it after the copy was issued), the barrier, then thread 0's
+// copy of the whole buffer issued as one group.  At the end thread 0
+// waits.  A version a buffer word counts its stores, so that a step that
+// rewrites a row under a copy shows even where it stores the same token.
+// t [lanes / 128, 128], idx [lanes], toks [K, lanes].  Returns the rows of
+// a buffer, or -1.
+struct ShimTokCopy {
+  int buf, k0;
+  std::vector<int> versions;
+};
+
+extern "C" int shim_tokens_tile(const uint32_t* t, const int32_t* idx,
+                                uint32_t* toks, int lanes, int lpc, int tile,
+                                int K) {
+  const int rows = qzp_tok_rows(tile, lpc);
+  if (rows < 1 || rows > 256 || K % tile ||
+      (QZP_TOK_STAGED + 2 * rows * lpc) * 4 > QZP_MAX_SMEM)
+    return -1;
+  const size_t words = (size_t)rows * lpc;   // a buffer
+  for (int l0 = 0; l0 < lanes; l0 += lpc) {
+    const uint32_t* tbl = t + (size_t)(l0 >> 7) * 128;
+    std::vector<uint32_t> buf(2 * words, 0xA5A5A5A5u);
+    std::vector<int> ver(buf.size(), 0);
+    std::vector<int32_t> s(idx + l0, idx + l0 + lpc);
+    std::vector<ShimTokCopy> pending;   // thread 0's
+    auto complete = [&]() {
+      for (const ShimTokCopy& c : pending)
+        for (size_t w = 0; w < words; ++w) {
+          if (ver[c.buf * words + w] != c.versions[w]) return false;
+          toks[(size_t)(c.k0 + w / lpc) * lanes + l0 + w % lpc] =
+              buf[c.buf * words + w];
+        }
+      pending.clear();
+      return true;
+    };
+    for (int k0 = 0; k0 < K; k0 += rows) {
+      const int b = qzp_tok_buffer(k0, rows);
+      for (int th = 0; th < lpc; ++th)
+        for (int kt = 0; kt < rows; ++kt) {
+          if (qzp_tok_buffer(k0 + kt, rows) != b) return -1;
+          const size_t w = b * words + (size_t)kt * lpc + th;
+          buf[w] = qzp_tok_step(tbl, s[th]);
+          ++ver[w];
+        }
+      if (!complete()) return -1;
+      pending.push_back({b, k0, std::vector<int>(ver.begin() + b * words,
+                                                 ver.begin() + (b + 1) * words)});
+    }
+    if (!complete()) return -1;
+  }
+  return rows;
 }
 
 // The places a stage (k, j) of the BITONIC network touches: lo, hi and
@@ -1035,6 +1264,10 @@ def shim(tmp_path_factory):
     so.shim_walk.restype = ctypes.c_uint32
     so.shim_step3.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
     so.shim_step5.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    so.shim_s5_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    so.shim_s5_entries.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    so.shim_tokens_tile.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
     so.shim_bitonic_stage.argtypes = [ctypes.c_uint32] * 6 + [
         ctypes.c_void_p]
     so.shim_bitonic.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
@@ -1456,22 +1689,115 @@ def test_probe_step3_matches_plain(shim):
 
 
 @pytest.mark.parametrize("rc", [128, 256])
-def test_probe_step5_matches_plain(shim, rc):
-    """The lane-major skeleton on random cells: bitpos and every token."""
-    rng = np.random.default_rng(rc)
-    W, sc, lanes, K = 128, 256, 64, 12
+@pytest.mark.parametrize("lpc", [1, 8, 32])
+def test_probe_step5_matches_plain(shim, rc, lpc):
+    """The kernel's staging plan and widened step, run serially, on random
+    cells: every shared-memory word stored once, each lane reading only
+    its column and no load of a warp meeting a bank conflict; bitpos and
+    every token after each K of 1-12 equal to lane_major_step's, lanes
+    near the int32 wrap of bitpos among them."""
+    rng = np.random.default_rng(rc + lpc)
+    W, sc, lanes = 128, 256, 64
     win = _u32s(rng, (W, lanes))
     tll, td = _u32s(rng, (rc + sc, lanes)), _u32s(rng, (rc + sc, lanes))
     bp = rng.integers(-2000, 1 << 20, (1, lanes)).astype(np.int32)
-    got, toks = bp.copy(), np.zeros((K, lanes), np.uint32)
-    rbits = (2 * rc).bit_length() - 1
-    shim.shim_step5(_ptr(win), _ptr(tll), _ptr(td), _ptr(got), _ptr(toks),
-                    lanes, K, W, rc, sc, rbits)
-    want_bp, want_toks = PR.lane_major_step(*map(_ti, (win, tll, td, bp)), K,
-                                            rc, sc)
-    assert (got == want_bp.numpy()).all()
-    assert (toks.view(np.int32) == want_toks.numpy()).all()
+    bp[0, :3] = [2**31 - 40, -2**31, -1]
+    for K in range(1, 13):
+        got = bp.copy()
+        toks = np.full((K, lanes), 0xFFFFFFFF, np.uint32)
+        assert shim.shim_step5(_ptr(win), _ptr(tll), _ptr(td), _ptr(got),
+                               _ptr(toks), lanes, K, W, rc, sc, lpc) == 1
+        want_bp, want_toks = PR.lane_major_step(
+            *map(_ti, (win, tll, td, bp)), K, rc, sc)
+        assert (got == want_bp.numpy()).all()
+        assert (toks.view(np.int32) == want_toks.numpy()).all()
     assert len(np.unique(toks)) > K * lanes // 4
+
+
+@pytest.mark.parametrize("rc", [128, 256])
+def test_probe_step5_plan_fits_every_lanes_a_cta(shim, rc):
+    """A CTA of at least 128 threads, 16-byte loads where its lanes fill a
+    vector, at most 9 loads a thread in flight, in the shared memory a CTA
+    may take at every lanes a CTA the kernels are built for (at 32 lanes
+    and 256 root cells: 1664 words a lane); none at other shapes or lanes
+    a CTA."""
+    for lpc in PR.STEP5_LPC:
+        out = np.zeros(5, np.int32)
+        shim.shim_s5_plan(rc, lpc, _ptr(out))
+        threads, vec, per, nbytes, items = (int(v) for v in out)
+        assert 128 <= threads <= 1024
+        assert vec == (4 if lpc >= 4 else 1) and threads * per >= items
+        assert items == (128 + 2 * (rc + 256)) * lpc // vec
+        assert nbytes == (128 + 4 * rc + 2 * 256) * lpc * 4 <= PR.MAX_SMEM
+        assert per <= 9
+    for lpc in (2, 4, 16, 64):
+        shim.shim_s5_plan(rc, lpc, _ptr(out))
+        assert (out == -1).all()
+    shim.shim_s5_plan(512, 8, _ptr(out))
+    assert (out == -1).all()
+    assert shim.shim_step5(*[None] * 5, 8, 1, 64, rc, 256, 8) == -1
+
+
+def test_probe_step5_widened_entries_match_u16(shim):
+    """Every one of the 65536 values of a half, widened as the staging
+    widens it: as a root, a pointer exactly where its kind is 3, giving
+    the low 9 bits of the u16 entry's subtable index (all that a subtable
+    of 256 cells reads) at every row width; as a final litlen entry (from either half
+    of a subtable cell, or a root that is no pointer) beside a distance
+    entry, the match length, bits2, dist1, adv and tok & 1 of the u16
+    entries (the plain version's own arithmetic)."""
+    rng = np.random.default_rng(17)
+    n = 1 << 16
+    h = np.arange(n, dtype=np.uint32)
+    b0, b1 = _u32s(rng, n), _u32s(rng, n)
+    for hd, rbits in ((h, 9), (rng.permutation(h), 8)):
+        out = np.zeros((n, 9), np.uint32)
+        shim.shim_s5_entries(_ptr(h), _ptr(hd), _ptr(b0), _ptr(b1), n, rbits,
+                             _ptr(out))
+        e, ed, tb0, tb1 = (torch.from_numpy(a.astype(np.int64))
+                           for a in (h, hd, b0, b1))
+        ptr = ((e >> 4) & 3) == 3
+        sidx = (((e >> 6) & 0xFF) << 1) + ((tb0 >> rbits)
+                                           & ((1 << (e & 15)) - 1))
+        assert (out[:, 0] == ptr.numpy()).all()
+        assert (out[ptr.numpy(), 1] == (sidx[ptr] & 0x1FF).numpy()).all()
+        mlen, used1, is_len = PR._litlen(e, tb0)
+        bits2 = PR._funnel(tb0, tb1, used1)
+        dist1, dadv = PR._dist(ed, bits2)
+        adv = used1 + torch.where(is_len, dadv, 0)
+        tok = (2 | (mlen << 2) | (dist1 << 11)) & 0xFFFFFFFF
+        for col, want in zip(range(2, 7), (mlen, bits2, dist1, adv,
+                                           tok & 1)):
+            assert (out[:, col] == want.numpy()).all(), col
+        root = ~ptr.numpy()
+        assert (out[root, 7] == mlen.numpy()[root]).all()
+        both = root & ~(((ed >> 4) & 3) == 3).numpy()
+        assert (out[both, 8] == adv.numpy()[both]).all()
+
+
+# a tile of 8 (the card tests') and 256 (the cases'), 4 to 128 lanes a
+# CTA (two 256-row buffers of 128 lanes do not fit: 128 rows each)
+@pytest.mark.parametrize("tile,lpc", [(8, 4), (8, 32), (256, 32), (8, 128),
+                                      (256, 128)])
+def test_probe_tokens_tile_schedule_matches_plain(shim, tile, lpc):
+    """The double-buffered token tile run serially: no step rewrites a
+    buffer that its bulk copy, issued before the flush's wait, may still
+    read; every token stored, equal to tokens_dma at K from one tile to
+    five (each buffer reused); the buffers' rows are the wrapper's, at
+    most a tensor copy's box of 256."""
+    rng = np.random.default_rng(tile + lpc)
+    lanes = 256
+    t = rng.integers(0, 3, (2, 128)).astype(np.uint32)
+    idx = rng.integers(0, 128, lanes).astype(np.int32)
+    rows = PR.tokens_rows(tile, lpc)
+    assert rows == (128 if (tile, lpc) == (256, 128) else tile)
+    for n in range(1, 6):
+        K = n * tile
+        toks = np.full((K, lanes), 0xFFFFFFFF, np.uint32)
+        assert shim.shim_tokens_tile(_ptr(t), _ptr(idx), _ptr(toks), lanes,
+                                     lpc, tile, K) == rows
+        want, _ = PR.tokens_dma(_ti(t), _ti(idx.reshape(2, 128)), K)
+        assert (toks.view(np.int32) == want.numpy()).all()
 
 
 _SEGMENTS = {"flat": lambda S, L: (S * L, 0, 1),
@@ -1672,10 +1998,10 @@ def test_probe_dep_plan_stages_each_table_row_once(shim, rows, cols, t_rows,
 def test_probe_entries_take_only_their_arguments():
     """Each C entry of probes.cu takes exactly the ctypes arguments its
     wrapper declares (a pointer, an unsigned or an int each), ROLL,
-    REFILL, TRANSPOSE and DEP only their own; TRANSPOSE and DEP set their
-    kernels' attributes once a process, in a static initialiser, never at
-    a launch; the row roll's kernel keeps no shared memory and no
-    barrier."""
+    REFILL, TRANSPOSE, DEP and STEP only their own; TRANSPOSE, DEP and
+    STEP set their kernels' attributes once a process, in a static
+    initialiser, never at a launch; the row roll's kernel keeps no shared
+    memory and no barrier."""
     import re
 
     src = open(os.path.join(_build.TOOLS, "probes.cu")).read()
@@ -1687,9 +2013,10 @@ def test_probe_entries_take_only_their_arguments():
                     else "i" for a in params]
         assert declared == [kinds[t] for t in k.argtypes], k.symbol
     assert [len(k.argtypes) for k in (PR.ROLL, PR.REFILL, PR.TRANSPOSE,
-                                      PR.DEP)] == [7, 11, 6, 11]
+                                      PR.DEP, PR.STEP)] == [7, 11, 6, 11, 17]
     for entry, prepare in (("qz_probe_transpose", "qzp_transpose_prepare"),
-                           ("qz_probe_dep", "qzp_dep_prepare")):
+                           ("qz_probe_dep", "qzp_dep_prepare"),
+                           ("qz_probe_step", "qzp_step_prepare")):
         start = src.index(f'extern "C" int {entry}(')
         body = src[start:src.index("\n}\n", start)]
         assert f"static const int ready = {prepare}();" in body

@@ -473,7 +473,8 @@ def test_probe_alu_equals_plain(dev, mode):
 def test_probe_step_equals_plain(dev, lpc):
     """STEP3 on random int32 tables; STEP5 with and without its tokens at
     the TPU's root of 128 cells and the inflate's 256; TOKENS stored alone
-    and through a tile (lanes a CTA a multiple of 4)."""
+    and through a tile (lanes a CTA a multiple of 4), over five tiles so
+    that each of the two buffers is reused."""
     from qatzip_tpu_torch.tools import probes as P
 
     rng = np.random.default_rng(lpc)
@@ -493,22 +494,24 @@ def test_probe_step_equals_plain(dev, lpc):
     i0 = _i32(rng, (2, 128), 0, 128)
     for store in (("lone", "tile") if lpc % 4 == 0 else ("lone",)):
         _probe_check(dev, P.STEP, lambda a, b: P.probe_step(
-            "tokens", store, None, a, None, b, 16, lanes_per_cta=lpc,
+            "tokens", store, None, a, None, b, 40, lanes_per_cta=lpc,
             tile=8), t, i0)
 
 
 @pytest.mark.parametrize("lpc", [64, 128])
 def test_probe_tokens_tile_fits_wide_ctas(dev, lpc):
-    """A CTA of 64 or 128 lanes stages one 384-word row and a [256][lpc]
-    token tile: within the shared memory a CTA may take."""
+    """A CTA of 64 or 128 lanes stages one 384-word row and two token
+    buffers, [256][64] each, or [128][128] at 128 lanes (two of 256 rows
+    do not fit): within the shared memory a CTA may take; three tiles."""
     from qatzip_tpu_torch.tools import probes as P
 
     rng = np.random.default_rng(lpc)
     t = _i32(rng, (2, 128), 0, 3)
     i0 = _i32(rng, (2, 128), 0, 128)
+    assert P.tokens_rows(256, lpc) == (256 if lpc == 64 else 128)
     for store in ("lone", "tile"):
         _probe_check(dev, P.STEP, lambda a, b: P.probe_step(
-            "tokens", store, None, a, None, b, 512, lanes_per_cta=lpc,
+            "tokens", store, None, a, None, b, 768, lanes_per_cta=lpc,
             tile=256), t, i0)
 
 
@@ -660,6 +663,87 @@ def test_probe_transpose_and_dep_sync_free_and_graph_replayed(dev):
         P.probe_transpose(tiles[0][0], 1, clk[:2])
     with pytest.raises(ValueError, match="n <= 128"):
         P.probe_transpose(_i32(rng, (256, 256)).to(dev), 1)
+
+
+def test_probe_step5_and_tokens_sync_free_and_graph_replayed(dev):
+    """STEP5 (both root sizes, 1, 8 and 32 lanes a CTA, tokens or none, a
+    window 4 bytes past a 16-byte boundary, copied first) and TOKENS (alone and through
+    the tile: 8 rows over five tiles, 256 rows at 32 and 128 lanes a CTA)
+    raise nothing under sync debug mode "error", are captured in a CUDA
+    graph and replay equal to plain; STEP5 refuses a shape its kernels are
+    not built for, and TOKENS a K that is not a multiple of the tile,
+    before launching."""
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(10)
+    steps = []
+    for rc, lpc, store in ((128, 1, "none"), (256, 8, "lone"),
+                           (256, 32, "lone"), (128, 32, "none")):
+        steps.append((store, rc, lpc, _i32(rng, (128, 64)).to(dev),
+                      _i32(rng, (rc + 256, 64)).to(dev),
+                      _i32(rng, (rc + 256, 64)).to(dev),
+                      _i32(rng, (1, 64), 0, 1000).to(dev), 9))
+    flat = _i32(rng, (128 * 64 + 1,)).to(dev)
+    store, rc, lpc, _, tll, td, bp, K = steps[1]
+    steps.append((store, rc, lpc, flat[1:].view(128, 64), tll, td, bp, K))
+    t = _i32(rng, (2, 128), 0, 3).to(dev)
+    i0 = _i32(rng, (2, 128), 0, 128).to(dev)
+    toks = [("lone", 4, 0, 64), ("tile", 4, 8, 40), ("tile", 32, 256, 768),
+            ("tile", 128, 256, 768)]
+
+    def calls():
+        out = []
+        for store, rc, lpc, w, tl, tdd, b, K in steps:
+            o, tk = P.probe_step("step5", store, w, tl, tdd, b, K,
+                                 lanes_per_cta=lpc, root_cells=rc,
+                                 sub_cells=256)
+            out += [o] + ([tk] if tk is not None else [])
+        for store, lpc, tile, K in toks:
+            out += list(P.probe_step("tokens", store, None, t, None, i0, K,
+                                     lanes_per_cta=lpc, tile=tile))
+        return out
+
+    want = []
+    for store, rc, lpc, w, tl, tdd, b, K in steps:
+        bp_, tk = P.lane_major_step(w.cpu(), tl.cpu(), tdd.cpu(), b.cpu(), K,
+                                    rc, 256)
+        want += [bp_] + ([tk] if store != "none" else [])
+    for store, lpc, tile, K in toks:
+        tk, n = P.tokens_dma(t.cpu(), i0.cpu(), K)
+        want += [torch.full((2, 128), n, dtype=torch.int32), tk]
+    before = P.STEP.launches
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            captured = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert P.STEP.launches == before + 2 * (len(steps) + len(toks))
+    for o in captured:
+        o.fill_(-1)
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, captured, want, strict=True):
+        assert torch.equal(a.cpu(), w) and torch.equal(b.cpu(), w)
+    launches = P.STEP.launches
+    store, rc, lpc, w, tl, tdd, b, K = steps[0]
+    for kw in ({"root_cells": 512}, {"sub_cells": 128},
+               {"lanes_per_cta": 64}):
+        args = {"lanes_per_cta": lpc, "root_cells": rc, "sub_cells": 256,
+                **kw}
+        with pytest.raises(ValueError, match="step5 runs on the card"):
+            P.probe_step("step5", "none", w, tl, tdd, b, K, **args)
+    with pytest.raises(ValueError, match="step5 runs on the card"):
+        P.probe_step("step5", "none", w[:64], tl, tdd, b, K,
+                     lanes_per_cta=lpc, root_cells=rc, sub_cells=256)
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        P.probe_step("tokens", "tile", None, t, None, i0, 12,
+                     lanes_per_cta=4, tile=8)
+    assert P.STEP.launches == launches
 
 
 def test_probe_roll_rows_keeps_no_shared_memory(dev):

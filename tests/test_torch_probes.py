@@ -425,3 +425,41 @@ def test_bench_library_call_equals_plain(case):
     want = case.plain(x, case.k)
     got = case.library(x)
     assert torch.equal(got.reshape(want.shape).to(want.dtype), want)
+
+
+def test_step5_shapes_the_card_takes():
+    """STEP5's kernels are built for a 128-word window, 128 or 256 root
+    cells, 256 subtable cells and 1, 8 or 32 lanes a CTA; any other shape
+    is refused by name.  The token tile's buffers hold the tile where
+    two fit in a CTA's shared memory and a tensor copy's box, else the
+    largest divisor that does."""
+    for rc in (128, 256):
+        for lpc in P.STEP5_LPC:
+            P.step5_check(128, rc, 256, lpc)
+    for bad in ((64, 256, 256, 1), (128, 512, 256, 1), (128, 256, 128, 8),
+                (128, 256, 256, 64), (128, 256, 256, 3), (128, 256, 256, 4)):
+        with pytest.raises(ValueError, match="step5 runs on the card"):
+            P.step5_check(*bad)
+    assert [P.tokens_rows(256, lpc) for lpc in (4, 32, 64, 128)] == [
+        256, 256, 256, 128]
+    assert P.tokens_rows(8, 4) == 8 and P.tokens_rows(255, 128) == 85
+    assert P.tokens_rows(512, 4) == 256   # a tensor copy's box
+
+
+_STEP_CASES = [c for c in PB.CASES if "call" in c.args]
+
+
+@pytest.mark.parametrize("case", _STEP_CASES,
+                         ids=[c.name for c in _STEP_CASES])
+def test_bench_step_cases_equal_plain(case):
+    """Each STEP5 and TOKENS case of probe_bench, called as its --against
+    turns call another checkout's wrapper (here this checkout's module, on
+    the CPU), equals its plain version at the case's K."""
+    x = case.make(torch.Generator().manual_seed(0))
+    got = case.args["call"](P, x, case.k)
+    want = case.plain(x, case.k)
+    got, want = ((got, want) if isinstance(want, tuple)
+                 else ((got,), (want,)))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
