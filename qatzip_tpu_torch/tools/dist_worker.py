@@ -11,7 +11,8 @@ port on localhost), QATZIP_TPU_NUM_PROCESSES and QATZIP_TPU_PROCESS_ID set:
 Every rank compresses a deterministic text corpus through the distributed
 engine (parallel/dist_engine.py, gloo), checks the assembled stream
 against gzip and against a single-process stream, and prints one ``DIST
-... OK`` line a mode.  ``--offsets`` checks the collectives of
+... OK`` line a mode, then, once every rank is there, leaves the process
+group and prints ``DIST DONE``.  ``--offsets`` checks the collectives of
 parallel/dist.py across the ranks.  ``--device`` forces the device route
 on the device it names: ``cpu`` (the kernels' plain versions) or ``cuda``
 (this rank's card, ``cuda:{rank % device_count}``; two ranks may share
@@ -199,6 +200,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
+    import torch.distributed as tdist
+
     import qatzip_tpu_torch as qt
     from qatzip_tpu_torch.constants import QzDataFormat
     from qatzip_tpu_torch.parallel import dist, dist_engine
@@ -315,6 +318,11 @@ def main(argv=None) -> int:
         if args.perf:
             print(f"DIST PERF rank={pid} Bps={len(big) / total:.0f}",
                   flush=True)
+    # every rank is done before any leaves: rank 0 hosts the TCP store, and
+    # a rank still tearing down its gloo group without it aborts
+    tdist.barrier()
+    tdist.destroy_process_group()
+    print(f"DIST DONE rank={pid}", flush=True)
     return 0
 
 

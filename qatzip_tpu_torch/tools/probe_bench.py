@@ -21,10 +21,10 @@ call, the stream read, an allocation, whole wrappers), microseconds a call
 by time.perf_counter.  The inputs come from a torch.Generator seeded per
 case.  ``--against`` builds each named checkout's probes.cu (an earlier
 commit unpacked with ``git archive`` under ``build/``) and times its ROLL,
-REFILL, TRANSPOSE and DEP (p_gather and the two slopes chip_smoke reads)
-wrappers and kernels beside this checkout's in turns (old, new, new,
-old).  chip_smoke.py runs the same cases (``run``) and puts their
-records in its kernels line.
+REFILL, TRANSPOSE, DEP (p_gather and the two slopes chip_smoke reads),
+COLUMN, STEP3, STEP5 and TOKENS wrappers and kernels beside this
+checkout's in turns (old, new, new, old).  chip_smoke.py runs the same
+cases (``run``) and puts their records in its kernels line.
 """
 from __future__ import annotations
 
@@ -64,7 +64,9 @@ class Case:
     DEP wrapper's own arguments, for :func:`against`.  ``cluster``: the
     CTAs of a cluster kernel, each of which writes the SM it ran on into
     ``clk[1 + rank]``.  ``dep_loads``: the dependent shared-memory loads
-    of one unit, whose latency bounds it (0: not latency-bound).  A
+    of one unit, whose latency bounds it (0: not latency-bound).
+    ``ctas``: the CTAs of its launch, where an empty kernel of as many
+    CTAs is timed beside it (0: none).  A
     case's ``args["call"](mod, x, K, clk)``, where given, calls the
     wrapper of another checkout's probes module mod (:func:`against`)."""
     name: str
@@ -85,6 +87,7 @@ class Case:
     args: dict = field(default_factory=dict)
     cluster: int = 0
     dep_loads: int = 0
+    ctas: int = 0
 
 
 def _u32(gen, shape) -> torch.Tensor:
@@ -110,29 +113,50 @@ def _elementwise(ops_per_step: int):
 
 
 def _chain_case(name, mode, replaces, shape, t_shape, i_shape, k, k_lo, k_hi,
-                *, smem=True, hi=1 << 20, post=None, ops=2,
-                units="dependent load a lane", library=None):
-    """Tables of values in [0, hi), indexes in range of the table."""
+                *, smem=True, ops=2, units="dependent load a lane",
+                library=None, dep_loads=0):
+    """Tables of values in [0, 2^20), indexes in range of the table."""
     def make(gen):
-        n = t_shape[0] if mode == "column" else t_shape[-1]
-        return _ints(gen, 0, hi, t_shape), _ints(gen, 0, n, i_shape)
+        return (_ints(gen, 0, 1 << 20, t_shape),
+                _ints(gen, 0, t_shape[-1], i_shape))
 
     return Case(name, "qz_probe_dep" if mode == "dep" else "qz_probe_chain",
                 replaces, shape, units, make,
                 lambda x, K, clk=None: P.probe_chain(mode, x[0], x[1], K,
-                                                     smem=smem, post=post,
-                                                     clk=clk),
-                lambda x, K: _PLAIN_CHAIN[mode](x, K, post), k, k_lo, k_hi,
-                _elementwise(ops), library, args={"smem": smem})
+                                                     smem=smem, clk=clk),
+                lambda x, K: _PLAIN_CHAIN[mode](x, K), k, k_lo, k_hi,
+                _elementwise(ops), library, args={"smem": smem},
+                dep_loads=dep_loads)
 
 
 _PLAIN_CHAIN = {
-    "dep": lambda x, K, post: P.dep_gather_loop(x[0], x[1], K),
-    "indep4": lambda x, K, post: P.indep_gather_loop(x[0], x[1], K, 4),
-    "indep8": lambda x, K, post: P.indep_gather_loop(x[0], x[1], K, 8),
-    "column": lambda x, K, post: P._column(
-        x[0], x[1], K, x[0].shape[0] - 1 if post is None else post),
+    "dep": lambda x, K: P.dep_gather_loop(x[0], x[1], K),
+    "indep4": lambda x, K: P.indep_gather_loop(x[0], x[1], K, 4),
+    "indep8": lambda x, K: P.indep_gather_loop(x[0], x[1], K, 8),
 }
+
+
+def _column_case(name, shape, n, rows, hi, *, post=None, smem=True):
+    """COLUMN over [n, 128] columns of values in [0, hi) and [rows, 128]
+    indexes in [0, n), K 8.  Another checkout without probe_column runs
+    it through probe_chain."""
+    def make(gen):
+        return _ints(gen, 0, hi, (n, 128)), _ints(gen, 0, n, (rows, 128))
+
+    def call(mod, x, K, clk=None):
+        fn = getattr(mod, "probe_column", None)
+        if fn is None:
+            return mod.probe_chain("column", x[0], x[1], K, smem=smem,
+                                   post=post, clk=clk)
+        return fn(x[0], x[1], K, smem=smem, post=post, clk=clk)
+
+    return Case(name, "qz_probe_column", _COLUMN, shape,
+                "dependent column load a lane", make,
+                lambda x, K, clk=None: call(P, x, K, clk),
+                lambda x, K: P._column(x[0], x[1], K,
+                                       n - 1 if post is None else post),
+                8, 1024, 4096, _elementwise(4),
+                args={"call": call, "smem": smem}, dep_loads=1)
 
 
 def _walk_case():
@@ -145,7 +169,7 @@ def _walk_case():
                 lambda x, K, clk=None: P.probe_chain("walk", x[0], None, K,
                                                      clk=clk),
                 lambda x, K: P.scalar_walk(x[0], K), 512, 4096, 16384,
-                lambda x, K: (_nbytes(x[0]) + 4, K * 5))
+                lambda x, K: (_nbytes(x[0]) + 4, K * 5), dep_loads=1)
 
 
 def _alu_case(name, mode, replaces, plain, shape, k, library=None):
@@ -165,14 +189,20 @@ def _step3_case(lpc):
         return tuple(_u32(gen, (128, 128)) for _ in range(3)) + (
             _ints(gen, 0, 1 << 12, (128, 128)),)
 
+    def call(mod, x, K, clk=None):
+        return mod.probe_step("step3", "none", *x, K, lanes_per_cta=lpc,
+                              clk=clk)[0]
+
+    # five levels of dependent loads a step: the two window words, the
+    # litlen root, its subtable, the distance root, its subtable
     return Case(f"probe_step_step3_lpc{lpc}", "qz_probe_step",
                 "tools/probe_inflate_step3.py:81",
                 f"[128, 128], {lpc} lanes a CTA",
                 "step a lane", make,
-                lambda x, K, clk=None: P.probe_step(
-                    "step3", "none", *x, K, lanes_per_cta=lpc, clk=clk)[0],
+                lambda x, K, clk=None: call(P, x, K, clk),
                 lambda x, K: P.step_loop(*x, K), 4, 1024, 4096,
-                _elementwise(30))
+                _elementwise(30), args={"call": call}, dep_loads=5,
+                ctas=128 * 128 // lpc)
 
 
 def _step5_case(lanes, rc, lpc, store="none"):
@@ -345,11 +375,11 @@ def _cases() -> list:
         _chain_case("probe_chain_indep4", "indep4",
                     "tools/probe_inflate_step.py:74", "[128, 128], W 4",
                     (128, 128), (128, 128), 4, 2048, 8192, ops=13,
-                    units="step of 4 independent loads a lane"),
+                    units="step of 4 independent loads a lane", dep_loads=1),
         _chain_case("probe_chain_indep8", "indep8",
                     "tools/probe_inflate_step.py:74", "[128, 128], W 8",
                     (128, 128), (128, 128), 4, 2048, 8192, ops=25,
-                    units="step of 8 independent loads a lane"),
+                    units="step of 8 independent loads a lane", dep_loads=1),
         _chain_case("probe_chain_dep_grid32", "dep", _DEP,
                     "[32 x 512, 128] (p_chain_grid)", (16384, 128),
                     (16384, 128), 16, 16, 64),
@@ -369,18 +399,16 @@ def _cases() -> list:
         _chain_case(f"probe_chain_dep_{IL}l_{IW}w_ldg", "dep", _DEP,
                     f"{IL} lanes a thread each, {IW}-word tables through "
                     "__ldg", (IL, IW), (IL, 1), 8, 4096, 16384, smem=False),
-        _chain_case("probe_chain_column_onehot128", "column", _COLUMN,
-                    "[128, 128] columns, [1, 128] idx (C)", (128, 128),
-                    (1, 128), 8, 1024, 4096, hi=128, ops=4,
-                    units="dependent column load a lane"),
-        _chain_case("probe_chain_column_groupsel512", "column", _COLUMN,
-                    "[512, 128] columns, [8, 128] idx (C2)", (512, 128),
-                    (8, 128), 8, 1024, 4096, hi=512, ops=4,
-                    units="dependent column load a lane"),
-        _chain_case("probe_chain_column_subshuf", "column", _COLUMN,
-                    "[8, 128] columns, [8, 128] idx (B)", (8, 128), (8, 128),
-                    8, 1024, 4096, hi=8, post=0xFFFFFFFF, ops=4,
-                    units="dependent column load a lane"),
+        _column_case("probe_chain_column_onehot128",
+                     "[128, 128] columns, [1, 128] idx (C)", 128, 1, 128),
+        _column_case("probe_chain_column_groupsel512",
+                     "[512, 128] columns, [8, 128] idx (C2)", 512, 8, 512),
+        _column_case("probe_chain_column_subshuf",
+                     "[8, 128] columns, [8, 128] idx (B)", 8, 8, 8,
+                     post=0xFFFFFFFF),
+        _column_case("probe_chain_column_onehot128_ldg",
+                     "[128, 128] columns through __ldg, [1, 128] idx (C)",
+                     128, 1, 128, smem=False),
         _walk_case(),
         _alu_case("probe_alu_hash", "hash", "tools/probe_inflate_step.py:92",
                   P.elemwise_loop, (128, 128), 8),
@@ -438,10 +466,12 @@ GRAPH_REPS = 20     # calls a graph holds in graph_ms
 FLOOR_REPS = 100    # host-paced calls of the empty kernel a floor
 CLK_WORDS = 64      # a slope's clk: the ticks, then a cluster's SMs
 # the cases whose wrappers run sync-free and from a graph, and that
-# --against times: these kernels' and, by case name, STEP5's and TOKENS'
+# --against times: these kernels' and, by case name, STEP3's, STEP5's and
+# TOKENS'
 REDESIGNED = ("qz_probe_roll", "qz_probe_refill", "qz_probe_transpose",
-              "qz_probe_dep")
-STEP_REDESIGNED = ("probe_step_step5_", "probe_step_tokens_")
+              "qz_probe_dep", "qz_probe_column")
+STEP_REDESIGNED = ("probe_step_step3_", "probe_step_step5_",
+                   "probe_step_tokens_")
 # the dependent shared-memory load that latency bounds are counted in
 DEP_LOAD = f"probe_chain_dep_{INFLATE_LANES}l_{INFLATE_WORDS}w"
 AGAINST_DEP = ("probe_chain_gather128", "probe_chain_gather1024",
@@ -489,7 +519,7 @@ def host_pieces(dev, n: int = 5000, others: dict | None = None) -> dict:
     told not to launch), that call launching the empty kernel, the launch
     floor's wrapper, the stream read (torch's Stream object and the raw
     handle), an allocation (two ways), DEP's wrapper pieces (the device
-    and type checks, two contiguous reshapes, a 14- and an 11-argument
+    and type checks, two contiguous reshapes, a 13- and an 11-argument
     ctypes call that the entry refuses at once), and the ROLL, REFILL,
     TRANSPOSE and DEP wrappers beside their PyTorch calls on their TPU
     probes' shapes; others: {label: another checkout's probes module},
@@ -526,8 +556,8 @@ def host_pieces(dev, n: int = 5000, others: dict | None = None) -> dict:
         "two contiguous().reshape": lambda: (
             idx.contiguous().reshape(-1, 128), tbl.contiguous().reshape(
                 -1, 128)),
-        "ctypes 14-argument call, refused": lambda: chain(
-            99, 1, None, 0, 0, None, None, 0, 0, 0, 0, 0, None, raw),
+        "ctypes 13-argument call, refused": lambda: chain(
+            99, 1, None, 0, 0, None, None, 0, 0, 0, 0, None, raw),
         "ctypes 11-argument call, refused": lambda: dep(
             1, None, 0, 0, None, None, 0, 0, 0, None, raw),
         "probe_roll [8, 128] lanes": lambda: P.probe_roll(x, 1, 1),
@@ -603,6 +633,9 @@ def run_case(case: Case, dev, seed: int, floor: dict | None = None) -> dict:
     if floor is not None:
         rec.update(launch_floor_ms=floor["ms"],
                    launch_floor_graph_ms=floor["graph_ms"])
+    if case.ctas:
+        rec.update(ctas=case.ctas, ctas_floor_graph_ms=graph_ms(
+            lambda: P.launch_floor(dev, case.ctas), GRAPH_REPS))
     if case.k_lo is not None:
         clk = torch.zeros(CLK_WORDS, dtype=torch.int64, device=dev)
         t_lo = _time_ms(lambda: case.run(x, case.k_lo, clk), 5)
@@ -637,6 +670,9 @@ def line(rec: dict) -> str:
     if "launch_floor_ms" in rec:
         s += (f"; launch floor {rec['launch_floor_ms']:.4f} host-paced, "
               f"{rec['launch_floor_graph_ms']:.4f} graph-replayed")
+    if "ctas" in rec:
+        s += (f"; an empty kernel of its {rec['ctas']} CTAs "
+              f"{rec['ctas_floor_graph_ms']:.4f} graph-replayed")
     if "ns_per_unit" in rec:
         s += (f"; slope K {rec['k_lo']}..{rec['k_hi']}: "
               f"{rec['ns_per_unit']:.3f} ns and "
@@ -651,7 +687,8 @@ def run(dev=torch.device("cuda", 0), log=print,
     """Every case on dev (the card unless given; only: the cases' names,
     if given); returns their records, printing a line each, the launch
     floor and the host pieces (beside others' wrappers, as
-    :func:`host_pieces`) first."""
+    :func:`host_pieces`) first.  The dependent load that latency bounds are
+    counted in (DEP_LOAD) runs first."""
     floor = launch_floor(dev)
     log(f"probe launch floor (an empty kernel): {floor['ms']:.4f} ms "
         f"host-paced, {floor['graph_ms']:.4f} graph-replayed")
@@ -659,7 +696,9 @@ def run(dev=torch.device("cuda", 0), log=print,
     log("probe host pieces, us a call: " + ", ".join(
         f"{k} {v:.3f}" for k, v in pieces.items()))
     recs, dep_ns = [], None
-    for i, case in enumerate(CASES):
+    for i in sorted(range(len(CASES)),
+                    key=lambda i: CASES[i].name != DEP_LOAD):
+        case = CASES[i]
         if only and case.name not in only:
             continue
         recs.append(run_case(case, dev, seed=i, floor=floor))
@@ -673,8 +712,8 @@ def run(dev=torch.device("cuda", 0), log=print,
 
 
 def graph_safe(dev, log=print) -> int:
-    """The ROLL, REFILL, TRANSPOSE, DEP, STEP5 and TOKENS cases' wrappers
-    under
+    """The ROLL, REFILL, TRANSPOSE, DEP, COLUMN, STEP3, STEP5 and TOKENS
+    cases' wrappers under
     ``torch.cuda.set_sync_debug_mode("error")`` (a call that synchronises
     raises), then captured in a CUDA graph and replayed: each result equal
     to plain.  Returns the cases checked."""
@@ -703,8 +742,8 @@ def graph_safe(dev, log=print) -> int:
             raise AssertionError(f"{case.name}: != plain under sync debug "
                                  "mode or from a graph")
     log(f"probe graph safety: {len(cases)} ROLL, REFILL, TRANSPOSE, DEP, "
-        "STEP5 and TOKENS cases raise nothing under sync debug mode "
-        "\"error\" and replay from a CUDA graph equal to plain")
+        "COLUMN, STEP3, STEP5 and TOKENS cases raise nothing under sync "
+        "debug mode \"error\" and replay from a CUDA graph equal to plain")
     return len(cases)
 
 
@@ -765,9 +804,9 @@ def build_against(roots: dict) -> dict:
 
 
 def _against_cases(only=None) -> list:
-    """The cases --against times: ROLL, REFILL, TRANSPOSE, STEP5 and
-    TOKENS, p_gather and the two DEP slopes that chip_smoke reads; only:
-    their names, if given."""
+    """The cases --against times: ROLL, REFILL, TRANSPOSE, COLUMN, STEP3,
+    STEP5 and TOKENS, p_gather and the two DEP slopes that chip_smoke
+    reads; only: their names, if given."""
     return [c for c in CASES
             if ((redesigned(c) and c.kernel != "qz_probe_dep")
                 or c.name in AGAINST_DEP)
@@ -813,12 +852,13 @@ def _calls(mod, case: Case, x: tuple, xd: tuple):
 
 
 def against(mods: dict, dev, log=print, only=None) -> list:
-    """The ROLL, REFILL, TRANSPOSE, STEP5, TOKENS, p_gather and DEP slope
-    cases through each checkout's wrapper and library, in turns (the
-    others, this, this, the others): each equal to plain, then host-paced
-    and graph-replayed ms (20 calls each) and, where the case has one, the
-    slope over its K_lo..K_hi (5 host-paced calls at each) and, for STEP5
-    and TOKENS, the kernel's clock64() ticks a unit over the same K; only:
+    """The ROLL, REFILL, TRANSPOSE, COLUMN, STEP3, STEP5, TOKENS, p_gather
+    and DEP slope cases through each checkout's wrapper and library, in
+    turns (the others, this, this, the others): each equal to plain, then
+    host-paced and graph-replayed ms (20 calls each) and, where the case has
+    one, the slope over its K_lo..K_hi (5 host-paced calls at each) and, for
+    COLUMN, STEP3, STEP5 and TOKENS, the kernel's clock64() ticks a unit
+    over the same K; only:
     the cases' names, if given.  Returns a record a case and checkout
     turn."""
     order = list(mods) + list(reversed(mods))
@@ -869,13 +909,19 @@ def against(mods: dict, dev, log=print, only=None) -> list:
 
 # -- the step's code ----------------------------------------------------------
 
-# The STEP5 kernel at one lane a CTA, root 256, no tokens, and the TOKENS
-# tile kernel, by their mangled names' heads (the STEP5 kernel: a template
-# of its own; an older checkout's: qzp_step<1, 0>), and the loads of a step.
+# The STEP5 kernel at one lane a CTA, root 256, no tokens, the TOKENS tile
+# kernel, the COLUMN kernel over shared memory and the STEP3 kernel, by
+# their mangled names' heads (the STEP5 kernel: a template of its own; an
+# older checkout's: qzp_step<1, 0>; COLUMN's staged by tensor copies, or
+# by loads (qzp_column<true>), or behind qz_probe_chain before its own
+# entry (qzp_chain_column<true>)), and the loads of a step.
 SASS_KERNELS = {
     "step5": (("_Z9qzp_step5I10QzpS5ShapeILi128ELi256ELi256EELi1ELi0EE",
                "_Z8qzp_stepILi1ELi0EE"), 7),
     "tokens tile": (("_Z8qzp_stepILi2ELi2EE",), 1),
+    "column": (("_Z14qzp_column_tma", "_Z10qzp_columnILb1EE",
+                "_Z16qzp_chain_columnILb1EE"), 1),
+    "step3": (("_Z8qzp_stepILi0ELi0EE",), 6),
 }
 
 
@@ -971,8 +1017,8 @@ def loop_chain(ins: list, loads_per_step: int) -> dict:
 
 
 def sass_report(libs: dict, log=print) -> list:
-    """loop_chain of the STEP5 and TOKENS tile kernels in each library
-    ({label: path}), a line each."""
+    """loop_chain of the STEP5, TOKENS tile, COLUMN and STEP3 kernels in
+    each library ({label: path}), a line each."""
     recs = []
     for label, lib in libs.items():
         funcs = sass_functions(lib)
@@ -996,8 +1042,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", nargs="*", default=[],
                     help="roots of other checkouts whose ROLL, REFILL, "
-                         "TRANSPOSE, DEP, STEP5 and TOKENS to time beside "
-                         "this one's")
+                         "TRANSPOSE, DEP, COLUMN, STEP3, STEP5 and TOKENS "
+                         "to time beside this one's")
     ap.add_argument("--only", nargs="*", default=None,
                     help="the cases to time, by name (all)")
     args = ap.parse_args()

@@ -13,22 +13,26 @@
 // bytes to reach the memory rate, so the bounds chip_smoke.py prints are
 // far below the times, and the time a step is the number to read.
 //
-// The kernels, each a template over what it probes, behind nine C entries:
+// The kernels, each a template over what it probes, behind ten C entries:
 //   qz_probe_dep    dependent table lookups (DEP), a table row staged once
 //                   a cluster into each CTA's shared memory, or the table
 //                   read with __ldg.
-//   qz_probe_chain  table lookups: W independent (INDEP), down a lane's
-//                   column (COLUMN), one thread's serial walk (WALK); the
-//                   table in shared memory or read with __ldg.
+//   qz_probe_column dependent lookups down a lane's column (COLUMN), a
+//                   block of 32 columns staged by 2-D bulk tensor copies
+//                   onto one mbarrier, or read with __ldg.
+//   qz_probe_chain  table lookups: W independent (INDEP), one thread's
+//                   serial walk (WALK); the table in shared memory or read
+//                   with __ldg.
 //   qz_probe_alu    register-only integer chains (HASH, EW, DOUBLE).
 //   qz_probe_step   a decode step (STEP3, STEP5, TOKENS) with per-lane
-//                   window and tables in shared memory, 1-32 lanes a CTA
-//                   (TOKENS: up to 128), tokens stored not at all, one
+//                   window and tables in shared memory, 1-128 lanes a CTA
+//                   (STEP5: 1, 8 or 32), tokens stored not at all, one
 //                   4-byte store a step (LONE), or (TOKENS) into a
 //                   double-buffered tile, each buffer flushed by one bulk
-//                   asynchronous tensor copy (TILE).  STEP5 is built for
-//                   its cases' shapes; its CTA of at least 128 threads
-//                   stages with every load in flight, widening the table
+//                   asynchronous tensor copy (TILE).  Every CTA stages
+//                   with every load in flight, 16 bytes a load, with at
+//                   least 128 threads (TOKENS' tile: its lanes); STEP5 is
+//                   built for its cases' shapes and widens the table
 //                   entries on the way.
 //   qz_probe_tile   BITONIC sorts of a tile's segments in one CTA.
 //   qz_probe_transpose  TRANSPOSE over a thread-block cluster, a 32 x 32
@@ -39,7 +43,8 @@
 //                   lanes by warp shuffles.
 //   qz_probe_refill a window REFILL by loads, cp.async or a TMA bulk copy,
 //                   the offsets in the launch's parameters.
-//   qz_probe_empty  an empty kernel: the least time any launch takes.
+//   qz_probe_empty  an empty kernel: the least time a launch of that many
+//                   CTAs takes.
 // Each C entry takes only the arguments its kernels read, launches on the
 // given stream and returns cudaGetLastError() (cudaErrorInvalidValue for a
 // mode or shape it does not take).  A non-null clk receives the clock64()
@@ -87,17 +92,16 @@ __device__ inline void qzp_cluster_wait() {
 
 // -- qz_probe_chain -----------------------------------------------------------
 
-// the modes of qz_probe_chain (DEP: qz_probe_dep)
-enum { QZP_INDEP4 = 1, QZP_INDEP8 = 2, QZP_COLUMN = 3, QZP_WALK = 4 };
+// the modes of qz_probe_chain (DEP: qz_probe_dep; COLUMN: qz_probe_column)
+enum { QZP_INDEP4 = 1, QZP_INDEP8 = 2, QZP_WALK = 4 };
 
 struct QzpChain {
-  const uint32_t* t;  // INDEP/WALK: [t_rows, t_cols] rows (t_rows 1 or
-                      // rows); COLUMN: [t_rows, t_cols], a column a lane
+  const uint32_t* t;  // [t_rows, t_cols] rows (INDEP: t_rows 1 or rows)
   int t_rows, t_cols;
   const uint32_t* idx;  // [rows, cols]
   uint32_t* out;        // [rows, cols]; WALK: [1]
   int rows, cols, K;
-  uint32_t mask, post;
+  uint32_t mask;
   long long* clk;
 };
 
@@ -133,29 +137,6 @@ __global__ void qzp_chain_rows(QzpChain a) {
   a.out[(int64_t)r * a.cols + j] = v;
 }
 
-// COLUMN: block x takes 32 lanes (columns) and every row of idx, thread
-// (row, lane); in shared memory the block's columns lie [n][32], so that a
-// warp's 32 lanes read 32 banks whatever their rows.
-template <bool SMEM>
-__global__ void qzp_chain_column(QzpChain a) {
-  extern __shared__ __align__(16) uint32_t sm[];
-  const int c0 = blockIdx.x * 32;
-  if (SMEM) {
-    for (int i = threadIdx.x; i < a.t_rows * 32; i += blockDim.x)
-      sm[i] = a.t[(int64_t)(i >> 5) * a.t_cols + c0 + (i & 31)];
-    __syncthreads();
-  }
-  const int lane = threadIdx.x & 31, r = threadIdx.x >> 5;
-  uint32_t v = a.idx[(int64_t)r * a.cols + c0 + lane];
-  const long long t0 = clock64();
-  for (int k = 0; k < a.K; ++k)
-    v = SMEM ? qzp_column_step(sm + lane, 32, v, a.mask, a.post)
-             : (v + __ldg(a.t + (int64_t)(v & a.mask) * a.t_cols + c0 + lane))
-                   & a.post;
-  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
-  a.out[(int64_t)r * a.cols + c0 + lane] = v;
-}
-
 // WALK: one thread walks K steps over the [t_rows, t_cols] tile.
 template <bool SMEM>
 __global__ void qzp_chain_walk(QzpChain a) {
@@ -189,33 +170,20 @@ static int qzp_launch_rows(const QzpChain& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// probe_inflate_step.py:74 indep_gather_loop; probe_pallas.py:107 p_walk;
-// probe_inflate_step5.py:63 pallas1 for mk_subshuf, mk_onehot, mk_groupsel.
+// probe_inflate_step.py:74 indep_gather_loop; probe_pallas.py:107 p_walk.
 extern "C" int qz_probe_chain(int mode, int smem, const void* t, int t_rows,
                               int t_cols, const void* idx, void* out,
                               int rows, int cols, int K, unsigned mask,
-                              unsigned post, void* clk, void* stream) {
+                              void* clk, void* stream) {
   const QzpChain a = {(const uint32_t*)t, t_rows, t_cols,
                       (const uint32_t*)idx, (uint32_t*)out, rows, cols, K,
-                      mask, post, (long long*)clk};
+                      mask, (long long*)clk};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (mode * 2 + (smem ? 1 : 0)) {
     case QZP_INDEP4 * 2: return qzp_launch_rows<QZP_INDEP4, false>(a, s);
     case QZP_INDEP4 * 2 + 1: return qzp_launch_rows<QZP_INDEP4, true>(a, s);
     case QZP_INDEP8 * 2: return qzp_launch_rows<QZP_INDEP8, false>(a, s);
     case QZP_INDEP8 * 2 + 1: return qzp_launch_rows<QZP_INDEP8, true>(a, s);
-  }
-  if (mode == QZP_COLUMN) {
-    if (cols % 32 || rows * 32 > 1024) return (int)cudaErrorInvalidValue;
-    const size_t bytes = smem ? (size_t)t_rows * 32 * 4 : 0;
-    int rc = smem ? qzp_smem(qzp_chain_column<true>, bytes)
-                  : qzp_smem(qzp_chain_column<false>, bytes);
-    if (rc) return rc;
-    if (smem)
-      qzp_chain_column<true><<<cols / 32, rows * 32, bytes, s>>>(a);
-    else
-      qzp_chain_column<false><<<cols / 32, rows * 32, bytes, s>>>(a);
-    return (int)cudaGetLastError();
   }
   if (mode == QZP_WALK) {
     const size_t bytes = smem ? (size_t)t_rows * t_cols * 4 : 0;
@@ -405,24 +373,27 @@ extern "C" int qz_probe_alu(int mode, const void* x, void* out, int n, int K,
 
 // -- qz_probe_step ------------------------------------------------------------
 //
-// STEP3 and TOKENS (qzp_step): a CTA takes lpc consecutive lanes (lpc
-// divides 128 and lanes), a lane a thread, and stages its row's 128-word
-// arrays (TOKENS reads only tll).  TOKENS stores a token a step alone
-// (LONE), or (TILE) into one of two [rows][lpc] buffers after the staged
-// words (qzp_tok_rows: rows is the tile where both fit).  When a buffer is
-// full, thread 0 waits until its bulk copy of the other buffer has read it
+// STEP3 and TOKENS (qzp_step): a CTA takes lpc consecutive lanes (lpc divides
+// 128 and lanes), a lane a thread, and stages its row's 128-word arrays
+// (TOKENS reads only tll) with every load in flight (qzp_row_plan, qzp_stage):
+// 16 bytes a load, a CTA of 128 threads of which the first lpc run the lanes,
+// or (TOKENS' tile, whose every thread passes the flush's barrier) its lpc
+// threads, at most 8 loads each.  TOKENS stores a token a step alone (LONE),
+// or (TILE) into one of two [rows][lpc] buffers after the staged words
+// (qzp_tok_rows: rows is the tile where both fit).  When a buffer is full,
+// thread 0 waits until its bulk copy of the other buffer has read it
 // (cp.async.bulk.wait_group.read 0: the one group it can have in flight),
 // every thread fences its stores to the async proxy and passes a barrier,
-// which also tells every thread that the other buffer is free; then thread
-// 0 stores the whole buffer by one 2-D bulk tensor copy (shared to global,
+// which also tells every thread that the other buffer is free; then thread 0
+// stores the whole buffer by one 2-D bulk tensor copy (shared to global,
 // through a tensor map of the tokens [K, lanes] with a [rows][lpc] box,
-// encoded by the entry at each launch) and commits it, and the steps go on
-// in the other buffer while the copy drains.  Before exit thread 0 waits
-// for its copies to complete.  No step waits for a flush but through that
-// wait, a buffer's worth of steps after the copy was issued.  (A bulk copy
-// a row, rows issued by every thread, took 202 clocks a step against 58 on
-// an H100: a cp.async.bulk takes its operands in uniform registers, so a
-// warp issues its threads' copies one at a time.)
+// encoded by the entry at each launch) and commits it, and the steps go on in
+// the other buffer while the copy drains.  Before exit thread 0 waits for its
+// copies to complete.  No step waits for a flush but through that wait, a
+// buffer's worth of steps after the copy was issued.  (A bulk copy a row, rows
+// issued by every thread, took 202 clocks a step against 58 on an H100: a
+// cp.async.bulk takes its operands in uniform registers, so a warp issues its
+// threads' copies one at a time.)
 //
 // STEP5 (qzp_step5, probes.cuh): a kernel a shape of QzpS5Shape and lanes a
 // CTA; the CTA's QzpS5Plan threads stage its lanes' columns with all their
@@ -478,19 +449,51 @@ __device__ inline void qzp_fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// item i's 16 bytes at shared-memory word 4 i
+struct QzpVecStore {
+  uint32_t* sm;
+
+  __device__ void operator()(int i, const uint32_t* v) const {
+    *(uint4*)(sm + 4 * i) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// item i of a CTA's row (qzp_row_items): vector i % 32 of array FIRST +
+// i / 32 of the row at row0
+template <int FIRST>
+struct QzpRowLoad {
+  const uint32_t* win;
+  const uint32_t* tll;
+  const uint32_t* td;
+  int64_t row0;
+
+  __device__ void operator()(int i, uint32_t (&v)[4]) const {
+    const QzpRowItem it = qzp_row_item(i, FIRST);
+    const uint32_t* g = it.array == 0 ? win : it.array == 1 ? tll : td;
+    const uint4 u = __ldg((const uint4*)(g + row0) + it.vec);
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  }
+};
+
 template <int MODE, int STORE>
 __global__ void qzp_step(QzpStepArgs a, const __grid_constant__ CUtensorMap tm) {
   extern __shared__ __align__(16) uint32_t sm[];
   const int l0 = blockIdx.x * a.lpc, t = threadIdx.x, lane = l0 + t;
   const int lpc = a.lpc;
-  const int64_t row0 = (int64_t)(l0 >> 7) << 7;
-  for (int i = t; i < QZP_TOK_STAGED; i += lpc) {
-    const uint32_t* g = i < 128 ? a.win : i < 256 ? a.tll : a.td;
-    if (MODE == QZP_STEP3 || (i >= 128 && i < 256))
-      sm[i] = g[row0 + (i & 127)];
-  }
+  constexpr int FIRST = MODE == QZP_STEP3 ? 0 : 1;
+  constexpr int PER = qzp_row_per(STORE == QZP_STORE_TILE);
+  // the lane's state loaded beside the staging: no round trip after the
+  // barrier
+  int32_t s = t < lpc ? a.state[lane] : 0, acc = 0;
+  qzp_stage<PER, 4>(t, (int)blockDim.x, qzp_row_items(MODE == QZP_STEP3),
+                    QzpRowLoad<FIRST>{a.win, a.tll, a.td,
+                                      (int64_t)(l0 >> 7) << 7},
+                    QzpVecStore{sm + 128 * FIRST});
   __syncthreads();
-  int32_t s = a.state[lane], acc = 0;
+  if (t >= lpc) return;   // a thread that only staged
   uint32_t* tok = a.tokens + lane;
   uint32_t* buf = sm + QZP_TOK_STAGED;   // TILE: two [rows][lpc] buffers
   int kt = 0, b = 0;                     // TILE: the step's row and buffer
@@ -562,6 +565,8 @@ static int qzp_tokens_map(const QzpStepArgs& a, CUtensorMap* tm) {
 
 template <int MODE, int STORE>
 static int qzp_launch_step(const QzpStepArgs& a, cudaStream_t s) {
+  const QzpStagePlan p = qzp_row_plan(MODE == QZP_STEP3,
+                                      STORE == QZP_STORE_TILE, a.lpc);
   const size_t bytes =
       (QZP_TOK_STAGED +
        (STORE == QZP_STORE_TILE ? (size_t)2 * a.rows * a.lpc : 0)) * 4;
@@ -571,7 +576,7 @@ static int qzp_launch_step(const QzpStepArgs& a, cudaStream_t s) {
     const int rc = qzp_tokens_map(a, &tm);
     if (rc) return rc;
   }
-  qzp_step<MODE, STORE><<<a.lanes / a.lpc, a.lpc, bytes, s>>>(a, tm);
+  qzp_step<MODE, STORE><<<a.lanes / a.lpc, p.threads, bytes, s>>>(a, tm);
   return (int)cudaGetLastError();
 }
 
@@ -724,6 +729,153 @@ extern "C" int qz_probe_step(int mode, int store, const void* win,
       return qzp_launch_step<QZP_TOKENS, QZP_STORE_TILE>(a, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// -- qz_probe_column ----------------------------------------------------------
+//
+// COLUMN: K dependent lookups idx = (idx + t[idx & (n - 1), lane]) & post a
+// thread, over an int32 [n, cols] table of columns and [rows, cols]
+// indexes (n a power of 2 up to QZP_COL_MAX_N, post 2^p - 1 >= n - 1).
+// Bound by latency: one dependent load after another.  A CTA takes a
+// block of 32 columns and every index row, a thread a lane (the index
+// loaded first, so that no round trip follows the staging); thread 0
+// stages the block [n][32] by 2-D bulk tensor copies of qzp_col_box rows
+// (a tensor map of the table the entry encodes at each launch, a
+// __grid_constant__), every copy completing on one mbarrier the CTA waits
+// on; then each lane walks its column (qzp_col_step: the load, an AND-OR
+// for the next address, a shift-add).  The __ldg kernel reads the table
+// from device memory.
+
+struct QzpCol {
+  const uint32_t* t;    // [n, cols]
+  const uint32_t* idx;  // [rows, cols]
+  uint32_t* out;        // [rows, cols]
+  int n, rows, cols, K;
+  uint32_t post;
+  long long* clk;
+};
+
+// The walk of thread t's lane (column c0 + t % 32, index row t / 32) from
+// its index v, over the block staged in sm (SMEM) or the table in device
+// memory
+template <bool SMEM>
+__device__ inline void qzp_column_walk(const QzpCol& a, const uint32_t* sm,
+                                       int64_t at, uint32_t v) {
+  const int lane = threadIdx.x & 31, c0 = blockIdx.x * 32;
+  const uint32_t m = (uint32_t)a.n - 1u;
+  const long long t0 = clock64();
+  if (SMEM) {
+    const uint32_t base = qzp_smem_addr(sm), toff = 4u * (uint32_t)lane;
+    uint32_t w = v << 7;
+    for (int k = 0; k < a.K; ++k)
+      qzp_col_step(base, toff, m << 7, v, w, QzpLds{});
+  } else {
+    const uint32_t* col = a.t + c0 + lane;
+    for (int k = 0; k < a.K; ++k)
+      v += __ldg(col + (int64_t)(v & m) * a.cols);
+  }
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  a.out[at] = v & a.post;
+}
+
+__device__ inline int64_t qzp_column_at(const QzpCol& a) {
+  return (int64_t)(threadIdx.x >> 5) * a.cols + blockIdx.x * 32 +
+         (threadIdx.x & 31);
+}
+
+__global__ void __launch_bounds__(1024) qzp_column_ldg(QzpCol a) {
+  const int64_t at = qzp_column_at(a);
+  qzp_column_walk<false>(a, nullptr, at, a.idx[at]);
+}
+
+// box b's rows of the block at column c0 to shared address dst, a bulk
+// tensor copy counted on the mbarrier bar
+__device__ inline void qzp_bulk_load_tile(unsigned dst, const CUtensorMap* tm,
+                                          int c0, int r0, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(tm), "r"(c0), "r"(r0), "r"(bar) : "memory");
+}
+
+__global__ void __launch_bounds__(1024)
+    qzp_column_tma(QzpCol a, const __grid_constant__ CUtensorMap tm) {
+  extern __shared__ __align__(16) uint32_t sm[];   // at 0: 128-byte aligned
+  const int64_t at = qzp_column_at(a);
+  const uint32_t v = a.idx[at];
+  const int box = qzp_col_box(a.n), boxes = qzp_col_boxes(a.n);
+  const unsigned bar = qzp_smem_addr(sm + boxes * box * 32);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+        "r"(boxes * box * 128) : "memory");
+    for (int b = 0; b < boxes; ++b)
+      qzp_bulk_load_tile(qzp_smem_addr(sm + b * box * 32), &tm,
+                         blockIdx.x * 32, b * box, bar);
+  }
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar) : "memory");
+  qzp_column_walk<true>(a, sm, at, v);
+}
+
+// The tensor copies' map: the table [n, cols] of 4-byte words, a box of
+// [qzp_col_box(n)][32]
+static int qzp_column_map(const QzpCol& a, CUtensorMap* tm) {
+  static const QzpEncodeTiled encode = qzp_encode_tiled();
+  if (!encode) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)a.cols, (cuuint64_t)a.n};
+  const cuuint64_t stride[1] = {(cuuint64_t)a.cols * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)qzp_col_box(a.n)};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(tm, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2, (void*)a.t, dims,
+                stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}
+
+// Lets the staging kernel take the card's whole shared memory; once a
+// process.
+static int qzp_column_prepare() { return qzp_smem_max(qzp_column_tma); }
+
+// probe_inflate_step5.py:63 pallas1 for mk_subshuf, mk_onehot, mk_groupsel.
+// n a power of 2 up to QZP_COL_MAX_N; rows <= 32; cols a multiple of 32;
+// post 2^p - 1 >= n - 1; t 16-byte aligned.
+extern "C" int qz_probe_column(int smem, const void* t, int n,
+                               const void* idx, void* out, int rows,
+                               int cols, int K, unsigned post, void* clk,
+                               void* stream) {
+  static const int ready = qzp_column_prepare();
+  if (ready) return ready;
+  if (n < 1 || (n & (n - 1)) || n > QZP_COL_MAX_N || rows < 1 || rows > 32 ||
+      cols < 32 || cols % 32 || (post & (post + 1u)) ||
+      post < (unsigned)n - 1u || !qzp_aligned16(t))
+    return (int)cudaErrorInvalidValue;
+  const QzpCol a = {(const uint32_t*)t, (const uint32_t*)idx, (uint32_t*)out,
+                    n, rows, cols, K, post, (long long*)clk};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!smem) {
+    qzp_column_ldg<<<cols / 32, 32 * rows, 0, s>>>(a);
+  } else {
+    CUtensorMap tm;
+    const int rc = qzp_column_map(a, &tm);
+    if (rc) return rc;
+    // the boxes, then the mbarrier
+    const size_t bytes = (size_t)qzp_col_boxes(n) * qzp_col_box(n) * 128 + 16;
+    qzp_column_tma<<<cols / 32, 32 * rows, bytes, s>>>(a, tm);
+  }
+  return (int)cudaGetLastError();
 }
 
 // -- qz_probe_tile ------------------------------------------------------------
@@ -1150,14 +1302,16 @@ extern "C" int qz_probe_refill(int how, const void* x, void* out, int rows,
 
 // -- qz_probe_empty -----------------------------------------------------------
 //
-// The launch floor: an empty kernel of one warp.  launch 0 returns at once
-// (the bare ctypes call), 1 launches it on stream.  Replaces no TPU kernel.
+// The launch floor: an empty kernel, a warp a CTA.  ctas 0 returns at once
+// (the bare ctypes call), else it launches that many CTAs on stream (1: the
+// least time any launch takes; a probe's grid: what launching its CTAs
+// costs).  Replaces no TPU kernel.
 
 __global__ void qzp_empty() {}
 
-extern "C" int qz_probe_empty(int launch, void* stream) {
-  if (!launch) return 0;
-  qzp_empty<<<1, 32, 0, (cudaStream_t)stream>>>();
+extern "C" int qz_probe_empty(int ctas, void* stream) {
+  if (ctas < 1) return 0;
+  qzp_empty<<<ctas, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -38,14 +38,122 @@ __host__ __device__ inline uint32_t qzp_indep_step(const uint32_t* row,
   return acc & mask;
 }
 
-// probe_inflate_step5.py mk_subshuf (B), mk_onehot (C), mk_groupsel (C2):
-// the lane's column of N entries (entry n at col[n * stride]);
-// idx = (idx + col[idx & mask]) & post.
-__host__ __device__ inline uint32_t qzp_column_step(const uint32_t* col,
-                                                    int stride, uint32_t idx,
-                                                    uint32_t mask,
-                                                    uint32_t post) {
-  return (idx + col[(idx & mask) * (uint32_t)stride]) & post;
+// -- staging: every load of a CTA in flight ----------------------------------
+//
+// A probe stages its tables into shared memory as `items` 16-byte vectors:
+// thread t of the CTA's n takes items t, t + n, ... (at most PER of them),
+// issues all its loads, then makes its stores, so that no store waits for
+// a load but its own and the loads of a thread overlap.  STEP3's and
+// TOKENS' CTAs (qzp_row_plan) stage with QZP_STAGE_THREADS threads, those
+// beyond the lanes only staging, or, for the TOKENS tile, with its lanes
+// and at most QZP_STAGE_PER loads each; STEP5's plan is QzpS5Plan.
+#define QZP_STAGE_THREADS 128
+#define QZP_STAGE_PER 8
+
+// ld(i, v) loads item i's V words into v, st(i, v) stores them
+template <int PER, int V, class Ld, class St>
+__host__ __device__ inline void qzp_stage(int t, int n, int items,
+                                          const Ld& ld, const St& st) {
+  uint32_t v[PER][V];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int j = 0; j < PER; ++j) {
+    const int i = t + j * n;
+    if (i < items) ld(i, v[j]);
+  }
+#ifdef __CUDA_ARCH__
+  // no store moves up between the loads (the compiler would otherwise
+  // merge each store into its load's branch: a store waits for its load)
+  asm volatile("" ::: "memory");
+#endif
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int j = 0; j < PER; ++j) {
+    const int i = t + j * n;
+    if (i < items) st(i, v[j]);
+  }
+}
+
+struct QzpStagePlan {
+  int threads;  // the CTA's
+  int per;      // the most loads a thread issues
+};
+
+// COLUMN (qz_probe_column): a CTA a block of 32 columns (lanes) of the
+// [n, cols] table and every row of the [rows, cols] indexes (rows <= 32),
+// a thread an index; the block staged [n][32] (a row of 128 bytes, lane l
+// at byte 4 l, so that a warp's 32 lanes read 32 banks whatever their
+// rows) by 2-D bulk tensor copies: box b, rows b * box .. b * box + box -
+// 1 of the block, at shared-memory word 32 b box (a box holds at most 256
+// rows).  On an H100 that was no slower from a graph than the block staged
+// by 16-byte loads with qzp_stage (at least 128 threads, 8 loads a thread:
+// 0-0.0002 ms slower of 0.0022-0.0027), and index rows split over several
+// CTAs a block, each staging it, were no faster.
+#define QZP_COL_MAX_N 1024   // 128 KB staged
+#define QZP_COL_BOX 256      // a tensor copy's box: at most 256 rows
+
+__host__ __device__ inline int qzp_col_box(int n) {
+  return n < QZP_COL_BOX ? n : QZP_COL_BOX;
+}
+
+__host__ __device__ inline int qzp_col_boxes(int n) {
+  return (n + qzp_col_box(n) - 1) / qzp_col_box(n);
+}
+
+// One COLUMN step of a lane (toff = 4 lane) over its block staged at byte
+// address base, read through ld (a 4-byte load at a byte address).  The
+// probe's idx_k is v & post for a post of the form 2^p - 1 that covers the
+// rows' mask m (post >= n - 1): the low p bits of a sum depend only on
+// the low p bits of its terms, so v carries the sums unmasked and is
+// masked once, after the last step.  w = v << 7 carries the same sums
+// shifted by a row's bytes, so the row's address is one AND-OR, (w & m7)
+// | toff with m7 = m << 7, and the sum onto w one shift-add: the chain a
+// step is the load and two integer instructions.
+template <class Rd>
+__host__ __device__ inline void qzp_col_step(uint32_t base, uint32_t toff,
+                                             uint32_t m7, uint32_t& v,
+                                             uint32_t& w, const Rd& ld) {
+  const uint32_t g = ld(base + ((w & m7) | toff));
+  v += g;
+  w += g << 7;
+}
+
+// STEP3 and TOKENS (qzp_step): a CTA's lpc lanes (lpc <= 128) share one
+// row of the [R, 128] arrays.  Item i is vector i % 32 of array FIRST +
+// i / 32 of that row (win, tll, td: STEP3 stages all three, FIRST 0;
+// TOKENS tll alone, FIRST 1), stored at shared-memory word 128 FIRST + 4 i.
+// A CTA of lanes that pass a barrier a flush (TOKENS' tile) stages with its
+// lanes alone, else with QZP_STAGE_THREADS threads.
+__host__ __device__ inline int qzp_row_items(bool step3) {
+  return step3 ? 96 : 32;
+}
+
+__host__ __device__ inline QzpStagePlan qzp_row_plan(bool step3, bool tile,
+                                                     int lpc) {
+  QzpStagePlan p;
+  p.threads = tile ? lpc : QZP_STAGE_THREADS;
+  p.per = (qzp_row_items(step3) + p.threads - 1) / p.threads;
+  return p;
+}
+
+// the loads a staging thread of qzp_step is built for: one in a CTA of 128
+// threads, QZP_STAGE_PER in the tile's CTA of lpc >= 4 threads
+__host__ __device__ constexpr int qzp_row_per(bool tile) {
+  return tile ? QZP_STAGE_PER : 1;
+}
+
+struct QzpRowItem {
+  int array;  // 0 win, 1 tll, 2 td
+  int vec;    // the 16-byte vector of its row
+};
+
+__host__ __device__ inline QzpRowItem qzp_row_item(int i, int first) {
+  QzpRowItem it;
+  it.array = first + (i >> 5);
+  it.vec = i & 31;
+  return it;
 }
 
 // probe_pallas.py:p_walk: acc += x[acc % rows, i % cols] over an int32
@@ -465,27 +573,32 @@ __host__ __device__ inline void qzp_s5_put(const QzpS5Item& it,
                      a);
 }
 
-// Thread t's share of the staging: its PER loads through ld(item, words),
-// then its stores through st.
+template <class Sh, int LPC, class Ld>
+struct QzpS5ItemLoad {
+  const Ld& ld;
+  template <int V>
+  __host__ __device__ void operator()(int i, uint32_t (&v)[V]) const {
+    ld(qzp_s5_item<Sh, LPC>(i), v);
+  }
+};
+
+template <class Sh, int LPC, class St>
+struct QzpS5ItemPut {
+  const St& st;
+  __host__ __device__ void operator()(int i, const uint32_t* v) const {
+    qzp_s5_put<Sh, LPC>(qzp_s5_item<Sh, LPC>(i), v, st);
+  }
+};
+
+// Thread t's share of the staging (qzp_stage): its PER loads through
+// ld(item, words), then its stores through st.
 template <class Sh, int LPC, class Ld, class St>
 __host__ __device__ inline void qzp_s5_stage(int t, const Ld& ld,
                                              const St& st) {
   using P = QzpS5Plan<Sh, LPC>;
-  uint32_t v[P::PER][P::VEC];
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-  for (int j = 0; j < P::PER; ++j) {
-    const int i = t + j * P::THREADS;
-    if (i < P::ITEMS) ld(qzp_s5_item<Sh, LPC>(i), v[j]);
-  }
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-  for (int j = 0; j < P::PER; ++j) {
-    const int i = t + j * P::THREADS;
-    if (i < P::ITEMS) qzp_s5_put<Sh, LPC>(qzp_s5_item<Sh, LPC>(i), v[j], st);
-  }
+  qzp_stage<P::PER, P::VEC>(t, P::THREADS, P::ITEMS,
+                            QzpS5ItemLoad<Sh, LPC, Ld>{ld},
+                            QzpS5ItemPut<Sh, LPC, St>{st});
 }
 
 // -- TOKENS: a token a step, through a double-buffered tile -------------------

@@ -11,9 +11,10 @@ under Mosaic.  Each of their ``pl.pallas_call`` kernels has here
   torch has no uint32 shift on the CPU);
 * a counterpart among the Hopper kernels of ``probes.cu``
   (``libqzprobes.so``, built apart from the path's kernels by
-  ``ops/_build``), launched by :func:`probe_chain`, :func:`probe_alu`,
-  :func:`probe_step`, :func:`probe_roll`, :func:`probe_refill` and the
-  tile wrappers below; :func:`launch_floor` launches an empty kernel.
+  ``ops/_build``), launched by :func:`probe_chain`, :func:`probe_column`,
+  :func:`probe_alu`, :func:`probe_step`, :func:`probe_roll`,
+  :func:`probe_refill` and the tile wrappers below; :func:`launch_floor`
+  launches an empty kernel.
 
 A wrapper given tensors on the CPU runs the plain version; given CUDA
 tensors it launches the kernel or raises :class:`KernelError`.  The two
@@ -36,7 +37,9 @@ _I, _P, _U = ctypes.c_int, ctypes.c_void_p, ctypes.c_uint
 DEP = Kernel("qz_probe_dep", [_I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
              lib=PROBES)
 CHAIN = Kernel("qz_probe_chain", [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _U,
-                                  _U, _P, _P], lib=PROBES)
+                                  _P, _P], lib=PROBES)
+COLUMN = Kernel("qz_probe_column", [_I, _P, _I, _P, _P, _I, _I, _I, _U, _P,
+                                    _P], lib=PROBES)
 ALU = Kernel("qz_probe_alu", [_I, _P, _P, _I, _I, _P, _P], lib=PROBES)
 STEP = Kernel("qz_probe_step", [_I, _I] + [_P] * 6 + [_I] * 7 + [_P] * 2,
               lib=PROBES)
@@ -47,10 +50,11 @@ ROLL = Kernel("qz_probe_roll", [_P, _P, _I, _I, _I, _I, _P], lib=PROBES)
 REFILL = Kernel("qz_probe_refill", [_I, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                                     _P], lib=PROBES)
 EMPTY = Kernel("qz_probe_empty", [_I, _P], lib=PROBES)
-KERNELS = {k.symbol: k for k in (DEP, CHAIN, ALU, STEP, TILE, TRANSPOSE, ROLL,
-                                 REFILL, EMPTY)}
+KERNELS = {k.symbol: k for k in (DEP, CHAIN, COLUMN, ALU, STEP, TILE,
+                                 TRANSPOSE, ROLL, REFILL, EMPTY)}
 MAX_LANES = 512   # QZP_MAX_LANES: the offsets a refill's parameters hold
 MAX_SMEM = 227 * 1024   # QZP_MAX_SMEM: the shared memory a CTA may take
+COLUMN_MAX_N = 1024   # QZP_COL_MAX_N: the tallest column the card stages
 # STEP5's kernels are built for one window and subtable size, these root
 # sizes and lanes a CTA (QzpS5Shape, qzp_s5_dispatch)
 STEP5_W, STEP5_SUB, STEP5_ROOTS, STEP5_LPC = 128, 256, (128, 256), (1, 8, 32)
@@ -436,7 +440,7 @@ def _args(dev: torch.device, clk):
     return None if clk is None else clk.data_ptr(), _raw_stream(dev)
 
 
-_CHAIN_MODES = {"indep4": 1, "indep8": 2, "column": 3, "walk": 4}
+_CHAIN_MODES = {"indep4": 1, "indep8": 2, "walk": 4}
 
 
 def _dep(t: torch.Tensor, idx: torch.Tensor, K: int, smem: bool,
@@ -471,25 +475,23 @@ def probe_chain(mode: str, t: torch.Tensor, idx: torch.Tensor | None, K: int,
     """Table lookups, K a lane: ``dep`` (qz_probe_dep) and ``indep4`` /
     ``indep8`` (qz_probe_chain) as :func:`dep_gather_loop` /
     :func:`indep_gather_loop` (tables of 1 or R rows), ``column`` as
-    :func:`_column` (post: the mask after each sum, default N - 1),
+    :func:`probe_column` (post: the mask after each sum, default N - 1),
     ``walk`` as :func:`scalar_walk` (idx unused).  smem: the table staged
     in shared memory, else read with __ldg."""
     if mode == "dep" and t.is_cuda:
         return _dep(t, idx, K, smem, clk)
+    if mode == "column":
+        return probe_column(t, idx, K, smem=smem, post=post, clk=clk)
     if mode == "walk":
         dev = _on(t)
     else:
         dev = _on(t, idx)
     w = t.shape[-1]
-    if post is None:
-        post = t.shape[0] - 1
     if dev.type == "cpu":
         if mode == "dep":
             return dep_gather_loop(t, idx, K)
         if mode in ("indep4", "indep8"):
             return indep_gather_loop(t, idx, K, int(mode[-1]))
-        if mode == "column":
-            return _column(t, idx, K, post)
         if mode == "walk":
             return scalar_walk(t, K)
         raise ValueError(f"no chain mode {mode}")
@@ -506,16 +508,60 @@ def probe_chain(mode: str, t: torch.Tensor, idx: torch.Tensor | None, K: int,
         ii = idx.contiguous().reshape(-1, shape[-1])
         tt = t.contiguous().reshape(-1, w)
         rows, cols = ii.shape
-        if mode == "column":
-            if tt.shape[1] != cols:
-                raise ValueError("column tables have a column a lane")
-        elif tt.shape[0] not in (1, rows):
+        if tt.shape[0] not in (1, rows):
             raise ValueError("a chain table has 1 row or a row an index row")
         out = torch.empty(shape, dtype=torch.int32, device=dev)
-    mask = (t.shape[0] if mode == "column" else w) - 1
     CHAIN(_CHAIN_MODES[mode], int(smem), tt.data_ptr(), tt.shape[0],
-          tt.shape[1], ii.data_ptr(), out.data_ptr(), rows, cols, K, mask,
-          post & _M32, *_args(dev, clk))
+          tt.shape[1], ii.data_ptr(), out.data_ptr(), rows, cols, K, w - 1,
+          *_args(dev, clk))
+    return out
+
+
+def column_check(n: int, rows: int, cols: int, post: int) -> None:
+    """ValueError unless the COLUMN kernel takes the shape: a column of n
+    entries, n a power of 2 up to 1024; a multiple of 32 columns (lanes),
+    from 1 to 32 index rows; post of the form 2^p - 1 and at least n - 1
+    (so that the kernel masks the chain once, after its last step)."""
+    post &= _M32
+    if (n < 1 or n & (n - 1) or n > COLUMN_MAX_N or cols < 32 or cols % 32
+            or not 1 <= rows <= 32 or post & (post + 1) or post < n - 1):
+        raise ValueError(
+            f"column runs on the card at n a power of 2 up to "
+            f"{COLUMN_MAX_N}, a multiple of 32 columns, 1-32 index rows and "
+            f"post 2^p - 1 >= n - 1; got n {n}, {cols} columns, {rows} rows, "
+            f"post {post:#x}")
+
+
+def probe_column(t: torch.Tensor, idx: torch.Tensor, K: int, *,
+                 smem: bool = True, post: int | None = None,
+                 clk: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`_column`: K dependent lookups down each lane's column of an
+    int32 [N, L] table from int32 [R, L] indexes, ``post`` the mask after
+    each sum (default N - 1).  On the card (qz_probe_column) only the
+    shapes of :func:`column_check`: a CTA a block of 32 columns stages it
+    in shared memory with every load in flight (smem), or reads the table
+    with __ldg."""
+    if post is None:
+        post = t.shape[0] - 1
+    if not t.is_cuda:
+        _on(t, idx)
+        return _column(t, idx, K, post)
+    dev = t.get_device()
+    if (t.dtype != torch.int32 or idx.dtype != torch.int32
+            or idx.get_device() != dev or t.dim() != 2):
+        raise ValueError("column takes an int32 [N, L] table and int32 "
+                         "indexes on one device")
+    n, cols = t.shape
+    if idx.shape[-1] != cols:
+        raise ValueError("column tables have a column a lane")
+    ii = idx if idx.is_contiguous() else idx.contiguous()
+    rows = ii.numel() // cols if cols else 0
+    column_check(n, rows, cols, post)
+    tt = _aligned(t)
+    out = torch.empty_like(ii)
+    COLUMN(int(smem), tt.data_ptr(), n, ii.data_ptr(), out.data_ptr(), rows,
+           cols, K, post & _M32, None if clk is None else clk.data_ptr(),
+           torch._C._cuda_getCurrentRawStream(dev))
     return out
 
 
@@ -736,11 +782,11 @@ def probe_refill(stream: torch.Tensor, off, win: int, K: int = 1, *,
     return out
 
 
-def launch_floor(dev: torch.device) -> None:
-    """One launch of an empty kernel on the current stream of dev (a CUDA
-    device with its index; qz_probe_empty): the least time any launch
-    takes."""
-    EMPTY(1, _raw_stream(dev))
+def launch_floor(dev: torch.device, ctas: int = 1) -> None:
+    """One launch of an empty kernel of ``ctas`` CTAs of a warp on the
+    current stream of dev (a CUDA device with its index; qz_probe_empty):
+    at one CTA the least time any launch takes."""
+    EMPTY(ctas, _raw_stream(dev))
 
 
 def probe_bitonic(x: torch.Tensor, segment: str, K: int = 1,

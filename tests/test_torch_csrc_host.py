@@ -482,14 +482,6 @@ extern "C" void shim_rows(int W, const uint32_t* t, int t_rows, int w,
   }
 }
 
-// COLUMN over an [n, L] table and [rows, L] indexes
-extern "C" void shim_column(const uint32_t* t, int n, int L, uint32_t* idx,
-                            int rows, int K, uint32_t post) {
-  for (int i = 0; i < rows * L; ++i)
-    for (int k = 0; k < K; ++k)
-      idx[i] = qzp_column_step(t + i % L, L, idx[i], n - 1, post);
-}
-
 extern "C" uint32_t shim_walk(const uint32_t* x, int rows, int cols, int K) {
   uint32_t acc = 0;
   for (int k = 0; k < K; ++k) acc = qzp_walk_step(x, rows, cols, acc, k);
@@ -507,6 +499,157 @@ extern "C" void shim_step3(const int32_t* win, const int32_t* tll,
       qzp_step3(win + row, tll + row, td + row, 1, bp, acc);
     state[l] = (int32_t)((uint32_t)acc + (uint32_t)bp);
   }
+}
+
+// The staging of qzp_stage run serially, a thread at a time, through
+// recorders: a thread's loads counted (and the most any thread issued
+// noted), a load after that thread's first store flagged, a load that
+// leaves its block or row flagged, and each word's stores counted.
+struct ShimStageLog {
+  int loads = 0, most = 0;
+  bool storing = false, bad = false;
+  std::vector<int> stored;
+
+  void begin() {
+    loads = 0;
+    storing = false;
+  }
+  void load() {
+    if (storing) bad = true;
+    most = std::max(most, ++loads);
+  }
+};
+
+struct ShimVecStore {
+  std::vector<uint32_t>* sm;
+  ShimStageLog* log;
+  int off;   // the first word item 0 goes to
+
+  void operator()(int i, const uint32_t* v) const {
+    log->storing = true;
+    const int w = off + 4 * i;
+    if (w < 0 || w + 4 > (int)sm->size()) {
+      log->bad = true;
+      return;
+    }
+    for (int j = 0; j < 4; ++j) {
+      (*sm)[w + j] = v[j];
+      ++log->stored[w + j];
+    }
+  }
+};
+
+// a 4-byte shared-memory load of lane `lane` at byte address a: its own
+// column of the block only
+struct ShimColRead {
+  const std::vector<uint32_t>* sm;
+  int lane;
+  bool* bad;
+
+  uint32_t operator()(uint32_t a) const {
+    if (a % 4 || a / 4 >= sm->size() || a / 4 % 32 != (uint32_t)lane) {
+      *bad = true;
+      return 0;
+    }
+    return (*sm)[a / 4];
+  }
+};
+
+// COLUMN as qz_probe_column launches it, serially, a CTA at a time: its
+// tensor copies put the block's rows box by box (qzp_col_boxes boxes of
+// qzp_col_box rows, box b at word 32 b box; a row past the table reads as
+// 0, as the copy fills it) into a shared memory of exactly the boxes'
+// words full of garbage, every word written once; then each of its lanes
+// (32 x rows, a thread each) walks K steps of qzp_col_step, every load in
+// the lane's column.  idx [rows, cols] becomes the output.  info: the rows
+// of a box, the boxes, the staged words.  Returns 0, or -1 if a check
+// fails.
+extern "C" int shim_column_cta(const uint32_t* t, int n, int cols,
+                               uint32_t* idx, int rows, int K, uint32_t post,
+                               int* info) {
+  const int box = qzp_col_box(n), boxes = qzp_col_boxes(n);
+  const size_t words = (size_t)boxes * box * 32;
+  bool bad = false;
+  for (int c0 = 0; c0 < cols; c0 += 32) {
+    std::vector<uint32_t> sm(words, 0xA5A5A5A5u);
+    std::vector<int> stored(words, 0);
+    for (int b = 0; b < boxes; ++b)
+      for (int r = 0; r < box; ++r)
+        for (int c = 0; c < 32; ++c) {
+          const int row = b * box + r;
+          const size_t w = (size_t)b * box * 32 + (size_t)r * 32 + c;
+          sm[w] = row < n ? t[(size_t)row * cols + c0 + c] : 0u;
+          ++stored[w];
+        }
+    for (int c : stored)
+      if (c != 1) return -1;
+    for (int th = 0; th < 32 * rows; ++th) {
+      const int lane = th % 32;
+      uint32_t* at = idx + (size_t)(th / 32) * cols + c0 + lane;
+      uint32_t v = *at, w = v << 7;
+      for (int k = 0; k < K; ++k)
+        qzp_col_step(0u, 4u * (uint32_t)lane, ((uint32_t)n - 1u) << 7, v, w,
+                     ShimColRead{&sm, lane, &bad});
+      *at = v & post;
+    }
+  }
+  info[0] = box;
+  info[1] = boxes;
+  info[2] = (int)words;
+  return bad ? -1 : 0;
+}
+
+// STEP3 and TOKENS' item i: a 16-byte vector of one row of win, tll, td
+struct ShimRowLoad {
+  const uint32_t* src[3];
+  int first;
+  ShimStageLog* log;
+
+  void operator()(int i, uint32_t (&v)[4]) const {
+    log->load();
+    const QzpRowItem it = qzp_row_item(i, first);
+    if (it.array < first || it.array > 2 || it.vec < 0 || it.vec >= 32) {
+      log->bad = true;
+      return;
+    }
+    for (int j = 0; j < 4; ++j) v[j] = src[it.array][4 * it.vec + j];
+  }
+};
+
+// One CTA of qz_probe_step's STEP3 (step3) or TOKENS (lone, or the tile)
+// staging its row (qzp_row_plan), serially, from one row of each array
+// into QZP_TOK_STAGED words of garbage: the words it stages (STEP3 all,
+// TOKENS tll's at word 128) stored once and the others not at all, with
+// the loads a thread qzp_step is built for (qzp_row_per).  sm receives the
+// shared memory; info: the plan's threads and loads a thread, the most
+// loads a thread issued.  Returns 0, or -1 if a check fails.
+extern "C" int shim_row_stage(int step3, int tile, int lpc,
+                              const uint32_t* win, const uint32_t* tll,
+                              const uint32_t* td, uint32_t* sm_out,
+                              int* info) {
+  const QzpStagePlan p = qzp_row_plan(step3 != 0, tile != 0, lpc);
+  const int first = step3 ? 0 : 1;
+  ShimStageLog log;
+  std::vector<uint32_t> sm(QZP_TOK_STAGED, 0xA5A5A5A5u);
+  log.stored.assign(sm.size(), 0);
+  for (int th = 0; th < p.threads; ++th) {
+    log.begin();
+    const ShimRowLoad ld = {{win, tll, td}, first, &log};
+    const ShimVecStore st = {&sm, &log, 128 * first};
+    if (tile)
+      qzp_stage<qzp_row_per(true), 4>(th, p.threads,
+                                      qzp_row_items(step3 != 0), ld, st);
+    else
+      qzp_stage<qzp_row_per(false), 4>(th, p.threads,
+                                       qzp_row_items(step3 != 0), ld, st);
+  }
+  for (int w = 0; w < QZP_TOK_STAGED; ++w)
+    if (log.stored[w] != (step3 || (w >= 128 && w < 256) ? 1 : 0)) return -1;
+  std::copy(sm.begin(), sm.end(), sm_out);
+  info[0] = p.threads;
+  info[1] = p.per;
+  info[2] = log.most;
+  return log.bad ? -1 : 0;
 }
 
 // STEP5 as qz_probe_step launches it (QzpS5Plan), serially: each CTA's
@@ -1258,12 +1401,14 @@ def shim(tmp_path_factory):
     so.shim_alu.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2
     so.shim_rows.argtypes = [ctypes.c_int, ctypes.c_void_p] + [
         ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 3
-    so.shim_column.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_uint32]
     so.shim_walk.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
     so.shim_walk.restype = ctypes.c_uint32
     so.shim_step3.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
     so.shim_step5.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    so.shim_column_cta.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_uint32,
+                                                 ctypes.c_void_p]
+    so.shim_row_stage.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
     so.shim_s5_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
     so.shim_s5_entries.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -1668,7 +1813,8 @@ def test_probe_column_and_walk_match_plain(shim, n, post):
     rng = np.random.default_rng(n)
     t, idx = _u32s(rng, (n, 64)), _u32s(rng, (8, 64))
     got = idx.copy()
-    shim.shim_column(_ptr(t), n, 64, _ptr(got), 8, 11, post)
+    assert shim.shim_column_cta(_ptr(t), n, 64, _ptr(got), 8, 11, post,
+                                _ptr(np.zeros(3, np.int32))) == 0
     want = PR._column(_ti(t), _ti(idx), 11, post)
     assert (got.view(np.int32) == want.numpy()).all()
     x = _u32s(rng, (8, 128))
@@ -1686,6 +1832,63 @@ def test_probe_step3_matches_plain(shim):
     shim.shim_step3(_ptr(win), _ptr(tll), _ptr(td), _ptr(got), 384, 20)
     want = PR.step_loop(*map(_ti, (win, tll, td, state)), 20)
     assert (got == want.numpy()).all()
+
+
+# column heights from the TPU probes' 8 to 1024 (128 KB staged, four
+# boxes), 1 to 8 index rows (the probes' 1 and 8)
+@pytest.mark.parametrize("n", [8, 16, 64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+def test_probe_column_cta_stages_once_and_matches_plain(shim, n, rows):
+    """COLUMN as qz_probe_column runs it, a CTA at a time: its tensor
+    copies (boxes of at most 256 rows, at most 4 of them, covering the
+    block's n rows exactly) write every word of the block's [n][32]
+    shared memory exactly once and nothing past it, in the shared memory a
+    CTA may take; each lane then reads only its own column; the output
+    equals _column for a post of n - 1 and of all ones."""
+    rng = np.random.default_rng(n + rows)
+    cols = 64
+    t, idx = _u32s(rng, (n, cols)), _u32s(rng, (rows, cols))
+    for post in (n - 1, 0xFFFFFFFF):
+        got = idx.copy()
+        info = np.zeros(3, np.int32)
+        assert shim.shim_column_cta(_ptr(t), n, cols, _ptr(got), rows, 9,
+                                    post, _ptr(info)) == 0
+        box, boxes, words = (int(v) for v in info)
+        assert box <= 256 and box * boxes == n and boxes <= 4
+        assert words == 32 * n and words * 4 + 16 <= PR.MAX_SMEM
+        want = PR._column(_ti(t), _ti(idx), 9, post)
+        assert (got.view(np.int32) == want.numpy()).all()
+
+
+_ROW_STAGES = [(kind, lpc) for kind in ("step3", "tokens", "tile")
+               for lpc in (1, 2, 4, 8, 16, 32, 64, 128)
+               if kind != "tile" or lpc % 4 == 0]
+
+
+@pytest.mark.parametrize("kind,lpc", _ROW_STAGES)
+def test_probe_step_row_stage_plan(shim, kind, lpc):
+    """A CTA of STEP3 or TOKENS (lone, or the tile's lanes a multiple of
+    4) staging its row at every lanes a CTA: 128 threads (the first lpc
+    run the lanes) or, for the tile, whose every thread passes the flush's
+    barrier, its lpc; every word it stages stored exactly once from its
+    array (STEP3 win, tll and td; TOKENS tll at word 128), no other word
+    touched; no thread issuing more loads than the plan says (one, or
+    eight for the tile), each all of them before its first store."""
+    rng = np.random.default_rng(lpc)
+    win, tll, td = (_u32s(rng, 128) for _ in range(3))
+    sm = np.zeros(384, np.uint32)
+    info = np.zeros(3, np.int32)
+    assert shim.shim_row_stage(int(kind == "step3"), int(kind == "tile"),
+                               lpc, _ptr(win), _ptr(tll), _ptr(td),
+                               _ptr(sm), _ptr(info)) == 0
+    threads, per, most = (int(v) for v in info)
+    if kind == "tile":
+        assert threads == lpc and most <= per <= 8
+    else:
+        assert threads == 128 and most == per == 1
+    garbage = np.full(128, 0xA5A5A5A5, np.uint32)
+    want = ([win, tll, td] if kind == "step3" else [garbage, tll, garbage])
+    assert (sm == np.concatenate(want)).all()
 
 
 @pytest.mark.parametrize("rc", [128, 256])
@@ -1998,10 +2201,10 @@ def test_probe_dep_plan_stages_each_table_row_once(shim, rows, cols, t_rows,
 def test_probe_entries_take_only_their_arguments():
     """Each C entry of probes.cu takes exactly the ctypes arguments its
     wrapper declares (a pointer, an unsigned or an int each), ROLL,
-    REFILL, TRANSPOSE, DEP and STEP only their own; TRANSPOSE, DEP and
-    STEP set their kernels' attributes once a process, in a static
-    initialiser, never at a launch; the row roll's kernel keeps no shared
-    memory and no barrier."""
+    REFILL, TRANSPOSE, DEP, STEP and COLUMN only their own; TRANSPOSE,
+    DEP, STEP and COLUMN set their kernels' attributes once a process, in
+    a static initialiser, never at a launch; the row roll's kernel keeps
+    no shared memory and no barrier."""
     import re
 
     src = open(os.path.join(_build.TOOLS, "probes.cu")).read()
@@ -2013,10 +2216,12 @@ def test_probe_entries_take_only_their_arguments():
                     else "i" for a in params]
         assert declared == [kinds[t] for t in k.argtypes], k.symbol
     assert [len(k.argtypes) for k in (PR.ROLL, PR.REFILL, PR.TRANSPOSE,
-                                      PR.DEP, PR.STEP)] == [7, 11, 6, 11, 17]
+                                      PR.DEP, PR.STEP, PR.COLUMN)] == [
+        7, 11, 6, 11, 17, 11]
     for entry, prepare in (("qz_probe_transpose", "qzp_transpose_prepare"),
                            ("qz_probe_dep", "qzp_dep_prepare"),
-                           ("qz_probe_step", "qzp_step_prepare")):
+                           ("qz_probe_step", "qzp_step_prepare"),
+                           ("qz_probe_column", "qzp_column_prepare")):
         start = src.index(f'extern "C" int {entry}(')
         body = src[start:src.index("\n}\n", start)]
         assert f"static const int ready = {prepare}();" in body

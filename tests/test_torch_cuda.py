@@ -446,15 +446,21 @@ def test_probe_chain_rows_equal_plain(dev, mode, smem, t_rows, w, n):
                  lambda a, b: P.probe_chain(mode, a, b, 9, smem=smem), t, idx)
 
 
+# the TPU probes' heights (8, 64, 128, 512) and more: 128 rows to 1024,
+# one to four tensor-copy boxes of 256 rows, 1 to 32 index rows
 @pytest.mark.parametrize("n,rows,post", [(8, 8, 0xFFFFFFFF), (64, 1, 63),
-                                         (512, 8, 511)])
+                                         (128, 1, 127), (256, 3, 255),
+                                         (512, 8, 511), (1024, 32, 1023),
+                                         (1024, 4, 0xFFFFFFFF)])
 @pytest.mark.parametrize("smem", [True, False])
 def test_probe_chain_column_and_walk_equal_plain(dev, smem, n, rows, post):
+    """COLUMN through its own entry (qz_probe_column) and WALK: one launch
+    each, equal to plain, the table's values over the whole int32 range."""
     from qatzip_tpu_torch.tools import probes as P
 
-    rng = np.random.default_rng(n)
-    t, idx = _i32(rng, (n, 128), 0, n), _i32(rng, (rows, 128), 0, n)
-    _probe_check(dev, P.CHAIN, lambda a, b: P.probe_chain(
+    rng = np.random.default_rng(n + rows)
+    t, idx = _i32(rng, (n, 128)), _i32(rng, (rows, 128))
+    _probe_check(dev, P.COLUMN, lambda a, b: P.probe_chain(
         "column", a, b, 11, smem=smem, post=post), t, idx)
     x = _i32(rng, (8, 128))
     _probe_check(dev, P.CHAIN, lambda a: P.probe_chain(
@@ -469,12 +475,13 @@ def test_probe_alu_equals_plain(dev, mode):
     _probe_check(dev, P.ALU, lambda a: P.probe_alu(mode, a, 13), x)
 
 
-@pytest.mark.parametrize("lpc", [1, 8, 32])
+@pytest.mark.parametrize("lpc", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_probe_step_equals_plain(dev, lpc):
-    """STEP3 on random int32 tables; STEP5 with and without its tokens at
-    the TPU's root of 128 cells and the inflate's 256; TOKENS stored alone
-    and through a tile (lanes a CTA a multiple of 4), over five tiles so
-    that each of the two buffers is reused."""
+    """STEP3 on random int32 tables at every lanes a CTA (a CTA of 128
+    threads staging); STEP5 with and without its tokens at the TPU's root
+    of 128 cells and the inflate's 256 (1, 8 or 32 lanes a CTA); TOKENS
+    stored alone and through a tile (lanes a CTA a multiple of 4), over
+    five tiles so that each of the two buffers is reused."""
     from qatzip_tpu_torch.tools import probes as P
 
     rng = np.random.default_rng(lpc)
@@ -482,7 +489,7 @@ def test_probe_step_equals_plain(dev, lpc):
     bp = _i32(rng, (2, 128), 0, 1 << 16)
     _probe_check(dev, P.STEP, lambda *a: P.probe_step(
         "step3", "none", *a, 20, lanes_per_cta=lpc), win, tll, td, bp)
-    for rc in (128, 256):
+    for rc in ((128, 256) if lpc in P.STEP5_LPC else ()):
         w5 = _i32(rng, (128, 64))
         t5, d5 = _i32(rng, (rc + 256, 64)), _i32(rng, (rc + 256, 64))
         b5 = _i32(rng, (1, 64), 0, 1000)
@@ -744,6 +751,72 @@ def test_probe_step5_and_tokens_sync_free_and_graph_replayed(dev):
         P.probe_step("tokens", "tile", None, t, None, i0, 12,
                      lanes_per_cta=4, tile=8)
     assert P.STEP.launches == launches
+
+
+def test_probe_column_and_step3_sync_free_and_graph_replayed(dev):
+    """COLUMN (the TPU probes' three cases, a 1024-row column, 32 index
+    rows, the table through __ldg, a table 4 bytes past a 16-byte boundary,
+    copied first) and STEP3 (1 to 128 lanes a CTA) raise nothing under sync
+    debug mode "error", are captured in a CUDA graph and replay equal to
+    plain; COLUMN refuses a shape its kernel does not take (a column of
+    2048 or 96 entries, 33 index rows, 48 columns, a post below n - 1 or
+    not 2^p - 1) before launching."""
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(18)
+    cols = []
+    for n, rows, post, smem in ((8, 8, 0xFFFFFFFF, True),
+                                (128, 1, None, True), (512, 8, None, True),
+                                (1024, 32, None, True),
+                                (128, 1, None, False)):
+        cols.append((_i32(rng, (n, 128)).to(dev),
+                     _i32(rng, (rows, 128)).to(dev), post, smem))
+    flat = _i32(rng, (64 * 128 + 1,)).to(dev)
+    cols.append((flat[1:].view(64, 128), cols[1][1], 63, True))
+    win, tll, td = (_i32(rng, (4, 128)).to(dev) for _ in range(3))
+    bp = _i32(rng, (4, 128), 0, 1 << 16).to(dev)
+    lpcs = (1, 2, 4, 8, 16, 32, 64, 128)
+
+    def calls():
+        out = [P.probe_column(t, i, 9, smem=smem, post=post)
+               for t, i, post, smem in cols]
+        return out + [P.probe_step("step3", "none", win, tll, td, bp, 7,
+                                   lanes_per_cta=lpc)[0] for lpc in lpcs]
+
+    want = [P._column(t.cpu(), i.cpu(), 9,
+                      t.shape[0] - 1 if post is None else post)
+            for t, i, post, smem in cols]
+    want += [P.step_loop(win.cpu(), tll.cpu(), td.cpu(), bp.cpu(), 7)] * len(
+        lpcs)
+    before = (P.COLUMN.launches, P.STEP.launches)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            captured = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert (P.COLUMN.launches, P.STEP.launches) == (
+        before[0] + 2 * len(cols), before[1] + 2 * len(lpcs))
+    for o in captured:
+        o.fill_(-1)
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, captured, want, strict=True):
+        assert torch.equal(a.cpu(), w) and torch.equal(b.cpu(), w)
+    launches = P.COLUMN.launches
+    t, i = cols[1][0], cols[1][1]
+    for tt, ii, post in ((_i32(rng, (2048, 128)).to(dev), i, None),
+                         (_i32(rng, (96, 128)).to(dev), i, 127),
+                         (t, _i32(rng, (33, 128)).to(dev), None),
+                         (t[:, :48], i[:, :48], None), (t, i, 63),
+                         (t, i, 0x17F)):
+        with pytest.raises(ValueError, match="column runs on the card"):
+            P.probe_column(tt, ii, 9, post=post)
+    assert P.COLUMN.launches == launches
 
 
 def test_probe_roll_rows_keeps_no_shared_memory(dev):

@@ -201,8 +201,10 @@ def _ranks(args, force_sw="1"):
 
 
 def _expect(outs, *markers):
+    """Every rank printed each marker, and DIST DONE: it passed the closing
+    barrier and left its process group before it exited."""
     for rank, out in enumerate(outs):
-        for m in markers:
+        for m in (*markers, "DIST DONE"):
             assert m in out, f"rank {rank}: missing {m}\n{out[-2000:]}"
 
 

@@ -253,6 +253,47 @@ def test_groupsel(tpu, interpret):
     _eq(P.probe_chain("column", _t(t), _t(ig), 2), want)
 
 
+# the TPU probes' three COLUMN cases (B, C at N 64 and 128, C2 at 512) and
+# the card tests' other heights, through COLUMN's own wrapper
+@pytest.mark.parametrize("N,R,post", [(8, 8, 0xFFFFFFFF), (64, 1, None),
+                                      (128, 1, None), (512, 8, None),
+                                      (1024, 4, 0xFFFFFFFF), (16, 3, 31)])
+def test_probe_column_equals_plain(tpu, interpret, N, R, post):
+    """probe_column (the COLUMN kernel's wrapper) on CPU tensors equals the
+    TPU probe's function where it has one (mk_subshuf at N 8, mk_onehot
+    at one index row, post N - 1) and _column for every shape, as does
+    probe_chain's column mode, which is that wrapper."""
+    rng = _rng(N + R)
+    t = rng.integers(0, N, (N, 128)).astype(np.int32)
+    idx = rng.integers(0, N, (R, 128)).astype(np.int32)
+    want = P._column(_t(t), _t(idx), 5, N - 1 if post is None else post)
+    if N == 8:
+        _eq(want, tpu["inflate_step5"].mk_subshuf(0)(5)(t, idx))
+    if R == 1 and post is None:
+        _eq(want, tpu["inflate_step5"].mk_onehot(N)(5)(t, idx))
+    for smem in (True, False):
+        assert torch.equal(P.probe_column(_t(t), _t(idx), 5, smem=smem,
+                                          post=post), want)
+    assert torch.equal(P.probe_chain("column", _t(t), _t(idx), 5, post=post),
+                       want)
+
+
+def test_column_shapes_the_card_takes():
+    """COLUMN's kernel takes a column of n a power of 2 up to 1024 entries,
+    a multiple of 32 columns, 1-32 index rows and a post 2^p - 1 of at
+    least n - 1 (the mask it applies once, after the last step); any other
+    shape is refused by name."""
+    for n, rows, cols, post in ((8, 8, 128, 0xFFFFFFFF), (128, 1, 128, 127),
+                                (512, 8, 128, 511), (1024, 32, 32, 1023),
+                                (1, 1, 64, 0), (64, 1, 128, -1)):
+        P.column_check(n, rows, cols, post)
+    for bad in ((2048, 1, 128, 2047), (96, 1, 128, 127), (128, 33, 128, 127),
+                (128, 0, 128, 127), (128, 1, 48, 127), (128, 1, 16, 127),
+                (128, 1, 128, 63), (128, 1, 128, 0x17F), (0, 1, 128, 0)):
+        with pytest.raises(ValueError, match="column runs on the card"):
+            P.column_check(*bad)
+
+
 @pytest.mark.parametrize("K", [1, 2, 3])
 def test_transpose(tpu, interpret, K):
     """The TPU probe's [128, 128] tile in interpret mode; the port's other
