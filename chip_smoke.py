@@ -40,10 +40,11 @@ Run from the repository root:  python3 chip_smoke.py
    measure); the kernel's ptxas report (registers, shared memory, spills)
    and the CTAs the card holds a SM; then the first group through
    decode_blocks, equal to its chunks.  The construct probes
-   (tools/probe_bench.py): the STEP5, TOKENS tile, COLUMN and STEP3
-   kernels' loops read from the library's SASS; ROLL, REFILL, TRANSPOSE,
-   DEP, COLUMN, STEP3, STEP5 and TOKENS under sync debug mode "error" and
-   replayed from a CUDA graph, the launch floor (an empty kernel) and the
+   (tools/probe_bench.py): the STEP5, TOKENS tile, COLUMN, STEP3, INDEP,
+   BITONIC, HASH, EW and DOUBLE kernels' loops read from the library's
+   SASS; ROLL, REFILL, TRANSPOSE, DEP, COLUMN, STEP3, STEP5, TOKENS, INDEP
+   and BITONIC under sync debug mode "error" and replayed from a CUDA
+   graph, the launch floor (an empty kernel) and the
    host pieces of a launch, then every probe equal to its plain version
    (a latency bound beside the latency-bound ones), timed host-paced and
    graph-replayed beside its PyTorch call, and slope-timed (TRANSPOSE with
@@ -332,13 +333,14 @@ def phase_select(torch, corpus: bytes, dev) -> list:
 
 
 def phase_probes(torch, dev) -> list:
-    """The construct probes' library built, and the STEP5, TOKENS tile,
-    COLUMN and STEP3 kernels' loops read from its SASS (instructions,
-    shared-memory loads and the dependent chain a step); the ROLL, REFILL,
-    TRANSPOSE, DEP, COLUMN, STEP3, STEP5 and TOKENS wrappers under sync
-    debug mode "error" and replayed from a CUDA graph; then the launch
-    floor, the host pieces of a launch and every case of
-    tools/probe_bench.py: the kernel equal to its plain version, timed
+    """The construct probes' library built, and the loops of the kernels
+    of probe_bench.SASS_KERNELS (STEP5, the TOKENS tile, COLUMN, STEP3,
+    INDEP, BITONIC, HASH, EW, DOUBLE) read from its SASS (instructions,
+    shared-memory loads, shuffles and the dependent chain a step); the
+    ROLL, REFILL, TRANSPOSE, DEP, COLUMN, STEP3, STEP5, TOKENS, INDEP and
+    BITONIC wrappers under sync debug mode "error" and replayed from a CUDA
+    graph; then the launch floor, the host pieces of a launch and every
+    case of tools/probe_bench.py: the kernel equal to its plain version, timed
     host-paced and graph-replayed beside its PyTorch call, and slope-timed
     (ns and clock64() ticks a unit).  Returns the cases' records."""
     from qatzip_tpu_torch.ops import _build
@@ -349,10 +351,10 @@ def phase_probes(torch, dev) -> list:
     _build.library(_build.PROBES)
     print(f"probe build: {time.perf_counter() - t0:.2f} s ({path})")
     sass = PB.sass_report({"this": path})
-    _check(len(sass) == len(PB.SASS_KERNELS)
+    _check(len(sass) == len(PB.SASS_KERNELS) == 12
            and all("chain" in r for r in sass),
-           "the STEP5, TOKENS tile, COLUMN and STEP3 kernels' loops not "
-           "found in the SASS")
+           "the STEP5, TOKENS tile, COLUMN, STEP3, INDEP, BITONIC, HASH, EW "
+           "and DOUBLE kernels' loops not found in the SASS")
     PB.graph_safe(dev)
     t0 = time.perf_counter()
     recs = PB.run(dev)

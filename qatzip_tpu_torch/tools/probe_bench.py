@@ -22,9 +22,11 @@ by time.perf_counter.  The inputs come from a torch.Generator seeded per
 case.  ``--against`` builds each named checkout's probes.cu (an earlier
 commit unpacked with ``git archive`` under ``build/``) and times its ROLL,
 REFILL, TRANSPOSE, DEP (p_gather and the two slopes chip_smoke reads),
-COLUMN, STEP3, STEP5 and TOKENS wrappers and kernels beside this
-checkout's in turns (old, new, new, old).  chip_smoke.py runs the same
-cases (``run``) and puts their records in its kernels line.
+COLUMN, STEP3, STEP5, TOKENS, INDEP and BITONIC wrappers and kernels
+beside this checkout's in turns (old, new, new, old); INDEP also over
+lanes that stay in order (no bank conflict) beside random ones.
+chip_smoke.py runs the same cases (``run``) and puts their records in its
+kernels line.
 """
 from __future__ import annotations
 
@@ -114,19 +116,37 @@ def _elementwise(ops_per_step: int):
 
 def _chain_case(name, mode, replaces, shape, t_shape, i_shape, k, k_lo, k_hi,
                 *, smem=True, ops=2, units="dependent load a lane",
-                library=None, dep_loads=0):
-    """Tables of values in [0, 2^20), indexes in range of the table."""
-    def make(gen):
+                library=None, dep_loads=0, make=None):
+    """Tables of values in [0, 2^20), indexes in range of the table (or
+    make's inputs).  An INDEP case calls another checkout's wrapper in
+    --against, and times an empty kernel of its grid beside it."""
+    def tables(gen):
         return (_ints(gen, 0, 1 << 20, t_shape),
                 _ints(gen, 0, t_shape[-1], i_shape))
 
-    return Case(name, "qz_probe_dep" if mode == "dep" else "qz_probe_chain",
-                replaces, shape, units, make,
-                lambda x, K, clk=None: P.probe_chain(mode, x[0], x[1], K,
-                                                     smem=smem, clk=clk),
+    def call(mod, x, K, clk=None):
+        return mod.probe_chain(mode, x[0], x[1], K, smem=smem, clk=clk)
+
+    indep = mode != "dep"
+    threads = min(128, -(-i_shape[-1] // 32) * 32)
+    return Case(name, "qz_probe_indep" if indep else "qz_probe_dep",
+                replaces, shape, units, make or tables,
+                lambda x, K, clk=None: call(P, x, K, clk),
                 lambda x, K: _PLAIN_CHAIN[mode](x, K), k, k_lo, k_hi,
-                _elementwise(ops), library, args={"smem": smem},
-                dep_loads=dep_loads)
+                _elementwise(ops), library,
+                args={"call": call, "smem": smem} if indep else
+                {"smem": smem}, dep_loads=dep_loads,
+                ctas=(-(-i_shape[-1] // threads) * i_shape[0]) if indep
+                else 0)
+
+
+def _lanes_in_order(gen):
+    """INDEP's inputs with every warp's lanes on consecutive words at every
+    step (a table of ones, idx[r, j] = j), so that no load of a row staged
+    once queues on a bank: against random indexes, what bank conflicts
+    cost."""
+    return (torch.ones((128, 128), dtype=torch.int32),
+            torch.arange(128, dtype=torch.int32).repeat(128, 1))
 
 
 _PLAIN_CHAIN = {
@@ -163,25 +183,31 @@ def _walk_case():
     def make(gen):
         return (_u32(gen, (8, 128)),)
 
+    def call(mod, x, K, clk=None):
+        return mod.probe_chain("walk", x[0], None, K, clk=clk)
+
     return Case("probe_chain_walk", "qz_probe_chain",
                 "tools/probe_pallas.py:107",
                 "[8, 128], one thread", "serial step", make,
-                lambda x, K, clk=None: P.probe_chain("walk", x[0], None, K,
-                                                     clk=clk),
+                lambda x, K, clk=None: call(P, x, K, clk),
                 lambda x, K: P.scalar_walk(x[0], K), 512, 4096, 16384,
-                lambda x, K: (_nbytes(x[0]) + 4, K * 5), dep_loads=1)
+                lambda x, K: (_nbytes(x[0]) + 4, K * 5),
+                args={"call": call}, dep_loads=1)
 
 
 def _alu_case(name, mode, replaces, plain, shape, k, library=None):
     def make(gen):
         return (_u32(gen, shape),)
 
+    def call(mod, x, K, clk=None):
+        return mod.probe_alu(mode, x[0], K, clk)
+
     return Case(name, "qz_probe_alu", replaces, str(list(shape)),
-                "step a lane", make,
-                lambda x, K, clk=None: P.probe_alu(mode, x[0], K, clk),
+                "step a lane", make, lambda x, K, clk=None: call(P, x, K, clk),
                 lambda x, K: plain(x[0], K), k, 16384, 131072,
-                _elementwise({"hash": 6, "ew": 3, "double": 1}[mode]),
-                library)
+                _elementwise({"hash": 6, "ew": 3, "double": 1, "shfl": 1,
+                              "bar": 1}[mode]), library,
+                args={"call": call})
 
 
 def _step3_case(lpc):
@@ -332,13 +358,16 @@ def _bitonic_case(segment, replaces):
             return torch.sort(x[0].reshape(-1)).values
         return torch.sort(x[0], dim=1 if segment == "rows" else 0).values
 
+    def call(mod, x, K, clk=None):
+        return mod.probe_bitonic(x[0], segment, K, clk)
+
     return Case(f"probe_tile_bitonic_{segment}", "qz_probe_tile", replaces,
                 f"[8, 128], segments of {n}", "sort of the tile", make,
-                lambda x, K, clk=None: P.probe_bitonic(x[0], segment, K, clk),
+                lambda x, K, clk=None: call(P, x, K, clk),
                 lambda x, K: P.bitonic(x[0], segment), 1, 16, 64,
                 lambda x, K: (2 * _nbytes(x[0]),
                               K * 3 * 512 * lg * (lg + 1) // 2),
-                library)
+                library, args={"call": call, "seg_n": n})
 
 
 def _sort_case(B):
@@ -362,6 +391,9 @@ _DEP = ("tools/probe_inflate_step.py:53, tools/probe_inflate_step3.py:44, "
 _COLUMN = ("tools/probe_inflate_step5.py:63 (mk_subshuf, mk_onehot, "
            "mk_groupsel)")
 _REFILL_D = "tools/probe_inflate_step.py:121"
+# SHFL and BAR replace no TPU kernel: the units of BITONIC's stages across
+# threads, in which its design's latency figure is counted
+_NONE = "none (BITONIC's stages across threads)"
 
 
 def _cases() -> list:
@@ -380,6 +412,12 @@ def _cases() -> list:
                     "tools/probe_inflate_step.py:74", "[128, 128], W 8",
                     (128, 128), (128, 128), 4, 2048, 8192, ops=25,
                     units="step of 8 independent loads a lane", dep_loads=1),
+        _chain_case("probe_chain_indep8_lanes_in_order", "indep8",
+                    "tools/probe_inflate_step.py:74",
+                    "[128, 128], W 8, a table of ones, idx[r, j] = j",
+                    (128, 128), (128, 128), 4, 2048, 8192, ops=25,
+                    units="step of 8 independent loads a lane", dep_loads=1,
+                    make=_lanes_in_order),
         _chain_case("probe_chain_dep_grid32", "dep", _DEP,
                     "[32 x 512, 128] (p_chain_grid)", (16384, 128),
                     (16384, 128), 16, 16, 64),
@@ -417,6 +455,9 @@ def _cases() -> list:
                   P.ew, (128, 128), 8),
         _alu_case("probe_alu_double", "double", "tools/probe_pallas.py:53",
                   P.double, (8, 128), 1, library=lambda x: x[0] * 2),
+        _alu_case("probe_alu_shfl", "shfl", _NONE, P.shfl_pairs, (128, 128),
+                  8),
+        _alu_case("probe_alu_bar", "bar", _NONE, P.count_up, (128, 128), 8),
         _step3_case(32),
         _step3_case(1),
         _step5_case(128, 256, 1),
@@ -469,14 +510,23 @@ CLK_WORDS = 64      # a slope's clk: the ticks, then a cluster's SMs
 # --against times: these kernels' and, by case name, STEP3's, STEP5's and
 # TOKENS'
 REDESIGNED = ("qz_probe_roll", "qz_probe_refill", "qz_probe_transpose",
-              "qz_probe_dep", "qz_probe_column")
+              "qz_probe_dep", "qz_probe_column", "qz_probe_indep",
+              "qz_probe_tile")
 STEP_REDESIGNED = ("probe_step_step3_", "probe_step_step5_",
                    "probe_step_tokens_")
+# a dependent integer instruction on an H100, in clocks: the STEP5
+# skeleton's carried SASS chain (27 instructions, 5 of them loads) against
+# its clocks a step (PERF.md §6)
+INT_CLOCKS = 4.5
 # the dependent shared-memory load that latency bounds are counted in
 DEP_LOAD = f"probe_chain_dep_{INFLATE_LANES}l_{INFLATE_WORDS}w"
 AGAINST_DEP = ("probe_chain_gather128", "probe_chain_gather1024",
                "probe_chain_dep", f"probe_chain_dep_{INFLATE_LANES}l_"
                f"{INFLATE_WORDS}w")
+# the probes left as they were, whose slopes --against holds beside the
+# redesigned ones'
+AGAINST_OTHER = ("probe_chain_walk", "probe_alu_hash", "probe_alu_ew",
+                 "probe_alu_double")
 
 
 def redesigned(case: Case) -> bool:
@@ -664,7 +714,17 @@ def line(rec: dict) -> str:
     if rec["library_ms"] is not None:
         s += (f", library call {rec['library_ms']:.4f} host-paced, "
               f"{rec['library_graph_ms']:.4f} graph-replayed")
-    if "latency_bound_ms" in rec:
+    if "latency_bound_ms" in rec and "stages" in rec:
+        st = rec["stages"]
+        s += (f", latency bound {rec['latency_bound_ms']:.6f} ms "
+              f"({sum(st.values())} stages x {INT_CLOCKS} clocks = "
+              f"{rec['latency_bound_clocks']:.1f}), this design's "
+              f"{rec['design_ms']:.6f} ms ({st['regs']} in registers x "
+              f"{INT_CLOCKS}, {st['shfl']} shuffles x "
+              f"{rec['shfl_clocks']:.1f}, {st['smem']} x a load and a "
+              f"barrier {rec['lds_bar_clocks']:.1f} = "
+              f"{rec['design_clocks']:.1f} clocks)")
+    elif "latency_bound_ms" in rec:
         s += (f", latency bound {rec['latency_bound_ms']:.6f} ms (K x "
               "dependent loads a unit x the dependent load)")
     if "launch_floor_ms" in rec:
@@ -707,13 +767,42 @@ def run(dev=torch.device("cuda", 0), log=print,
         if case.dep_loads and dep_ns is not None:
             recs[-1].update(latency_bound_ms=case.k * case.dep_loads
                             * dep_ns * 1e-6)
+        if "seg_n" in case.args:
+            recs[-1].update(_sort_bounds(case, recs))
         log(line(recs[-1]))
     return recs
 
 
+def _sort_bounds(case: Case, recs: list) -> dict:
+    """A BITONIC case's latency bounds, in clocks and in ms at the clock
+    rate the dependent-load case ran at: the least any design needs (the
+    network's stages, each one dependent integer instruction), and this
+    design's (a stage in registers one instruction, across lanes a
+    measured shuffle, across warps a measured dependent load and
+    barrier); {} without the dependent load, shuffle and barrier records
+    of this run."""
+    by = {r["name"]: r for r in recs}
+    if not {DEP_LOAD, "probe_alu_shfl", "probe_alu_bar"} <= set(by):
+        return {}
+    dep = by[DEP_LOAD]
+    ghz = dep["clocks_per_unit"] / dep["ns_per_unit"]
+    m = case.args["seg_n"]
+    st = P.bitonic_plan(m, m)["stages"]
+    shfl = by["probe_alu_shfl"]["clocks_per_unit"]
+    lds_bar = dep["clocks_per_unit"] + by["probe_alu_bar"]["clocks_per_unit"]
+    least = sum(st.values()) * INT_CLOCKS
+    design = (st["regs"] * INT_CLOCKS + st["shfl"] * shfl
+              + st["smem"] * lds_bar)
+    return {"stages": st, "latency_bound_clocks": least,
+            "latency_bound_ms": case.k * least / ghz * 1e-6,
+            "shfl_clocks": shfl, "lds_bar_clocks": lds_bar,
+            "design_clocks": design,
+            "design_ms": case.k * design / ghz * 1e-6}
+
+
 def graph_safe(dev, log=print) -> int:
-    """The ROLL, REFILL, TRANSPOSE, DEP, COLUMN, STEP3, STEP5 and TOKENS
-    cases' wrappers under
+    """The ROLL, REFILL, TRANSPOSE, DEP, COLUMN, STEP3, STEP5, TOKENS,
+    INDEP and BITONIC cases' wrappers under
     ``torch.cuda.set_sync_debug_mode("error")`` (a call that synchronises
     raises), then captured in a CUDA graph and replayed: each result equal
     to plain.  Returns the cases checked."""
@@ -742,7 +831,8 @@ def graph_safe(dev, log=print) -> int:
             raise AssertionError(f"{case.name}: != plain under sync debug "
                                  "mode or from a graph")
     log(f"probe graph safety: {len(cases)} ROLL, REFILL, TRANSPOSE, DEP, "
-        "COLUMN, STEP3, STEP5 and TOKENS cases raise nothing under sync "
+        "COLUMN, STEP3, STEP5, TOKENS, INDEP and BITONIC cases raise "
+        "nothing under sync "
         "debug mode \"error\" and replay from a CUDA graph equal to plain")
     return len(cases)
 
@@ -805,11 +895,12 @@ def build_against(roots: dict) -> dict:
 
 def _against_cases(only=None) -> list:
     """The cases --against times: ROLL, REFILL, TRANSPOSE, COLUMN, STEP3,
-    STEP5 and TOKENS, p_gather and the two DEP slopes that chip_smoke
-    reads; only: their names, if given."""
+    STEP5, TOKENS, INDEP and BITONIC, p_gather and the two DEP slopes that
+    chip_smoke reads, WALK, HASH, EW and DOUBLE; only: their names, if
+    given."""
     return [c for c in CASES
             if ((redesigned(c) and c.kernel != "qz_probe_dep")
-                or c.name in AGAINST_DEP)
+                or c.name in AGAINST_DEP + AGAINST_OTHER)
             and (not only or c.name in only)]
 
 
@@ -852,15 +943,15 @@ def _calls(mod, case: Case, x: tuple, xd: tuple):
 
 
 def against(mods: dict, dev, log=print, only=None) -> list:
-    """The ROLL, REFILL, TRANSPOSE, COLUMN, STEP3, STEP5, TOKENS, p_gather
-    and DEP slope cases through each checkout's wrapper and library, in
-    turns (the others, this, this, the others): each equal to plain, then
-    host-paced and graph-replayed ms (20 calls each) and, where the case has
-    one, the slope over its K_lo..K_hi (5 host-paced calls at each) and, for
-    COLUMN, STEP3, STEP5 and TOKENS, the kernel's clock64() ticks a unit
-    over the same K; only:
-    the cases' names, if given.  Returns a record a case and checkout
-    turn."""
+    """The cases of :func:`_against_cases` through each checkout's wrapper
+    and library, in turns (the others, this, this, the others): each equal
+    to plain, then host-paced and graph-replayed ms (20 calls each) and,
+    where the case has one, the slope over its K_lo..K_hi (5 host-paced
+    calls at each) and, for every case but ROLL, REFILL, TRANSPOSE and
+    DEP's, the kernel's clock64() ticks a unit over the same K; INDEP's
+    and STEP3's also graph-replayed at K 0 (the staging and launch alone);
+    only: the cases' names, if given.  Returns a record a case and
+    checkout turn."""
     order = list(mods) + list(reversed(mods))
     recs = []
     for case in _against_cases(only):
@@ -894,8 +985,12 @@ def against(mods: dict, dev, log=print, only=None) -> list:
                     ticks.append(int(clk[0]))
                 rec["clocks_per_unit"] = ((ticks[1] - ticks[0])
                                           / (case.k_hi - case.k_lo))
+            if case.ctas:   # the kernel's fixed part: its staging, launch
+                rec["graph_ms_k0"] = graph_ms(lambda: launch(0), GRAPH_REPS)
             recs.append(rec)
             cells.append(f"{label} {rec['ms']:.4f} / {rec['graph_ms']:.4f}"
+                         + (f" (K 0: {rec['graph_ms_k0']:.4f})"
+                            if "graph_ms_k0" in rec else "")
                          + (f" ({rec['ns_per_unit']:.1f} ns"
                             if "ns_per_unit" in rec else "")
                          + (f", {rec['clocks_per_unit']:.1f} clocks"
@@ -910,11 +1005,16 @@ def against(mods: dict, dev, log=print, only=None) -> list:
 # -- the step's code ----------------------------------------------------------
 
 # The STEP5 kernel at one lane a CTA, root 256, no tokens, the TOKENS tile
-# kernel, the COLUMN kernel over shared memory and the STEP3 kernel, by
+# kernel, the COLUMN kernel over shared memory, the STEP3 kernel, the INDEP
+# kernels at R = 32 and the BITONIC kernels of the three [8, 128] cases, by
 # their mangled names' heads (the STEP5 kernel: a template of its own; an
 # older checkout's: qzp_step<1, 0>; COLUMN's staged by tensor copies, or
 # by loads (qzp_column<true>), or behind qz_probe_chain before its own
-# entry (qzp_chain_column<true>)), and the loads of a step.
+# entry (qzp_chain_column<true>); INDEP's behind qz_probe_chain before its
+# own entry (qzp_chain_rows<mode, true>); BITONIC's one kernel for every
+# segment before a kernel a segment length) and the HASH, EW and DOUBLE
+# chains, and the loads of a step (0: a trip of the loop is a step, a
+# sort; an opcode: the instruction a step issues once).
 SASS_KERNELS = {
     "step5": (("_Z9qzp_step5I10QzpS5ShapeILi128ELi256ELi256EELi1ELi0EE",
                "_Z8qzp_stepILi1ELi0EE"), 7),
@@ -922,6 +1022,16 @@ SASS_KERNELS = {
     "column": (("_Z14qzp_column_tma", "_Z10qzp_columnILb1EE",
                 "_Z16qzp_chain_columnILb1EE"), 1),
     "step3": (("_Z8qzp_stepILi0ELi0EE",), 6),
+    "indep4": (("_Z9qzp_indepILi4ELi32EE", "_Z14qzp_chain_rowsILi1ELb1EE"),
+               4),
+    "indep8": (("_Z9qzp_indepILi8ELi32EE", "_Z14qzp_chain_rowsILi2ELb1EE"),
+               8),
+    "bitonic flat": (("_Z11qzp_bitonicILi1024EE", "_Z11qzp_bitonic7"), 0),
+    "bitonic rows": (("_Z11qzp_bitonicILi128EE",), 0),
+    "bitonic cols": (("_Z11qzp_bitonicILi8EE",), 0),
+    "hash": (("_Z7qzp_aluILi0EE",), "IMAD"),
+    "ew": (("_Z7qzp_aluILi1EE",), "IMAD"),
+    "double": (("_Z7qzp_aluILi2EE",), "IMAD"),
 }
 
 
@@ -958,14 +1068,17 @@ def _regs(text: str) -> list:
     return re.findall(r"\bU?[RP]\d+\b", text)
 
 
-def loop_chain(ins: list, loads_per_step: int) -> dict:
-    """The loop of a kernel's SASS with the most shared-memory loads
-    (LDS): its instructions and LDS, the steps it holds (LDS over
-    loads_per_step), and its longest chain of register dependences carried
-    round the loop (instructions an iteration: how much deeper a register
-    is after the third copy of the body than after the second, the
-    dependences followed through three copies), each a step.  A branch
-    names its target by label or by address."""
+def loop_chain(ins: list, unit) -> dict:
+    """The loop of a kernel's SASS with the most shared-memory loads (LDS),
+    then warp shuffles (SHFL), the innermost of equals: its instructions,
+    LDS and SHFL, the steps it holds (unit: LDS a step, an int; one a trip
+    where that is 0; or the opcode a step issues once, a str), and its
+    longest chain of register dependences carried round the loop
+    (instructions an iteration: how much deeper a register is after the
+    third copy of the body than after the second, the dependences followed
+    through three copies), each a step.  A branch names its target by
+    label or by address."""
+    loads_per_step = unit if isinstance(unit, int) else 0
     at = {}
     for i, x in enumerate(ins):
         key = x[2] if x[1] == "label" else x[0]
@@ -982,19 +1095,22 @@ def loop_chain(ins: list, loads_per_step: int) -> dict:
         if at.get(key, j) >= j:
             continue
         body = [x[1:] for x in ins[at[key]:j + 1] if x[1] != "label"]
-        lds = sum(1 for x in body if x[1].startswith("LDS"))
-        if best is None or lds > best[1]:
-            best = (body, lds)
-    if best is None or not best[1]:
+        rank = (sum(1 for x in body if x[1].startswith("LDS")),
+                sum(1 for x in body if x[1].startswith("SHFL")), -len(body))
+        if best is None or rank > best[1]:
+            best = (body, rank)
+    if best is None or (loads_per_step and not best[1][0]):
         return {}
-    body, lds = best
+    body, (lds, shfl, _) = best
     depth, last = {}, {}   # instruction depth; a register's last writer's
     ends = []   # each copy's {register: its last writer's depth}
     for rep in range(3):
         for i, (pred, op, opnds) in enumerate(body):
             parts = [p.strip() for p in opnds.split(",")]
             ndest = (0 if op.startswith(_NO_DEST)
-                     else 2 if op.startswith(("ISETP", "FSETP", "PLOP3"))
+                     else 2 if (op.startswith(("ISETP", "FSETP", "PLOP3"))
+                                or (op.startswith("SHFL")
+                                    and parts[0].startswith("P")))
                      and len(parts) > 1 else 1)
             dests = [r for p in parts[:ndest] for r in _regs(p)]
             srcs = _regs(pred) + [r for p in parts[ndest:]
@@ -1009,16 +1125,19 @@ def loop_chain(ins: list, loads_per_step: int) -> dict:
                         n = int(re.sub(r"\D", "", r))
                         last[r[:-len(str(n))] + str(n + 1)] = (rep, i)
         ends.append({r: depth[w] for r, w in last.items() if w[0] == rep})
-    steps = max(1, lds // loads_per_step)
+    steps = (max(1, lds // loads_per_step) if loads_per_step
+             else 1 if not unit
+             else max(1, sum(1 for x in body if x[1].startswith(unit))))
     carried = max((d - ends[1][r] for r, d in ends[2].items()
                    if r in ends[1]), default=0)
     return {"instructions": len(body) / steps, "lds": lds / steps,
-            "steps_in_loop": steps, "chain": carried / steps}
+            "shfl": shfl / steps, "steps_in_loop": steps,
+            "chain": carried / steps}
 
 
 def sass_report(libs: dict, log=print) -> list:
-    """loop_chain of the STEP5, TOKENS tile, COLUMN and STEP3 kernels in
-    each library ({label: path}), a line each."""
+    """loop_chain of each kernel of SASS_KERNELS in each library ({label:
+    path}), a line each."""
     recs = []
     for label, lib in libs.items():
         funcs = sass_functions(lib)
@@ -1042,8 +1161,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", nargs="*", default=[],
                     help="roots of other checkouts whose ROLL, REFILL, "
-                         "TRANSPOSE, DEP, COLUMN, STEP3, STEP5 and TOKENS "
-                         "to time beside this one's")
+                         "TRANSPOSE, DEP, COLUMN, STEP3, STEP5, TOKENS, "
+                         "INDEP and BITONIC to time beside this one's")
     ap.add_argument("--only", nargs="*", default=None,
                     help="the cases to time, by name (all)")
     args = ap.parse_args()

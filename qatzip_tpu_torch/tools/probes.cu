@@ -13,17 +13,21 @@
 // bytes to reach the memory rate, so the bounds chip_smoke.py prints are
 // far below the times, and the time a step is the number to read.
 //
-// The kernels, each a template over what it probes, behind ten C entries:
+// The kernels, each a template over what it probes, behind eleven C
+// entries:
 //   qz_probe_dep    dependent table lookups (DEP), a table row staged once
 //                   a cluster into each CTA's shared memory, or the table
 //                   read with __ldg.
 //   qz_probe_column dependent lookups down a lane's column (COLUMN), a
 //                   block of 32 columns staged by 2-D bulk tensor copies
 //                   onto one mbarrier, or read with __ldg.
-//   qz_probe_chain  table lookups: W independent (INDEP), one thread's
-//                   serial walk (WALK); the table in shared memory or read
-//                   with __ldg.
-//   qz_probe_alu    register-only integer chains (HASH, EW, DOUBLE).
+//   qz_probe_indep  W independent table lookups a step (INDEP), a table
+//                   row staged R times over, so that a warp's lanes read
+//                   distinct banks, or read with __ldg.
+//   qz_probe_chain  one thread's serial walk (WALK), the table in shared
+//                   memory or read with __ldg.
+//   qz_probe_alu    register-only integer chains (HASH, EW, DOUBLE), and
+//                   a dependent warp shuffle or barrier a step (SHFL, BAR).
 //   qz_probe_step   a decode step (STEP3, STEP5, TOKENS) with per-lane
 //                   window and tables in shared memory, 1-128 lanes a CTA
 //                   (STEP5: 1, 8 or 32), tokens stored not at all, one
@@ -34,7 +38,9 @@
 //                   least 128 threads (TOKENS' tile: its lanes); STEP5 is
 //                   built for its cases' shapes and widens the table
 //                   entries on the way.
-//   qz_probe_tile   BITONIC sorts of a tile's segments in one CTA.
+//   qz_probe_tile   BITONIC sorts of a tile's segments in one CTA, the
+//                   network's pairs in registers, warp shuffles and, across
+//                   warps only, shared memory.
 //   qz_probe_transpose  TRANSPOSE over a thread-block cluster, a 32 x 32
 //                   block a CTA, swapped with its partner through
 //                   distributed shared memory (st.async on the partner's
@@ -75,6 +81,15 @@ __device__ inline unsigned qzp_smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
+// A 4-byte load at a shared-memory byte address
+struct QzpLds {
+  __device__ uint32_t operator()(uint32_t a) const {
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
+    return v;
+  }
+};
+
 __device__ inline bool qzp_timer_thread() {
   return threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0;
 }
@@ -90,54 +105,177 @@ __device__ inline void qzp_cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// -- qz_probe_chain -----------------------------------------------------------
+// -- qz_probe_indep ----------------------------------------------------------
+//
+// INDEP: K steps a thread of W independent lookups summed onto its index,
+// over int32 [rows, cols] indexes and a [1, w] or [rows, w] table (w a
+// power of 2): v = (v + sum of t[r, (v + x) & (w - 1)], x < W) & (w - 1).
+// Block (x, y) takes elements x * blockDim.x ... of row y (at most 128
+// threads) and reads the row's table (row y, or row 0 of a one-row table).
+// Staged (smem), a CTA loads its lane's index first, then stages its table
+// row replicated for the banks (R copies of each word, lane l reading copy
+// l % R, the first W - 1 words wrapped past the row's end, each copy the
+// word shifted as the sums run), a thread a word, its loads in flight
+// (qzp_stage), its copies by 16-byte stores (qzp_indep_unit_at); a step
+// is then one AND-OR for its address, W loads at immediate offsets and W
+// adds (qzp_indep_step), the sum masked once at the end.  R = 32 at the
+// probe's 128-word rows, so that each load of a warp is one wavefront: the
+// row read at random indexes by 32 lanes at once queued ~3 wavefronts a
+// load.  Or the table is read with __ldg, each lookup masked.  Bound by
+// latency: a step waits for its W loads, which do not wait for each other,
+// and for the shared-memory pipe that 4 warps' W loads a step share.
 
-// the modes of qz_probe_chain (DEP: qz_probe_dep; COLUMN: qz_probe_column)
-enum { QZP_INDEP4 = 1, QZP_INDEP8 = 2, QZP_WALK = 4 };
+// the staged words a thread loads at once
+#define QZP_INDEP_PER 4
 
-struct QzpChain {
-  const uint32_t* t;  // [t_rows, t_cols] rows (INDEP: t_rows 1 or rows)
-  int t_rows, t_cols;
+struct QzpIndep {
+  const uint32_t* t;  // [t_rows, w]
+  int t_rows, w;
   const uint32_t* idx;  // [rows, cols]
-  uint32_t* out;        // [rows, cols]; WALK: [1]
+  uint32_t* out;        // [rows, cols]
   int rows, cols, K;
-  uint32_t mask;
   long long* clk;
 };
 
-// INDEP: block (x, y) takes elements x * blockDim.x ... of row y and reads
-// the row's table (row y, or row 0 of a one-row table).
-template <int MODE, bool SMEM>
-__global__ void qzp_chain_rows(QzpChain a) {
-  extern __shared__ __align__(16) uint32_t sm[];
-  const int r = blockIdx.y;
-  const uint32_t* g = a.t + (int64_t)(a.t_rows == 1 ? 0 : r) * a.t_cols;
-  const uint32_t* row = g;
-  if (SMEM) {
-    for (int c = threadIdx.x; c < a.t_cols; c += blockDim.x) sm[c] = g[c];
-    __syncthreads();
-    row = sm;
-  }
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= a.cols) return;
-  uint32_t v = a.idx[(int64_t)r * a.cols + j];
-  const long long t0 = clock64();
-  for (int k = 0; k < a.K; ++k) {
-    if (SMEM)
-      v = qzp_indep_step<MODE == QZP_INDEP4 ? 4 : 8>(row, v, a.mask);
-    else {
-      uint32_t acc = v;
-#pragma unroll
-      for (int w = 0; w < (MODE == QZP_INDEP4 ? 4 : 8); ++w)
-        acc += __ldg(row + ((v + (uint32_t)w) & a.mask));
-      v = acc & a.mask;
-    }
-  }
-  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
-  a.out[(int64_t)r * a.cols + j] = v;
+__device__ inline int64_t qzp_indep_elem(const QzpIndep& a) {
+  return (int64_t)blockIdx.y * a.cols + blockIdx.x * blockDim.x +
+         threadIdx.x;
 }
 
-// WALK: one thread walks K steps over the [t_rows, t_cols] tile.
+template <int W, int R>
+__global__ void __launch_bounds__(128) qzp_indep(QzpIndep a) {
+  constexpr int S = qzp_indep_shift<R>();
+  extern __shared__ __align__(16) uint32_t sm[];
+  const bool live = blockIdx.x * blockDim.x + threadIdx.x < a.cols;
+  uint32_t v = live ? a.idx[qzp_indep_elem(a)] : 0u;   // before the staging
+  const uint32_t* g =
+      a.t + (a.t_rows == 1 ? 0 : (int64_t)blockIdx.y * a.w);
+  constexpr int V = qzp_indep_v<R>();
+  const int n = blockDim.x, t = threadIdx.x, words = qzp_indep_words(a.w, W);
+  for (int b = 0; b < words; b += QZP_INDEP_PER * n)
+    qzp_stage<QZP_INDEP_PER, 1>(
+        t, n, words - b,
+        [&](int i, uint32_t(&x)[1]) { x[0] = g[(b + i) & (a.w - 1)] << S; },
+        [&](int i, const uint32_t* x) {
+#pragma unroll
+          for (int j = 0; j < R / V; ++j) {
+            uint32_t* at = sm + qzp_indep_unit_at<R>(b + i, j, t);
+            if constexpr (V == 4)
+              *(uint4*)at = make_uint4(x[0], x[0], x[0], x[0]);
+            else if constexpr (V == 2)
+              *(uint2*)at = make_uint2(x[0], x[0]);
+            else
+              *at = x[0];
+          }
+        });
+  __syncthreads();
+  if (!live) return;
+  const uint32_t mask = (uint32_t)a.w - 1u;
+  const uint32_t lane = 4u * (threadIdx.x & (R - 1));
+  const char* row = (const char*)sm;
+  const auto ld = [row](uint32_t off) {
+    return *(const uint32_t*)(row + off);
+  };
+  uint32_t u = v << S;
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k)
+    u = qzp_indep_step<W, R>(lane, u, mask << S, ld);
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  a.out[qzp_indep_elem(a)] = (u >> S) & mask;
+}
+
+template <int W>
+__global__ void __launch_bounds__(128) qzp_indep_ldg(QzpIndep a) {
+  if (blockIdx.x * blockDim.x + threadIdx.x >= a.cols) return;
+  const uint32_t* row =
+      a.t + (a.t_rows == 1 ? 0 : (int64_t)blockIdx.y * a.w);
+  const uint32_t mask = (uint32_t)a.w - 1u;
+  uint32_t v = a.idx[qzp_indep_elem(a)];
+  const long long t0 = clock64();
+  for (int k = 0; k < a.K; ++k) {
+    uint32_t acc = v;
+#pragma unroll
+    for (int x = 0; x < W; ++x) acc += __ldg(row + ((v + (uint32_t)x) & mask));
+    v = acc & mask;
+  }
+  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
+  a.out[qzp_indep_elem(a)] = v;
+}
+
+typedef void (*QzpIndepKernel)(QzpIndep);
+
+template <int W>
+static QzpIndepKernel qzp_indep_kernel(int R) {
+  switch (R) {
+    case 32: return qzp_indep<W, 32>;
+    case 16: return qzp_indep<W, 16>;
+    case 8: return qzp_indep<W, 8>;
+    case 4: return qzp_indep<W, 4>;
+    case 2: return qzp_indep<W, 2>;
+    case 1: return qzp_indep<W, 1>;
+  }
+  return nullptr;
+}
+
+// Lets every staged kernel take the card's whole shared memory; once a
+// process.
+static int qzp_indep_prepare() {
+  for (int R = 1; R <= QZP_INDEP_MAX_R; R *= 2)
+    for (int W = 4; W <= 8; W += 4) {
+      const int rc = (int)cudaFuncSetAttribute(
+          W == 4 ? qzp_indep_kernel<4>(R) : qzp_indep_kernel<8>(R),
+          cudaFuncAttributeMaxDynamicSharedMemorySize, QZP_MAX_SMEM);
+      if (rc) return rc;
+    }
+  return 0;
+}
+
+// probe_inflate_step.py:74 indep_gather_loop.  W 4 or 8; w a power of 2;
+// t_rows 1 or rows.
+extern "C" int qz_probe_indep(int W, int smem, const void* t, int t_rows,
+                              int w, const void* idx, void* out, int rows,
+                              int cols, int K, void* clk, void* stream) {
+  static const int ready = qzp_indep_prepare();
+  if (ready) return ready;
+  const int R = qzp_indep_r(w, W, QZP_MAX_SMEM);
+  if ((W != 4 && W != 8) || rows < 1 || rows > 65535 || cols < 1 || w < 1 ||
+      (w & (w - 1)) || (t_rows != 1 && t_rows != rows) || (smem && !R))
+    return (int)cudaErrorInvalidValue;
+  const QzpIndep a = {(const uint32_t*)t, t_rows, w, (const uint32_t*)idx,
+                      (uint32_t*)out, rows, cols, K, (long long*)clk};
+  const int threads = cols < 128 ? (cols + 31) & ~31 : 128;
+  const dim3 grid((cols + threads - 1) / threads, rows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!smem) {
+    if (W == 4)
+      qzp_indep_ldg<4><<<grid, threads, 0, s>>>(a);
+    else
+      qzp_indep_ldg<8><<<grid, threads, 0, s>>>(a);
+  } else {
+    const QzpIndepKernel k =
+        W == 4 ? qzp_indep_kernel<4>(R) : qzp_indep_kernel<8>(R);
+    k<<<grid, threads, (size_t)qzp_indep_words(w, W) * R * 4, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// -- qz_probe_chain ----------------------------------------------------------
+//
+// WALK: one thread walks K steps over an int32 [t_rows, t_cols] tile (both
+// powers of 2), acc += x[acc & (t_rows - 1), k & (t_cols - 1)], the tile in
+// shared memory or read with __ldg.  (INDEP: qz_probe_indep; DEP:
+// qz_probe_dep; COLUMN: qz_probe_column.)
+
+enum { QZP_WALK = 4 };
+
+struct QzpChain {
+  const uint32_t* t;  // [t_rows, t_cols]
+  int t_rows, t_cols;
+  uint32_t* out;      // [1]
+  int K;
+  long long* clk;
+};
+
 template <bool SMEM>
 __global__ void qzp_chain_walk(QzpChain a) {
   extern __shared__ __align__(16) uint32_t sm[];
@@ -159,44 +297,25 @@ __global__ void qzp_chain_walk(QzpChain a) {
   a.out[0] = acc;
 }
 
-template <int MODE, bool SMEM>
-static int qzp_launch_rows(const QzpChain& a, cudaStream_t s) {
-  const size_t bytes = SMEM ? (size_t)a.t_cols * 4 : 0;
-  const int rc = qzp_smem(qzp_chain_rows<MODE, SMEM>, bytes);
-  if (rc) return rc;
-  const int threads = a.cols < 128 ? ((a.cols + 31) & ~31) : 128;
-  const dim3 grid((a.cols + threads - 1) / threads, a.rows);
-  qzp_chain_rows<MODE, SMEM><<<grid, threads, bytes, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// probe_inflate_step.py:74 indep_gather_loop; probe_pallas.py:107 p_walk.
+// probe_pallas.py:107 p_walk (mode QZP_WALK; idx, rows, cols and mask
+// unread).
 extern "C" int qz_probe_chain(int mode, int smem, const void* t, int t_rows,
                               int t_cols, const void* idx, void* out,
                               int rows, int cols, int K, unsigned mask,
                               void* clk, void* stream) {
-  const QzpChain a = {(const uint32_t*)t, t_rows, t_cols,
-                      (const uint32_t*)idx, (uint32_t*)out, rows, cols, K,
-                      mask, (long long*)clk};
+  if (mode != QZP_WALK) return (int)cudaErrorInvalidValue;
+  const QzpChain a = {(const uint32_t*)t, t_rows, t_cols, (uint32_t*)out, K,
+                      (long long*)clk};
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (mode * 2 + (smem ? 1 : 0)) {
-    case QZP_INDEP4 * 2: return qzp_launch_rows<QZP_INDEP4, false>(a, s);
-    case QZP_INDEP4 * 2 + 1: return qzp_launch_rows<QZP_INDEP4, true>(a, s);
-    case QZP_INDEP8 * 2: return qzp_launch_rows<QZP_INDEP8, false>(a, s);
-    case QZP_INDEP8 * 2 + 1: return qzp_launch_rows<QZP_INDEP8, true>(a, s);
-  }
-  if (mode == QZP_WALK) {
-    const size_t bytes = smem ? (size_t)t_rows * t_cols * 4 : 0;
-    int rc = smem ? qzp_smem(qzp_chain_walk<true>, bytes)
-                  : qzp_smem(qzp_chain_walk<false>, bytes);
-    if (rc) return rc;
-    if (smem)
-      qzp_chain_walk<true><<<1, 128, bytes, s>>>(a);
-    else
-      qzp_chain_walk<false><<<1, 128, bytes, s>>>(a);
-    return (int)cudaGetLastError();
-  }
-  return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem ? (size_t)t_rows * t_cols * 4 : 0;
+  int rc = smem ? qzp_smem(qzp_chain_walk<true>, bytes)
+                : qzp_smem(qzp_chain_walk<false>, bytes);
+  if (rc) return rc;
+  if (smem)
+    qzp_chain_walk<true><<<1, 128, bytes, s>>>(a);
+  else
+    qzp_chain_walk<false><<<1, 128, bytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // -- qz_probe_dep -------------------------------------------------------------
@@ -331,15 +450,20 @@ extern "C" int qz_probe_dep(int smem, const void* t, int t_rows, int w,
 
 // -- qz_probe_alu -------------------------------------------------------------
 
-enum { QZP_HASH = 0, QZP_EW = 1, QZP_DOUBLE = 2 };
+// SHFL and BAR replace no TPU kernel: they time what BITONIC's stages
+// across threads wait for, a dependent warp shuffle (each value swapped
+// with its neighbour lane's) and a barrier of a CTA of 128 threads (each
+// value + 1 after it).  Every thread of their CTAs runs the loop.
+enum { QZP_HASH = 0, QZP_EW = 1, QZP_DOUBLE = 2, QZP_SHFL = 3, QZP_BAR = 4 };
 
 template <int MODE>
 __global__ void qzp_alu(const uint32_t* __restrict__ x,
                         uint32_t* __restrict__ out, int n, int K,
                         long long* clk) {
+  constexpr bool ALL = MODE == QZP_SHFL || MODE == QZP_BAR;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t v = x[i];
+  if (!ALL && i >= n) return;
+  uint32_t v = i < n ? x[i] : 0u;
   const long long t0 = clock64();
   for (int k = 0; k < K; ++k) {
     if (MODE == QZP_HASH) v = qzp_hash_step(v);
@@ -348,13 +472,18 @@ __global__ void qzp_alu(const uint32_t* __restrict__ x,
       v = qzp_double_step(v);
       asm volatile("" : "+r"(v));  // one multiply a step, not a shift by K
     }
+    if (MODE == QZP_SHFL) v = __shfl_xor_sync(0xFFFFFFFFu, v, 1);
+    if (MODE == QZP_BAR) {
+      __syncthreads();
+      v += 1u;
+    }
   }
   if (clk && qzp_timer_thread()) *clk = clock64() - t0;
-  out[i] = v;
+  if (i < n) out[i] = v;
 }
 
 // probe_inflate_step.py:92 elemwise_loop (HASH); probe_inflate_step5.py:63
-// pallas1 for mk_ew (EW); probe_pallas.py:53 p_double (DOUBLE).
+// pallas1 for mk_ew (EW); probe_pallas.py:53 p_double (DOUBLE); SHFL, BAR.
 extern "C" int qz_probe_alu(int mode, const void* x, void* out, int n, int K,
                             void* clk, void* stream) {
   const int threads = 128, blocks = (n + threads - 1) / threads;
@@ -366,6 +495,8 @@ extern "C" int qz_probe_alu(int mode, const void* x, void* out, int n, int K,
     case QZP_HASH: qzp_alu<QZP_HASH><<<blocks, threads, 0, s>>>(xi, o, n, K, c); break;
     case QZP_EW: qzp_alu<QZP_EW><<<blocks, threads, 0, s>>>(xi, o, n, K, c); break;
     case QZP_DOUBLE: qzp_alu<QZP_DOUBLE><<<blocks, threads, 0, s>>>(xi, o, n, K, c); break;
+    case QZP_SHFL: qzp_alu<QZP_SHFL><<<blocks, threads, 0, s>>>(xi, o, n, K, c); break;
+    case QZP_BAR: qzp_alu<QZP_BAR><<<blocks, threads, 0, s>>>(xi, o, n, K, c); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -614,15 +745,6 @@ struct QzpS5Store {
       *(uint4*)(sm + w) = make_uint4(v[0], v[1], v[2], v[3]);
     else
       sm[w] = v[0];
-  }
-};
-
-// A 4-byte load at a shared-memory byte address
-struct QzpLds {
-  __device__ uint32_t operator()(uint32_t a) const {
-    uint32_t v;
-    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
-    return v;
   }
 };
 
@@ -879,60 +1001,174 @@ extern "C" int qz_probe_column(int smem, const void* t, int n,
 }
 
 // -- qz_probe_tile ------------------------------------------------------------
+//
+// BITONIC: a CTA a tile of n int32 (n a power of 2, QZP_BIT_MIN_N ..
+// QZP_BIT_MAX_N), each segment of M (a template parameter) sorted ascending
+// K times by the TPU kernels' network, placed as qzp_bit_plan says: a
+// thread's V values in registers, a stage's pairs within a thread (min,
+// max and a select), across the lanes of a warp (__shfl_xor_sync) or, for
+// j >= 32 V, across warps through shared memory (two buffers by turns: one
+// barrier a stage).  The k and j loops unroll, so that a stage's pairs and
+// direction are constants or one AND on the thread's slot.  The tile is
+// loaded once and stored once, 16 bytes a thread where the layout allows.
+// Bound by latency: the network's log2 M (log2 M + 1) / 2 stages of
+// dependent compare-exchanges (at [8, 128]: 55 flat, 28 rows, 6 cols).
 
 struct QzpTile {
-  const uint32_t* x;  // [tiles, rows, cols]
-  uint32_t* out;
-  int rows, cols;
-  int K;            // trip count
-  QzpSegments seg;  // segments of a tile
-  int tiles;        // tiles of [rows, cols]
+  const int32_t* x;  // [tiles, n]
+  int32_t* out;
+  int n, K;
+  int seg_stride, elem_stride;
+  bool vec;  // 16-byte loads and stores: elem_stride 1, seg_stride % 4 ==
+             // 0, x and out 16-byte aligned (used where V >= 4)
   long long* clk;
 };
 
-// BITONIC: a CTA a tile of [rows, cols] int32; K times, every segment
-// sorted ascending by the network in shared memory, a thread a
-// compare-exchange pair at a time.
-__global__ void qzp_bitonic(QzpTile a) {
-  extern __shared__ __align__(16) uint32_t sm[];
-  int32_t* x = (int32_t*)sm;
-  const int n = a.rows * a.cols;
-  const uint32_t* src = a.x + (int64_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x[i] = (int32_t)src[i];
-  __syncthreads();
-  const uint32_t pairs = (uint32_t)n >> 1;
-  const long long t0 = clock64();
-  for (int rep = 0; rep < a.K; ++rep)
-    for (uint32_t k = 2; k <= a.seg.n; k <<= 1)
-      for (uint32_t j = k >> 1; j > 0; j >>= 1) {
-        for (uint32_t p = threadIdx.x; p < pairs; p += blockDim.x) {
-          uint32_t lo, hi;
-          bool asc;
-          qzp_bitonic_pair(a.seg, p, k, j, &lo, &hi, &asc);
-          qzp_compare_exchange(x, lo, hi, asc);
-        }
-        __syncthreads();
-      }
-  if (a.clk && qzp_timer_thread()) *a.clk = clock64() - t0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    a.out[(int64_t)blockIdx.x * n + i] = (uint32_t)x[i];
+// f(e, u) on x's values e .. e + 3 as one int4 u, for e = 0, 4, .. V - 4:
+// what f leaves in u goes back into x (nothing where V < 4)
+template <int V, class F>
+__device__ inline void qzp_bit_vectors(int32_t (&x)[V], const F& f) {
+  if constexpr (V >= 4) {
+#pragma unroll
+    for (int e = 0; e < V; e += 4) {
+      int4 u = make_int4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+      f(e, u);
+      x[e] = u.x;
+      x[e + 1] = u.y;
+      x[e + 2] = u.z;
+      x[e + 3] = u.w;
+    }
+  }
 }
 
-// probe_pallas3.py:77 p_bitonic, :113 p_rows, :145 p_cols (BITONIC).
+// Stage (K, J) over the V values x of slot q, slot t of its segment; ph:
+// the shared-memory buffer (of bsm's two of n words) of the next stage
+// across warps
+template <int V, int K, int J>
+__device__ inline void qzp_bit_stage(int32_t (&x)[V], int t, int q, int& ph,
+                                     int32_t* bsm, int n) {
+  constexpr int where = qzp_bit_where(J, V);
+  if constexpr (where == QZP_BIT_REGS) {
+    qzp_bit_regs<V>(x, t, K, J);
+  } else {
+    const bool lo = qzp_bit_keeps_min(t, V, K, J);
+    int32_t p[V] = {};
+    if constexpr (where == QZP_BIT_SHFL) {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        p[e] = __shfl_xor_sync(0xFFFFFFFFu, x[e], J / V);
+    } else {   // V 8, one slot a thread
+      int32_t* b = bsm + ph * n;
+      ph ^= 1;
+      qzp_bit_vectors<V>(x, [&](int e, int4& u) {
+        *(int4*)(b + q * V + e) = u;
+      });
+      __syncthreads();   // the other buffer's readers are past it too
+      qzp_bit_vectors<V>(p, [&](int e, int4& u) {
+        u = *(const int4*)(b + (q ^ (J / V)) * V + e);
+      });
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = qzp_bit_pick(x[e], p[e], lo);
+  }
+}
+
+// The network of M from stage (1 << LK, 1 << LJ) on, every stage a
+// compile-time instance
+template <int M, int LK, int LJ>
+struct QzpBitNet {
+  __device__ static void run(int32_t (&x)[qzp_bit_v(M)], int t, int q,
+                             int& ph, int32_t* bsm, int n) {
+    if constexpr (LK <= qzp_lg(M)) {
+      qzp_bit_stage<qzp_bit_v(M), 1 << LK, 1 << LJ>(x, t, q, ph, bsm, n);
+      QzpBitNet<M, LJ ? LK : LK + 1, LJ ? LJ - 1 : LK>::run(x, t, q, ph,
+                                                             bsm, n);
+    }
+  }
+};
+
+template <int M>
+__global__ void __launch_bounds__(1024) qzp_bitonic(QzpTile a) {
+  constexpr int V = qzp_bit_v(M), T = M / V;
+  extern __shared__ __align__(16) int32_t bsm[];   // QZP_BIT_SMEM: 2 n
+  const QzpBitPlan p = {V, T, a.n / V, (int)blockDim.x};
+  const int32_t* src = a.x + (int64_t)blockIdx.x * a.n;
+  int32_t* dst = a.out + (int64_t)blockIdx.x * a.n;
+  for (int q0 = 0; q0 < p.slots; q0 += p.threads) {   // the same trips for
+    const int q = q0 + threadIdx.x, t = q & (T - 1);   // every thread
+    const bool live = q < p.slots;
+    const int at = qzp_bit_place(p, q, 0, a.seg_stride, a.elem_stride);
+    const bool vec = V >= 4 && a.vec;
+    int32_t x[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = 0;
+    if (live && vec)
+      qzp_bit_vectors<V>(x, [&](int e, int4& u) {
+        u = *(const int4*)(src + at + e);
+      });
+    else if (live) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) x[e] = src[at + e * a.elem_stride];
+    }
+    const long long t0 = clock64();
+    int ph = 0;   // the shared-memory buffer of the next QZP_BIT_SMEM stage
+    for (int rep = 0; rep < a.K; ++rep)
+      QzpBitNet<M, 1, 0>::run(x, t, q, ph, bsm, a.n);
+    if (a.clk && qzp_timer_thread() && q0 == 0) *a.clk = clock64() - t0;
+    if (live && vec)
+      qzp_bit_vectors<V>(x, [&](int e, int4& u) {
+        *(int4*)(dst + at + e) = u;
+      });
+    else if (live) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) dst[at + e * a.elem_stride] = x[e];
+    }
+  }
+}
+
+template <int M>
+static int qzp_bitonic_launch(const QzpTile& a, int tiles, cudaStream_t s) {
+  const QzpBitPlan p = qzp_bit_plan(a.n, M);
+  const size_t bytes = p.t > 32 ? (size_t)2 * a.n * 4 : 0;
+  qzp_bitonic<M><<<tiles, p.threads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// probe_pallas3.py:77 p_bitonic, :113 p_rows, :145 p_cols (BITONIC): each
+// segment of seg_n (s * seg_stride + i * elem_stride) of each of `tiles`
+// [rows, cols] tiles, rows * cols a power of 2 from QZP_BIT_MIN_N to
+// QZP_BIT_MAX_N, seg_n a power of 2 that divides it.
 extern "C" int qz_probe_tile(const void* x, void* out, int rows, int cols,
                              int K, int seg_n, int seg_stride,
                              int elem_stride, int tiles, void* clk,
                              void* stream) {
-  const QzpTile a = {(const uint32_t*)x, (uint32_t*)out, rows, cols, K,
-                     {(uint32_t)seg_n, (uint32_t)seg_stride,
-                      (uint32_t)elem_stride},
-                     tiles, (long long*)clk};
-  const int n = rows * cols, threads = n / 2 < 1024 ? n / 2 : 1024;
-  const size_t bytes = (size_t)n * 4;
-  const int rc = qzp_smem(qzp_bitonic, bytes);
-  if (rc) return rc;
-  qzp_bitonic<<<tiles, threads, bytes, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const int n = rows * cols;
+  if (rows < 1 || cols < 1 || n < QZP_BIT_MIN_N || n > QZP_BIT_MAX_N ||
+      (n & (n - 1)) || seg_n < 1 || (seg_n & (seg_n - 1)) || seg_n > n ||
+      tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  const QzpTile a = {(const int32_t*)x, (int32_t*)out, n, K, seg_stride,
+                     elem_stride,
+                     elem_stride == 1 && seg_stride % 4 == 0 &&
+                         qzp_aligned16(x) && qzp_aligned16(out),
+                     (long long*)clk};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (seg_n) {
+    case 1: return qzp_bitonic_launch<1>(a, tiles, s);
+    case 2: return qzp_bitonic_launch<2>(a, tiles, s);
+    case 4: return qzp_bitonic_launch<4>(a, tiles, s);
+    case 8: return qzp_bitonic_launch<8>(a, tiles, s);
+    case 16: return qzp_bitonic_launch<16>(a, tiles, s);
+    case 32: return qzp_bitonic_launch<32>(a, tiles, s);
+    case 64: return qzp_bitonic_launch<64>(a, tiles, s);
+    case 128: return qzp_bitonic_launch<128>(a, tiles, s);
+    case 256: return qzp_bitonic_launch<256>(a, tiles, s);
+    case 512: return qzp_bitonic_launch<512>(a, tiles, s);
+    case 1024: return qzp_bitonic_launch<1024>(a, tiles, s);
+    case 2048: return qzp_bitonic_launch<2048>(a, tiles, s);
+    case 4096: return qzp_bitonic_launch<4096>(a, tiles, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // -- qz_probe_transpose -------------------------------------------------------

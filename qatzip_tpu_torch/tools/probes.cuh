@@ -16,6 +16,11 @@
 
 #define QZP_HASH_MUL 2654435761u
 
+// log2 of a power of 2
+__host__ __device__ constexpr int qzp_lg(int x) {
+  return x <= 1 ? 0 : 1 + qzp_lg(x >> 1);
+}
+
 // -- gathers -----------------------------------------------------------------
 
 // probe_inflate_step.py:dep_gather_loop, probe_pallas4.py:p_chain / p_tbl,
@@ -26,16 +31,75 @@ __host__ __device__ inline uint32_t qzp_dep_step(const uint32_t* row,
   return row[idx & mask];
 }
 
-// probe_inflate_step.py:indep_gather_loop: W gathers that depend only on
-// idx, summed onto it, then masked.
-template <int W>
-__host__ __device__ inline uint32_t qzp_indep_step(const uint32_t* row,
-                                                   uint32_t idx,
-                                                   uint32_t mask) {
-  uint32_t acc = idx;
-  for (int w = 0; w < W; ++w)  // W is a constant: unrolled
-    acc += row[(idx + (uint32_t)w) & mask];
-  return acc & mask;
+// probe_inflate_step.py:indep_gather_loop over a row staged for INDEP
+// (qz_probe_indep): its w words (a power of 2) R times over, word i's copy
+// c at word i R + c, and its first words again past its end up to w + W -
+// 1 (word w + i = word i).  Lane l reads copy l % R, so that every load of
+// a warp falls on bank l at R = 32, and at most 32 / R lanes share a bank
+// below that, whatever the indexes.  As the tail wraps, (v + x) & (w - 1)
+// is (v & (w - 1)) + x for x < W: a step takes one AND-OR for its address
+// and loads its W words at immediate offsets x R 4 bytes from there.  The
+// sum is carried unmasked from step to step (the low bits of a sum depend
+// only on the low bits of its terms) and masked once, after the last step.
+// R is the largest power of 2 up to 32 whose (w + W - 1) R words fit in a
+// CTA's shared memory; 0 where none does.
+#define QZP_INDEP_MAX_R 32
+
+__host__ __device__ inline int qzp_indep_words(int w, int W) {
+  return w + W - 1;
+}
+
+__host__ __device__ inline int qzp_indep_r(int w, int W, int smem_bytes) {
+  for (int r = QZP_INDEP_MAX_R; r >= 1; r >>= 1)
+    if ((long long)qzp_indep_words(w, W) * r * 4 <= smem_bytes) return r;
+  return 0;
+}
+
+// The staging: thread t of n takes staged words t, t + n, .. (each row
+// word (i % w) once, and each wrapped word again), loads it and stores its
+// R copies in units of V = min(R, 4) (a 16-byte store where R >= 4), unit
+// q of its R / V at (q + t) % (R / V) first, so that the 16-byte stores of
+// a quarter warp, 8 threads, fall on distinct banks.
+template <int R>
+__host__ __device__ constexpr int qzp_indep_v() {
+  return R < 4 ? R : 4;
+}
+
+// The staged word of unit j (of R / V) of thread t's word i
+template <int R>
+__host__ __device__ inline int qzp_indep_unit_at(int i, int j, int t) {
+  constexpr int U = R / qzp_indep_v<R>();
+  return i * R + ((j + t) & (U - 1)) * qzp_indep_v<R>();
+}
+
+// The INDEP sums run shifted left by S = log2(4 R), a staged word's bytes:
+// the lane's sum u = v << S, and every staged copy of row[i] is row[i] <<
+// S (exact on the low log2(w) + S <= 32 bits the mask keeps).
+template <int R>
+__host__ __device__ constexpr int qzp_indep_shift() {
+  return qzp_lg(4 * R);
+}
+
+// One INDEP step of a lane: ms = (w - 1) << S, lane = 4 (l % R) the lane's
+// copy's bytes.  Its W words sit at byte offsets ((u & ms) | lane) + 4 R x
+// of the staged row (one AND-OR), read through ld (a 4-byte load at a byte
+// offset), and go onto u unshifted: three-way adds in the order the loads
+// arrive, one after the last.
+template <int W, int R, class Rd>
+__host__ __device__ inline uint32_t qzp_indep_step(uint32_t lane, uint32_t u,
+                                                   uint32_t ms,
+                                                   const Rd& ld) {
+  const uint32_t off = (u & ms) | lane;
+  uint32_t s[W];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int x = 0; x < W; ++x) s[x] = ld(off + (uint32_t)(x * R * 4));
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int x = 0; x < W; ++x) u += s[x];
+  return u;
 }
 
 // -- staging: every load of a CTA in flight ----------------------------------
@@ -304,10 +368,6 @@ __host__ __device__ inline uint32_t qzp_funnel(uint32_t lo, uint32_t hi,
   sh &= 31u;
   return (lo >> sh) | ((hi << (31u - sh)) << 1);
 #endif
-}
-
-__host__ __device__ constexpr int qzp_lg(int x) {
-  return x <= 1 ? 0 : 1 + qzp_lg(x >> 1);
 }
 
 // A step's shape: a window of W words, rc root cells and sc subtable cells
@@ -633,49 +693,95 @@ __host__ __device__ inline int qzp_tok_buffer(int k, int rows) {
   return (k / rows) & 1;
 }
 
-// -- bitonic network over segments -------------------------------------------
+// -- BITONIC: the network over a tile's segments ----------------------------
+//
+// probe_pallas3.py p_bitonic / p_rows / p_cols: each segment of m elements
+// of an int32 tile of n (both powers of 2) sorted ascending by the TPU
+// kernels' network: for k = 2, 4, .. m and j = k / 2, .. 1, stage (k, j)
+// pairs index i of a segment with i ^ j, the smaller first where i & k is
+// 0.  Segment s's index i lies at s * seg_stride + i * elem_stride of the
+// tile: rows of [S, L] (L, 1), columns (1, L), the whole tile (0, 1).
+//
+// The stages are the TPU's; only where a pair's two values live is chosen
+// for the card.  A thread holds V = qzp_bit_v(m) indexes of a segment (a
+// column of 8 or fewer whole, else 4: at 8 values and 4 warps to a segment
+// of 1024, ptxas kept a stage's 8 shuffles in one register, one after
+// another, and the sort took 2.6 times as long on an H100 as at 4 values
+// and 8 warps), blocked: slot q = s T + t (T = m / V slots a segment)
+// holds indexes t V .. t V + V - 1 of segment s as its values 0 .. V - 1.
+// Stage (k, j) pairs
+//   * j < V: two values of one slot, in registers (QZP_BIT_REGS);
+//   * V <= j < 32 V: value e of slot q with value e of slot q ^ (j / V), a
+//     lane of the same warp, by a shuffle (QZP_BIT_SHFL);
+//   * 32 V <= j: the same through shared memory behind a barrier
+//     (QZP_BIT_SMEM; segments of more than 32 slots only).
+#define QZP_BIT_MIN_N 32     // the tiles the kernel takes: 32 .. 4096
+#define QZP_BIT_MAX_N 4096   // elements, powers of 2
 
-// Segment s's element i lies at s * seg_stride + i * elem_stride of a tile:
-// rows of [S, L] (seg_stride L, elem_stride 1), columns (1, L), or the
-// whole tile (0, 1).
-struct QzpSegments {
-  uint32_t n;  // elements a segment, a power of 2
-  uint32_t seg_stride;
-  uint32_t elem_stride;
+enum { QZP_BIT_REGS, QZP_BIT_SHFL, QZP_BIT_SMEM };
+
+__host__ __device__ constexpr int qzp_bit_v(int m) {
+  return m <= 8 ? m : 4;
+}
+
+__host__ __device__ constexpr int qzp_bit_where(int j, int v) {
+  return j < v ? QZP_BIT_REGS : j < 32 * v ? QZP_BIT_SHFL : QZP_BIT_SMEM;
+}
+
+// A tile of n in segments of m: V values a slot, T slots a segment, n / V
+// slots, run by a CTA of `threads` (a warp at least, at most 1024: thread
+// h takes slots h, h + threads, ...; a segment of more than one slot has
+// one thread a slot).
+struct QzpBitPlan {
+  int v;
+  int t;
+  int slots;
+  int threads;
 };
 
-// log2 of a power of 2
-__host__ __device__ inline uint32_t qzp_log2(uint32_t x) {
-#ifdef __CUDA_ARCH__
-  return (uint32_t)__ffs((int)x) - 1u;
-#else
-  return (uint32_t)__builtin_ctz(x);
+__host__ __device__ inline QzpBitPlan qzp_bit_plan(int n, int m) {
+  QzpBitPlan p;
+  p.v = qzp_bit_v(m);
+  p.t = m / p.v;
+  p.slots = n / p.v;
+  p.threads = p.slots < 32 ? 32 : p.slots > 1024 ? 1024 : p.slots;
+  return p;
+}
+
+// The tile place of value e of slot q
+__host__ __device__ inline int qzp_bit_place(const QzpBitPlan& p, int q,
+                                             int e, int seg_stride,
+                                             int elem_stride) {
+  return q / p.t * seg_stride + (q % p.t * p.v + e) * elem_stride;
+}
+
+__host__ __device__ inline int32_t qzp_bit_pick(int32_t a, int32_t b,
+                                                bool lo) {
+  const int32_t mn = a < b ? a : b, mx = a < b ? b : a;
+  return lo ? mn : mx;
+}
+
+// Stage (k, j), j < V, over the values x of slot t of its segment
+template <int V>
+__host__ __device__ inline void qzp_bit_regs(int32_t* x, int t, int k,
+                                             int j) {
+#ifdef __CUDACC__
+#pragma unroll
 #endif
+  for (int e = 0; e < V; ++e)
+    if (!(e & j)) {
+      const bool asc = ((t * V + e) & k) == 0;
+      const int32_t a = x[e], b = x[e | j];
+      x[e] = qzp_bit_pick(a, b, asc);
+      x[e | j] = qzp_bit_pick(a, b, !asc);
+    }
 }
 
-// Pair p (of the tile's nseg * n / 2) of network stage (k, j): the places
-// of its lower and upper element, and whether it orders them ascending.
-// Every count is a power of 2: shifts and masks, no division.
-__host__ __device__ inline void qzp_bitonic_pair(const QzpSegments& g,
-                                                 uint32_t p, uint32_t k,
-                                                 uint32_t j, uint32_t* lo,
-                                                 uint32_t* hi, bool* asc) {
-  const uint32_t half = g.n >> 1;
-  const uint32_t s = p >> qzp_log2(half), q = p & (half - 1u);
-  const uint32_t i = ((q & ~(j - 1u)) << 1) | (q & (j - 1u));  // bit j clear
-  *lo = s * g.seg_stride + i * g.elem_stride;
-  *hi = s * g.seg_stride + (i + j) * g.elem_stride;
-  *asc = (i & k) == 0u;
-}
-
-// One compare-exchange of int32 values in place
-__host__ __device__ inline void qzp_compare_exchange(int32_t* x, uint32_t lo,
-                                                     uint32_t hi, bool asc) {
-  const int32_t a = x[lo], b = x[hi];
-  if ((a > b) == asc) {
-    x[lo] = b;
-    x[hi] = a;
-  }
+// Stage (k, j), V <= j: whether slot t of its segment keeps the smaller of
+// each value and its partner's (slot t ^ (j / V)'s)
+__host__ __device__ inline bool qzp_bit_keeps_min(int t, int v, int k,
+                                                  int j) {
+  return ((t & (j / v)) == 0) == (((t * v) & k) == 0);
 }
 
 // -- TRANSPOSE over a thread-block cluster ----------------------------------

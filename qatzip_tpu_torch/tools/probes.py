@@ -38,6 +38,8 @@ DEP = Kernel("qz_probe_dep", [_I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
              lib=PROBES)
 CHAIN = Kernel("qz_probe_chain", [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _U,
                                   _P, _P], lib=PROBES)
+INDEP = Kernel("qz_probe_indep", [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P,
+                                  _P], lib=PROBES)
 COLUMN = Kernel("qz_probe_column", [_I, _P, _I, _P, _P, _I, _I, _I, _U, _P,
                                     _P], lib=PROBES)
 ALU = Kernel("qz_probe_alu", [_I, _P, _P, _I, _I, _P, _P], lib=PROBES)
@@ -50,11 +52,13 @@ ROLL = Kernel("qz_probe_roll", [_P, _P, _I, _I, _I, _I, _P], lib=PROBES)
 REFILL = Kernel("qz_probe_refill", [_I, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                                     _P], lib=PROBES)
 EMPTY = Kernel("qz_probe_empty", [_I, _P], lib=PROBES)
-KERNELS = {k.symbol: k for k in (DEP, CHAIN, COLUMN, ALU, STEP, TILE,
+KERNELS = {k.symbol: k for k in (DEP, CHAIN, INDEP, COLUMN, ALU, STEP, TILE,
                                  TRANSPOSE, ROLL, REFILL, EMPTY)}
 MAX_LANES = 512   # QZP_MAX_LANES: the offsets a refill's parameters hold
 MAX_SMEM = 227 * 1024   # QZP_MAX_SMEM: the shared memory a CTA may take
 COLUMN_MAX_N = 1024   # QZP_COL_MAX_N: the tallest column the card stages
+INDEP_MAX_R = 32   # QZP_INDEP_MAX_R: the most copies of a staged table word
+BITONIC_N = (32, 4096)   # QZP_BIT_MIN_N, QZP_BIT_MAX_N: the tiles it sorts
 # STEP5's kernels are built for one window and subtable size, these root
 # sizes and lanes a CTA (QzpS5Shape, qzp_s5_dispatch)
 STEP5_W, STEP5_SUB, STEP5_ROOTS, STEP5_LPC = 128, 256, (128, 256), (1, 8, 32)
@@ -168,6 +172,24 @@ def double(x: torch.Tensor, K: int = 1) -> torch.Tensor:
     for _ in range(K):
         v = (v * 2) & _M32
     return _i32(v)
+
+
+def shfl_pairs(x: torch.Tensor, K: int) -> torch.Tensor:
+    """K swaps of each pair of neighbouring elements (2i, 2i + 1) of x
+    (flattened; an odd last element pairs with 0): what K dependent
+    ``__shfl_xor_sync(.., 1)`` leave in a thread an element.  It replaces
+    no TPU kernel: the unit of BITONIC's stages across lanes."""
+    if K % 2 == 0:
+        return x.clone()
+    v = x.reshape(-1)
+    p = torch.cat([v, v.new_zeros(v.numel() % 2)]).reshape(-1, 2).flip(1)
+    return p.reshape(-1)[:v.numel()].reshape(x.shape)
+
+
+def count_up(x: torch.Tensor, K: int) -> torch.Tensor:
+    """x + K with 32-bit wrap: what K barriers, each followed by + 1, leave
+    in a thread an element (qz_probe_alu BAR; no TPU kernel)."""
+    return _i32(_u(x) + K)
 
 
 def scalar_walk(x: torch.Tensor, K: int = 4096) -> torch.Tensor:
@@ -440,7 +462,7 @@ def _args(dev: torch.device, clk):
     return None if clk is None else clk.data_ptr(), _raw_stream(dev)
 
 
-_CHAIN_MODES = {"indep4": 1, "indep8": 2, "walk": 4}
+_WALK = 4   # qz_probe_chain's mode (QZP_WALK)
 
 
 def _dep(t: torch.Tensor, idx: torch.Tensor, K: int, smem: bool,
@@ -469,17 +491,68 @@ def _dep(t: torch.Tensor, idx: torch.Tensor, K: int, smem: bool,
     return out
 
 
+def _pow2_below(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
+
+
+def indep_copies(w: int, W: int) -> int:
+    """R, the copies of each word of a w-word table row that the INDEP
+    kernel stages (qzp_indep_r): the largest power of 2 up to 32 whose
+    (w + W - 1) R words fit in a CTA's shared memory; 0 where none does."""
+    r = INDEP_MAX_R
+    while r and (w + W - 1) * r * 4 > MAX_SMEM:
+        r //= 2
+    return r
+
+
+def indep_check(w: int, W: int, smem: bool) -> None:
+    """ValueError unless the INDEP kernel takes a table row of w words: a
+    power of 2, and, staged (smem), one copy of it and its W - 1 wrapped
+    words fit in a CTA's shared memory."""
+    if w < 1 or w & (w - 1) or (smem and not indep_copies(w, W)):
+        raise ValueError(
+            f"indep runs on the card over tables a power of 2 wide (staged: "
+            f"up to {_pow2_below(MAX_SMEM // 4 - W + 1)} words); got {w}")
+
+
+def _indep(W: int, t: torch.Tensor, idx: torch.Tensor, K: int, smem: bool,
+           clk: torch.Tensor | None) -> torch.Tensor:
+    """INDEP on the card (qz_probe_indep): every check once, no reshape,
+    the output like idx."""
+    dev = t.get_device()
+    if (t.dtype != torch.int32 or idx.dtype != torch.int32
+            or idx.get_device() != dev):
+        raise ValueError("indep takes int32 tables and indexes on one device")
+    w, cols = t.shape[-1], idx.shape[-1]
+    indep_check(w, W, smem)
+    tt = t if t.is_contiguous() else t.contiguous()
+    ii = idx if idx.is_contiguous() else idx.contiguous()
+    out = torch.empty_like(ii)
+    if not cols or not ii.numel():
+        return out
+    rows, t_rows = ii.numel() // cols, tt.numel() // w
+    if t_rows not in (1, rows):
+        raise ValueError("a chain table has 1 row or a row an index row")
+    INDEP(W, int(smem), tt.data_ptr(), t_rows, w, ii.data_ptr(),
+          out.data_ptr(), rows, cols, K, None if clk is None else
+          clk.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
+    return out
+
+
 def probe_chain(mode: str, t: torch.Tensor, idx: torch.Tensor | None, K: int,
                 *, smem: bool = True, post: int | None = None,
                 clk: torch.Tensor | None = None) -> torch.Tensor:
     """Table lookups, K a lane: ``dep`` (qz_probe_dep) and ``indep4`` /
-    ``indep8`` (qz_probe_chain) as :func:`dep_gather_loop` /
-    :func:`indep_gather_loop` (tables of 1 or R rows), ``column`` as
-    :func:`probe_column` (post: the mask after each sum, default N - 1),
-    ``walk`` as :func:`scalar_walk` (idx unused).  smem: the table staged
-    in shared memory, else read with __ldg."""
+    ``indep8`` (qz_probe_indep; :func:`indep_check`) as
+    :func:`dep_gather_loop` / :func:`indep_gather_loop` (tables of 1 or R
+    rows), ``column`` as :func:`probe_column` (post: the mask after each
+    sum, default N - 1), ``walk`` (qz_probe_chain) as :func:`scalar_walk`
+    (idx unused).  smem: the table staged in shared memory, else read with
+    __ldg."""
     if mode == "dep" and t.is_cuda:
         return _dep(t, idx, K, smem, clk)
+    if mode in ("indep4", "indep8") and t.is_cuda:
+        return _indep(int(mode[-1]), t, idx, K, smem, clk)
     if mode == "column":
         return probe_column(t, idx, K, smem=smem, post=post, clk=clk)
     if mode == "walk":
@@ -495,25 +568,14 @@ def probe_chain(mode: str, t: torch.Tensor, idx: torch.Tensor | None, K: int,
         if mode == "walk":
             return scalar_walk(t, K)
         raise ValueError(f"no chain mode {mode}")
-    if mode not in _CHAIN_MODES:
+    if mode != "walk":
         raise ValueError(f"no chain mode {mode}")
-    if w & (w - 1) or (mode == "walk" and t.shape[0] & (t.shape[0] - 1)):
+    if w & (w - 1) or t.shape[0] & (t.shape[0] - 1):
         raise ValueError("probe tables are a power of 2 wide")
-    if mode == "walk":   # no index array: idx points at the table, unread
-        tt = ii = t.contiguous()
-        out = torch.empty((1, 1), dtype=torch.int32, device=dev)
-        rows = cols = 1
-    else:
-        shape = idx.shape
-        ii = idx.contiguous().reshape(-1, shape[-1])
-        tt = t.contiguous().reshape(-1, w)
-        rows, cols = ii.shape
-        if tt.shape[0] not in (1, rows):
-            raise ValueError("a chain table has 1 row or a row an index row")
-        out = torch.empty(shape, dtype=torch.int32, device=dev)
-    CHAIN(_CHAIN_MODES[mode], int(smem), tt.data_ptr(), tt.shape[0],
-          tt.shape[1], ii.data_ptr(), out.data_ptr(), rows, cols, K, w - 1,
-          *_args(dev, clk))
+    tt = t.contiguous()   # no index array: idx points at the table, unread
+    out = torch.empty((1, 1), dtype=torch.int32, device=dev)
+    CHAIN(_WALK, int(smem), tt.data_ptr(), tt.shape[0], tt.shape[1],
+          tt.data_ptr(), out.data_ptr(), 1, 1, K, w - 1, *_args(dev, clk))
     return out
 
 
@@ -565,15 +627,17 @@ def probe_column(t: torch.Tensor, idx: torch.Tensor, K: int, *,
     return out
 
 
-_ALU_MODES = {"hash": 0, "ew": 1, "double": 2}
-_ALU_PLAIN = {"hash": elemwise_loop, "ew": ew, "double": double}
+_ALU_MODES = {"hash": 0, "ew": 1, "double": 2, "shfl": 3, "bar": 4}
+_ALU_PLAIN = {"hash": elemwise_loop, "ew": ew, "double": double,
+              "shfl": shfl_pairs, "bar": count_up}
 
 
 def probe_alu(mode: str, x: torch.Tensor, K: int,
               clk: torch.Tensor | None = None) -> torch.Tensor:
     """Register-only integer chains, K a lane (qz_probe_alu): ``hash`` as
     :func:`elemwise_loop`, ``ew`` as :func:`ew`, ``double`` as
-    :func:`double`."""
+    :func:`double`; ``shfl`` as :func:`shfl_pairs` (a dependent warp
+    shuffle a step), ``bar`` x + K (a barrier of 128 threads a step)."""
     dev = _on(x)
     if dev.type == "cpu":
         return _ALU_PLAIN[mode](x, K)
@@ -789,16 +853,46 @@ def launch_floor(dev: torch.device, ctas: int = 1) -> None:
     EMPTY(ctas, _raw_stream(dev))
 
 
+def bitonic_plan(n: int, m: int) -> dict:
+    """qzp_bit_plan: how the card sorts segments of m in a tile of n: ``v``
+    values a thread (slot), ``t`` slots a segment, ``threads`` a CTA, and
+    the network's stages by where a pair's two values meet (``regs``: one
+    thread; ``shfl``: lanes of a warp; ``smem``: across warps)."""
+    v = m if m <= 8 else 4
+    stages = {"regs": 0, "shfl": 0, "smem": 0}
+    k = 2
+    while k <= m:
+        j = k // 2
+        while j >= 1:
+            stages["regs" if j < v else "shfl" if j < 32 * v else "smem"] += 1
+            j //= 2
+        k *= 2
+    return {"v": v, "t": m // v, "threads": min(1024, max(32, n // v)),
+            "stages": stages}
+
+
+def bitonic_check(S: int, L: int) -> None:
+    """ValueError unless the BITONIC kernel takes an [S, L] tile: S and L
+    powers of 2, S * L from 32 to 4096 elements."""
+    lo, hi = BITONIC_N
+    if (S < 1 or L < 1 or S & (S - 1) or L & (L - 1)
+            or not lo <= S * L <= hi):
+        raise ValueError(
+            f"bitonic runs on the card over tiles of {lo} to {hi} elements, "
+            f"powers of 2 on both axes; got [{S}, {L}]")
+
+
 def probe_bitonic(x: torch.Tensor, segment: str, K: int = 1,
                   clk: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`bitonic`: each segment (``flat``, ``rows`` or ``cols``) of
-    each int32 [S, L] tile of x sorted by the network in one CTA's shared
-    memory (qz_probe_tile BITONIC), K times."""
+    each int32 [S, L] tile of x sorted by the network, K times, in one CTA
+    (qz_probe_tile BITONIC; :func:`bitonic_check`): a thread's values in
+    registers, pairs across threads by warp shuffles, across warps through
+    shared memory."""
     if _on(x).type == "cpu":
         return bitonic(x, segment)
     S, L = x.shape[-2:]
-    if S & (S - 1) or L & (L - 1):
-        raise ValueError("bitonic tiles are powers of 2 on both axes")
+    bitonic_check(S, L)
     seg = {"flat": (S * L, 0, 1), "rows": (L, L, 1),
            "cols": (S, 1, L)}[segment]
     xx = x.contiguous()

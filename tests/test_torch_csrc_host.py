@@ -466,17 +466,113 @@ extern "C" void shim_alu(int mode, uint32_t* x, int n, int K) {
              : mode == 1 ? qzp_ew_step(x[i]) : qzp_double_step(x[i]);
 }
 
+// INDEP<W> at R copies of each table word (0: as qz_probe_indep picks R)
+// over [rows, cols] indexes, a [t_rows, w] table, as the kernel runs it: a
+// row staged once by a CTA of 128 threads (each staged word stored once,
+// or -1), then K steps a lane (lane j & 31) over the staged words
+template <int W, int R>
+static void shim_indep_row(const uint32_t* row, int w, uint32_t* sm,
+                           int* writes) {
+  constexpr int V = qzp_indep_v<R>();
+  const int n = 128;   // a CTA's threads
+  for (int t = 0; t < n; ++t)
+    for (int i = t; i < qzp_indep_words(w, W); i += n)
+      for (int j = 0; j < R / V; ++j)
+        for (int c = 0; c < V; ++c) {
+          const int at = qzp_indep_unit_at<R>(i, j, t) + c;
+          sm[at] = row[i & (w - 1)] << qzp_indep_shift<R>();
+          ++writes[at];
+        }
+}
+
+template <int W, int R>
+static void shim_indep_lanes(const uint32_t* sm, int w, uint32_t* idx,
+                             int cols, int K, uint32_t* addrs) {
+  constexpr int S = qzp_indep_shift<R>();
+  const uint32_t mask = (uint32_t)w - 1u;
+  for (int j = 0; j < cols; ++j) {
+    uint32_t u = idx[j] << S;
+    int n = 0;
+    const auto ld = [&](uint32_t a) {
+      if (addrs) addrs[j * W + n++ % W] = a;
+      return sm[a / 4];
+    };
+    for (int k = 0; k < K; ++k)
+      u = qzp_indep_step<W, R>(4u * (uint32_t)(j & 31 & (R - 1)), u,
+                               mask << S, ld);
+    idx[j] = (u >> S) & mask;
+  }
+}
+
+template <int W, int R>
+static int shim_indep_r(const uint32_t* t, int t_rows, int w, uint32_t* idx,
+                        int rows, int cols, int K, uint32_t* staged,
+                        uint32_t* addrs) {
+  const int words = qzp_indep_words(w, W) * R;
+  std::vector<uint32_t> sm(words);
+  for (int r = 0; r < rows; ++r) {
+    std::vector<int> writes(words);
+    shim_indep_row<W, R>(t + (t_rows == 1 ? 0 : r) * w, w, sm.data(),
+                         writes.data());
+    for (int c : writes)
+      if (c != 1) return -1;
+    if (staged && r == 0) std::copy(sm.begin(), sm.end(), staged);
+    shim_indep_lanes<W, R>(sm.data(), w, idx + r * cols, cols, K,
+                           r == 0 ? addrs : nullptr);
+  }
+  return R;
+}
+
+template <int W>
+static int shim_indep_w(int R, const uint32_t* t, int t_rows, int w,
+                        uint32_t* idx, int rows, int cols, int K,
+                        uint32_t* staged, uint32_t* addrs) {
+  int (*f)(const uint32_t*, int, int, uint32_t*, int, int, int, uint32_t*,
+           uint32_t*) = R == 32   ? shim_indep_r<W, 32>
+                        : R == 16 ? shim_indep_r<W, 16>
+                        : R == 8  ? shim_indep_r<W, 8>
+                        : R == 4  ? shim_indep_r<W, 4>
+                        : R == 2  ? shim_indep_r<W, 2>
+                        : R == 1  ? shim_indep_r<W, 1>
+                                  : nullptr;
+  return f ? f(t, t_rows, w, idx, rows, cols, K, staged, addrs) : -1;
+}
+
+// staged: the first row's staged words; addrs: the byte addresses of the
+// first row's lanes' loads of their last step ([cols][W]); returns R
+extern "C" int shim_indep(int W, int R, const uint32_t* t, int t_rows, int w,
+                          uint32_t* idx, int rows, int cols, int K,
+                          uint32_t* staged, uint32_t* addrs) {
+  if (!R) R = qzp_indep_r(w, W, QZP_MAX_SMEM);
+  return W == 4 ? shim_indep_w<4>(R, t, t_rows, w, idx, rows, cols, K, staged,
+                                  addrs)
+                : shim_indep_w<8>(R, t, t_rows, w, idx, rows, cols, K, staged,
+                                  addrs);
+}
+
+// The staged word of unit j of thread t's word i, at R copies
+extern "C" int shim_indep_unit_at(int R, int i, int j, int t) {
+  switch (R) {
+    case 32: return qzp_indep_unit_at<32>(i, j, t);
+    case 16: return qzp_indep_unit_at<16>(i, j, t);
+    case 8: return qzp_indep_unit_at<8>(i, j, t);
+    case 4: return qzp_indep_unit_at<4>(i, j, t);
+  }
+  return -1;
+}
+
 // DEP (W 0) or INDEP<W> over [rows, cols] indexes, a [t_rows, w] table
 extern "C" void shim_rows(int W, const uint32_t* t, int t_rows, int w,
                           uint32_t* idx, int rows, int cols, int K) {
+  if (W) {
+    shim_indep(W, 0, t, t_rows, w, idx, rows, cols, K, nullptr, nullptr);
+    return;
+  }
   for (int r = 0; r < rows; ++r) {
     const uint32_t* row = t + (t_rows == 1 ? 0 : r) * w;
     for (int j = 0; j < cols; ++j) {
       uint32_t v = idx[r * cols + j];
-      for (int k = 0; k < K; ++k)
-        v = W == 0 ? qzp_dep_step(row, v, w - 1)
-            : W == 4 ? qzp_indep_step<4>(row, v, w - 1)
-                     : qzp_indep_step<8>(row, v, w - 1);
+      for (int k = 0; k < K; ++k) v = qzp_dep_step(row, v, w - 1);
       idx[r * cols + j] = v;
     }
   }
@@ -894,33 +990,71 @@ extern "C" int shim_tokens_tile(const uint32_t* t, const int32_t* idx,
   return rows;
 }
 
-// The places a stage (k, j) of the BITONIC network touches: lo, hi and
-// asc of each of a tile's n / 2 pairs, and the network run on each tile of
-// x, a pair at a time
-extern "C" void shim_bitonic_stage(uint32_t n, uint32_t seg_n,
-                                   uint32_t seg_stride, uint32_t elem_stride,
-                                   uint32_t k, uint32_t j, uint32_t* out) {
-  const QzpSegments g = {seg_n, seg_stride, elem_stride};
-  for (uint32_t p = 0; p < n / 2; ++p) {
-    bool asc;
-    qzp_bitonic_pair(g, p, k, j, out + 3 * p, out + 3 * p + 1, &asc);
-    out[3 * p + 2] = asc;
+// BITONIC as qz_probe_tile places it (qzp_bit_plan), run serially, a
+// stage at a time over every slot: a slot's partner values are taken from
+// the slots' values before the stage, as a warp's shuffle or the
+// shared-memory exchange hands them over.
+template <int V>
+static void shim_bit_stage(std::vector<int32_t>& x, const QzpBitPlan& p,
+                           int k, int j) {
+  const std::vector<int32_t> old = x;
+  for (int q = 0; q < p.slots; ++q) {
+    int32_t* v = &x[q * V];
+    const int t = q % p.t;
+    if (qzp_bit_where(j, V) == QZP_BIT_REGS) {
+      qzp_bit_regs<V>(v, t, k, j);
+      continue;
+    }
+    const bool lo = qzp_bit_keeps_min(t, V, k, j);
+    for (int e = 0; e < V; ++e)
+      v[e] = qzp_bit_pick(old[q * V + e], old[(q ^ (j / V)) * V + e], lo);
   }
 }
 
-extern "C" void shim_bitonic(int32_t* x, int tiles, uint32_t n,
-                             uint32_t seg_n, uint32_t seg_stride,
-                             uint32_t elem_stride) {
-  const QzpSegments g = {seg_n, seg_stride, elem_stride};
-  for (int t = 0; t < tiles; ++t)
-    for (uint32_t k = 2; k <= seg_n; k <<= 1)
-      for (uint32_t j = k >> 1; j > 0; j >>= 1)
-        for (uint32_t p = 0; p < n / 2; ++p) {
-          uint32_t lo, hi;
-          bool asc;
-          qzp_bitonic_pair(g, p, k, j, &lo, &hi, &asc);
-          qzp_compare_exchange(x + t * n, lo, hi, asc);
+extern "C" void shim_bitonic(int32_t* x, int tiles, int n, int seg_n,
+                             int seg_stride, int elem_stride) {
+  const QzpBitPlan p = qzp_bit_plan(n, seg_n);
+  for (int tl = 0; tl < tiles; ++tl) {
+    int32_t* tile = x + tl * n;
+    std::vector<int32_t> v(n);
+    for (int q = 0; q < p.slots; ++q)
+      for (int e = 0; e < p.v; ++e)
+        v[q * p.v + e] = tile[qzp_bit_place(p, q, e, seg_stride, elem_stride)];
+    for (int k = 2; k <= seg_n; k <<= 1)
+      for (int j = k >> 1; j > 0; j >>= 1) switch (p.v) {
+          case 1: shim_bit_stage<1>(v, p, k, j); break;
+          case 2: shim_bit_stage<2>(v, p, k, j); break;
+          case 4: shim_bit_stage<4>(v, p, k, j); break;
+          case 8: shim_bit_stage<8>(v, p, k, j); break;
         }
+    for (int q = 0; q < p.slots; ++q)
+      for (int e = 0; e < p.v; ++e)
+        tile[qzp_bit_place(p, q, e, seg_stride, elem_stride)] = v[q * p.v + e];
+  }
+}
+
+// Stage (k, j) of one tile: for value e of slot q, row q V + e of out is
+// its place, its partner's place, where the two meet (QZP_BIT_REGS, SHFL,
+// SMEM) and the partner's slot; plan: v, t, slots, threads
+extern "C" void shim_bitonic_stage(int n, int seg_n, int seg_stride,
+                                   int elem_stride, int k, int j, int* out,
+                                   int* plan) {
+  const QzpBitPlan p = qzp_bit_plan(n, seg_n);
+  plan[0] = p.v;
+  plan[1] = p.t;
+  plan[2] = p.slots;
+  plan[3] = p.threads;
+  const int where = qzp_bit_where(j, p.v);
+  for (int q = 0; q < p.slots; ++q)
+    for (int e = 0; e < p.v; ++e) {
+      const int q2 = where == QZP_BIT_REGS ? q : q ^ (j / p.v);
+      const int e2 = where == QZP_BIT_REGS ? e ^ j : e;
+      int* o = out + 4 * (q * p.v + e);
+      o[0] = qzp_bit_place(p, q, e, seg_stride, elem_stride);
+      o[1] = qzp_bit_place(p, q2, e2, seg_stride, elem_stride);
+      o[2] = where;
+      o[3] = q2;
+    }
 }
 
 // ROLL on the row axis as qz_probe_roll launches it, run serially: every
@@ -1413,10 +1547,13 @@ def shim(tmp_path_factory):
     so.shim_s5_entries.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
     so.shim_tokens_tile.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-    so.shim_bitonic_stage.argtypes = [ctypes.c_uint32] * 6 + [
-        ctypes.c_void_p]
-    so.shim_bitonic.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
-        ctypes.c_uint32] * 4
+    so.shim_bitonic_stage.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.c_void_p] * 2
+    so.shim_bitonic.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5
+    so.shim_indep_unit_at.argtypes = [ctypes.c_int] * 4
+    so.shim_indep.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 2
     so.shim_transpose.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
     so.shim_tr_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
     so.shim_tr_thread.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
@@ -2006,32 +2143,59 @@ def test_probe_tokens_tile_schedule_matches_plain(shim, tile, lpc):
 _SEGMENTS = {"flat": lambda S, L: (S * L, 0, 1),
              "rows": lambda S, L: (L, L, 1),
              "cols": lambda S, L: (S, 1, L)}
+_SEG_OF = {"flat": lambda pl, S, L: (0 * pl, pl),
+           "rows": lambda pl, S, L: (pl // L, pl % L),
+           "cols": lambda pl, S, L: (pl % L, pl // L)}
 
 
-# the TPU probes' three [8, 128] cases and two other tile shapes
-@pytest.mark.parametrize("S,L,segment", [
+# the TPU probes' three [8, 128] cases, the shim's other tile shapes, tiles
+# of 64 and 4096 elements (one segment of 4096; segments of 2048 across
+# warps; segments of 2, two slots a thread)
+_BITONIC_TILES = [
     (8, 128, "flat"), (8, 128, "rows"), (8, 128, "cols"), (4, 8, "flat"),
-    (16, 64, "cols")])
+    (16, 64, "cols"), (8, 8, "flat"), (2, 32, "rows"), (64, 1, "cols"),
+    (64, 64, "flat"), (32, 128, "rows"), (512, 8, "cols"), (1, 4096, "rows"),
+    (2048, 2, "cols"), (2, 2048, "cols")]
+
+
+@pytest.mark.parametrize("S,L,segment", _BITONIC_TILES)
 def test_probe_bitonic_schedule_sorts_each_segment(shim, S, L, segment):
-    """Every stage of the network touches each place of the tile once (its
-    pairs may run in parallel), pairs one segment apart never mix, and the
-    whole schedule sorts each segment as the plain version and np.sort."""
+    """Every stage of the network, as the card places it (qzp_bit_plan),
+    touches each place of the tile once and pairs index i of a segment
+    with i ^ j of the same segment, as the TPU kernels do: within a
+    thread for j below its values, else with a lane of the same warp
+    (a shuffle) or, past 32 slots, of another warp (shared memory); the
+    whole schedule, its shuffles emulated serially, sorts each segment as
+    the plain version and np.sort."""
     seg = _SEGMENTS[segment](S, L)
-    n = S * L
+    n, m = S * L, seg[0]
+    plan = np.zeros(4, np.int32)
+    want = PR.bitonic_plan(n, m)
     k = 2
-    while k <= seg[0]:
+    while k <= m:
         j = k // 2
         while j >= 1:
-            out = np.zeros((n // 2, 3), np.uint32)
-            shim.shim_bitonic_stage(n, *seg, k, j, _ptr(out))
-            assert sorted(out[:, :2].reshape(-1)) == list(range(n))
-            lo, hi = out[:, 0], out[:, 1]
-            if segment == "rows":
-                assert (lo // L == hi // L).all()
-            if segment == "cols":
-                assert (lo % L == hi % L).all()
+            out = np.zeros((n, 4), np.int32)
+            shim.shim_bitonic_stage(n, *seg, k, j, _ptr(out), _ptr(plan))
+            place, partner, where, q2 = out.T
+            assert sorted(place) == list(range(n))
+            s0, i0 = _SEG_OF[segment](place, S, L)
+            s1, i1 = _SEG_OF[segment](partner, S, L)
+            assert (s0 == s1).all() and (i1 == i0 ^ j).all()
+            v = int(plan[0])
+            q = np.arange(n) // v
+            if j < v:
+                assert (where == 0).all() and (q2 == q).all()
+            elif j < 32 * v:
+                assert (where == 1).all() and (q2 // 32 == q // 32).all()
+            else:
+                assert (where == 2).all() and (q2 // 32 != q // 32).all()
             j //= 2
         k *= 2
+    assert list(plan) == [want["v"], want["t"], n // want["v"],
+                          want["threads"]]
+    assert sum(want["stages"].values()) == (m.bit_length() - 1) * (
+        m.bit_length()) // 2
     x = np.random.default_rng(n).integers(-2**31, 2**31, (3, S, L)).astype(
         np.int32)
     got = x.copy()
@@ -2042,6 +2206,100 @@ def test_probe_bitonic_schedule_sorts_each_segment(shim, S, L, segment):
            if segment == "flat" else np.sort(x, axis=2 if segment == "rows"
                                              else 1))
     assert (want == ref).all()
+
+
+def test_probe_bitonic_tiles_the_card_takes():
+    """BITONIC's kernel takes tiles of 32 to 4096 elements, powers of 2 on
+    both axes, in any of the three segment shapes; any other is refused by
+    name.  At [8, 128] the network's 55 / 28 / 6 stages fall 19 / 13 / 6 in
+    registers, 30 / 15 / 0 across lanes and 6 / 0 / 0 across warps."""
+    for S, L in ((4, 8), (8, 128), (64, 64), (1, 32), (4096, 1), (2, 16)):
+        PR.bitonic_check(S, L)
+    for bad in ((4, 4), (64, 128), (3, 32), (8, 12), (0, 64), (1, 8192)):
+        with pytest.raises(ValueError, match="bitonic runs on the card"):
+            PR.bitonic_check(*bad)
+    got = [PR.bitonic_plan(1024, m)["stages"] for m in (1024, 128, 8)]
+    assert got == [{"regs": 19, "shfl": 30, "smem": 6},
+                   {"regs": 13, "shfl": 15, "smem": 0},
+                   {"regs": 6, "shfl": 0, "smem": 0}]
+
+
+def _shim_indep(shim, W, R, t, idx, K, addrs=None):
+    got = idx.copy()
+    rows, cols = idx.shape
+    staged = np.zeros((t.shape[1] + W - 1) * max(R, 32), np.uint32)
+    r = shim.shim_indep(W, R, _ptr(t), t.shape[0], t.shape[1], _ptr(got),
+                        rows, cols, K, _ptr(staged),
+                        None if addrs is None else _ptr(addrs))
+    return r, got, staged
+
+
+# R = 32 down to 1 on the probe's 128-word rows (a row an index row), and
+# a one-row table of 2048 words (the card's R 16) for every row
+@pytest.mark.parametrize("W", [4, 8])
+@pytest.mark.parametrize("R,w,t_rows", [(32, 128, 6), (16, 128, 6),
+                                        (8, 128, 6), (4, 128, 6),
+                                        (2, 128, 6), (1, 128, 6),
+                                        (0, 2048, 1), (0, 8, 6),
+                                        (0, 4, 6), (8, 2, 6), (0, 1, 6)])
+def test_probe_indep_layout_matches_plain(shim, W, R, w, t_rows):
+    """INDEP over a table row staged R times over with its first W - 1
+    words wrapped past its end: every staged word stored once, lane l
+    finding word i's copy l % R at i R + l % R for every i < w + W - 1
+    (word i % w), and K steps of one mask, one address and W loads each
+    equal to the plain version; R = 0 takes the card's choice."""
+    rng = np.random.default_rng(W * 64 + R + w)
+    t, idx = _u32s(rng, (t_rows, w)), _u32s(rng, (6, 40))
+    r, got, staged = _shim_indep(shim, W, R, t, idx, 7)
+    assert r == (R or PR.indep_copies(w, W)) and r > 0
+    assert (got.view(np.int32) == PR.indep_gather_loop(
+        _ti(t), _ti(idx), 7, W).numpy()).all()
+    i = np.arange(w + W - 1)[:, None]
+    lanes = np.arange(32)[None, :]
+    shift = (4 * r).bit_length() - 1
+    assert (staged[i * r + (lanes & (r - 1))] == (
+        t[0][i % w].astype(np.uint64) << shift).astype(np.uint32)).all()
+
+
+@pytest.mark.parametrize("R", [32, 16, 8, 4])
+def test_probe_indep_staging_stores_spread_over_the_banks(shim, R):
+    """The staging's 16-byte stores: a quarter warp's 8 threads, each
+    storing unit j of its own word, fill 8 distinct 16-byte bank groups at
+    R = 32 and 4, and queue at most 32 / R deep below 32."""
+    for t0 in range(0, 128, 8):
+        for j in range(R // 4):
+            groups = [shim.shim_indep_unit_at(R, t, j, t) // 4 % 8
+                      for t in range(t0, t0 + 8)]
+            ways = max(groups.count(g) for g in groups)
+            assert ways == 1 if R in (32, 4) else ways <= 32 // R
+
+
+@pytest.mark.parametrize("R", [32, 16, 8, 4, 2, 1])
+def test_probe_indep_loads_fall_on_distinct_banks(shim, R):
+    """Whatever the 32 lanes' indexes, each of a step's W loads of a warp
+    falls on 32 distinct banks at R = 32 (one wavefront), and at R < 32
+    queues at most 32 / R distinct words on a bank; indexes that meet on
+    a bank reach that bound."""
+    rng = np.random.default_rng(R)
+    w, W = 2048, 8
+    t = _u32s(rng, (1, w))
+    sets = [_u32s(rng, (1, 32)) for _ in range(50)]
+    sets += [np.zeros((1, 32), np.uint32),
+             (np.arange(32, dtype=np.uint32) * 37)[None, :],
+             ((np.arange(32, dtype=np.uint32) // R) * (32 // R))[None, :]
+             if R < 32 else np.zeros((1, 32), np.uint32)]
+    worst = 0
+    for idx in sets:
+        addrs = np.zeros((32, W), np.uint32)
+        _shim_indep(shim, W, R, t, idx, 1, addrs)
+        for x in range(W):
+            words = addrs[:, x] // 4
+            ways = max(len(set(words[words % 32 == b])) for b in range(32))
+            if R == 32:
+                assert len(set(words % 32)) == 32
+            assert ways <= 32 // R
+            worst = max(worst, ways)
+    assert worst == 32 // R
 
 
 _PALLAS_ROLL = [(16, 1, 0), (16, 4, 0), (512, 1, 0), (512, 64, 0),
@@ -2201,10 +2459,10 @@ def test_probe_dep_plan_stages_each_table_row_once(shim, rows, cols, t_rows,
 def test_probe_entries_take_only_their_arguments():
     """Each C entry of probes.cu takes exactly the ctypes arguments its
     wrapper declares (a pointer, an unsigned or an int each), ROLL,
-    REFILL, TRANSPOSE, DEP, STEP and COLUMN only their own; TRANSPOSE,
-    DEP, STEP and COLUMN set their kernels' attributes once a process, in
-    a static initialiser, never at a launch; the row roll's kernel keeps
-    no shared memory and no barrier."""
+    REFILL, TRANSPOSE, DEP, STEP, COLUMN and INDEP only their own;
+    TRANSPOSE, DEP, STEP, COLUMN and INDEP set their kernels' attributes
+    once a process, in a static initialiser, never at a launch; the row
+    roll's kernel keeps no shared memory and no barrier."""
     import re
 
     src = open(os.path.join(_build.TOOLS, "probes.cu")).read()
@@ -2216,12 +2474,13 @@ def test_probe_entries_take_only_their_arguments():
                     else "i" for a in params]
         assert declared == [kinds[t] for t in k.argtypes], k.symbol
     assert [len(k.argtypes) for k in (PR.ROLL, PR.REFILL, PR.TRANSPOSE,
-                                      PR.DEP, PR.STEP, PR.COLUMN)] == [
-        7, 11, 6, 11, 17, 11]
+                                      PR.DEP, PR.STEP, PR.COLUMN,
+                                      PR.INDEP)] == [7, 11, 6, 11, 17, 11, 12]
     for entry, prepare in (("qz_probe_transpose", "qzp_transpose_prepare"),
                            ("qz_probe_dep", "qzp_dep_prepare"),
                            ("qz_probe_step", "qzp_step_prepare"),
-                           ("qz_probe_column", "qzp_column_prepare")):
+                           ("qz_probe_column", "qzp_column_prepare"),
+                           ("qz_probe_indep", "qzp_indep_prepare")):
         start = src.index(f'extern "C" int {entry}(')
         body = src[start:src.index("\n}\n", start)]
         assert f"static const int ready = {prepare}();" in body

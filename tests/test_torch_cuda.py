@@ -432,9 +432,13 @@ def _i32(rng, shape, lo=-2**31, hi=2**31):
 
 
 # a table a row (the TPU shape), one 2048-word table for every row (the
-# inflate's 8 KB a lane), one thread a row
+# inflate's 8 KB a lane), one thread a row; INDEP stages 128-word rows 32
+# times over, 2048-word rows 16 times, a 32768-word row once, and 2-word
+# rows a word at a time
 @pytest.mark.parametrize("t_rows,w,n", [(16, 128, 128), (1, 2048, 300),
-                                        (16, 2048, 1)])
+                                        (16, 2048, 1), (1, 128, 64),
+                                        (16, 2048, 40), (16, 2, 50),
+                                        (1, 32768, 33)])
 @pytest.mark.parametrize("mode", ["dep", "indep4", "indep8"])
 @pytest.mark.parametrize("smem", [True, False])
 def test_probe_chain_rows_equal_plain(dev, mode, smem, t_rows, w, n):
@@ -442,7 +446,10 @@ def test_probe_chain_rows_equal_plain(dev, mode, smem, t_rows, w, n):
 
     rng = np.random.default_rng(w + n)
     t, idx = _i32(rng, (t_rows, w)), _i32(rng, (16, n))
-    _probe_check(dev, P.DEP if mode == "dep" else P.CHAIN,
+    if mode != "dep":
+        assert P.indep_copies(w, int(mode[-1])) == {
+            128: 32, 2048: 16, 2: 32, 32768: 1}[w]
+    _probe_check(dev, P.DEP if mode == "dep" else P.INDEP,
                  lambda a, b: P.probe_chain(mode, a, b, 9, smem=smem), t, idx)
 
 
@@ -467,7 +474,7 @@ def test_probe_chain_column_and_walk_equal_plain(dev, smem, n, rows, post):
         "walk", a, None, 300, smem=smem), x)
 
 
-@pytest.mark.parametrize("mode", ["hash", "ew", "double"])
+@pytest.mark.parametrize("mode", ["hash", "ew", "double", "shfl", "bar"])
 def test_probe_alu_equals_plain(dev, mode):
     from qatzip_tpu_torch.tools import probes as P
 
@@ -526,7 +533,10 @@ def test_probe_tiles_equal_plain(dev):
     """ROLL on both axes, TRANSPOSE (clusters of 1, 4 and 16 CTAs; a tile
     of n < 4, padded, and one that is not 16-byte aligned, copied first),
     REFILL by loads, cp.async and TMA (by offset and by block index; the
-    offsets stay on the CPU), BITONIC on the three segment shapes."""
+    offsets stay on the CPU), BITONIC on the three segment shapes at K 1,
+    2 and 5 over several tiles of 64 to 4096 elements (the TPU probes'
+    [8, 128], one segment of 4096, segments of 2 at two slots a
+    thread)."""
     from qatzip_tpu_torch.tools import probes as P
 
     rng = np.random.default_rng(7)
@@ -552,9 +562,14 @@ def test_probe_tiles_equal_plain(dev):
     odd = _i32(rng, (64, 1021))   # rows not 16-byte aligned: a word a thread
     _probe_check(dev, P.REFILL, lambda a: P.probe_refill(a, off, 61, 3,
                                                          alt=5), odd)
-    x = _i32(rng, (5, 8, 128))
-    for segment in ("flat", "rows", "cols"):
-        _probe_check(dev, P.TILE, lambda a: P.probe_bitonic(a, segment, 2), x)
+    for shape in ((5, 8, 128), (3, 8, 8), (7, 64, 1), (2, 64, 64),
+                  (4, 32, 128), (3, 512, 8), (2, 2, 2048), (2, 4, 8),
+                  (3, 16, 64)):
+        x = _i32(rng, shape)
+        for segment in ("flat", "rows", "cols"):
+            for K in (1, 2, 5):
+                _probe_check(dev, P.TILE, lambda a: P.probe_bitonic(
+                    a, segment, K), x)
 
 
 def test_probe_roll_and_refill_sync_free_and_graph_replayed(dev):
@@ -817,6 +832,72 @@ def test_probe_column_and_step3_sync_free_and_graph_replayed(dev):
         with pytest.raises(ValueError, match="column runs on the card"):
             P.probe_column(tt, ii, 9, post=post)
     assert P.COLUMN.launches == launches
+
+
+def test_probe_indep_and_bitonic_sync_free_and_graph_replayed(dev):
+    """INDEP (W 4 and 8; tables staged 32, 16 and 1 times over, one row or
+    a row each, and through __ldg) and BITONIC (the three [8, 128]
+    segments, tiles of 64 and 4096 elements, a tile 4 bytes past a 16-byte
+    boundary, read a word at a time) raise nothing under sync debug mode
+    "error", are captured in a CUDA graph and replay equal to plain; each
+    refuses a shape its kernel does not take (a table 96 or 65536 words
+    wide staged, a tile of 16 or 8192 elements, or of 3 rows) before
+    launching."""
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(19)
+    indeps = [(f"indep{W}", _i32(rng, (t_rows, w)).to(dev),
+               _i32(rng, (rows, n)).to(dev), K, smem)
+              for W in (4, 8)
+              for t_rows, w, rows, n, K, smem in (
+                  (128, 128, 128, 128, 4, True), (1, 2048, 8, 300, 3, True),
+                  (1, 32768, 2, 64, 5, True), (16, 128, 16, 128, 2, False))]
+    flat = _i32(rng, (8 * 128 + 1,)).to(dev)
+    sorts = [(_i32(rng, shape).to(dev), segment, K)
+             for shape, segment, K in (((8, 128), "flat", 1),
+                                       ((8, 128), "rows", 2),
+                                       ((8, 128), "cols", 5),
+                                       ((3, 8, 8), "rows", 1),
+                                       ((64, 64), "flat", 2),
+                                       ((2, 2048), "cols", 1))]
+    sorts.append((flat[1:].view(8, 128), "flat", 1))
+
+    def calls():
+        return ([P.probe_chain(m, t, i, K, smem=smem)
+                 for m, t, i, K, smem in indeps]
+                + [P.probe_bitonic(x, segment, K) for x, segment, K in sorts])
+
+    want = ([P.indep_gather_loop(t.cpu(), i.cpu(), K, int(m[-1]))
+             for m, t, i, K, _ in indeps]
+            + [P.bitonic(x.cpu(), segment) for x, segment, _ in sorts])
+    before = P.INDEP.launches, P.TILE.launches
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            captured = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert (P.INDEP.launches, P.TILE.launches) == (
+        before[0] + 2 * len(indeps), before[1] + 2 * len(sorts))
+    for o in captured:
+        o.fill_(-1)
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, captured, want, strict=True):
+        assert torch.equal(a.cpu(), w) and torch.equal(b.cpu(), w)
+    launches = P.INDEP.launches, P.TILE.launches
+    i = indeps[0][2]
+    for w in (96, 65536):
+        with pytest.raises(ValueError, match="indep runs on the card"):
+            P.probe_chain("indep8", _i32(rng, (1, w)).to(dev), i, 2)
+    for shape in ((4, 4), (64, 128), (3, 32)):
+        with pytest.raises(ValueError, match="bitonic runs on the card"):
+            P.probe_bitonic(_i32(rng, shape).to(dev), "flat")
+    assert (P.INDEP.launches, P.TILE.launches) == launches
 
 
 def test_probe_roll_rows_keeps_no_shared_memory(dev):

@@ -377,6 +377,20 @@ def test_p_double_and_p_roll():
     _eq(P.roll(_t(x), 1, 1), np.roll(x, 1, axis=1))
 
 
+@pytest.mark.parametrize("n,K", [(128, 1), (128, 8), (1001, 3)])
+def test_shfl_and_bar_units(n, K):
+    """The units of BITONIC's latency figure (no TPU kernel): K dependent
+    shuffles with the neighbour lane swap each pair (an odd last element
+    pairs with the padding lane's 0) K % 2 times; K barriers each followed
+    by + 1 add K, with 32-bit wrap."""
+    x = _i32(_rng(n + K), (n,))
+    pairs = np.concatenate([x, np.zeros(n % 2, np.int32)]).reshape(-1, 2)
+    want = (pairs[:, ::-1] if K % 2 else pairs).reshape(-1)[:n]
+    _eq(P.probe_alu("shfl", _t(x), K), want)
+    _eq(P.probe_alu("bar", _t(x), K),
+        (x.astype(np.int64) + K).astype(np.uint32).view(np.int32))
+
+
 @pytest.mark.parametrize("w", [128, 1024])
 def test_p_gather(w):
     """probe_pallas.py:82 on the probe's tables, and on random indexes."""
@@ -415,12 +429,36 @@ def test_p_bitonic_64k_sorts(B):
                                           ("cols", 0)])
 def test_p_bitonic_segments(segment, axis):
     """probe_pallas3.py:77 (1024 flat), :113 (rows of 128), :145 (columns
-    of 8) against np.sort, on two [8, 128] tiles."""
+    of 8) against np.sort, on two [8, 128] tiles: the TPU's p_bitonic,
+    p_rows and p_cols are defined inside probe_pallas3.main() and cannot
+    be imported, and np.sort is the check main() prints."""
     x = _i32(_rng(11), (2, 8, 128))
     want = np.stack([np.sort(t.reshape(-1)).reshape(8, 128) if axis is None
                      else np.sort(t, axis=axis) for t in x])
     _eq(P.bitonic(_t(x), segment), want)
     _eq(P.probe_bitonic(_t(x), segment), want)
+
+
+def test_bitonic_and_indep_shapes_the_card_takes():
+    """The card's BITONIC sorts tiles of 32 to 4096 elements, powers of 2
+    on both axes; its INDEP takes tables a power of 2 wide, staged up to
+    32768 words (a copy and W - 1 wrapped words in a CTA's shared memory),
+    R copies of each word: 32 at the TPU probe's 128, 16 at the inflate's
+    2048, 1 at 32768.  Anything else is refused by name."""
+    for S, L in ((8, 128), (4, 8), (16, 64), (64, 64), (32, 1), (1, 4096)):
+        P.bitonic_check(S, L)
+    for bad in ((4, 4), (8, 1024), (3, 32), (8, 96), (0, 128)):
+        with pytest.raises(ValueError, match="bitonic runs on the card"):
+            P.bitonic_check(*bad)
+    for w, W, smem in ((128, 4, True), (2048, 8, True), (32768, 8, True),
+                       (1, 4, True), (65536, 8, False)):
+        P.indep_check(w, W, smem)
+    for w, W, smem in ((96, 4, True), (65536, 8, True), (0, 8, False),
+                       (100, 8, False)):
+        with pytest.raises(ValueError, match="indep runs on the card"):
+            P.indep_check(w, W, smem)
+    assert [P.indep_copies(w, 8) for w in (128, 2048, 8192, 32768)] == [
+        32, 16, 4, 1]
 
 
 def _chain_np(v: np.ndarray, i: np.ndarray, K: int) -> np.ndarray:
@@ -493,9 +531,10 @@ _STEP_CASES = [c for c in PB.CASES if "call" in c.args]
 @pytest.mark.parametrize("case", _STEP_CASES,
                          ids=[c.name for c in _STEP_CASES])
 def test_bench_step_cases_equal_plain(case):
-    """Each STEP5 and TOKENS case of probe_bench, called as its --against
-    turns call another checkout's wrapper (here this checkout's module, on
-    the CPU), equals its plain version at the case's K."""
+    """Each case of probe_bench that its --against turns call through
+    another checkout's wrapper (COLUMN, STEP3, STEP5, TOKENS, INDEP,
+    BITONIC, WALK and the ALU chains), called so through this checkout's
+    module on the CPU, equals its plain version at the case's K."""
     x = case.make(torch.Generator().manual_seed(0))
     got = case.args["call"](P, x, case.k)
     want = case.plain(x, case.k)
