@@ -41,14 +41,15 @@ Run from the repository root:  python3 chip_smoke.py
    and the CTAs the card holds a SM; then the first group through
    decode_blocks, equal to its chunks.  The construct probes
    (tools/probe_bench.py): the STEP5, TOKENS tile, COLUMN, STEP3, INDEP,
-   BITONIC, HASH, EW and DOUBLE kernels' loops read from the library's
-   SASS; ROLL, REFILL, TRANSPOSE, DEP, COLUMN, STEP3, STEP5, TOKENS, INDEP
-   and BITONIC under sync debug mode "error" and replayed from a CUDA
-   graph, the launch floor (an empty kernel) and the
-   host pieces of a launch, then every probe equal to its plain version
-   (a latency bound beside the latency-bound ones), timed host-paced and
-   graph-replayed beside its PyTorch call, and slope-timed (TRANSPOSE with
-   the SMs its cluster ran on).
+   BITONIC, 64K row sort, HASH, EW and DOUBLE kernels' loops read from the
+   library's SASS; ROLL, REFILL, TRANSPOSE, DEP, COLUMN, STEP3, STEP5,
+   TOKENS, INDEP, BITONIC and the 64K row sort under sync debug mode
+   "error" and replayed from a CUDA graph, the launch floor (an empty
+   kernel) and the host pieces of a launch, then every probe equal to its
+   plain version (a latency bound beside the latency-bound ones; the 64K
+   row sort also on full-range keys with negatives and repeats), timed
+   host-paced and graph-replayed beside its PyTorch call, and slope-timed
+   (TRANSPOSE and the row sort with the SMs their clusters ran on).
 3. Calibration (engine/devcal.calibrate, 8 MB, into a record of its own):
    the CPU funnel, the device codec's raw and packed compress and its
    decompress, the inflate kernel and the match finder alone.  No device or
@@ -335,11 +336,11 @@ def phase_select(torch, corpus: bytes, dev) -> list:
 def phase_probes(torch, dev) -> list:
     """The construct probes' library built, and the loops of the kernels
     of probe_bench.SASS_KERNELS (STEP5, the TOKENS tile, COLUMN, STEP3,
-    INDEP, BITONIC, HASH, EW, DOUBLE) read from its SASS (instructions,
-    shared-memory loads, shuffles and the dependent chain a step); the
-    ROLL, REFILL, TRANSPOSE, DEP, COLUMN, STEP3, STEP5, TOKENS, INDEP and
-    BITONIC wrappers under sync debug mode "error" and replayed from a CUDA
-    graph; then the launch floor, the host pieces of a launch and every
+    INDEP, BITONIC, the 64K row sort, HASH, EW, DOUBLE) read from its SASS
+    (instructions, shared-memory loads, shuffles and the dependent chain a
+    step); the ROLL, REFILL, TRANSPOSE, DEP, COLUMN, STEP3, STEP5, TOKENS,
+    INDEP, BITONIC and 64K row sort wrappers under sync debug mode "error"
+    and replayed from a CUDA graph; then the launch floor, the host pieces of a launch and every
     case of tools/probe_bench.py: the kernel equal to its plain version, timed
     host-paced and graph-replayed beside its PyTorch call, and slope-timed
     (ns and clock64() ticks a unit).  Returns the cases' records."""
@@ -351,10 +352,10 @@ def phase_probes(torch, dev) -> list:
     _build.library(_build.PROBES)
     print(f"probe build: {time.perf_counter() - t0:.2f} s ({path})")
     sass = PB.sass_report({"this": path})
-    _check(len(sass) == len(PB.SASS_KERNELS) == 12
+    _check(len(sass) == len(PB.SASS_KERNELS) == 13
            and all("chain" in r for r in sass),
-           "the STEP5, TOKENS tile, COLUMN, STEP3, INDEP, BITONIC, HASH, EW "
-           "and DOUBLE kernels' loops not found in the SASS")
+           "the STEP5, TOKENS tile, COLUMN, STEP3, INDEP, BITONIC, 64K row "
+           "sort, HASH, EW and DOUBLE kernels' loops not found in the SASS")
     PB.graph_safe(dev)
     t0 = time.perf_counter()
     recs = PB.run(dev)
@@ -480,8 +481,9 @@ def _device_ops(torch, fn) -> dict:
 def phase_sort(torch, corpus: bytes, dev) -> dict:
     """The u32 sort kernel on the match finder's sort-1 input at stride 2
     and 1, then on random unique keys at a shape beyond one cluster and
-    with 4 payloads.  No path calls it, so its launches are this phase's
-    own checked calls."""
+    with 4 payloads, and on keys alone (full-range, with repeats) at [1,
+    65536] and [32, 65536].  No path calls it, so its launches are this
+    phase's own checked calls."""
     from qatzip_tpu_torch.ops import match_finder as mf
     from qatzip_tpu_torch.ops import sort as S
     from qatzip_tpu_torch.tools import sort_bench as SB
@@ -499,6 +501,12 @@ def phase_sort(torch, corpus: bytes, dev) -> dict:
         cases.append((f"stride {stride}", [keys, b4, b4b]))
     cases.append(("beyond one cluster", SB.inputs(4, 262144, 2, 1, dev)))
     cases.append(("4 payloads", SB.inputs(128, 32768, 4, 2, dev)))
+    g = torch.Generator().manual_seed(20)
+    for B in (1, 32):   # no payloads: a cluster of 2 CTAs of 32768 keys
+        keys = torch.randint(-2**31, 2**31 - 1, (B, 65536), generator=g,
+                             dtype=torch.int32)
+        keys[:, 1::2] = keys[:, ::2]
+        cases.append((f"keys only, {B} rows", [keys.to(dev)]))
     S.KERNEL.launches = 0
     rec = None
     for label, t in cases:

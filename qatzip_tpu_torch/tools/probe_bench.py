@@ -22,9 +22,11 @@ by time.perf_counter.  The inputs come from a torch.Generator seeded per
 case.  ``--against`` builds each named checkout's probes.cu (an earlier
 commit unpacked with ``git archive`` under ``build/``) and times its ROLL,
 REFILL, TRANSPOSE, DEP (p_gather and the two slopes chip_smoke reads),
-COLUMN, STEP3, STEP5, TOKENS, INDEP and BITONIC wrappers and kernels
-beside this checkout's in turns (old, new, new, old); INDEP also over
-lanes that stay in order (no bank conflict) beside random ones.
+COLUMN, STEP3, STEP5, TOKENS, INDEP, BITONIC and 64K row sort wrappers
+and kernels beside this checkout's in turns (old, new, new, old; the row
+sort beside an older checkout's sort_u32 route, through this checkout's
+sort_u32); INDEP also over lanes that stay in order (no bank conflict)
+beside random ones.
 chip_smoke.py runs the same cases (``run``) and puts their records in its
 kernels line.
 """
@@ -370,20 +372,46 @@ def _bitonic_case(segment, replaces):
                 library, args={"call": call, "seg_n": n})
 
 
-def _sort_case(B):
+def _sort_case(B, signed=False):
+    """A 64K sort of B rows (qz_probe_bitonic_row): the TPU probe's keys
+    (< 2^30), or (signed) full-range keys with negatives and repeats.  A
+    checkout whose probes.py has no row sort is called through the route
+    it took, sort_u32 (csrc/sort.cu, this checkout's: the row sort left it
+    as it was) once a sort, K times; it writes no clock ticks and sorts in
+    uint32 order, so --against leaves out the signed case."""
     def make(gen):
-        return (_ints(gen, 0, 1 << 30, (B, 65536)),)
+        if not signed:
+            return (_ints(gen, 0, 1 << 30, (B, 65536)),)
+        x = _u32(gen, (B, 65536))
+        x[:, 1::7] = x[:, ::7][:, :x[:, 1::7].shape[1]]
+        x[:, 2::5] = _ints(gen, -3, 3, x[:, 2::5].shape)
+        return (x,)
+
+    def call(mod, x, K, clk=None):
+        if hasattr(mod, "probe_bitonic_64k"):
+            return mod.probe_bitonic_64k(x[0], K, clk=clk)
+        y = x[0]
+        for _ in range(K):
+            y = SO.sort_u32(x[0])[0]
+        return y
 
     lg = 16
-    return Case(f"probe_sort_{B}x65536", "sort_u32",
+    return Case(f"probe_sort_{B}x65536" + ("_signed" if signed else ""),
+                "qz_probe_bitonic_row",
                 "tools/probe_pallas.py:154" if B == 1 else
-                "tools/probe_pallas.py:186,225", f"[{B}, 65536] keys < 2^30",
-                "call", make, lambda x, K, clk=None: SO.sort_u32(x[0])[0],
-                lambda x, K: SO.sort_u32_ref(x[0])[0], 1, None, None,
+                "tools/probe_pallas.py:186,225",
+                f"[{B}, 65536] "
+                + ("int32 keys, negatives and repeats" if signed
+                   else "keys < 2^30")
+                + f", a cluster of {P.ROW_CTAS} CTAs a row",
+                "sort of the rows", make,
+                lambda x, K, clk=None: call(P, x, K, clk),
+                lambda x, K: P.bitonic(x[0].view(B, 512, 128), "flat")
+                .reshape(B, 65536), 1, 4, 16,
                 lambda x, K: (2 * _nbytes(x[0]),
-                              3 * B * 65536 // 2 * lg * (lg + 1) // 2),
+                              K * 3 * B * 65536 // 2 * lg * (lg + 1) // 2),
                 lambda x: torch.sort(x[0], dim=1).values,
-                source="qatzip_tpu_torch/csrc/sort.cu")
+                args={"call": call, "seg_n": 65536}, cluster=P.ROW_CTAS)
 
 
 _DEP = ("tools/probe_inflate_step.py:53, tools/probe_inflate_step3.py:44, "
@@ -498,6 +526,7 @@ def _cases() -> list:
         _bitonic_case("cols", "tools/probe_pallas3.py:145"),
         _sort_case(1),
         _sort_case(32),
+        _sort_case(32, signed=True),
     ]
     return cases
 
@@ -511,7 +540,7 @@ CLK_WORDS = 64      # a slope's clk: the ticks, then a cluster's SMs
 # TOKENS'
 REDESIGNED = ("qz_probe_roll", "qz_probe_refill", "qz_probe_transpose",
               "qz_probe_dep", "qz_probe_column", "qz_probe_indep",
-              "qz_probe_tile")
+              "qz_probe_tile", "qz_probe_bitonic_row")
 STEP_REDESIGNED = ("probe_step_step3_", "probe_step_step5_",
                    "probe_step_tokens_")
 # a dependent integer instruction on an H100, in clocks: the STEP5
@@ -527,6 +556,9 @@ AGAINST_DEP = ("probe_chain_gather128", "probe_chain_gather1024",
 # redesigned ones'
 AGAINST_OTHER = ("probe_chain_walk", "probe_alu_hash", "probe_alu_ew",
                  "probe_alu_double")
+# the cases an older checkout's route does not compute (sort_u32's uint32
+# order)
+AGAINST_NOT = ("probe_sort_32x65536_signed",)
 
 
 def redesigned(case: Case) -> bool:
@@ -722,8 +754,10 @@ def line(rec: dict) -> str:
               f"{rec['design_ms']:.6f} ms ({st['regs']} in registers x "
               f"{INT_CLOCKS}, {st['shfl']} shuffles x "
               f"{rec['shfl_clocks']:.1f}, {st['smem']} x a load and a "
-              f"barrier {rec['lds_bar_clocks']:.1f} = "
-              f"{rec['design_clocks']:.1f} clocks)")
+              f"barrier {rec['lds_bar_clocks']:.1f}"
+              + (f", {st['cluster']} exchanges across CTAs x "
+                 f"{rec['exchange_clocks']:.1f}" if "cluster" in st else "")
+              + f" = {rec['design_clocks']:.1f} clocks)")
     elif "latency_bound_ms" in rec:
         s += (f", latency bound {rec['latency_bound_ms']:.6f} ms (K x "
               "dependent loads a unit x the dependent load)")
@@ -774,35 +808,48 @@ def run(dev=torch.device("cuda", 0), log=print,
 
 
 def _sort_bounds(case: Case, recs: list) -> dict:
-    """A BITONIC case's latency bounds, in clocks and in ms at the clock
-    rate the dependent-load case ran at: the least any design needs (the
-    network's stages, each one dependent integer instruction), and this
-    design's (a stage in registers one instruction, across lanes a
-    measured shuffle, across warps a measured dependent load and
-    barrier); {} without the dependent load, shuffle and barrier records
-    of this run."""
+    """A BITONIC or 64K row case's latency bounds, in clocks and in ms at
+    the clock rate the dependent-load case ran at: the least any design
+    needs (the network's stages, each one dependent integer instruction),
+    and this design's (a stage in registers one instruction, across lanes
+    a measured shuffle, across warps a measured dependent load and
+    barrier, across CTAs the measured exchange: TRANSPOSE's clocks a step,
+    a 16-byte st.async on the partner's mbarrier and its wait); {} without
+    the dependent load, shuffle, barrier (and, for a row, TRANSPOSE)
+    records of this run."""
     by = {r["name"]: r for r in recs}
-    if not {DEP_LOAD, "probe_alu_shfl", "probe_alu_bar"} <= set(by):
+    row = bool(case.cluster)
+    need = {DEP_LOAD, "probe_alu_shfl", "probe_alu_bar"} | (
+        {"probe_tile_transpose"} if row else set())
+    if not need <= set(by):
         return {}
     dep = by[DEP_LOAD]
     ghz = dep["clocks_per_unit"] / dep["ns_per_unit"]
     m = case.args["seg_n"]
     st = P.bitonic_plan(m, m)["stages"]
+    if row:   # the passes past a CTA's values, across CTAs
+        lc = case.cluster.bit_length() - 1
+        st["cluster"] = lc * (lc + 1) // 2
+        st["smem"] -= st["cluster"]
     shfl = by["probe_alu_shfl"]["clocks_per_unit"]
     lds_bar = dep["clocks_per_unit"] + by["probe_alu_bar"]["clocks_per_unit"]
     least = sum(st.values()) * INT_CLOCKS
     design = (st["regs"] * INT_CLOCKS + st["shfl"] * shfl
               + st["smem"] * lds_bar)
-    return {"stages": st, "latency_bound_clocks": least,
-            "latency_bound_ms": case.k * least / ghz * 1e-6,
-            "shfl_clocks": shfl, "lds_bar_clocks": lds_bar,
-            "design_clocks": design,
-            "design_ms": case.k * design / ghz * 1e-6}
+    out = {"stages": st, "latency_bound_clocks": least,
+           "latency_bound_ms": case.k * least / ghz * 1e-6,
+           "shfl_clocks": shfl, "lds_bar_clocks": lds_bar}
+    if row:
+        out["exchange_clocks"] = by["probe_tile_transpose"][
+            "clocks_per_unit"]
+        design += st["cluster"] * out["exchange_clocks"]
+    out.update(design_clocks=design, design_ms=case.k * design / ghz * 1e-6)
+    return out
 
 
 def graph_safe(dev, log=print) -> int:
     """The ROLL, REFILL, TRANSPOSE, DEP, COLUMN, STEP3, STEP5, TOKENS,
-    INDEP and BITONIC cases' wrappers under
+    INDEP, BITONIC and 64K row sort cases' wrappers under
     ``torch.cuda.set_sync_debug_mode("error")`` (a call that synchronises
     raises), then captured in a CUDA graph and replayed: each result equal
     to plain.  Returns the cases checked."""
@@ -831,8 +878,8 @@ def graph_safe(dev, log=print) -> int:
             raise AssertionError(f"{case.name}: != plain under sync debug "
                                  "mode or from a graph")
     log(f"probe graph safety: {len(cases)} ROLL, REFILL, TRANSPOSE, DEP, "
-        "COLUMN, STEP3, STEP5, TOKENS, INDEP and BITONIC cases raise "
-        "nothing under sync "
+        "COLUMN, STEP3, STEP5, TOKENS, INDEP, BITONIC and 64K row sort "
+        "cases raise nothing under sync "
         "debug mode \"error\" and replay from a CUDA graph equal to plain")
     return len(cases)
 
@@ -886,6 +933,8 @@ def build_against(roots: dict) -> dict:
     mods = {}
     for label, root, lib, proc in procs:
         _, err = proc.communicate()
+        with open(lib + ".nvcc.log", "w") as f:   # ptxas's report
+            f.write(err)
         if proc.returncode:
             raise _build.KernelError(f"nvcc failed for {label}:\n{err}")
         mods[label] = _load_other(label, root, lib)
@@ -895,12 +944,14 @@ def build_against(roots: dict) -> dict:
 
 def _against_cases(only=None) -> list:
     """The cases --against times: ROLL, REFILL, TRANSPOSE, COLUMN, STEP3,
-    STEP5, TOKENS, INDEP and BITONIC, p_gather and the two DEP slopes that
-    chip_smoke reads, WALK, HASH, EW and DOUBLE; only: their names, if
-    given."""
+    STEP5, TOKENS, INDEP, BITONIC and the 64K row sort (not its signed
+    case, which an older checkout's sort_u32 does not sort), p_gather and
+    the two DEP slopes that chip_smoke reads, WALK, HASH, EW and DOUBLE;
+    only: their names, if given."""
     return [c for c in CASES
             if ((redesigned(c) and c.kernel != "qz_probe_dep")
                 or c.name in AGAINST_DEP + AGAINST_OTHER)
+            and c.name not in AGAINST_NOT
             and (not only or c.name in only)]
 
 
@@ -983,8 +1034,9 @@ def against(mods: dict, dev, log=print, only=None) -> list:
                     call(K, clk)
                     torch.cuda.synchronize()
                     ticks.append(int(clk[0]))
-                rec["clocks_per_unit"] = ((ticks[1] - ticks[0])
-                                          / (case.k_hi - case.k_lo))
+                if ticks[1]:   # a route that writes no ticks has none
+                    rec["clocks_per_unit"] = ((ticks[1] - ticks[0])
+                                              / (case.k_hi - case.k_lo))
             if case.ctas:   # the kernel's fixed part: its staging, launch
                 rec["graph_ms_k0"] = graph_ms(lambda: launch(0), GRAPH_REPS)
             recs.append(rec)
@@ -1006,7 +1058,8 @@ def against(mods: dict, dev, log=print, only=None) -> list:
 
 # The STEP5 kernel at one lane a CTA, root 256, no tokens, the TOKENS tile
 # kernel, the COLUMN kernel over shared memory, the STEP3 kernel, the INDEP
-# kernels at R = 32 and the BITONIC kernels of the three [8, 128] cases, by
+# kernels at R = 32, the BITONIC kernels of the three [8, 128] cases and
+# the 64K row sort's at 16 CTAs a row (a trip of its loop: a sort), by
 # their mangled names' heads (the STEP5 kernel: a template of its own; an
 # older checkout's: qzp_step<1, 0>; COLUMN's staged by tensor copies, or
 # by loads (qzp_column<true>), or behind qz_probe_chain before its own
@@ -1029,6 +1082,7 @@ SASS_KERNELS = {
     "bitonic flat": (("_Z11qzp_bitonicILi1024EE", "_Z11qzp_bitonic7"), 0),
     "bitonic rows": (("_Z11qzp_bitonicILi128EE",), 0),
     "bitonic cols": (("_Z11qzp_bitonicILi8EE",), 0),
+    "bitonic row": (("_Z15qzp_bitonic_row",), 0),
     "hash": (("_Z7qzp_aluILi0EE",), "IMAD"),
     "ew": (("_Z7qzp_aluILi1EE",), "IMAD"),
     "double": (("_Z7qzp_aluILi2EE",), "IMAD"),
@@ -1162,7 +1216,8 @@ def main() -> None:
     ap.add_argument("--against", nargs="*", default=[],
                     help="roots of other checkouts whose ROLL, REFILL, "
                          "TRANSPOSE, DEP, COLUMN, STEP3, STEP5, TOKENS, "
-                         "INDEP and BITONIC to time beside this one's")
+                         "INDEP, BITONIC and the 64K sort to time beside "
+                         "this one's")
     ap.add_argument("--only", nargs="*", default=None,
                     help="the cases to time, by name (all)")
     args = ap.parse_args()

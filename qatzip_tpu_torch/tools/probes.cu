@@ -1326,6 +1326,215 @@ extern "C" int qz_probe_transpose(const void* x, void* out, int n, int K,
   return (int)(err != cudaSuccess ? err : last);
 }
 
+// -- qz_probe_bitonic_row -----------------------------------------------------
+//
+// The 64K sorts of probe_pallas.py (k_bitonic, k_bitonic3): each int32 row
+// of 65536 sorted ascending in signed order, K times, by the TPU kernels'
+// network, a row a thread-block cluster (qzp_row_* in probes.cuh): C =
+// QZP_ROW_CTAS (16) CTAs, N = 4096 values a CTA, V = QZP_ROW_V (4) a thread
+// in registers, 1024 threads.  Plan: C 16 at any number of rows.  On an
+// H100 (PERF.md) a row took 37.3K clocks at C 16 against 85.1K at C 8 (V
+// 8), and 7 clusters of 16 run at once against 15 of 8, yet C 16 was the
+// faster at every row count: 0.0972 ms against 0.1325 at 32 rows (0.0203
+// against 0.0438 at one); at C 16, V 8 (512 threads) took 51.2K clocks,
+// V 16 58.1K.
+// The passes with j < N are qz_probe_tile's (qzp_bit_stage: pairs in
+// registers, by SHFL.BFLY, across warps through shared memory), their
+// direction from the thread's slot in the row.  The passes with j >= N
+// swap each thread's V values with the same thread of CTA rank ^ (j / N):
+// one 16-byte st.async a 4 values into the partner's receive buffer,
+// counted on the partner's mbarrier of that buffer; a thread waits on its
+// own CTA's mbarrier, reads what arrived and keeps the min or the max.
+// No cluster barrier inside a sort: pass p takes buffer p % NB of the NB
+// that qzp_row_buffers proves enough (two buffers by turns would let a CTA
+// overwrite a buffer its partner has not read yet; probes.cuh), so a
+// buffer's phase and parity are compile-time constants.
+// After each sort's last exchange the CTAs arrive at a cluster barrier:
+// the next sort's first exchange (K > 1) waits for it, so that its writes
+// find every buffer read, and so does the kernel's end, so that no CTA
+// exits while a sibling's st.async into it, or its own into a sibling,
+// may be in flight (a CTA arrives only once what came into it has
+// arrived, so past the wait every exchange of the cluster is complete).
+// The first sort's wait is also the one that sees every sibling's
+// mbarriers set.
+// What bounds it: 136 dependent passes, each moving every value of a CTA
+// through registers, the shuffle unit or shared memory (at 32 warps a SM
+// those pipes, not their latency, set a pass's pace), 10 of them an
+// exchange between SMs; the bytes (256 KB a row read, 256 KB written)
+// take 0.16 us at the card's memory rate.
+
+constexpr int QZP_ROW_CN = QZP_ROW_N / QZP_ROW_CTAS;   // N, values a CTA
+constexpr int QZP_ROW_T = QZP_ROW_CN / QZP_ROW_V;      // threads a CTA
+constexpr int QZP_ROW_NB = qzp_row_buffers(QZP_ROW_LG - qzp_lg(QZP_ROW_CN));
+
+struct QzpRow {
+  const int32_t* x;  // [rows, 65536], 16-byte aligned
+  int32_t* out;
+  int K;
+  long long* clk;
+};
+
+// A thread's place in its row's cluster and its CTA's shared memory
+struct QzpRowCtx {
+  int rank;      // the CTA's rank in the cluster
+  int q;         // the thread's slot in its CTA
+  int t;         // its slot in the row
+  int ph;        // the buffer of the next pass across warps
+  int rep;       // the sort, of reps
+  int reps;
+  int32_t* bsm;  // 2 N words: the passes across warps
+  int32_t* rcv;  // NB N words: the receive buffers
+  unsigned bar;  // the NB mbarriers (shared address)
+};
+
+// 16 bytes at shared::cluster address a of another CTA, counted on its
+// mbarrier bar
+__device__ inline void qzp_st_async4(unsigned a, int32_t v0, int32_t v1,
+                                     int32_t v2, int32_t v3, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(a), "r"(v0), "r"(v1), "r"(v2),
+      "r"(v3), "r"(bar) : "memory");
+}
+
+// The cluster barrier's arrive with release semantics: this CTA's reads of
+// its receive buffers before it are ordered before the siblings' writes
+// after their wait
+__device__ inline void qzp_cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+// Pass (K, J) over the V values x of a thread
+template <int K, int J>
+__device__ inline void qzp_row_step(int32_t (&x)[QZP_ROW_V], QzpRowCtx& c) {
+  constexpr int V = QZP_ROW_V, N = QZP_ROW_CN, NB = QZP_ROW_NB;
+  if constexpr (qzp_row_where(J, V, N) != QZP_BIT_CLUSTER) {
+    qzp_bit_stage<V, K, J>(x, c.t, c.q, c.ph, c.bsm, N);
+  } else {
+    constexpr int LN = qzp_lg(N), LC = QZP_ROW_LG - LN;
+    constexpr int P = qzp_row_passes(LC);
+    constexpr int p = qzp_row_pass(qzp_lg(K), qzp_lg(J), LN), b = p % NB;
+    if constexpr (p == 0) qzp_cluster_wait();
+    const int partner = qzp_row_partner(c.rank, J, N);
+    int32_t* mine = c.rcv + b * N + c.q * V;
+    const unsigned far = qzp_mapa(qzp_smem_addr(mine), partner);
+    const unsigned far_bar = qzp_mapa(c.bar + 8u * b, partner);
+#pragma unroll
+    for (int e = 0; e < V; e += 4)
+      qzp_st_async4(far + 4u * e, x[e], x[e + 1], x[e + 2], x[e + 3],
+                    far_bar);
+    qzp_wait(c.bar + 8u * b, qzp_row_parity(LC, p, c.rep));
+    if (c.q == 0 && (p + NB < P || c.rep + 1 < c.reps))
+      qzp_expect(c.bar + 8u * b, N * 4u);   // the buffer's next use
+    const bool lo = qzp_bit_keeps_min(c.t, V, K, J);
+#pragma unroll
+    for (int e = 0; e < V; e += 4) {
+      const int4 u = *(const int4*)(mine + e);
+      x[e] = qzp_bit_pick(x[e], u.x, lo);
+      x[e + 1] = qzp_bit_pick(x[e + 1], u.y, lo);
+      x[e + 2] = qzp_bit_pick(x[e + 2], u.z, lo);
+      x[e + 3] = qzp_bit_pick(x[e + 3], u.w, lo);
+    }
+    if constexpr (p == P - 1) qzp_cluster_arrive();
+  }
+}
+
+// The network from pass (1 << LK, 1 << LJ) on, every pass a compile-time
+// instance
+template <int LK, int LJ>
+struct QzpBitRow {
+  __device__ static void run(int32_t (&x)[QZP_ROW_V], QzpRowCtx& c) {
+    if constexpr (LK <= QZP_ROW_LG) {
+      qzp_row_step<1 << LK, 1 << LJ>(x, c);
+      QzpBitRow<LJ ? LK : LK + 1, LJ ? LJ - 1 : LK>::run(x, c);
+    }
+  }
+};
+
+// clk: the clock64() ticks of thread 0 of CTA 0 around the K sorts in
+// clk[0], and the SM (%smid) each CTA q of the first cluster ran on in
+// clk[1 + q].
+__global__ void __launch_bounds__(QZP_ROW_T, 1) qzp_bitonic_row(QzpRow a) {
+  constexpr int V = QZP_ROW_V, N = QZP_ROW_CN, NB = QZP_ROW_NB;
+  extern __shared__ __align__(16) int32_t rsm[];   // qzp_row_smem(N)
+  __shared__ __align__(8) uint64_t bar[NB];   // receive buffer b's arrivals
+  QzpRowCtx c;
+  c.rank = (int)cg::this_cluster().block_rank();
+  c.q = threadIdx.x;
+  c.t = c.rank * QZP_ROW_T + c.q;
+  c.ph = 0;
+  c.reps = a.K;
+  c.bsm = rsm;
+  c.rcv = rsm + 2 * N;
+  c.bar = qzp_smem_addr(bar);
+  if (c.q == 0) {
+    for (int b = 0; b < NB; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+          c.bar + 8u * b));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (a.K > 0)
+      for (int b = 0; b < NB; ++b) qzp_expect(c.bar + 8u * b, N * 4u);
+  }
+  qzp_cluster_arrive_relaxed();   // this CTA's mbarriers are set
+  const size_t at = (size_t)(blockIdx.x / QZP_ROW_CTAS) * QZP_ROW_N
+                    + (size_t)c.t * V;
+  int32_t x[V];
+#pragma unroll
+  for (int e = 0; e < V; e += 4) {
+    const int4 u = __ldg((const int4*)(a.x + at + e));
+    x[e] = u.x;
+    x[e + 1] = u.y;
+    x[e + 2] = u.z;
+    x[e + 3] = u.w;
+  }
+  const long long t0 = clock64();
+  for (c.rep = 0; c.rep < a.K; ++c.rep) QzpBitRow<1, 0>::run(x, c);
+  if (a.clk && c.q == 0 && blockIdx.x < QZP_ROW_CTAS) {
+    if (c.rank == 0) a.clk[0] = clock64() - t0;
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;\n" : "=r"(smid));
+    a.clk[1 + c.rank] = smid;
+  }
+#pragma unroll
+  for (int e = 0; e < V; e += 4)
+    *(int4*)(a.out + at + e) = make_int4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+  qzp_cluster_wait();   // every exchange of the cluster has completed
+}
+
+// Lets the kernel take clusters of 16 CTAs and its shared memory
+static int qzp_row_prepare() {
+  const int rc = (int)cudaFuncSetAttribute(
+      qzp_bitonic_row, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return rc ? rc : qzp_smem(qzp_bitonic_row, qzp_row_smem(QZP_ROW_CN));
+}
+
+// probe_pallas.py:154 p_bitonic, :186 p_bitonic_grid, :225 p_bitonic_grid2:
+// rows int32 rows of 65536 (x and out 16-byte aligned) sorted K times, a
+// row a cluster of 16 CTAs; clk null, or int64 [17].
+extern "C" int qz_probe_bitonic_row(const void* x, void* out, int rows,
+                                    int K, void* clk, void* stream) {
+  static const int ready = qzp_row_prepare();
+  if (ready) return ready;
+  if (rows < 1 || K < 0 || !qzp_aligned16(x) || !qzp_aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const QzpRow a = {(const int32_t*)x, (int32_t*)out, K, (long long*)clk};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = QZP_ROW_CTAS;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows * QZP_ROW_CTAS);
+  cfg.blockDim = dim3(QZP_ROW_T);
+  cfg.dynamicSmemBytes = qzp_row_smem(QZP_ROW_CN);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, qzp_bitonic_row, a);
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch
+  return (int)(err != cudaSuccess ? err : last);
+}
+
 // -- qz_probe_roll ------------------------------------------------------------
 //
 // np.roll of an int32 [rows, cols] tile.  Bound by bytes: each word read

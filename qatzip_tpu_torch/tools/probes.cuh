@@ -784,6 +784,83 @@ __host__ __device__ inline bool qzp_bit_keeps_min(int t, int v, int k,
   return ((t & (j / v)) == 0) == (((t * v) & k) == 0);
 }
 
+// -- BITONIC over a row of 65536: a cluster a row ----------------------------
+//
+// probe_pallas.py k_bitonic / k_bitonic3 (p_bitonic, p_bitonic_grid,
+// p_bitonic_grid2): each row of 65536 int32 sorted ascending in signed
+// order by the same network, 16 stages of 136 passes in all.  A row is
+// spread over a cluster of C = QZP_ROW_CTAS (16) CTAs of T = N / V (1024)
+// threads: CTA r holds indexes r N .. r N + N - 1 (N = 65536 / C = 4096),
+// thread h of it the V = QZP_ROW_V (4) consecutive values of row slot t =
+// r T + h, as qzp_bit_plan places a tile of N; a pass's direction comes
+// from t.  Pass (k, j) with j < N stays in the CTA (qzp_bit_where); with
+// j >= N (QZP_BIT_CLUSTER, the log2 C (log2 C + 1) / 2 passes of the
+// stages past N) value e of slot t meets value e of slot t ^ (j / V): the
+// same thread of CTA r ^ (j / N).  The plan's functions take the cluster's
+// size (2^lc CTAs, N = 2^ln values a CTA), which the host shim also checks
+// at 8 CTAs.
+//
+// The passes across CTAs swap their values through receive buffers in
+// shared memory, each counted on the receiver's mbarrier of that buffer.
+// A buffer may be written again only once every CTA that reads it has read
+// it, and nothing but the passes' own exchanges orders the CTAs of a
+// cluster: a CTA that has not yet met CTA s can be any number of passes
+// ahead of it.  Pass p goes to buffer p % NB; a write of pass p into CTA s
+// follows s's read of pass p - NB (the buffer's previous use) only if the
+// partners of passes p - NB + 1 .. p - 1 lead to s (the mask of pass p is
+// one of theirs).  The first pass of the last stage meets a partner met
+// by no earlier pass, so NB is at least one more than the passes before
+// that stage; qzp_row_buffers is that number (7 at C 16, 4 at C 8), and
+// test_torch_csrc_host.py checks that it suffices and that two buffers
+// would not.
+#define QZP_ROW_N 65536
+#define QZP_ROW_LG 16
+#define QZP_ROW_CTAS 16
+#define QZP_ROW_V 4
+
+enum { QZP_BIT_CLUSTER = QZP_BIT_SMEM + 1 };
+
+__host__ __device__ constexpr int qzp_row_where(int j, int v, int n) {
+  return j >= n ? QZP_BIT_CLUSTER : qzp_bit_where(j, v);
+}
+
+// The passes across CTAs of a sort, at clusters of 2^lc CTAs
+__host__ __device__ constexpr int qzp_row_passes(int lc) {
+  return lc * (lc + 1) / 2;
+}
+
+// The receive buffers (and mbarriers) of a CTA, at clusters of 2^lc CTAs
+__host__ __device__ constexpr int qzp_row_buffers(int lc) {
+  return lc * (lc - 1) / 2 + 1;
+}
+
+// The number, among the passes across CTAs, of pass (2^lk, 2^lj), lj >= ln
+// (N = 2^ln values a CTA): the passes of the stages before, then its own
+__host__ __device__ constexpr int qzp_row_pass(int lk, int lj, int ln) {
+  return (lk - 1 - ln) * (lk - ln) / 2 + (lk - 1 - lj);
+}
+
+// The CTA that pass (k, j) pairs CTA rank with
+__host__ __device__ constexpr int qzp_row_partner(int rank, int j, int n) {
+  return rank ^ (j / n);
+}
+
+// The parity of the phase of its buffer (p % NB) that pass p of sort rep
+// waits for: the buffer's uses before it, rep sorts of U each and this
+// sort's p / NB
+__host__ __device__ constexpr unsigned qzp_row_parity(int lc, int p,
+                                                      int rep) {
+  return (unsigned)(rep * ((qzp_row_passes(lc) - 1 - p % qzp_row_buffers(lc))
+                           / qzp_row_buffers(lc) + 1)
+                    + p / qzp_row_buffers(lc)) & 1u;
+}
+
+// A CTA's shared memory: two buffers of N words for the passes across
+// warps, the receive buffers of the passes across CTAs
+__host__ __device__ constexpr int qzp_row_smem(int n) {
+  return (2 + qzp_row_buffers(QZP_ROW_LG - qzp_lg(n))) * n * 4;
+}
+
 // -- TRANSPOSE over a thread-block cluster ----------------------------------
 
 // probe_inflate_step5.py:mk_transpose, K times x = x.T + 1 of an [n, n]

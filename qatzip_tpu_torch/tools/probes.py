@@ -17,8 +17,8 @@ under Mosaic.  Each of their ``pl.pallas_call`` kernels has here
   launches an empty kernel.
 
 A wrapper given tensors on the CPU runs the plain version; given CUDA
-tensors it launches the kernel or raises :class:`KernelError`.  The two
-64K-element sorts of probe_pallas.py go through ``ops/sort.sort_u32``.
+tensors it launches the kernel or raises :class:`KernelError`.  The
+64K-element sorts of probe_pallas.py go through :func:`probe_bitonic_64k`.
 Nothing on the codec's path calls this module: ``tools/probe_bench.py``
 and chip_smoke.py time it, the tests hold it against the TPU probes.
 """
@@ -52,13 +52,16 @@ ROLL = Kernel("qz_probe_roll", [_P, _P, _I, _I, _I, _I, _P], lib=PROBES)
 REFILL = Kernel("qz_probe_refill", [_I, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                                     _P], lib=PROBES)
 EMPTY = Kernel("qz_probe_empty", [_I, _P], lib=PROBES)
+ROW = Kernel("qz_probe_bitonic_row", [_P, _P, _I, _I, _P, _P], lib=PROBES)
 KERNELS = {k.symbol: k for k in (DEP, CHAIN, INDEP, COLUMN, ALU, STEP, TILE,
-                                 TRANSPOSE, ROLL, REFILL, EMPTY)}
+                                 TRANSPOSE, ROLL, REFILL, EMPTY, ROW)}
 MAX_LANES = 512   # QZP_MAX_LANES: the offsets a refill's parameters hold
 MAX_SMEM = 227 * 1024   # QZP_MAX_SMEM: the shared memory a CTA may take
 COLUMN_MAX_N = 1024   # QZP_COL_MAX_N: the tallest column the card stages
 INDEP_MAX_R = 32   # QZP_INDEP_MAX_R: the most copies of a staged table word
 BITONIC_N = (32, 4096)   # QZP_BIT_MIN_N, QZP_BIT_MAX_N: the tiles it sorts
+ROW_N = 65536   # QZP_ROW_N: the rows qz_probe_bitonic_row sorts
+ROW_CTAS = 16   # QZP_ROW_CTAS: the cluster it spreads a row over
 # STEP5's kernels are built for one window and subtable size, these root
 # sizes and lanes a CTA (QzpS5Shape, qzp_s5_dispatch)
 STEP5_W, STEP5_SUB, STEP5_ROOTS, STEP5_LPC = 128, 256, (128, 256), (1, 8, 32)
@@ -899,4 +902,34 @@ def probe_bitonic(x: torch.Tensor, segment: str, K: int = 1,
     out = torch.empty_like(xx)
     TILE(xx.data_ptr(), out.data_ptr(), S, L, K, *seg,
          xx.numel() // (S * L), *_args(xx.device, clk))
+    return out
+
+
+def probe_bitonic_64k(x: torch.Tensor, K: int = 1,
+                      clk: torch.Tensor | None = None) -> torch.Tensor:
+    """probe_pallas.py:154 p_bitonic, :186 p_bitonic_grid and :225
+    p_bitonic_grid2: each row of an int32 [B, 512, 128] (the TPU's tiles)
+    or [B, 65536] sorted ascending in signed int32 order by the TPU
+    kernels' network (``k_bitonic``, ``k_bitonic3``).  On the CPU the
+    plain version, :func:`bitonic` of each [512, 128] tile; on the card
+    qz_probe_bitonic_row, K sorts a row over a thread-block cluster of 16
+    CTAs, the passes across CTAs through distributed shared memory.  clk,
+    if given: int64 of at least 17; it receives the ticks of the sorts and
+    the SM of each CTA of the first row."""
+    dev = _on(x)
+    if not ((x.dim() == 3 and tuple(x.shape[1:]) == (512, 128))
+            or (x.dim() == 2 and x.shape[1] == ROW_N)):
+        raise ValueError("the 64K sort takes int32 [B, 512, 128] or "
+                         f"[B, 65536]; got {list(x.shape)}")
+    if dev.type == "cpu":
+        return bitonic(x.reshape(-1, 512, 128), "flat").reshape(x.shape)
+    rows = x.shape[0]
+    if clk is not None and clk.numel() < 1 + ROW_CTAS:
+        raise ValueError("a row sort's clk holds 1 + its cluster's CTAs")
+    xx = x if x.is_contiguous() else x.contiguous()
+    if xx.data_ptr() % 16:
+        xx = xx.clone()
+    out = torch.empty_like(xx)
+    if rows:
+        ROW(xx.data_ptr(), out.data_ptr(), rows, K, *_args(dev, clk))
     return out

@@ -1057,6 +1057,70 @@ extern "C" void shim_bitonic_stage(int n, int seg_n, int seg_stride,
     }
 }
 
+// BITONIC over a row of 65536 as qz_probe_bitonic_row places it (the
+// qzp_row_* plan, QZP_ROW_V values a thread, at clusters of ctas CTAs: the
+// kernel's 16, or 8 to check the plan at another size), run serially: each
+// CTA of the row's cluster a host array of its threads' registers, a pass
+// at a time over every CTA and thread, a
+// thread's partner values (its own, a lane's by shuffle, another warp's
+// through shared memory, or the same thread's of another CTA through its
+// receive buffer) taken from the values before the pass.  plan, if not
+// null: 8 ints a pass of the network, in order: k, j, where the pair meets,
+// the partner's slot in the CTA (j / V a lane or a warp away; the thread
+// itself in registers or across CTAs), the partner CTA's rank for CTA 0,
+// the pass's number among the passes across CTAs, its buffer and the
+// parity it waits for in the second sort (-1 where the pass stays in the
+// CTA).
+static void shim_row(int32_t* row, int ctas, int* plan) {
+  constexpr int V = QZP_ROW_V;
+  const int n = QZP_ROW_N / ctas, T = n / V, ln = qzp_lg(n);
+  const int lc = QZP_ROW_LG - ln, nb = qzp_row_buffers(lc);
+  std::vector<int32_t> v(row, row + QZP_ROW_N);   // slot t's values at t V
+  int i = 0;
+  for (int k = 2; k <= QZP_ROW_N; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1, ++i) {
+      const int where = qzp_row_where(j, V, n);
+      const bool cross = where == QZP_BIT_CLUSTER;
+      const int p = cross ? qzp_row_pass(qzp_lg(k), qzp_lg(j), ln) : -1;
+      if (plan) {
+        int* o = plan + 8 * i;
+        o[0] = k;
+        o[1] = j;
+        o[2] = where;
+        o[3] = where == QZP_BIT_REGS || cross ? 0 : j / V;
+        o[4] = cross ? qzp_row_partner(0, j, n) : 0;
+        o[5] = p;
+        o[6] = cross ? p % nb : -1;
+        o[7] = cross ? (int)qzp_row_parity(lc, p, 1) : -1;
+      }
+      const std::vector<int32_t> old = v;
+      for (int r = 0; r < ctas; ++r)
+        for (int h = 0; h < T; ++h) {
+          const int t = r * T + h;
+          int32_t* x = &v[(size_t)t * V];
+          if (where == QZP_BIT_REGS) {
+            qzp_bit_regs<V>(x, t, k, j);
+            continue;
+          }
+          const int src = cross ? qzp_row_partner(r, j, n) * T + h
+                                : r * T + (h ^ (j / V));
+          const bool lo = qzp_bit_keeps_min(t, V, k, j);
+          for (int e = 0; e < V; ++e)
+            x[e] = qzp_bit_pick(old[(size_t)t * V + e],
+                                old[(size_t)src * V + e], lo);
+        }
+    }
+  std::copy(v.begin(), v.end(), row);
+}
+
+extern "C" void shim_bitonic_row(int32_t* x, int rows, int ctas,
+                                 int* plan) {
+  for (int b = 0; b < rows; ++b) {
+    int32_t* row = x + (size_t)b * QZP_ROW_N;
+    shim_row(row, ctas, b == 0 ? plan : nullptr);
+  }
+}
+
 // ROLL on the row axis as qz_probe_roll launches it, run serially: every
 // (CTA, threadIdx.y, threadIdx.x) of qzp_roll_rows_plan copies its vec
 // words from the row qzp_roll_src_row names; writes counts the stores to
@@ -1550,6 +1614,8 @@ def shim(tmp_path_factory):
     so.shim_bitonic_stage.argtypes = [ctypes.c_int] * 6 + [
         ctypes.c_void_p] * 2
     so.shim_bitonic.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5
+    so.shim_bitonic_row.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     so.shim_indep_unit_at.argtypes = [ctypes.c_int] * 4
     so.shim_indep.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] + [
         ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
@@ -2224,6 +2290,98 @@ def test_probe_bitonic_tiles_the_card_takes():
                    {"regs": 6, "shfl": 0, "smem": 0}]
 
 
+def _row_races(masks, nb: int, ctas: int) -> list:
+    """The (pass, CTA) of each write of a sort's passes across CTAs that
+    nothing orders after its receiver's read of the buffer's previous use.
+    Pass p of CTA r writes into CTA r ^ masks[p], buffer p % nb, last used
+    by pass p - nb.  Only program order and the exchanges order the CTAs:
+    r writes pass p after it has read pass p - 1, and reads pass p after
+    it and r ^ masks[p] have written it.  Vector clocks: d[r][s] is the
+    last pass that CTA s has read before CTA r's current point (a sort
+    starts after the cluster barrier, every buffer read)."""
+    d = [[-1] * ctas for _ in range(ctas)]
+    races = []
+    for p, m in enumerate(masks):
+        w = [list(c) for c in d]   # the clocks of the writes of pass p
+        races += [(p, r) for r in range(ctas)
+                  if p >= nb and w[r][r ^ m] < p - nb]
+        for r in range(ctas):
+            d[r] = [max(a, b) for a, b in zip(w[r], w[r ^ m])]
+            d[r][r] = p
+    return races
+
+
+def _row_plan(shim, ctas: int) -> np.ndarray:
+    plan = np.zeros((136, 8), np.int32)
+    shim.shim_bitonic_row(_ptr(np.zeros(65536, np.int32)), 1, ctas,
+                          _ptr(plan))
+    return plan
+
+
+@pytest.mark.parametrize("ctas", [16, 8])
+def test_probe_bitonic_row_plan_sorts_in_signed_order(shim, ctas):
+    """The 64K row sort as the card places it (qzp_row_*, 4 values a
+    thread; the kernel's cluster of 16 CTAs, and 8 to hold the plan at
+    another size): the network's 136 passes in the TPU kernels' order, each
+    where the plan says (in registers, a lane within the warp by shuffle,
+    another warp of the CTA through shared memory, or the same thread of
+    CTA rank ^ (j / N) through its receive buffer), the passes across CTAs
+    numbered in order onto buffers p % NB, each waiting for its buffer's
+    phase; the whole plan run serially, a CTA at a time with its threads'
+    registers as host arrays, sorts full-range int32 rows with negatives
+    and repeats as the plain version and np.sort do."""
+    plan = _row_plan(shim, ctas)
+    k, j, where, slot, partner, p, buf, parity = plan.T
+    assert [(int(a), int(b)) for a, b in zip(k, j)] == [
+        (1 << a, 1 << b) for a in range(1, 17) for b in range(a - 1, -1, -1)]
+    n, v = 65536 // ctas, 4
+    assert (where == np.select([j < v, j < 32 * v, j < n], [0, 1, 2], 3)).all()
+    cross = where == 3
+    assert (partner[cross] == j[cross] // n).all()
+    assert set(partner[cross]) == {1 << b for b in range(ctas.bit_length()
+                                                         - 1)}
+    assert (slot == np.where((where == 1) | (where == 2), j // v, 0)).all()
+    lc = ctas.bit_length() - 1
+    P, nb = lc * (lc + 1) // 2, {16: 7, 8: 4}[ctas]
+    assert list(p[cross]) == list(range(P))
+    assert list(buf[cross]) == [q % nb for q in range(P)]
+    uses = [sum(1 for q in range(P) if q % nb == b) for b in range(nb)]
+    assert list(parity[cross]) == [(uses[q % nb] + q // nb) & 1
+                                   for q in range(P)]
+    assert (p[~cross] == -1).all() and (buf[~cross] == -1).all()
+    rng = np.random.default_rng(ctas)
+    x = rng.integers(-2**31, 2**31, (2, 65536)).astype(np.int32)
+    x[0, 4096:8192] = x[0, :4096]
+    x[1, ::3] = rng.integers(-4, 4, x[1, ::3].shape)
+    got = x.copy()
+    shim.shim_bitonic_row(_ptr(got), 2, ctas, None)
+    ref = PR.bitonic(torch.from_numpy(x).view(2, 512, 128), "flat")
+    assert (got == ref.reshape(2, -1).numpy()).all()
+    assert (got == np.sort(x, axis=1)).all()
+
+
+@pytest.mark.parametrize("ctas", [16, 8])
+def test_probe_bitonic_row_buffers_never_overwritten_unread(shim, ctas):
+    """No write of a pass across CTAs reaches a receive buffer before the
+    CTA that owns it has read the buffer's previous use: the partners'
+    masks of the passes in between lead back to it.  The plan's NB (7 at
+    16 CTAs, 4 at 8) is the least that holds; two buffers by turns would
+    race (a CTA can be passes ahead of one it has not met yet).  What a
+    CTA of the kernel keeps (4096 values; two buffers for the passes
+    across warps, NB receive buffers, their mbarriers) fits its shared
+    memory."""
+    plan = _row_plan(shim, ctas)
+    cross = plan[:, 2] == 3
+    masks = [int(m) for m in plan[cross, 4]]
+    nb = int(plan[cross, 6].max()) + 1
+    assert nb == {16: 7, 8: 4}[ctas]
+    assert _row_races(masks, nb, ctas) == []
+    assert _row_races(masks, nb - 1, ctas)
+    assert _row_races(masks, 2, ctas)
+    if ctas == PR.ROW_CTAS:
+        assert (2 + nb) * 4096 * 4 + 8 * nb <= PR.MAX_SMEM
+
+
 def _shim_indep(shim, W, R, t, idx, K, addrs=None):
     got = idx.copy()
     rows, cols = idx.shape
@@ -2459,9 +2617,10 @@ def test_probe_dep_plan_stages_each_table_row_once(shim, rows, cols, t_rows,
 def test_probe_entries_take_only_their_arguments():
     """Each C entry of probes.cu takes exactly the ctypes arguments its
     wrapper declares (a pointer, an unsigned or an int each), ROLL,
-    REFILL, TRANSPOSE, DEP, STEP, COLUMN and INDEP only their own;
-    TRANSPOSE, DEP, STEP, COLUMN and INDEP set their kernels' attributes
-    once a process, in a static initialiser, never at a launch; the row
+    REFILL, TRANSPOSE, DEP, STEP, COLUMN, INDEP and the 64K row sort only
+    their own; TRANSPOSE, DEP, STEP, COLUMN, INDEP and the row sort set
+    their kernels' attributes once a process, in a static initialiser,
+    never at a launch; the row
     roll's kernel keeps no shared memory and no barrier."""
     import re
 
@@ -2475,12 +2634,14 @@ def test_probe_entries_take_only_their_arguments():
         assert declared == [kinds[t] for t in k.argtypes], k.symbol
     assert [len(k.argtypes) for k in (PR.ROLL, PR.REFILL, PR.TRANSPOSE,
                                       PR.DEP, PR.STEP, PR.COLUMN,
-                                      PR.INDEP)] == [7, 11, 6, 11, 17, 11, 12]
+                                      PR.INDEP, PR.ROW)] == [7, 11, 6, 11, 17,
+                                                             11, 12, 6]
     for entry, prepare in (("qz_probe_transpose", "qzp_transpose_prepare"),
                            ("qz_probe_dep", "qzp_dep_prepare"),
                            ("qz_probe_step", "qzp_step_prepare"),
                            ("qz_probe_column", "qzp_column_prepare"),
-                           ("qz_probe_indep", "qzp_indep_prepare")):
+                           ("qz_probe_indep", "qzp_indep_prepare"),
+                           ("qz_probe_bitonic_row", "qzp_row_prepare")):
         start = src.index(f'extern "C" int {entry}(')
         body = src[start:src.index("\n}\n", start)]
         assert f"static const int ready = {prepare}();" in body

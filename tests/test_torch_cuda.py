@@ -900,6 +900,72 @@ def test_probe_indep_and_bitonic_sync_free_and_graph_replayed(dev):
     assert (P.INDEP.launches, P.TILE.launches) == launches
 
 
+def test_probe_bitonic_row_sync_free_and_graph_replayed(dev):
+    """The 64K sorts (qz_probe_bitonic_row) at [1, 65536] and [32, 65536],
+    on full-range int32 keys with negatives and repeats: as rows and as
+    [B, 512, 128] tiles, from a row 4 bytes past a 16-byte boundary, and
+    sorted 3 and 2 times, each equal to the plain network and to np.sort
+    in signed order; no call synchronises under sync debug mode "error",
+    each is captured in a CUDA graph and replays equal, one launch a call;
+    clk gets the sort's ticks and the 16 SMs of the row's cluster; a shape
+    the kernel does not take, or a clk too short, raises ValueError before
+    launching."""
+    from qatzip_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(20)
+    rows = []
+    for B in (1, 32):
+        x = _i32(rng, (B, 65536))
+        x[:, 1::7] = x[:, ::7][:, :x[:, 1::7].shape[1]]
+        x[:, 2::5] = _i32(rng, x[:, 2::5].shape, -3, 3)
+        rows.append(x)
+    flat = torch.cat([torch.zeros(1, dtype=torch.int32), rows[0].reshape(-1)])
+    cases = [(rows[0].to(dev), 1), (rows[1].to(dev), 1),
+             (rows[1].to(dev).view(32, 512, 128), 1),
+             (flat.to(dev)[1:].view(1, 65536), 1),
+             (rows[0].to(dev), 3), (rows[1].to(dev), 2)]
+    want = []
+    for x, _ in cases:
+        w = np.sort(x.cpu().reshape(x.shape[0], -1).numpy(), axis=1)
+        plain = P.probe_bitonic_64k(x.cpu())
+        assert np.array_equal(plain.reshape(w.shape).numpy(), w)
+        want.append(plain)
+
+    def calls():
+        return [P.probe_bitonic_64k(x, K) for x, K in cases]
+
+    before = P.ROW.launches
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            captured = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert P.ROW.launches == before + 2 * len(cases)
+    for o in captured:
+        o.fill_(-1)
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, captured, want, strict=True):
+        assert torch.equal(a.cpu(), w) and torch.equal(b.cpu(), w)
+    clk = torch.zeros(17, dtype=torch.int64, device=dev)
+    P.probe_bitonic_64k(cases[0][0], clk=clk)
+    torch.cuda.synchronize()
+    assert int(clk[0]) > 0 and len(set(clk[1:].tolist())) == 16
+    launches = P.ROW.launches
+    x = cases[1][0]
+    for bad in (x[:, :4096], x.view(32, 128, 512), x.view(-1), x[None]):
+        with pytest.raises(ValueError, match="64K sort takes"):
+            P.probe_bitonic_64k(bad)
+    with pytest.raises(ValueError, match="clk holds"):
+        P.probe_bitonic_64k(x, clk=clk[:16])
+    assert P.ROW.launches == launches
+
+
 def test_probe_roll_rows_keeps_no_shared_memory(dev):
     """The row roll's kernel is a copy from global to global: its code
     holds no shared-memory access and no barrier."""

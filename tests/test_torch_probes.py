@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from qatzip_tpu_torch.ops import sort as SO
 from qatzip_tpu_torch.tools import probe_bench as PB
 from qatzip_tpu_torch.tools import probes as P
 
@@ -416,13 +415,51 @@ def test_p_walk():
         _eq(P.probe_chain("walk", _t(x), None, 4096), want)
 
 
-@pytest.mark.parametrize("B", [1, 32])
-def test_p_bitonic_64k_sorts(B):
+@pytest.mark.parametrize("B,keys", [
+    pytest.param(1, "tpu", id="1"), pytest.param(32, "tpu", id="32"),
+    pytest.param(1, "full", id="1-full"),
+    pytest.param(32, "full", id="32-full")])
+def test_p_bitonic_64k_sorts(B, keys):
     """probe_pallas.py:154 (one [512, 128] tile) and :186 / :225 (32 of
-    them): keys < 2^30 sorted ascending; the port's sort_u32."""
-    keys = _rng(B).integers(0, 1 << 30, (B, 512 * 128)).astype(np.int32)
-    got, = SO.sort_u32(_t(keys))
-    _eq(got, np.sort(keys, axis=1))
+    them) through probe_bitonic_64k, in both shapes it takes: the TPU
+    probe's keys (< 2^30), and full-range int32 keys with negatives and
+    repeats, which k_bitonic orders as signed (jnp.minimum / maximum on
+    int32).  The k_bitonic kernels are defined inside probe_pallas.main()
+    and cannot be imported; np.sort is the check main() prints."""
+    rng = _rng(B)
+    if keys == "tpu":
+        x = rng.integers(0, 1 << 30, (B, 512 * 128)).astype(np.int32)
+    else:
+        x = rng.integers(-2**31, 2**31, (B, 512 * 128)).astype(np.int32)
+        x[:, 1::7] = x[:, ::7][:, :x[:, 1::7].shape[1]]
+        x[:, 2::5] = rng.integers(-3, 3, x[:, 2::5].shape)
+    want = np.sort(x, axis=1)
+    _eq(P.probe_bitonic_64k(_t(x)), want)
+    _eq(P.probe_bitonic_64k(_t(x).view(B, 512, 128)),
+        want.reshape(B, 512, 128))
+
+
+def test_p_bitonic_64k_shapes():
+    """The 64K sort takes int32 [B, 512, 128] or [B, 65536]; any other
+    shape or type is refused by name.  The card's plan: a row over a
+    cluster of 16 CTAs of 4096 values, the network's 136 passes by where a
+    pair meets (4 values a thread): 31 in registers, 60 by shuffles, 45
+    past a warp, of which probe_bench counts the 10 past a CTA's values
+    as exchanges across CTAs."""
+    x = torch.zeros((2, 65536), dtype=torch.int32)
+    for bad in (x[:, :4096], x.view(2, 128, 512), x.view(-1), x[None],
+                x.view(2, 256, 256)):
+        with pytest.raises(ValueError, match="64K sort takes"):
+            P.probe_bitonic_64k(bad)
+    with pytest.raises(ValueError, match="int32"):
+        P.probe_bitonic_64k(x.to(torch.int64))
+    assert P.probe_bitonic_64k(x[:0]).shape == (0, 65536)
+    assert (P.ROW_N, P.ROW_CTAS) == (65536, 16)
+    plan = P.bitonic_plan(P.ROW_N, P.ROW_N)
+    assert (plan["v"], plan["stages"]) == (4, {"regs": 31, "shfl": 60,
+                                               "smem": 45})
+    case = next(c for c in PB.CASES if c.name == "probe_sort_1x65536")
+    assert (case.cluster, case.args["seg_n"]) == (16, 65536)
 
 
 @pytest.mark.parametrize("segment,axis", [("flat", None), ("rows", 1),
