@@ -13,9 +13,16 @@ metadata block index (``metadata``) and the qzip/qzstd/7z command lines
 shares with the reference (constants, sessions, wire formats, the native
 C++ codec, the CPU backend) are its own copies, and its native codec builds
 under ``build/qatzip_tpu_torch/``.  Importing it never loads jax.
+
+Its import is the ``setup.import`` phase of the set-up record
+(``qz_trace_setup``; engine/flow.py).
 """
-from qatzip_tpu_torch.constants import *  # noqa: F401,F403
-from qatzip_tpu_torch.session import (  # noqa: F401
+import time as _time
+
+_since = (_time.perf_counter_ns(), _time.thread_time_ns())
+
+from qatzip_tpu_torch.constants import *  # noqa: E402,F401,F403
+from qatzip_tpu_torch.session import (  # noqa: E402,F401
     QzSession,
     QzSessionParams,
     QzSessionParamsCommon,
@@ -24,6 +31,9 @@ from qatzip_tpu_torch.session import (  # noqa: F401
     QzSessionParamsLZ4,
     QzSessionParamsLZ4S,
 )
-from qatzip_tpu_torch.api import *  # noqa: F401,F403
+from qatzip_tpu_torch.api import *  # noqa: E402,F401,F403
+from qatzip_tpu_torch.engine.flow import flow as _flow  # noqa: E402
 
 __version__ = "0.1.0"
+_flow.record_setup("setup.import", _since)
+del _flow, _since, _time

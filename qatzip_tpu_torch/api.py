@@ -69,6 +69,7 @@ __all__ = [
     "qz_get_defaults", "qz_set_defaults",
     "qz_get_defaults_deflate_ext", "qz_set_defaults_deflate_ext",
     "qz_get_deflate_end_of_stream", "qz_set_log_level", "qz_dump_counters",
+    "qz_trace", "qz_trace_spans", "qz_trace_setup",
     "qz_get_session_crc32_config", "qz_set_session_crc32_config",
     "qz_get_session_crc64_config", "qz_set_session_crc64_config",
     "qz_get_software_component_count", "qz_get_software_component_version_list",
@@ -385,14 +386,68 @@ def qz_get_deflate_end_of_stream(sess: QzSession) -> bool:
 
 
 def qz_dump_counters() -> dict:
-    """Debug counter dump: per-stage flow counters + HW/SW request totals
-    (the qatzip_counter.c dumpAllCounters + per-thread counter analog,
-    reference src/qatzip_counter.c:56-82, src/qatzip_utils.c:55-183)."""
+    """Counter dump: per-stage flow counters + HW/SW request totals (the
+    qatzip_counter.c dumpAllCounters + per-thread counter analog, reference
+    src/qatzip_counter.c:56-82, src/qatzip_utils.c:55-183), and the port's
+    own: the device instance pool's ``stats()`` and grab wait
+    (``pool_<key>``), the streams and LZ4 blocks failed over to the CPU, the
+    device failures the health breaker saw, the spans dropped past the
+    buffer and each kernel's launches (``launches.<symbol>``).  Every value
+    is a count."""
+    from qatzip_tpu_torch.engine.health import health
+    from qatzip_tpu_torch.engine.instances import pool
+    from qatzip_tpu_torch.ops import _build, deflate_decode, lz4_decode
+
     eng = core.engine()
     out = core.flow.dump()
     out["hw_requests"] = eng.hw_requests
     out["sw_requests"] = eng.sw_requests
+    out.update({f"pool_{k}": v for k, v in pool.stats().items()})
+    out["pool_grab_wait_ns"] = pool.grab_wait_ns
+    out["failover_lanes"] = deflate_decode.failover_lanes
+    out["failover_blocks"] = lz4_decode.failover_blocks
+    out["health_failures"] = health.total_failures
+    out["spans_dropped"] = core.flow.spans_dropped
+    for k in _build.kernels():
+        out["launches." + k.symbol] = out.get("launches." + k.symbol,
+                                              0) + k.launches
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tracing (engine/flow.py)
+# ---------------------------------------------------------------------------
+def qz_trace(on: bool) -> None:
+    """Trace every request (``on``), or only those that run while
+    ``torch.profiler`` records (the default)."""
+    core.flow.tracing = bool(on)
+
+
+def qz_trace_spans(clear: bool = False) -> list[dict]:
+    """The spans of the traced requests kept so far, in the order their
+    requests ended, each a dict: ``name``; ``request`` (its request's id);
+    ``index`` (in its request) and ``parent`` (its parent's index, -1 for
+    the request's root); ``thread``; ``start_ns`` and ``end_ns`` on
+    ``time.perf_counter_ns``; ``cpu_ns``, the thread's CPU time between
+    them; ``value``; ``launches``, of the port's kernels inside it; and
+    ``failover_lanes``, the streams its inflate batches failed over.
+    ``clear`` empties the buffer."""
+    with core.flow._lock:
+        spans = list(core.flow.spans)
+        if clear:
+            core.flow.spans = []
+    return [sp.as_dict() for sp in spans]
+
+
+def qz_trace_setup() -> list[dict]:
+    """The set-up phases of this process so far, in the order they ended:
+    ``name`` (``setup.import``, ``setup.native``, ``setup.engine``,
+    ``setup.kernels``, ``setup.first_launch``), ``thread``, ``start_ns``,
+    ``end_ns``, ``cpu_ns`` and ``value``."""
+    keys = ("name", "thread", "start_ns", "end_ns", "cpu_ns", "value")
+    with core.flow._lock:
+        phases = list(core.flow.setup)
+    return [{k: getattr(sp, k) for k in keys} for sp in phases]
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,7 @@ from qatzip_tpu_torch.constants import DataFormatInternal, QzDirection
 from qatzip_tpu_torch.engine import devcal, faults, framing
 from qatzip_tpu_torch.engine.backend import Backend, RefusedStream
 from qatzip_tpu_torch.engine.cpu_backend import CpuBackend
-from qatzip_tpu_torch.engine.flow import flow
+from qatzip_tpu_torch.engine.flow import flow, now
 from qatzip_tpu_torch.engine.gpu_backend import GpuBackend
 from qatzip_tpu_torch.engine.health import health
 from qatzip_tpu_torch.formats import gzip_fmt, lz4_fmt, zlib_fmt
@@ -107,6 +107,7 @@ def qz_init_engine(sw_backup: int = C.QZ_SW_BACKUP_DEFAULT,
     with _engine_lock:
         if _engine.initialized:
             return C.QZ_DUPLICATE
+        since = now()
         present, kind, ndev, backend = _discover_hw(device)
         _engine.hw_present = present
         _engine.device_kind = kind
@@ -122,6 +123,7 @@ def qz_init_engine(sw_backup: int = C.QZ_SW_BACKUP_DEFAULT,
             _engine.init_status = C.QZ_NO_HW
         else:
             _engine.init_status = C.QZ_NOSW_NO_HW
+        flow.record_setup("setup.engine", since)
         return _engine.init_status
 
 
@@ -237,6 +239,16 @@ def _as_view(src) -> memoryview:
 
 def compress_ext(sess: QzSession, src, last: int = 1,
                  dest_limit: int | None = None, crc_init: int = 0) -> OpResult:
+    rf = flow.request()
+    if rf.spans is None:
+        return _compress_ext(rf, sess, src, dest_limit, crc_init)
+    src = _as_view(src)
+    with rf.traced(len(src)):
+        return _compress_ext(rf, sess, src, dest_limit, crc_init)
+
+
+def _compress_ext(rf, sess: QzSession, src, dest_limit: int | None,
+                  crc_init: int) -> OpResult:
     p = sess.params
     src = _as_view(src)
     res = OpResult(crc=crc_init)
@@ -268,12 +280,11 @@ def compress_ext(sess: QzSession, src, last: int = 1,
             nchunks = len(chunks)
             # the native funnel chunks/compresses/reassembles in one C call;
             # record a balanced quad so the flow totals cover this path too
-            nf = flow.request()
-            nf.add("planned", nchunks)
-            nf.add("submitted", nchunks)
-            nf.add("completed", nchunks)
-            nf.add("reassembled", nchunks)
-            nf.check("compress-native")
+            rf.add("planned", nchunks)
+            rf.add("submitted", nchunks)
+            rf.add("completed", nchunks)
+            rf.add("reassembled", nchunks)
+            rf.check("compress-native")
             if p.is_sensitive_mode:
                 sess.swt.update((time.perf_counter() - t0) / nchunks / 4)
             _engine.sw_requests += nchunks
@@ -292,8 +303,7 @@ def compress_ext(sess: QzSession, src, last: int = 1,
             sess.last_ext_rc = res.ext_rc
             return res
 
-    # flow-counter quad for this request (the race checker; engine/flow.py)
-    rf = flow.request()
+    # the request's flow-counter quad (the race checker; engine/flow.py)
     rf.add("planned", len(chunks))
 
     t0 = time.perf_counter()
@@ -408,8 +418,9 @@ def _inflate_stream(buf: memoryview, off: int) -> tuple[bytes, int, bool]:
     return data, used, do.eof
 
 
-def _batch_inflate_fast(sess: QzSession, buf: memoryview, p: InternalParams,
-                        kind: str, res: OpResult) -> OpResult | None:
+def _batch_inflate_fast(rf, sess: QzSession, buf: memoryview,
+                        p: InternalParams, kind: str,
+                        res: OpResult) -> OpResult | None:
     """Single-native-call decompress of a run of size-framed members.
 
     Returns a completed OpResult, or None when the request is not eligible
@@ -446,12 +457,11 @@ def _batch_inflate_fast(sess: QzSession, buf: memoryview, p: InternalParams,
         return None  # corrupt/mismatch: generic path reproduces the error
     if p.is_sensitive_mode:
         sess.swt.update((time.perf_counter() - t0) / len(offs) / 4)
-    nf = flow.request()
-    nf.add("planned", len(offs))
-    nf.add("submitted", len(offs))
-    nf.add("completed", len(offs))
-    nf.add("reassembled", len(offs))
-    nf.check("decompress-native")
+    rf.add("planned", len(offs))
+    rf.add("submitted", len(offs))
+    rf.add("completed", len(offs))
+    rf.add("reassembled", len(offs))
+    rf.check("decompress-native")
     _engine.sw_requests += len(offs)
     res.ext_rc |= C.QZ_SW_EXECUTION_MASK
     res.data = data
@@ -466,6 +476,16 @@ def _batch_inflate_fast(sess: QzSession, buf: memoryview, p: InternalParams,
 
 
 def decompress_ext(sess: QzSession, src, dest_limit: int | None = None) -> OpResult:
+    rf = flow.request()
+    if rf.spans is None:
+        return _decompress_ext(rf, sess, src, dest_limit)
+    src = _as_view(src)
+    with rf.traced(len(src)):
+        return _decompress_ext(rf, sess, src, dest_limit)
+
+
+def _decompress_ext(rf, sess: QzSession, src,
+                    dest_limit: int | None) -> OpResult:
     p = sess.params
     buf = _as_view(src)
     n = len(buf)
@@ -490,7 +510,7 @@ def decompress_ext(sess: QzSession, src, dest_limit: int | None = None) -> OpRes
             and not p.stop_decompression_stream_end
             and fmt in (DataFormatInternal.DEFLATE_GZIP,
                         DataFormatInternal.DEFLATE_GZIP_EXT)):
-        fast = _batch_inflate_fast(sess, buf, p, kind, res)
+        fast = _batch_inflate_fast(rf, sess, buf, p, kind, res)
         if fast is not None:
             return fast
 
@@ -499,7 +519,6 @@ def decompress_ext(sess: QzSession, src, dest_limit: int | None = None) -> OpRes
     # mirroring the reference's 32-in-flight chunk submission
     # (src/qatzip.c:1505-1594) — while foreign/raw members whose boundary is
     # only discoverable by inflating decode inline on the host.
-    rf = flow.request()
     stop = False
     while pos < n and not stop:
         members: list[tuple] = []

@@ -15,13 +15,17 @@ fall back to the CPU path instead of blocking when the pool is saturated
 
 Usage: the context manager ``pool.instance(timeout)`` of the module's
 ``pool`` (the one the GPU backend grabs from), which yields None when the
-pool is saturated.
+pool is saturated.  ``grab_wait_ns`` sums the time grabs waited for a slot;
+a traced request (engine/flow.py) has a ``pool.grab`` span for each wait.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import threading
+import time
+
+from qatzip_tpu_torch.engine.flow import tls
 
 OVERSUB = int(os.environ.get("QATZIP_TPU_OVERSUB", "2"))
 
@@ -35,6 +39,7 @@ class InstancePool:
         self._rr = 0
         self.grabs = 0
         self.busy_rejects = 0
+        self.grab_wait_ns = 0
 
     def resize(self, num_devices: int) -> None:
         with self._lock:
@@ -45,14 +50,22 @@ class InstancePool:
     def grab(self, timeout: float | None = 0.0) -> int | None:
         """Acquire an instance slot; returns the round-robin device index
         or None when the pool is saturated (caller routes to SW)."""
+        rec = tls.rec
+        span = rec.open("pool.grab") if rec is not None else None
+        t0 = time.perf_counter_ns()
         ok = self._sem.acquire(timeout=timeout) if timeout \
             else self._sem.acquire(blocking=False)
+        waited = time.perf_counter_ns() - t0
+        if span is not None:
+            rec.close(span)
         if not ok:
             with self._lock:
                 self.busy_rejects += 1
+                self.grab_wait_ns += waited
             return None
         with self._lock:
             self.grabs += 1
+            self.grab_wait_ns += waited
             idx = self._rr % self.num_devices
             self._rr += 1
         return idx

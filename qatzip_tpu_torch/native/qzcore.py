@@ -1,16 +1,22 @@
 """ctypes binding for the port's libqzcore.so (built on demand from the
-sources beside it): the part of qatzip_tpu/native/qzcore.py the port calls."""
+sources beside it): the part of qatzip_tpu/native/qzcore.py the port calls.
+Its build-or-load is the ``setup.native`` phase (engine/flow.py; 1 when it
+compiled)."""
 from __future__ import annotations
 
 import ctypes
 
-from qatzip_tpu_torch.native.build import build
+from qatzip_tpu_torch.engine.flow import flow as _flow, now as _now
+from qatzip_tpu_torch.native.build import _fresh, build
 
+_since = _now()
+_compiled = not _fresh()
 _path = build()
 if _path is None:
     raise ImportError("libqzcore.so unavailable")
 
 _lib = ctypes.CDLL(_path)
+_flow.record_setup("setup.native", _since, int(_compiled))
 
 _lib.qz_lz4_compress_block.restype = ctypes.c_int64
 _lib.qz_lz4_compress_block.argtypes = [ctypes.c_void_p, ctypes.c_int64,

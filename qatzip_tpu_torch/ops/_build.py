@@ -20,6 +20,12 @@ that is not 0 and counts the launches that went through.  The engine's
 device-to-CPU failover takes only injected faults and an exhausted card
 (``engine.faults.FAILOVER``), so a kernel that cannot be built or
 launched, or that faults on the card, is an error, never a quiet CPU run.
+
+Set-up (engine/flow.py): a library's build-or-load is the ``setup.kernels``
+phase (1 when it compiled), and each kernel's first launch after it
+``setup.first_launch`` (the kernel's symbol).  A launch inside a traced
+request is counted on its open span, and while the profiler records sits
+in a ``qz.launch.<symbol>`` range.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+from qatzip_tpu_torch.engine import flow as _flow
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
@@ -45,6 +53,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_kernels: list["Kernel"] = []
 
 
 class KernelError(RuntimeError):
@@ -113,6 +122,8 @@ def library(name: str = KERNELS) -> ctypes.CDLL:
     """Library ``name`` of LIBRARIES, loaded, built on first use."""
     with _lock:
         if name not in _libs:
+            since = _flow.now()
+            before = _mtime(os.path.join(BUILD_DIR, name))
             path = build(name=name)
             try:
                 lib = ctypes.CDLL(path)
@@ -121,7 +132,21 @@ def library(name: str = KERNELS) -> ctypes.CDLL:
             lib.qz_cuda_error_string.restype = ctypes.c_char_p
             lib.qz_cuda_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib
+            _flow.flow.record_setup("setup.kernels", since,
+                                    int(_mtime(path) != before))
         return _libs[name]
+
+
+def kernels() -> list["Kernel"]:
+    """Every Kernel made so far, in the order they were made."""
+    return list(_kernels)
+
+
+def _mtime(path: str) -> int | None:
+    try:
+        return os.stat(path).st_mtime_ns
+    except FileNotFoundError:
+        return None
 
 
 class Kernel:
@@ -138,18 +163,27 @@ class Kernel:
         self.launches = 0
         self._fn = None
         self._count = threading.Lock()   # sessions launch from threads
+        _kernels.append(self)
 
     def __call__(self, *args) -> None:
+        first = None
         if self._fn is None:
-            try:
-                fn = getattr(library(self.lib), self.symbol)
-            except AttributeError as exc:
-                raise KernelError(f"{self.symbol} is not in "
-                                  f"{self.lib}") from exc
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        rc = self._fn(*args)
+            with self._count:
+                if self._fn is None:
+                    try:
+                        fn = getattr(library(self.lib), self.symbol)
+                    except AttributeError as exc:
+                        raise KernelError(f"{self.symbol} is not in "
+                                          f"{self.lib}") from exc
+                    fn.argtypes = self.argtypes
+                    fn.restype = ctypes.c_int
+                    self._fn = fn
+                    first = _flow.now()
+        rec = _flow.tls.rec
+        rc = (self._fn(*args) if rec is None
+              else rec.launch(self.symbol, self._fn, args))
+        if first is not None:
+            _flow.flow.record_setup("setup.first_launch", first, self.symbol)
         if rc != 0:
             msg = library(self.lib).qz_cuda_error_string(rc).decode()
             raise KernelError(f"{self.symbol}: CUDA error {rc} ({msg})")

@@ -30,6 +30,12 @@ The stream state (``_Stream``, with its 32 KB history window), the bit
 reader, the header parsers and the Python token applier are copies of the
 reference's.  A stream the device cannot prove correct comes back as None
 and the caller inflates it on the CPU; ``failover_lanes`` counts them.
+
+A traced request (engine/flow.py) gets an ``inflate.batch`` span a call
+(its streams), and in each round ``inflate.parse`` (the header parse; the
+round's Huffman blocks), then in a lockstep round ``inflate.tables``
+(``pack_round``: the regions built), ``inflate.device`` (upload, launch and
+read-back; the lanes) and ``inflate.apply`` (the bytes put out).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import os
 import numpy as np
 import torch
 
+from qatzip_tpu_torch.engine.flow import tls
 from qatzip_tpu_torch.ops import chain
 from qatzip_tpu_torch.ops import deflate_tables as T
 from qatzip_tpu_torch.ops import inflate as PI
@@ -260,6 +267,9 @@ def inflate_batch(payloads, hints, device: torch.device,
     (checksum per ``kind`` — "crc32"/"adler32" — or None when kind is
     unset), or None for streams that must fall back to the CPU path."""
     global failover_lanes
+    rec = tls.rec
+    span = rec.open("inflate.batch", len(payloads)) if rec is not None \
+        else None
     if kind == "xxh32":
         kind = None  # not combinable from parts; caller computes on host
     streams = []
@@ -274,6 +284,7 @@ def inflate_batch(payloads, hints, device: torch.device,
     if ran_out is not None:
         ran_out.clear()
     for _ in range(max_rounds):
+        parse = rec.open("inflate.parse") if rec is not None else None
         batch = []
         for s in streams:
             if s.done or s.failed:
@@ -287,6 +298,8 @@ def inflate_batch(payloads, hints, device: torch.device,
                         break
             except (EOFError, ValueError):
                 s.failed = True
+        if parse is not None:
+            rec.close(parse, len(batch))
         if not batch:
             break
         if ran_out is not None and not ran_out:
@@ -302,7 +315,11 @@ def inflate_batch(payloads, hints, device: torch.device,
             if s.kind and s.crc_len == 0:  # empty stream
                 crc = 1 if s.kind == "adler32" else 0
             results.append((bytes(s.out), True, crc))
-    failover_lanes += results.count(None)
+    failed = results.count(None)
+    failover_lanes += failed
+    if span is not None:
+        span.failover_lanes += failed
+        rec.close(span)
     return results
 
 
@@ -372,11 +389,20 @@ def pack_round(batch):
 
 
 def _run_device_round_lockstep(batch, device: torch.device) -> None:
+    rec = tls.rec
+    span = rec.open("inflate.tables") if rec is not None else None
     live, inputs = pack_round(batch)
+    if span is not None:
+        rec.close(span, 2 * sum(t[0]._lens is not None for t in live))
     if inputs is None:
         return
+    span = rec.open("inflate.device", len(live)) if rec is not None else None
     tokens, err, outcnt, end_bit, _ns = PI.decode_blocks(*inputs, device)
     tokens = np.ascontiguousarray(tokens)
+    if span is not None:
+        rec.close(span)
+        out0 = sum(len(t[0].out) for t in live)
+        span = rec.open("inflate.apply")
 
     for i, (s, regions, byte0, rem, words) in enumerate(live):
         if err[i] or end_bit[i] < 0 or outcnt[i] > rem:
@@ -399,6 +425,8 @@ def _run_device_round_lockstep(batch, device: torch.device) -> None:
         s.bits.pos = (byte0 << 3) + int(end_bit[i])
         if s.final_block:
             s.done = True
+    if span is not None:
+        rec.close(span, sum(len(t[0].out) for t in live) - out0)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,12 @@ every exception.  A chunk the device fails over that the host decoder
 refuses raises :class:`RefusedStream`: a data error, not a device failure.
 The host-only helpers (CPU fallbacks, checksums, the stored-block framing)
 are copies of the reference's.
+
+A traced request (engine/flow.py) gets a ``staging`` span for each staged
+batch (the bytes sent to the device) and, on the hybrid compress path, an
+``mf`` span for each batch's match finder, a ``gather`` span for each
+candidate read-back (the bytes brought to the host) and an ``assemble``
+span for each batch's native parse (its chunks).
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from qatzip_tpu_torch.engine import faults
 from qatzip_tpu_torch.engine.backend import (CompressedChunk,
                                              DecompressedChunk, RefusedStream)
 from qatzip_tpu_torch.engine.cpu_backend import CpuBackend, _map_chunks
+from qatzip_tpu_torch.engine.flow import tls
 from qatzip_tpu_torch.engine.health import health
 from qatzip_tpu_torch.engine.lz4_block import (lz4_block_decompress,
                                                lz4s_block_decompress)
@@ -58,6 +65,8 @@ def _stage_chunks(batch, n: int, device: torch.device):
     """Build the [len(batch), n+8] uint8 device input for a batch of chunks:
     one staged host copy, then a non-blocking upload.  Returns (data, lens)
     on ``device``."""
+    rec = tls.rec
+    span = rec.open("staging") if rec is not None else None
     lens = np.zeros((len(batch),), np.int32)
     data = np.zeros((len(batch), n + 8), np.uint8)
     for i, c in enumerate(batch):
@@ -65,8 +74,11 @@ def _stage_chunks(batch, n: int, device: torch.device):
             raise ValueError("chunk exceeds hw_buff_sz")
         lens[i] = len(c)
         data[i, :len(c)] = np.frombuffer(c, np.uint8)
-    return (torch.from_numpy(data).to(device, non_blocking=True),
-            torch.from_numpy(lens).to(device, non_blocking=True))
+    staged = (torch.from_numpy(data).to(device, non_blocking=True),
+              torch.from_numpy(lens).to(device, non_blocking=True))
+    if span is not None:
+        rec.close(span, data.nbytes + lens.nbytes)
+    return staged
 
 
 def _submit(batch, n: int, device: torch.device, run) -> list:
@@ -168,11 +180,17 @@ class DeflateDeviceCodec:
         else:
             stride = 1
 
+        rec = tls.rec
+
         def run(data, lens):
             faults.check("submit", "compress")
-            return (mf.find_candidates_packed(data, lens, depth)
+            span = rec.open("mf") if rec is not None else None
+            cand = (mf.find_candidates_packed(data, lens, depth)
                     if use_packed else
                     mf.find_candidates(data, lens, depth, stride=stride))
+            if span is not None:
+                rec.close(span)
+            return cand
 
         # submit-all-then-assemble: kernels queue on the device while the
         # host assembles earlier batches
@@ -192,13 +210,18 @@ class DeflateDeviceCodec:
             if cand is None:
                 out.extend(_cpu_compress_batch(batch, params))
                 continue
+            span = rec.open("gather") if rec is not None else None
             try:
                 faults.check("death", "compress")
                 cand_np = shard.gather(cand)
             except faults.FAILOVER:
+                if span is not None:
+                    rec.close(span)
                 health.record_failure()
                 out.extend(_cpu_compress_batch(batch, params))
                 continue
+            if span is not None:
+                rec.close(span, cand_np.nbytes)
             health.record_success()
             if faults.armed() and faults.should_fire("poison", "compress"):
                 # a poisoned candidate array must be HARMLESS: the native
@@ -219,7 +242,11 @@ class DeflateDeviceCodec:
                 return CompressedChunk(payload, _chunk_checksum(c, params),
                                        len(c))
 
+            span = rec.open("assemble", len(batch)) if rec is not None \
+                else None
             out.extend(_map_chunks(assemble, list(enumerate(batch))))
+            if span is not None:
+                rec.close(span)
         return out
 
     def _compress_full_device(self, chunks: Sequence[bytes],

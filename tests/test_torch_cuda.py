@@ -1585,3 +1585,72 @@ def test_lz4_kernel_fault_reaches_the_caller(dev, tmp_path):
         kind == "RuntimeError" and "CUDA error" in msg), rec
     assert rec["launches"] == 1, rec
     assert rec["after"] == rec["before"], rec
+
+
+def test_inflate_kernel_records_lie_in_their_device_spans(dev, monkeypatch):
+    """Under a profiler, each inflate kernel's device record lies inside a
+    ``qz.inflate.device`` range of the thread whose
+    ``qz.launch.qz_inflate_decode`` range launched it: two clients
+    decompress at once, each request traced by the profiler alone."""
+    import threading
+
+    import qatzip_tpu_torch as qt
+    from qatzip_tpu_torch.ops import inflate_kernel as K
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
+    _engine_on(dev)
+    datas = [_text(300_000, 30 + i) for i in range(2)]
+    comps = [qt.compress(d, level=1, hw_buff_sz=16384) for d in datas]
+    assert qt.decompress(comps[0], hw_buff_sz=16384) == datas[0]   # warm
+    outs = {}
+
+    def client(i):
+        outs[i] = qt.decompress(comps[i], hw_buff_sz=16384)
+
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        kw = {"experimental_config": _ExperimentalConfig(
+            profile_all_threads=True)}
+    except (ImportError, TypeError):
+        kw = {}
+    before = K.KERNEL.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **kw) as prof:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert [outs[i] for i in range(2)] == datas
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in events if e.device_type() != cuda]
+    kernels = [e for e in events if e.device_type() == cuda
+               and "qz_inflate" in e.name()
+               and not e.name().startswith("qz.")]     # annotations
+    assert len(kernels) == K.KERNEL.launches - before >= 2
+
+    def ranges(name):
+        out: dict = {}
+        for e in host:
+            if e.name() == name:
+                out.setdefault(e.start_thread_id(), []).append(
+                    (e.start_ns(), e.end_ns()))
+        return out
+
+    device = ranges("qz.inflate.device")
+    assert len(device) == 2
+    # the clients launch on one stream, which runs the kernels in the order
+    # of their launches: the i-th record is the i-th launch's
+    launches = sorted((a, b, tid) for tid, rs in ranges(
+        "qz.launch.qz_inflate_decode").items() for a, b in rs)
+    kernels.sort(key=lambda k: k.start_ns())
+    assert len(launches) == len(kernels)
+    for k, (a, _, tid) in zip(kernels, launches):
+        s, e = k.start_ns(), k.start_ns() + k.duration_ns()
+        assert a <= s
+        assert any(da <= s and e <= db for da, db in device[tid]), k.name()
