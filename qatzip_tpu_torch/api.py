@@ -391,6 +391,8 @@ def qz_dump_counters() -> dict:
     src/qatzip_counter.c:56-82, src/qatzip_utils.c:55-183), and the port's
     own: the device instance pool's ``stats()`` and grab wait
     (``pool_<key>``), the streams and LZ4 blocks failed over to the CPU, the
+    inflate's table regions built by the native builder and by the numpy
+    one (``inflate_regions_native``, ``inflate_regions_numpy``), the
     device failures the health breaker saw, the spans dropped past the
     buffer and each kernel's launches (``launches.<symbol>``).  Every value
     is a count."""
@@ -406,6 +408,8 @@ def qz_dump_counters() -> dict:
     out["pool_grab_wait_ns"] = pool.grab_wait_ns
     out["failover_lanes"] = deflate_decode.failover_lanes
     out["failover_blocks"] = lz4_decode.failover_blocks
+    out["inflate_regions_native"] = deflate_decode.inflate_regions_native
+    out["inflate_regions_numpy"] = deflate_decode.inflate_regions_numpy
     out["health_failures"] = health.total_failures
     out["spans_dropped"] = core.flow.spans_dropped
     for k in _build.kernels():

@@ -1,5 +1,6 @@
 """ctypes binding for the port's libqzcore.so (built on demand from the
-sources beside it): the part of qatzip_tpu/native/qzcore.py the port calls.
+sources beside it): the part of qatzip_tpu/native/qzcore.py the port calls,
+and the port's own ``inflate_regions`` (qzregions.cpp).
 Its build-or-load is the ``setup.native`` phase (engine/flow.py; 1 when it
 compiled)."""
 from __future__ import annotations
@@ -89,6 +90,11 @@ _lib.qz_apply_tokens.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                  ctypes.c_int64, ctypes.c_void_p,
                                  ctypes.c_int64, ctypes.c_void_p,
                                  ctypes.c_int64]
+_lib.qz_inflate_regions.restype = ctypes.c_int64
+_lib.qz_inflate_regions.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                    ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_int64, ctypes.c_void_p,
+                                    ctypes.c_void_p, ctypes.c_void_p]
 _lib.qz_lz4_assemble.restype = ctypes.c_int64
 _lib.qz_lz4_assemble.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                  ctypes.c_void_p, ctypes.c_void_p,
@@ -415,6 +421,48 @@ def apply_tokens(tokens_np, lane: int, window, wlen: int,
     if n < 0:
         raise ValueError(f"token apply failed ({n})")
     return buf[:n].tobytes()
+
+
+# qz_inflate_regions' lane statuses: 0, or why the numpy builder
+# (ops/inflate.py) raises ValueError on the lane's lengths
+REGION_STATUS = {1: "over-subscribed Huffman code", 2: "subtable overflow",
+                 3: "root/sub collision", 4: "code length outside 0..15"}
+
+
+def inflate_regions(lens, tll, td):
+    """Build a lockstep round's packed table regions (ops/inflate.py's
+    layout, byte-equal to its ``build_ll_region``/``build_d_region``) in one
+    call that runs outside the interpreter lock.
+
+    lens[i] is lane i's (litlen lengths, distance lengths), or None for a
+    lane whose rows the caller fills (a static block).  tll/td: uint32
+    C-contiguous [lanes, 512], written in place.  Returns the lanes'
+    statuses, int32[lanes]: 0, or a key of REGION_STATUS (that lane's rows
+    then hold nothing of use).
+    """
+    import numpy as np
+
+    n = len(lens)
+    for t in (tll, td):
+        if (t.dtype != np.uint32 or not t.flags.c_contiguous
+                or t.shape != (n, 512)):
+            raise ValueError("regions must be uint32 C-contiguous [lanes, 512]")
+    nll = np.full(n, -1, np.int32)       # -1: the caller's lane, skipped
+    nd = np.zeros(n, np.int32)
+    for i, p in enumerate(lens):
+        if p is not None:
+            nll[i], nd[i] = len(p[0]), len(p[1])
+    rows = np.zeros((n, max(int((nll + nd).max(initial=0)), 1)), np.int32)
+    for i, p in enumerate(lens):
+        if p is not None:
+            h = len(p[0])
+            rows[i, :h] = p[0]
+            rows[i, h:h + len(p[1])] = p[1]
+    status = np.zeros(n, np.int32)
+    _lib.qz_inflate_regions(rows.ctypes.data, rows.shape[1], nll.ctypes.data,
+                            nd.ctypes.data, n, tll.ctypes.data, td.ctypes.data,
+                            status.ctypes.data)
+    return status
 
 
 def huff_build_batch(freq_ll, freq_d, blk_len, allow_dynamic: bool,

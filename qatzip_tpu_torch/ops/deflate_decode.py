@@ -9,9 +9,16 @@ one of two engines, as ``_run_device_round`` (:562-575) picks them:
   ``_run_device_round_lockstep`` (:633-699).  The reference sorts a batch
   and cuts it into launches of 128 lanes; here one launch takes the whole
   batch (the caller bounds the width: DeflateDeviceCodec.LOCKSTEP_BATCH),
-  a lane a CTA that waits for no other lane, so nothing is sorted.  The
-  device decodes tokens (ops/inflate.py) and the native ``apply_tokens``
-  does the LZ77 window copies;
+  a lane a CTA that waits for no other lane, so nothing is sorted.
+  ``pack_round`` builds the round's table regions in one call into
+  ``libqzcore`` (``qz_inflate_regions``, native/qzregions.cpp), which
+  writes every dynamic block's rows outside the interpreter lock; static
+  blocks copy the cached ``PI.static_regions()``.  Without the library
+  ``_lockstep_regions`` builds them a block with ops/inflate.py's numpy
+  builders, which are also what the tests hold the native one against.
+  ``inflate_regions_native`` and ``inflate_regions_numpy`` count the
+  regions each route built.  The device decodes tokens (ops/inflate.py)
+  and the native ``apply_tokens`` does the LZ77 window copies;
 * speculative (QATZIP_TPU_INFLATE=spec, a parity engine): flat 15-bit
   tables (``build_flat_table``, :79-155), a decode at every bit position,
   the true symbol chain by a segment-entry recurrence plus segment walks,
@@ -34,13 +41,15 @@ and the caller inflates it on the CPU; ``failover_lanes`` counts them.
 A traced request (engine/flow.py) gets an ``inflate.batch`` span a call
 (its streams), and in each round ``inflate.parse`` (the header parse; the
 round's Huffman blocks), then in a lockstep round ``inflate.tables``
-(``pack_round``: the regions built), ``inflate.device`` (upload, launch and
-read-back; the lanes) and ``inflate.apply`` (the bytes put out).
+(``pack_round``: the dynamic blocks' regions built), ``inflate.device``
+(upload, launch and read-back; the lanes) and ``inflate.apply`` (the bytes
+put out).
 """
 from __future__ import annotations
 
 import functools
 import os
+import threading
 
 import numpy as np
 import torch
@@ -51,7 +60,7 @@ from qatzip_tpu_torch.ops import deflate_tables as T
 from qatzip_tpu_torch.ops import inflate as PI
 from qatzip_tpu_torch.ops.deflate_encode import _take, _vsort
 
-try:  # native token applier (qz_apply_tokens); python fallback below
+try:  # native region builder and token applier; numpy/python fallbacks below
     from qatzip_tpu_torch.native import qzcore as _native
 except ImportError:  # pragma: no cover - native build optional
     _native = None
@@ -67,6 +76,11 @@ _LOCKSTEP_STEPS = (1024, 4096, 16384, 65664)
 
 # streams handed back to the caller for CPU inflate, over the process
 failover_lanes = 0
+# dynamic blocks' table regions built, over the process: by libqzcore's
+# one call a round, or by the numpy builders (the library absent)
+inflate_regions_native = 0
+inflate_regions_numpy = 0
+_count_lock = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +353,39 @@ def _lockstep_regions(s):
     return PI.build_ll_region(ll_lens), PI.build_d_region(d_lens)
 
 
+def _round_regions(streams):
+    """The table regions of a round's streams, one row a stream: (tll, td)
+    uint32[len(streams), CELLS] and a bool[len(streams)], False where the
+    numpy builder raises ValueError on the stream's code (over-subscribed,
+    subtable overflow, root/sub collision), whose rows then hold nothing
+    of use.  The dynamic blocks' regions come from one ``libqzcore`` call,
+    or without the library from the numpy builders a block."""
+    global inflate_regions_native, inflate_regions_numpy
+    n = len(streams)
+    tll = np.zeros((n, PI.CELLS), np.uint32)
+    td = np.zeros((n, PI.CELLS), np.uint32)
+    ok = np.ones(n, bool)
+    lens = [getattr(s, "_lens", None) for s in streams]
+    if _native is not None:
+        for i, p in enumerate(lens):
+            if p is None:
+                tll[i], td[i] = PI.static_regions()
+        ok = _native.inflate_regions(lens, tll, td) == 0
+    else:
+        for i, s in enumerate(streams):
+            try:
+                tll[i], td[i] = _lockstep_regions(s)
+            except ValueError:
+                ok[i] = False
+    built = 2 * (n - lens.count(None))
+    with _count_lock:
+        if _native is not None:
+            inflate_regions_native += built
+        else:
+            inflate_regions_numpy += built
+    return tll, td, ok
+
+
 def pack_round(batch):
     """Lay out one lockstep round: per-lane stream words, start bits, bit
     counts, table regions and active flags, and the step bound.  Streams
@@ -348,13 +395,8 @@ def pack_round(batch):
     lane a live stream, in batch order, so every lane is active: ``active``
     is kept for the reference's interface (an inactive lane decodes
     nothing), and only the tests clear it."""
-    live: list[tuple] = []
+    fits = []
     for s in batch:
-        try:
-            regions = _lockstep_regions(s)
-        except ValueError:
-            s.failed = True  # over-subscribed/invalid code: CPU decides
-            continue
         byte0 = s.bits.pos >> 3
         words = (len(s.payload) - byte0 + 3) // 4 + 2
         if words > _LOCKSTEP_NW[-1]:
@@ -362,9 +404,18 @@ def pack_round(batch):
             continue
         rem = (s.hint - len(s.out)) if (s.hint and s.hint > 0) else (1 << 16)
         rem = max(1, min(rem, MAX_OUTCAP))
-        live.append((s, regions, byte0, rem, words))
+        fits.append((s, byte0, rem, words))
+    tll, td, ok = _round_regions([t[0] for t in fits])
+    live = []
+    for (s, byte0, rem, words), good, ll, d in zip(fits, ok, tll, td):
+        if good:
+            live.append((s, (ll, d), byte0, rem, words))
+        else:
+            s.failed = True  # over-subscribed/invalid code: CPU decides
     if not live:
         return live, None
+    if not ok.all():
+        tll, td = tll[ok], td[ok]
 
     B = len(live)
     NW = next(b for b in _LOCKSTEP_NW if b >= max(t[4] for t in live))
@@ -374,8 +425,6 @@ def pack_round(batch):
     stream8 = np.zeros((B, NW * 4), np.uint8)
     bit0 = np.zeros((B,), np.int32)
     nbits = np.zeros((B,), np.int32)
-    tll = np.zeros((B, PI.CELLS), np.uint32)
-    td = np.zeros((B, PI.CELLS), np.uint32)
     active = np.zeros((B,), bool)
     for i, (s, regions, byte0, rem, words) in enumerate(live):
         pv = np.frombuffer(s.payload, np.uint8, len(s.payload) - byte0,
@@ -383,7 +432,6 @@ def pack_round(batch):
         stream8[i, :len(pv)] = pv
         bit0[i] = s.bits.pos & 7
         nbits[i] = len(pv) * 8
-        tll[i], td[i] = regions
         active[i] = True
     return live, (stream8.view("<u4"), bit0, nbits, tll, td, active, MS)
 

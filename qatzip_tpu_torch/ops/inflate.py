@@ -32,6 +32,14 @@ Token format (shared with qz_apply_tokens, qatzip_tpu_torch/native/qzcore.cpp):
 uint32 data (stream words, table cells, tokens) travels as int32 tensors
 holding the same bit pattern; the plain version computes in int64.
 
+Regions.  ``build_ll_region``/``build_d_region`` are the numpy builders
+(copies of the reference's).  The inflate rounds build their regions with
+``libqzcore``'s ``qz_inflate_regions`` (native/qzregions.cpp), the same
+function in C++, a round's lanes in one call (ops/deflate_decode.py's
+``pack_round``); the numpy builders are the route without the library and
+the version the tests hold the native one to, byte for byte and reject for
+reject.
+
 * :func:`_decode_ref` is the plain torch version of the reference driver
   ``_decode_xla`` (:335-387), built on :func:`decode_step` (:212-329).
 * ops/inflate_kernel.py launches ``csrc/inflate.cu`` for CUDA tensors.
