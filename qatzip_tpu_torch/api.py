@@ -391,11 +391,12 @@ def qz_dump_counters() -> dict:
     src/qatzip_counter.c:56-82, src/qatzip_utils.c:55-183), and the port's
     own: the device instance pool's ``stats()`` and grab wait
     (``pool_<key>``), the streams and LZ4 blocks failed over to the CPU, the
-    inflate's table regions built by the native builder and by the numpy
-    one (``inflate_regions_native``, ``inflate_regions_numpy``), the
-    device failures the health breaker saw, the spans dropped past the
-    buffer and each kernel's launches (``launches.<symbol>``).  Every value
-    is a count."""
+    LZ4 blocks handed to the block decoder and the stored ones copied
+    through (``lz4_blocks_device``, ``lz4_blocks_stored``), the inflate's
+    table regions built in C++ and in numpy (``inflate_regions_native``,
+    ``inflate_regions_numpy``), the device failures the health breaker saw,
+    the spans dropped past the buffer and each kernel's launches
+    (``launches.<symbol>``).  Every value is a count."""
     from qatzip_tpu_torch.engine.health import health
     from qatzip_tpu_torch.engine.instances import pool
     from qatzip_tpu_torch.ops import _build, deflate_decode, lz4_decode
@@ -408,6 +409,8 @@ def qz_dump_counters() -> dict:
     out["pool_grab_wait_ns"] = pool.grab_wait_ns
     out["failover_lanes"] = deflate_decode.failover_lanes
     out["failover_blocks"] = lz4_decode.failover_blocks
+    out["lz4_blocks_device"] = lz4_decode.device_blocks
+    out["lz4_blocks_stored"] = lz4_decode.stored_blocks
     out["inflate_regions_native"] = deflate_decode.inflate_regions_native
     out["inflate_regions_numpy"] = deflate_decode.inflate_regions_numpy
     out["health_failures"] = health.total_failures
@@ -434,8 +437,8 @@ def qz_trace_spans(clear: bool = False) -> list[dict]:
     the request's root); ``thread``; ``start_ns`` and ``end_ns`` on
     ``time.perf_counter_ns``; ``cpu_ns``, the thread's CPU time between
     them; ``value``; ``launches``, of the port's kernels inside it; and
-    ``failover_lanes``, the streams its inflate batches failed over.
-    ``clear`` empties the buffer."""
+    ``failover_lanes``, the streams its inflate batches, or the blocks
+    its LZ4 batches, failed over.  ``clear`` empties the buffer."""
     with core.flow._lock:
         spans = list(core.flow.spans)
         if clear:

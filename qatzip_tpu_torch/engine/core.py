@@ -519,10 +519,14 @@ def _decompress_ext(rf, sess: QzSession, src,
     # mirroring the reference's 32-in-flight chunk submission
     # (src/qatzip.c:1505-1594) — while foreign/raw members whose boundary is
     # only discoverable by inflating decode inline on the host.
+    # a traced LZ4 request's member walk is one lz4.walk span [frames]
+    lz4_walk = rf.spans is not None and fmt in (DataFormatInternal.LZ4_FH,
+                                                DataFormatInternal.LZ4S_BK)
     stop = False
     while pos < n and not stop:
         members: list[tuple] = []
         scan = pos
+        walk = rf.open("lz4.walk") if lz4_walk else None
         while scan < n:
             member = _parse_member(buf, scan, p, sess)
             if member is None:
@@ -532,6 +536,8 @@ def _decompress_ext(rf, sess: QzSession, src,
             if member[5] or total_len < 0:  # inline: boundary unknown yet
                 break
             scan += total_len
+        if walk is not None:
+            rf.close(walk, len(members))
         if not members:
             if pos == 0:
                 rf.abort()
@@ -686,7 +692,10 @@ def _decompress_ext(rf, sess: QzSession, src,
     res.data = bytes(out)
     if kind == "xxh32" and out:
         # whole-output digest, mirroring the compress-side semantics
+        span = rf.open("lz4.checksum") if rf.spans is not None else None
         res.crc = ck.xxh32(res.data, 0)
+        if span is not None:
+            rf.close(span, len(res.data))
     res.consumed = pos
     with sess.stats_lock:
         sess.total_in += pos

@@ -27,12 +27,12 @@ host's clock (``time.perf_counter_ns``) at open and close, the thread's CPU
 time between them, one value, and two counts summed into the enclosing
 spans, so that a request's own are on its ``request`` span: the launches
 of the port's kernels made inside it, and the streams its inflate batches
-failed over to the CPU (``failover_lanes``).  While the profiler records,
-each span is also a ``record_function`` range ``qz.<name>``, on the
-profiler's clock beside the device's records.  Untraced, ``tls.rec`` is
-None and a site costs one attribute read and a test.  A finished
-request's spans go to a buffer of at most ``SPAN_CAP``; past it they are
-counted in ``spans_dropped``.
+(or the blocks its LZ4 batches) failed over to the CPU
+(``failover_lanes``).  While the profiler records, each span is also a
+``record_function`` range ``qz.<name>``, on the profiler's clock beside
+the device's records.  Untraced, ``tls.rec`` is None and a site costs one
+attribute read and a test.  A finished request's spans go to a buffer of
+at most ``SPAN_CAP``; past it they are counted in ``spans_dropped``.
 
 Set-up phases (the import, the native codec's build-or-load, the engine's
 bring-up, the kernel library's build-or-load, each kernel's first launch)
@@ -209,17 +209,19 @@ class _RequestFlow:
         return span
 
     def close(self, span: Span, value=None) -> None:
-        """Close ``span``, and any span opened inside it and left open."""
+        """Close ``span``, and any span opened inside it and left open.  A
+        span ends after its profiler range does: the range's exit, as its
+        enter, counts in the span, so that spans opened one after another
+        leave no gap between them where the exit waited for the
+        interpreter lock."""
         if span.end_ns is not None:     # closed with an enclosing span
             return
-        span.end(value)
         while self._open:
             top = self._open.pop()
-            if top is not span:
-                top.end()
             if top._range is not None:
                 top._range.__exit__(None, None, None)
                 top._range = None
+            top.end(value if top is span else None)
             if self._open:
                 self._open[-1].launches += top.launches
                 self._open[-1].failover_lanes += top.failover_lanes

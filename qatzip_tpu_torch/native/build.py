@@ -3,8 +3,9 @@
 Usage: python -m qatzip_tpu_torch.native.build
 
 A copy of qatzip_tpu/native/build.py with three changes.  It also compiles
-``qzregions.cpp``, the port's own source.  The library goes to
-``build/qatzip_tpu_torch/`` beside the package, never beside its sources.
+``qzregions.cpp`` and ``qzrows.cpp``, the port's own sources.  The library
+goes to ``build/qatzip_tpu_torch/`` beside the package, never beside its
+sources.
 And a build is atomic: g++ writes a temporary file that ``os.replace``
 puts in place, under an exclusive lock on a file beside the library, so
 that processes that start the build at once (test workers on a fresh
@@ -19,7 +20,8 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRCS = [os.path.join(HERE, "qzcore.cpp"), os.path.join(HERE, "qzdeflate.cpp"),
-        os.path.join(HERE, "qzbatch.cpp"), os.path.join(HERE, "qzregions.cpp")]
+        os.path.join(HERE, "qzbatch.cpp"), os.path.join(HERE, "qzregions.cpp"),
+        os.path.join(HERE, "qzrows.cpp")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(HERE)), "build",
                          "qatzip_tpu_torch")
 OUT = os.path.join(BUILD_DIR, "libqzcore.so")

@@ -1,6 +1,7 @@
 """ctypes binding for the port's libqzcore.so (built on demand from the
 sources beside it): the part of qatzip_tpu/native/qzcore.py the port calls,
-and the port's own ``inflate_regions`` (qzregions.cpp).
+and the port's own ``inflate_regions`` (qzregions.cpp), ``pack_rows`` and
+``xxh32_rows`` (qzrows.cpp).
 Its build-or-load is the ``setup.native`` phase (engine/flow.py; 1 when it
 compiled)."""
 from __future__ import annotations
@@ -78,6 +79,13 @@ _lib.qz_batch_inflate.argtypes = [
     ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32)]
 _lib.qz_xxh32.restype = ctypes.c_uint32
 _lib.qz_xxh32.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
+_lib.qz_pack_rows.restype = None
+_lib.qz_pack_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+_lib.qz_xxh32_rows.restype = None
+_lib.qz_xxh32_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int64, ctypes.c_uint32,
+                               ctypes.c_void_p]
 _lib.qz_xxh64.restype = ctypes.c_uint64
 _lib.qz_xxh64.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64]
 _lib.qz_lz4_candidates.restype = ctypes.c_int64
@@ -165,6 +173,39 @@ def xxh32(data, seed: int = 0) -> int:
     """Vendored XXH32 (the reference vendors src/xxhash.c)."""
     p, n, keep = _addr(data)
     return _lib.qz_xxh32(p, n, seed & 0xFFFFFFFF)
+
+
+def _rows(parts):
+    """The addresses and lengths of bytes-like ``parts`` as C arrays, and
+    what keeps their buffers alive."""
+    keep = [_addr(p) for p in parts]
+    ptrs = (ctypes.c_void_p * len(keep))(*(k[0].value for k in keep))
+    lens = (ctypes.c_int64 * len(keep))(*(k[1] for k in keep))
+    return ptrs, lens, keep
+
+
+def pack_rows(parts, dst) -> None:
+    """Copy each of ``parts`` to the start of its row of ``dst``, a
+    C-contiguous uint8 numpy array of ``len(parts)`` rows, in one call
+    outside the interpreter lock (``qzrows.cpp``)."""
+    if (dst.dtype.itemsize != 1 or dst.ndim != 2
+            or not dst.flags.c_contiguous or not dst.flags.writeable
+            or dst.shape[0] != len(parts)):
+        raise ValueError("pack_rows needs a writable C-contiguous uint8 "
+                         f"[{len(parts)}, n] array")
+    ptrs, lens, keep = _rows(parts)
+    if max(lens, default=0) > dst.shape[1]:
+        raise ValueError("a part is longer than a row")
+    _lib.qz_pack_rows(ptrs, lens, len(parts), dst.ctypes.data, dst.shape[1])
+
+
+def xxh32_rows(parts, seed: int = 0) -> list[int]:
+    """XXH32 of each of ``parts``, in one call outside the interpreter lock
+    (``qzrows.cpp``)."""
+    ptrs, lens, keep = _rows(parts)
+    out = (ctypes.c_uint32 * len(parts))()
+    _lib.qz_xxh32_rows(ptrs, lens, len(parts), seed & 0xFFFFFFFF, out)
+    return list(out)
 
 
 def xxh64(data, seed: int = 0) -> int:

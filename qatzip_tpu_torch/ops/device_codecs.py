@@ -34,7 +34,10 @@ A traced request (engine/flow.py) gets a ``staging`` span for each staged
 batch (the bytes sent to the device) and, on the hybrid compress path, an
 ``mf`` span for each batch's match finder, a ``gather`` span for each
 candidate read-back (the bytes brought to the host) and an ``assemble``
-span for each batch's native parse (its chunks).
+span for each batch's native parse (its chunks); an LZ4 decompress gets
+one ``lz4.batch`` span a call, holding ``lz4.walk``, the decoder's
+``lz4.stage``, ``lz4.device`` and ``lz4.collect``, ``lz4.assemble`` and
+``lz4.checksum``.
 """
 from __future__ import annotations
 
@@ -449,15 +452,25 @@ class Lz4DeviceCodec:
     def decompress_chunks(self, payloads, hints, params: InternalParams,
                           device: torch.device) -> list[DecompressedChunk]:
         """Host frame-block walk (stored blocks copy through), a batched
-        device decode of every compressed block, and per-block CPU failover
-        for the blocks the decoder flags (``lz4_decode.failover_blocks``)."""
+        device decode of every compressed block, per-block CPU failover
+        for the blocks the decoder flags (``lz4_decode.failover_blocks``),
+        and each chunk's XXH32.  A traced request gets one ``lz4.batch``
+        span a call [blocks], the blocks decoded on the CPU on its
+        ``failover_lanes``, holding in turn ``lz4.walk`` [frames], the
+        decoder's spans, ``lz4.assemble`` (each chunk's bytes put together
+        from its blocks, a failed-over block decoded on the CPU;
+        [chunks]) and ``lz4.checksum`` [bytes hashed]."""
         from qatzip_tpu_torch.ops import lz4_decode
 
         is_lz4s = params.data_fmt == DataFormatInternal.LZ4S_BK
         mini = params.lz4s_mini_match if is_lz4s else None
+        rec = tls.rec
+        span = rec.open("lz4.batch") if rec is not None else None
+        walk = rec.open("lz4.walk") if rec is not None else None
 
         plan = []       # per chunk: list of ("raw", bytes) | ("blk", idx)
         blocks: list[bytes] = []
+        stored = 0
         for payload in payloads:
             pv = memoryview(payload)
             items = []
@@ -471,18 +484,21 @@ class Lz4DeviceCodec:
                     off += 4
                     if bsz == 0:
                         break
-                    stored = bool(bsz & 0x80000000)
+                    is_stored = bool(bsz & 0x80000000)
                     bsz &= 0x7FFFFFFF
                     blk = bytes(pv[off:off + bsz])
                     off += bsz
-                    if stored:
+                    if is_stored:
                         items.append(("raw", blk))
+                        stored += 1
                     else:
                         items.append(("blk", len(blocks)))
                         blocks.append(blk)
             plan.append(items)
-
+        lz4_decode.count_stored(stored)
         decoded = [None] * len(blocks)
+        if walk is not None:
+            rec.close(walk, len(payloads))
         if blocks:
             try:
                 faults.check("submit", "decompress")
@@ -493,12 +509,13 @@ class Lz4DeviceCodec:
             except faults.FAILOVER:
                 health.record_failure()
 
-        out: list[DecompressedChunk] = []
+        put = rec.open("lz4.assemble") if rec is not None else None
+        datas = []
         for hint, items in zip(hints, plan):
-            data = bytearray()
+            parts = []
             for kind_i, v in items:
                 if kind_i == "raw":
-                    data += v
+                    parts.append(v)
                     continue
                 d = decoded[v]
                 if d is None:
@@ -509,10 +526,17 @@ class Lz4DeviceCodec:
                              lz4_block_decompress(blocks[v], maxo))
                     except ValueError as exc:
                         raise RefusedStream(f"block {v}: {exc}") from exc
-                data += d
-            data = bytes(data)
-            out.append(DecompressedChunk(data, _chunk_checksum(data, params),
-                                         True))
+                parts.append(d)
+            datas.append(parts[0] if len(parts) == 1 else b"".join(parts))
+        if put is not None:
+            rec.close(put, len(datas))
+        check = rec.open("lz4.checksum") if rec is not None else None
+        out = [DecompressedChunk(d, ckv, True)
+               for d, ckv in zip(datas, _ck.xxh32_each(datas))]
+        if span is not None:
+            rec.close(check, sum(len(d) for d in datas))
+            span.failover_lanes += decoded.count(None)
+            rec.close(span, len(blocks) + stored)
         return out
 
 

@@ -48,11 +48,30 @@ blocks a call (the reference hands all of a request's blocks to one
 call): its doubling tables stay live for every level, about 2.4 GB at 128
 rows of n = 131072.  The bytes do not depend on the cut, since ``n`` and
 ``outcap`` only pad.
+
+A call runs in three phases, each a span of a traced request
+(engine/flow.py), one of each a call: ``lz4.stage`` (every group padded
+into its ``[B, n]`` array and copied to the device; the bytes sent),
+``lz4.device`` (every launch, or plain call, to the read-back of each
+row's size and error flag; the launches) and ``lz4.collect`` (the
+decoded rows read back and cut into bytes; the bytes read back).
+``device_blocks`` counts the blocks handed to the decoder, and
+``stored_blocks`` the stored blocks of LZ4 frames that the caller copies
+through (``count_stored``).
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
+
+from qatzip_tpu_torch.engine.flow import tls
+
+try:
+    from qatzip_tpu_torch.native import qzcore as _native
+except ImportError:   # no libqzcore: the rows are copied in numpy
+    _native = None
 
 EXT_RUN_CAP = 512     # max 0xFF-run in a length extension (len <= ~130K)
 MAX_OUT = 1 << 17
@@ -68,8 +87,19 @@ LAUNCH_OUT_BYTES = 64 << 20
 _I32 = torch.int32
 _I32_MAX = torch.iinfo(torch.int32).max
 
-# blocks handed back to the caller for CPU decode, over the process
+# blocks handed back to the caller for CPU decode, blocks handed to the
+# decoder, and stored blocks copied through, over the process
 failover_blocks = 0
+device_blocks = 0
+stored_blocks = 0
+_counts = threading.Lock()
+
+
+def count_stored(n: int) -> None:
+    """Count ``n`` stored blocks that the caller copied through."""
+    global stored_blocks
+    with _counts:
+        stored_blocks += n
 
 
 def _next_pow2(x: int, lo: int) -> int:
@@ -246,49 +276,80 @@ def decode_blocks(blocks, mini_match: int | None = None,
     block needs the CPU path: empty, oversize, deep length extensions, or
     any malformed construct the decoder flags); ``failover_blocks`` counts
     the Nones."""
-    global failover_blocks
-    device = device if device is not None else torch.device("cuda", 0)
-    results: list = [None] * len(blocks)
-    idxs = [i for i, blk in enumerate(blocks) if 0 < len(blk) <= MAX_BLOCK]
-    lz4s = mini_match is not None
-    base = (mini_match - 1) if lz4s else 0
-    # high-ratio blocks (RLE-ish) expand far beyond 4x: always allow the
-    # full 128K output so small compressed blocks don't fall back
-    outcap = MAX_OUT
-    if device.type == "cuda":
-        from qatzip_tpu_torch.ops import lz4_kernel
-        decode = lz4_kernel.decode
-        rows = max(1, LAUNCH_OUT_BYTES // outcap)
-    else:
-        decode, rows = _decode_blocks_impl, GROUP
-    calls = []
-    for g in range(0, len(idxs), rows):
-        group = idxs[g:g + rows]
-        n = _next_pow2(max(len(blocks[i]) for i in group) + 8, 1024)
-        arr = np.zeros((len(group), n), np.uint8)
-        lens = np.zeros((len(group),), np.int32)
-        for row, i in enumerate(group):
-            blk = blocks[i]
-            arr[row, :len(blk)] = np.frombuffer(blk, np.uint8)
-            lens[row] = len(blk)
-        calls.append((group, decode(torch.from_numpy(arr).to(device),
-                                    torch.from_numpy(lens).to(device),
-                                    n, outcap, lz4s, base)))
-        if device.type != "cuda":   # the plain version's output, now
-            _collect(blocks, results, *calls.pop(), outcap)
-    for call in calls:   # the kernel's launches, queued back to back
-        _collect(blocks, results, *call, outcap)
-    failover_blocks += results.count(None)
+    global failover_blocks, device_blocks
+    rec = tls.rec
+    span = rec.open("lz4.stage") if rec is not None else None
+    try:
+        device = device if device is not None else torch.device("cuda", 0)
+        results: list = [None] * len(blocks)
+        idxs = [i for i, blk in enumerate(blocks)
+                if 0 < len(blk) <= MAX_BLOCK]
+        lz4s = mini_match is not None
+        base = (mini_match - 1) if lz4s else 0
+        # high-ratio blocks (RLE-ish) expand far beyond 4x: always allow the
+        # full 128K output so small compressed blocks don't fall back
+        outcap = MAX_OUT
+        if device.type == "cuda":
+            from qatzip_tpu_torch.ops import lz4_kernel
+            decode = lz4_kernel.decode
+            rows = max(1, LAUNCH_OUT_BYTES // outcap)
+        else:
+            decode, rows = _decode_blocks_impl, GROUP
+        groups = [idxs[g:g + rows] for g in range(0, len(idxs), rows)]
+        staged = [_stage(blocks, group, device) for group in groups]
+        if span is not None:
+            rec.close(span, sum(b.numel() + 4 * lens.numel()
+                                for b, lens in staged))
+            span = rec.open("lz4.device")
+        # the kernel's launches, queued back to back, then each row's size
+        # and error flag read back
+        calls = [decode(b, lens, b.shape[1], outcap, lz4s, base)
+                 for b, lens in staged]
+        flags = [(tot.cpu().numpy(), err.cpu().numpy())
+                 for _, tot, err in calls]
+        if span is not None:
+            rec.close(span, len(calls))
+            span = rec.open("lz4.collect")
+        back = sum(_collect(blocks, results, group, out, *flag, outcap)
+                   for group, (out, _, _), flag in zip(groups, calls, flags))
+        # the launches' arrays are let go inside the collect phase
+        del staged, calls, flags
+        with _counts:
+            failover_blocks += results.count(None)
+            device_blocks += len(idxs)
+        if span is not None:
+            rec.close(span, back)
+    finally:
+        if span is not None:    # a phase that raised
+            rec.close(span)
     return results
 
 
-def _collect(blocks, results, group, decoded, outcap: int) -> None:
-    """The clear rows of one call's (out, tot, err) into ``results``."""
-    out, tot, err = decoded
-    tot, err = tot.cpu().numpy(), err.cpu().numpy()
+def _stage(blocks, group, device):
+    """The blocks of ``group`` padded into one uint8 [B, n] array (n a power
+    of 2, at least 1024 and 8 bytes past the longest) and their lengths, on
+    ``device``."""
+    n = _next_pow2(max(len(blocks[i]) for i in group) + 8, 1024)
+    arr = np.zeros((len(group), n), np.uint8)
+    lens = np.array([len(blocks[i]) for i in group], np.int32)
+    if _native is not None:
+        # one call outside the interpreter lock, where a copy a row would
+        # hand the lock to the other clients' threads at every row
+        _native.pack_rows([blocks[i] for i in group], arr)
+    else:
+        for row, i in enumerate(group):
+            arr[row, :lens[row]] = np.frombuffer(blocks[i], np.uint8)
+    return torch.from_numpy(arr).to(device), torch.from_numpy(lens).to(device)
+
+
+def _collect(blocks, results, group, out, tot, err, outcap: int) -> int:
+    """The clear rows of one call's output ``out`` (on the device) into
+    ``results``, by their sizes ``tot`` and flags ``err`` (on the host);
+    returns the bytes read back."""
     good = ~err & (tot >= 0) & (tot <= outcap)
     # only the columns a good row needs come back to the host
-    out = out[:, :int(tot[good].max(initial=0))].cpu().numpy()
+    host = out[:, :int(tot[good].max(initial=0))].cpu().numpy()
     for row, i in enumerate(group):
         if good[row]:
-            results[i] = out[row, :tot[row]].tobytes()
+            results[i] = host[row, :tot[row]].tobytes()
+    return host.nbytes

@@ -118,6 +118,16 @@ def xxh32(data, seed: int = 0) -> int:
         return _xx.xxh32(bytes(data), seed).intdigest()
 
 
+def xxh32_each(parts, seed: int = 0) -> list[int]:
+    """XXH32 of each of ``parts`` (a request's chunks): one native call for
+    all of them, else :func:`xxh32` a part."""
+    try:
+        from qatzip_tpu_torch.native import qzcore as _native
+    except Exception:
+        return [xxh32(p, seed) for p in parts]
+    return _native.xxh32_rows(parts, seed)
+
+
 class XXH32State:
     """Incremental XXH32 (RFC-less spec; same mandated constants as the
     reference's vendored src/xxhash.c).  Used by the streaming LZ4-frame

@@ -130,6 +130,25 @@ def test_decode_groups_do_not_change_bytes(corpus_factory, monkeypatch):
                             device=CPU) == datas
 
 
+def test_staging_without_the_native_library_gives_the_same_rows(
+        corpus_factory, monkeypatch):
+    """The decoder's rows, packed by the native call or by numpy (the
+    route without libqzcore), are the same bytes and decode the same."""
+    from qatzip_tpu_torch.native import qzcore
+
+    blocks, datas = _lz4s_blocks(corpus_factory)
+    group = [0, 1, 2, 3]
+    staged = ld._stage(blocks, group, CPU)
+    monkeypatch.setattr(ld, "_native", None)
+    plain = ld._stage(blocks, group, CPU)
+    assert all(torch.equal(a, b) for a, b in zip(staged, plain))
+    assert ld.decode_blocks(blocks, mini_match=3, device=CPU) == datas
+    with pytest.raises(ValueError, match="longer than a row"):
+        qzcore.pack_rows([bytes(9)], np.zeros((1, 8), np.uint8))
+    with pytest.raises(ValueError, match="C-contiguous"):
+        qzcore.pack_rows([bytes(4)], np.zeros((2, 8), np.uint8)[:1, ::2])
+
+
 @pytest.mark.parametrize("lz4s", [False, True])
 def test_decode_impl_arrays_equal_reference(corpus_factory, lz4s):
     import jax.numpy as jnp

@@ -42,6 +42,17 @@ def test_xxh32_matches_reference_library(corpus_factory):
             assert ck.xxh32(data, seed) == ref_ck.xxh32(data, seed) == want
 
 
+def test_xxh32_each_is_xxh32_of_each_part(corpus_factory):
+    """The LZ4 decompress's chunk checksums, hashed in one hold of the
+    interpreter lock, are each part's XXH32, whatever buffer holds it."""
+    parts = [corpus_factory(n, "random") for n in (0, 1, 15, 16, 17, 4096,
+                                                   65536)]
+    parts += [bytearray(parts[5]), memoryview(parts[6])[3:]]
+    want = [xxhash.xxh32_intdigest(bytes(p), 9) for p in parts]
+    assert ck.xxh32_each(parts, 9) == want
+    assert ck.xxh32_each([]) == []
+
+
 def test_xxh64_matches_reference_library(corpus_factory):
     for n in (0, 1, 31, 32, 33, 1000):
         data = corpus_factory(n, "random")

@@ -303,3 +303,199 @@ def test_dump_counters_has_the_pool_and_its_wait(port_engine):
                 "spans_dropped", "hw_requests", "sw_requests"):
         assert isinstance(d1[key], int)
     assert any(k.startswith("launches.") for k in d1)
+
+
+# -- the LZ4 decompress path ------------------------------------------------
+LZ4_PARTS = ("lz4.walk", "lz4.stage", "lz4.device", "lz4.collect",
+             "lz4.assemble", "lz4.checksum")
+
+
+def _lz4_session():
+    sess = qt.QzSession()
+    common = qt.QzSessionParamsCommon(comp_lvl=1, hw_buff_sz=HW)
+    assert qt.qz_setup_session_lz4(
+        sess, qt.QzSessionParamsLZ4(common_params=common)) == qt.QZ_OK
+    return sess
+
+
+def _lz4_input(seed):
+    """Text chunks with one incompressible chunk among them, so that the
+    port's LZ4 frames hold compressed and stored blocks."""
+    import random
+
+    noise = random.Random(seed).randbytes(HW)
+    return _text(2 * HW, seed) + noise + _text(HW, seed + 1)
+
+
+def _lz4_blocks(comp):
+    """(stored, offset, size) of each block of each LZ4 frame in
+    ``comp``."""
+    from qatzip_tpu_torch.formats import lz4_fmt
+
+    out, pos = [], 0
+    while pos < len(comp):
+        hlen, _ = lz4_fmt.parse_lz4_frame_header(comp, pos)
+        pos += hlen
+        while True:
+            word = int.from_bytes(comp[pos:pos + 4], "little")
+            pos += 4
+            if word == 0:
+                break
+            out.append((bool(word >> 31), pos, word & 0x7FFFFFFF))
+            pos += word & 0x7FFFFFFF
+        pos += 4                         # the content checksum
+    return out
+
+
+def _lz4_request(traced, sess, comp):
+    trees = traced()
+    res = qt.qz_decompress(sess, comp)
+    (_, spans), = [t for t in traced().items() if t[0] not in trees]
+    return res, spans
+
+
+def test_a_traced_lz4_decompress_splits_its_batch(port_engine, traced):
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+
+    data = _lz4_input(20)
+    sess = _lz4_session()
+    comp = qt.qz_compress(sess, data).data
+    blocks = _lz4_blocks(comp)
+    packed = [size for stored, _, size in blocks if not stored]
+    assert len(blocks) == 4 and len(packed) == 3
+    res, spans = _lz4_request(traced, sess, comp)
+    assert res.rc == qt.QZ_OK and res.data == data
+    _check_tree(spans)
+    top = [s["name"] for s in spans if s["parent"] == 0]
+    assert top == ["lz4.walk", "pool.grab", "lz4.batch", "lz4.checksum"]
+    batch = [s for s in spans if s["name"] == "lz4.batch"][0]
+    parts = [s for s in spans if s["parent"] == batch["index"]]
+    # one span of each name a call, and one a request beside the call
+    assert [s["name"] for s in parts] == list(LZ4_PARTS)
+    assert len(spans) == 1 + len(top) + len(parts)
+    assert sum(_wall(s) for s in parts) >= 0.9 * _wall(batch)
+    n = ld._next_pow2(max(packed) + 8, 1024)
+    by = {s["name"]: s["value"] for s in parts}
+    assert by == {"lz4.walk": 4, "lz4.stage": len(packed) * (n + 4),
+                  "lz4.device": 1, "lz4.collect": len(packed) * HW,
+                  "lz4.assemble": 4, "lz4.checksum": len(data)}
+    assert batch["value"] == len(blocks)
+    assert [s["value"] for s in spans if s["parent"] == 0
+            and s["name"] != "pool.grab"] == [4, len(blocks), len(data)]
+    assert spans[0]["failover_lanes"] == batch["failover_lanes"] == 0
+
+
+def test_an_untraced_lz4_request_records_no_span(port_engine, monkeypatch):
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+
+    data = _lz4_input(21)
+    sess = _lz4_session()
+    comp = qt.qz_compress(sess, data).data
+    seen = []
+    real = ld._decode_blocks_impl
+
+    def impl(*args):
+        seen.append(flow.tls.rec)
+        return real(*args)
+
+    monkeypatch.setattr(ld, "_decode_blocks_impl", impl)
+    n0 = len(qt.qz_trace_spans())
+    assert qt.qz_decompress(sess, comp).data == data
+    assert seen == [None] and flow.tls.rec is None
+    assert len(qt.qz_trace_spans()) == n0
+
+
+def test_the_lz4_counters_rise_by_the_blocks_of_a_request(port_engine):
+    data = _lz4_input(22)
+    sess = _lz4_session()
+    comp = qt.qz_compress(sess, data).data
+    blocks = _lz4_blocks(comp)
+    d0 = qt.qz_dump_counters()
+    assert qt.qz_decompress(sess, comp).data == data
+    d1 = qt.qz_dump_counters()
+    rise = {k: d1[k] - d0[k] for k in ("lz4_blocks_device",
+                                       "lz4_blocks_stored",
+                                       "failover_blocks")}
+    stored = sum(b[0] for b in blocks)
+    assert rise == {"lz4_blocks_device": len(blocks) - stored,
+                    "lz4_blocks_stored": stored, "failover_blocks": 0}
+
+
+def test_a_device_failure_shows_on_the_lz4_batch(port_engine, traced):
+    from qatzip_tpu_torch.engine import faults
+
+    data = _lz4_input(23)
+    sess = _lz4_session()
+    comp = qt.qz_compress(sess, data).data
+    packed = sum(not b[0] for b in _lz4_blocks(comp))
+    faults.inject_error("submit", nth=1, direction="decompress", count=1)
+    try:
+        res, spans = _lz4_request(traced, sess, comp)
+        assert not faults.armed()
+    finally:
+        faults.clear()
+        from qatzip_tpu_torch.engine.health import health
+
+        health.record_success()
+    assert res.rc == qt.QZ_OK and res.data == data
+    _check_tree(spans)
+    batch = [s for s in spans if s["name"] == "lz4.batch"][0]
+    assert batch["failover_lanes"] == spans[0]["failover_lanes"] == packed
+    # the decoder was never reached: no span of its phases
+    assert {s["name"] for s in spans if s["parent"] == batch["index"]} == {
+        "lz4.walk", "lz4.assemble", "lz4.checksum"}
+
+
+def test_a_launch_in_the_lz4_decoder_falls_on_lz4_device(
+        port_engine, fake_kernel, traced, monkeypatch):
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+
+    fake_kernel(7)                      # bound: the first launch is set-up
+    real = ld._decode_blocks_impl
+
+    def impl(*args):
+        fake_kernel(7)
+        return real(*args)
+
+    monkeypatch.setattr(ld, "_decode_blocks_impl", impl)
+    data = _lz4_input(24)
+    sess = _lz4_session()
+    comp = qt.qz_compress(sess, data).data
+    res, spans = _lz4_request(traced, sess, comp)
+    assert res.data == data
+    launched = {s["name"]: s["launches"] for s in spans if s["launches"]}
+    assert launched == {"request": 1, "lz4.batch": 1, "lz4.device": 1}
+
+
+def test_the_lz4_counters_lose_no_update_under_threads(port_engine):
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+
+    sess = _lz4_session()
+    comp = qt.qz_compress(sess, _text(2 * HW, 25)).data
+    blocks = [comp[at:at + n] for _, at, n in _lz4_blocks(comp)]
+    assert len(blocks) == 2
+    d0, s0 = ld.device_blocks, ld.stored_blocks
+    start = threading.Barrier(8)
+    done = []
+
+    def worker():
+        start.wait(timeout=60)
+        for _ in range(4):
+            done.append(ld.decode_blocks(blocks, device=torch.device("cpu")))
+            for _ in range(500):
+                ld.count_stored(1)
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and len(done) == 32
+    assert all(None not in d for d in done)
+    assert ld.device_blocks - d0 == 64 and ld.stored_blocks - s0 == 16000
+
