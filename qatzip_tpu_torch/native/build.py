@@ -3,7 +3,8 @@
 Usage: python -m qatzip_tpu_torch.native.build
 
 A copy of qatzip_tpu/native/build.py with three changes.  It also compiles
-``qzregions.cpp`` and ``qzrows.cpp``, the port's own sources.  The library
+``qzregions.cpp``, ``qzrows.cpp`` and ``qzapply.cpp``, the port's own
+sources.  The library
 goes to ``build/qatzip_tpu_torch/`` beside the package, never beside its
 sources.
 And a build is atomic: g++ writes a temporary file that ``os.replace``
@@ -19,9 +20,9 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SRCS = [os.path.join(HERE, "qzcore.cpp"), os.path.join(HERE, "qzdeflate.cpp"),
-        os.path.join(HERE, "qzbatch.cpp"), os.path.join(HERE, "qzregions.cpp"),
-        os.path.join(HERE, "qzrows.cpp")]
+SRCS = [os.path.join(HERE, name)
+        for name in ("qzcore.cpp", "qzdeflate.cpp", "qzbatch.cpp",
+                     "qzregions.cpp", "qzrows.cpp", "qzapply.cpp")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(HERE)), "build",
                          "qatzip_tpu_torch")
 OUT = os.path.join(BUILD_DIR, "libqzcore.so")

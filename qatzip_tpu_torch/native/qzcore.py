@@ -1,7 +1,7 @@
 """ctypes binding for the port's libqzcore.so (built on demand from the
 sources beside it): the part of qatzip_tpu/native/qzcore.py the port calls,
-and the port's own ``inflate_regions`` (qzregions.cpp), ``pack_rows`` and
-``xxh32_rows`` (qzrows.cpp).
+and the port's own ``inflate_regions`` (qzregions.cpp), ``apply_round``
+(qzapply.cpp), ``pack_rows`` and ``xxh32_rows`` (qzrows.cpp).
 Its build-or-load is the ``setup.native`` phase (engine/flow.py; 1 when it
 compiled)."""
 from __future__ import annotations
@@ -103,6 +103,12 @@ _lib.qz_inflate_regions.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                     ctypes.c_void_p, ctypes.c_void_p,
                                     ctypes.c_int64, ctypes.c_void_p,
                                     ctypes.c_void_p, ctypes.c_void_p]
+_lib.qz_apply_round.restype = None
+_lib.qz_apply_round.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_void_p,
+                                ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_int32, ctypes.c_void_p]
 _lib.qz_lz4_assemble.restype = ctypes.c_int64
 _lib.qz_lz4_assemble.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                  ctypes.c_void_p, ctypes.c_void_p,
@@ -462,6 +468,45 @@ def apply_tokens(tokens_np, lane: int, window, wlen: int,
     if n < 0:
         raise ValueError(f"token apply failed ({n})")
     return buf[:n].tobytes()
+
+
+# qz_apply_round's lane statuses: 0, or why the lane failed
+APPLY_STATUS = {-1: "window underrun", -2: "token overflow", -3: "bad token",
+                -4: "fewer bytes than the count"}
+APPLY_KIND = {"": 0, "crc32": 1, "adler32": 2}
+
+
+def apply_round(tokens_np, addrs, pos, cap, outcnt, ck, kind: str, status):
+    """Apply a lockstep round's tokens to every lane in one call that runs
+    outside the interpreter lock (``qz_apply_round``, qzapply.cpp): lane l
+    writes ``outcnt[l]`` bytes into the buffer at ``addrs[l]`` (``cap[l]``
+    bytes long) from its cursor ``pos[l]``, reading its history from the
+    same buffer, and advances its running checksum ``ck[l]`` of ``kind``
+    ("", "crc32" or "adler32").
+
+    tokens_np: uint32 C-contiguous [nsteps, lanes]; addrs uint64, pos, cap
+    and outcnt int64, ck uint32, status int32, each C-contiguous [lanes].
+    pos, ck and status are written in place: a lane given a nonzero status
+    is left alone; a lane that comes back 0 has its new cursor and
+    checksum, any other a key of APPLY_STATUS.  The caller keeps every
+    buffer alive and writable for the call.
+    """
+    import numpy as np
+
+    nsteps, lanes = tokens_np.shape
+    want = ((tokens_np, np.uint32), (addrs, np.uint64), (pos, np.int64),
+            (cap, np.int64), (outcnt, np.int64), (ck, np.uint32),
+            (status, np.int32))
+    for a, dt in want:
+        if a.dtype != dt or not a.flags.c_contiguous:
+            raise ValueError("apply_round needs C-contiguous "
+                             f"{np.dtype(dt).name} arrays")
+    if any(a.shape != (lanes,) for a, _ in want[1:]):
+        raise ValueError(f"apply_round needs [{lanes}] lane arrays")
+    _lib.qz_apply_round(tokens_np.ctypes.data, nsteps, lanes,
+                        addrs.ctypes.data, pos.ctypes.data, cap.ctypes.data,
+                        outcnt.ctypes.data, ck.ctypes.data, APPLY_KIND[kind],
+                        status.ctypes.data)
 
 
 # qz_inflate_regions' lane statuses: 0, or why the numpy builder

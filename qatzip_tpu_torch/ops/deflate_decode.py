@@ -18,7 +18,13 @@ one of two engines, as ``_run_device_round`` (:562-575) picks them:
   builders, which are also what the tests hold the native one against.
   ``inflate_regions_native`` and ``inflate_regions_numpy`` count the
   regions each route built.  The device decodes tokens (ops/inflate.py)
-  and the native ``apply_tokens`` does the LZ77 window copies;
+  and ``libqzcore``'s ``qz_apply_round`` (native/qzapply.cpp) applies
+  every lane's tokens, the LZ77 window copies, in one call a round outside
+  the interpreter lock, straight into the streams' own buffers, and
+  carries their running checksums.  Without the library
+  ``_apply_tokens_py`` applies a lane at a time; it is also what the tests
+  hold the native one against.  ``inflate_apply_native`` and
+  ``inflate_apply_python`` count the lanes each route applied;
 * speculative (QATZIP_TPU_INFLATE=spec, a parity engine): flat 15-bit
   tables (``build_flat_table``, :79-155), a decode at every bit position,
   the true symbol chain by a segment-entry recurrence plus segment walks,
@@ -33,8 +39,9 @@ one of two engines, as ``_run_device_round`` (:562-575) picks them:
   (parallel/shard.py) a round of at least two streams a device runs a
   contiguous slice on each device.
 
-The stream state (``_Stream``, with its 32 KB history window), the bit
-reader, the header parsers and the Python token applier are copies of the
+The stream state (``_Stream``: its bytes in one growing buffer with a
+cursor, whose last 32 KB are the history window), the bit reader, the
+header parsers and the Python token applier are copies of the
 reference's.  A stream the device cannot prove correct comes back as None
 and the caller inflates it on the CPU; ``failover_lanes`` counts them.
 
@@ -80,6 +87,10 @@ failover_lanes = 0
 # one call a round, or by the numpy builders (the library absent)
 inflate_regions_native = 0
 inflate_regions_numpy = 0
+# lockstep lanes whose tokens were applied, over the process: by
+# libqzcore's one call a round, or by _apply_tokens_py (the library absent)
+inflate_apply_native = 0
+inflate_apply_python = 0
 _count_lock = threading.Lock()
 
 
@@ -154,24 +165,45 @@ def parse_dynamic_header(br: _Bits) -> tuple[np.ndarray, np.ndarray]:
     return lens[:hlit], lens[hlit:]
 
 
+_NOTHING = np.empty(0, np.uint8)
+
+
 class _Stream:
-    __slots__ = ("payload", "hint", "bits", "out", "window", "done", "failed",
-                 "final_block", "index", "_lens", "kind", "crc", "crc_len")
+    __slots__ = ("payload", "hint", "bits", "buf", "addr", "n", "done",
+                 "failed", "final_block", "index", "_lens", "kind", "crc")
 
     def __init__(self, payload: bytes, hint: int, index: int,
                  kind: str = "crc32"):
         self.payload = payload
         self.hint = hint
         self.bits = _Bits(payload)
-        self.out = bytearray()
-        self.window = b""
+        self.buf = _NOTHING      # the bytes out are buf[:n]
+        self.addr = 0            # buf's address, for libqzcore
+        self.n = 0
         self.done = False
         self.failed = False
         self.final_block = False
         self.index = index
         self.kind = kind
-        self.crc: int | None = None  # running checksum of self.out
-        self.crc_len = 0
+        # running checksum of buf[:n]: that of no bytes to start
+        self.crc: int | None = ({"crc32": 0, "adler32": 1}[kind] if kind
+                                else None)
+
+    def reserve(self, more: int) -> None:
+        """Make room in ``buf`` for ``more`` bytes past the cursor."""
+        need = self.n + more
+        if need > len(self.buf):
+            buf = np.empty(max(need, 2 * len(self.buf)), np.uint8)
+            buf[:self.n] = self.buf[:self.n]
+            self.buf, self.addr = buf, buf.ctypes.data
+
+    @property
+    def window(self) -> np.ndarray:
+        """The history: the up to 32 KB before the cursor (a view)."""
+        return self.buf[max(0, self.n - 32768):self.n]
+
+    def output(self) -> bytes:
+        return self.buf[:self.n].tobytes()
 
     def push(self, data: bytes, part_crc: int | None = None) -> None:
         """Append decoded bytes; fold ``part_crc`` (device-computed checksum
@@ -181,20 +213,20 @@ class _Stream:
 
         from qatzip_tpu_torch.utils import checksum as _ck
 
+        k = len(data)
+        self.reserve(k)
+        self.buf[self.n:self.n + k] = np.frombuffer(data, np.uint8)
         if self.kind:
             if part_crc is None:
-                part_crc = (_z.adler32(data) if self.kind == "adler32"
-                            else _z.crc32(data)) & 0xFFFFFFFF
-            if self.crc is None or self.crc_len == 0:
+                self.crc = (_z.adler32 if self.kind == "adler32"
+                            else _z.crc32)(data, self.crc)
+            elif self.n == 0:
                 self.crc = part_crc
             elif self.kind == "adler32":
-                self.crc = _ck.adler32_combine(self.crc, part_crc, len(data))
+                self.crc = _ck.adler32_combine(self.crc, part_crc, k)
             else:
-                self.crc = _ck.crc32_combine(self.crc, part_crc, len(data))
-            self.crc_len += len(data)
-        self.out += data
-        w = self.window + data
-        self.window = w[-32768:] if len(w) > 32768 else w
+                self.crc = _ck.crc32_combine(self.crc, part_crc, k)
+        self.n += k
 
 
 def _parse_one_header(s: _Stream) -> str:
@@ -325,10 +357,7 @@ def inflate_batch(payloads, hints, device: torch.device,
         if s.failed or not s.done:
             results.append(None)
         else:
-            crc = s.crc if s.kind else None
-            if s.kind and s.crc_len == 0:  # empty stream
-                crc = 1 if s.kind == "adler32" else 0
-            results.append((bytes(s.out), True, crc))
+            results.append((s.output(), True, s.crc))
     failed = results.count(None)
     failover_lanes += failed
     if span is not None:
@@ -402,7 +431,7 @@ def pack_round(batch):
         if words > _LOCKSTEP_NW[-1]:
             s.failed = True  # beyond the per-lane stream budget
             continue
-        rem = (s.hint - len(s.out)) if (s.hint and s.hint > 0) else (1 << 16)
+        rem = (s.hint - s.n) if (s.hint and s.hint > 0) else (1 << 16)
         rem = max(1, min(rem, MAX_OUTCAP))
         fits.append((s, byte0, rem, words))
     tll, td, ok = _round_regions([t[0] for t in fits])
@@ -449,32 +478,73 @@ def _run_device_round_lockstep(batch, device: torch.device) -> None:
     tokens = np.ascontiguousarray(tokens)
     if span is not None:
         rec.close(span)
-        out0 = sum(len(t[0].out) for t in live)
+        out0 = sum(t[0].n for t in live)
         span = rec.open("inflate.apply")
+    _apply_round(live, tokens, err, outcnt, end_bit)
+    if span is not None:
+        rec.close(span, sum(t[0].n for t in live) - out0)
 
-    for i, (s, regions, byte0, rem, words) in enumerate(live):
-        if err[i] or end_bit[i] < 0 or outcnt[i] > rem:
-            s.failed = True
-            continue
-        try:
-            if _native is not None:
-                data = _native.apply_tokens(tokens, i, s.window,
-                                            len(s.window), int(outcnt[i]))
-            else:
-                data = _apply_tokens_py(tokens[:, i], s.window,
+
+def _apply_round(live, tokens, err, outcnt, end_bit) -> None:
+    """Apply a lockstep round's tokens to its streams and move each past
+    its block.  A lane fails where the device failed it (``err``, no end
+    bit), where it counts more bytes than the stream has left, on a bad
+    token, a token past its count or a window underrun, and where its
+    tokens put out other than ``outcnt`` bytes; its stream is marked
+    failed and keeps the bytes it had.  With ``libqzcore`` every lane goes
+    in one ``qz_apply_round`` call, into the streams' own buffers; without
+    it ``_apply_tokens_py`` applies a lane at a time."""
+    global inflate_apply_native, inflate_apply_python
+    streams = [t[0] for t in live]
+    rem = [t[3] for t in live]
+    outcnt = outcnt.astype(np.int64)
+    status = (err | (end_bit < 0) | (outcnt > np.array(rem, np.int64))
+              ).astype(np.int32)
+    go = [st == 0 for st in status.tolist()]
+    if _native is not None:
+        for s, r, g in zip(streams, rem, go):
+            if g:
+                s.reserve(r)
+        pos = np.array([s.n for s in streams], np.int64)
+        ck = np.array([s.crc or 0 for s in streams], np.uint32)
+        _native.apply_round(tokens, np.array([s.addr for s in streams],
+                                             np.uint64),
+                            pos, np.array([len(s.buf) for s in streams],
+                                          np.int64),
+                            outcnt, ck, streams[0].kind, status)
+        for s, st, n, c in zip(streams, status.tolist(), pos.tolist(),
+                               ck.tolist()):
+            if st == 0:
+                s.n = n
+                if s.kind:
+                    s.crc = c
+    else:
+        for i, s in enumerate(streams):
+            if not go[i]:
+                continue
+            try:
+                data = _apply_tokens_py(tokens[:, i], s.window.tobytes(),
                                         int(outcnt[i]))
-        except ValueError:
+            except ValueError:
+                status[i] = -1
+                continue
+            if len(data) != int(outcnt[i]):
+                status[i] = -1
+                continue
+            s.push(data)
+    for (s, _, byte0, _, _), st, eb in zip(live, status.tolist(),
+                                           end_bit.tolist()):
+        if st:
             s.failed = True
             continue
-        if len(data) != int(outcnt[i]):
-            s.failed = True
-            continue
-        s.push(data)
-        s.bits.pos = (byte0 << 3) + int(end_bit[i])
+        s.bits.pos = (byte0 << 3) + eb
         if s.final_block:
             s.done = True
-    if span is not None:
-        rec.close(span, sum(len(t[0].out) for t in live) - out0)
+    with _count_lock:
+        if _native is not None:
+            inflate_apply_native += sum(go)
+        else:
+            inflate_apply_python += sum(go)
 
 
 # ---------------------------------------------------------------------------
@@ -756,10 +826,9 @@ def _run_device_round_spec(batch, device: torch.device) -> None:
         except ValueError:
             s.failed = True  # invalid code set: zero tables flag as err
             continue
-        if s.window:
-            window[i, 32768 - len(s.window):] = np.frombuffer(s.window,
-                                                              np.uint8)
-        wlen[i] = len(s.window)
+        w = s.window
+        window[i, 32768 - len(w):] = w
+        wlen[i] = len(w)
 
     # block-DP: a round of at least two streams a device of the local mesh
     # runs a contiguous slice on each
