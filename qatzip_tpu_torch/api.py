@@ -392,14 +392,10 @@ def qz_dump_counters() -> dict:
     own: the device instance pool's ``stats()`` and grab wait
     (``pool_<key>``), the streams and LZ4 blocks failed over to the CPU, the
     LZ4 blocks handed to the block decoder and the stored ones copied
-    through (``lz4_blocks_device``, ``lz4_blocks_stored``), the inflate's
-    table regions built in C++ and in numpy (``inflate_regions_native``,
-    ``inflate_regions_numpy``), its lanes whose tokens were applied by one
-    C++ call a round and by Python a lane at a time
-    (``inflate_apply_native``, ``inflate_apply_python``), the device
-    failures the health breaker saw,
-    the spans dropped past the buffer and each kernel's launches
-    (``launches.<symbol>``).  Every value is a count."""
+    through (``lz4_blocks_device``, ``lz4_blocks_stored``), the device
+    failures the health breaker saw, the spans dropped past the buffer and
+    each kernel's launches (``launches.<symbol>``).  Every value is a
+    count."""
     from qatzip_tpu_torch.engine.health import health
     from qatzip_tpu_torch.engine.instances import pool
     from qatzip_tpu_torch.ops import _build, deflate_decode, lz4_decode
@@ -414,10 +410,6 @@ def qz_dump_counters() -> dict:
     out["failover_blocks"] = lz4_decode.failover_blocks
     out["lz4_blocks_device"] = lz4_decode.device_blocks
     out["lz4_blocks_stored"] = lz4_decode.stored_blocks
-    out["inflate_regions_native"] = deflate_decode.inflate_regions_native
-    out["inflate_regions_numpy"] = deflate_decode.inflate_regions_numpy
-    out["inflate_apply_native"] = deflate_decode.inflate_apply_native
-    out["inflate_apply_python"] = deflate_decode.inflate_apply_python
     out["health_failures"] = health.total_failures
     out["spans_dropped"] = core.flow.spans_dropped
     for k in _build.kernels():

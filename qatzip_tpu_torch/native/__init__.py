@@ -5,7 +5,15 @@ sources as they are; ``qzregions.cpp`` (the lockstep inflate's table
 regions, a round in one call), ``qzapply.cpp`` (the same round's tokens
 applied to its streams, in one call) and ``qzrows.cpp`` (an LZ4 request's
 block staging and chunk checksums, each in one call) are the port's own.
-``build.py`` compiles them into ``build/qatzip_tpu_torch/libqzcore.so`` at
-first use and ``qzcore.py`` binds, with ctypes, the entry points the port
-calls.  Every caller keeps a pure-Python fallback for a missing library.
+``build.py`` compiles every ``*.cpp`` here into
+``build/qatzip_tpu_torch/libqzcore.so`` at first use and ``qzcore.py``
+binds, with ctypes, the entry points the port calls.
+
+The device path requires the library, as it requires the kernels
+(ops/_build.py): each module under ``ops/`` that calls it imports
+``qzcore`` at its top, with no fallback route, and a host where g++
+cannot build it gets g++'s message in an ImportError when the device
+codecs register.  Only the copies of the reference's CPU route
+(engine/core.py, engine/cpu_backend.py, utils/checksum.py) keep the
+reference's optional import.
 """

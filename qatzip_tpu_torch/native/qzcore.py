@@ -14,8 +14,6 @@ from qatzip_tpu_torch.native.build import _fresh, build
 _since = _now()
 _compiled = not _fresh()
 _path = build()
-if _path is None:
-    raise ImportError("libqzcore.so unavailable")
 
 _lib = ctypes.CDLL(_path)
 _flow.record_setup("setup.native", _since, int(_compiled))
@@ -93,11 +91,6 @@ _lib.qz_lz4_candidates.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                    ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_int64, ctypes.c_int,
                                    ctypes.c_int]
-_lib.qz_apply_tokens.restype = ctypes.c_int64
-_lib.qz_apply_tokens.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                 ctypes.c_int64, ctypes.c_void_p,
-                                 ctypes.c_int64, ctypes.c_void_p,
-                                 ctypes.c_int64]
 _lib.qz_inflate_regions.restype = ctypes.c_int64
 _lib.qz_inflate_regions.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                     ctypes.c_void_p, ctypes.c_void_p,
@@ -448,28 +441,6 @@ def inflate(data, max_out: int) -> tuple[bytes, int, bool]:
     return buf[:n].tobytes(), used.value, bool(eof.value)
 
 
-def apply_tokens(tokens_np, lane: int, window, wlen: int,
-                 cap: int) -> bytes:
-    """Apply one lane's token column from the lockstep inflate
-    (ops/inflate.py) — the host LZ77 window-copy half.
-
-    tokens_np: uint32 C-contiguous [nsteps, nlanes]; lane selects the
-    column.  Raises ValueError on a malformed token stream.
-    """
-    import numpy as np
-
-    assert tokens_np.dtype == np.uint32 and tokens_np.flags.c_contiguous
-    nsteps, nlanes = tokens_np.shape
-    buf = _arena(cap)
-    wp, wn, wkeep = _addr(window) if wlen else (ctypes.c_void_p(0), 0, None)
-    base = tokens_np.ctypes.data + 4 * lane
-    n = _lib.qz_apply_tokens(ctypes.c_void_p(base), nsteps, nlanes,
-                             wp, wlen, buf.ctypes.data_as(ctypes.c_void_p), cap)
-    if n < 0:
-        raise ValueError(f"token apply failed ({n})")
-    return buf[:n].tobytes()
-
-
 # qz_apply_round's lane statuses: 0, or why the lane failed
 APPLY_STATUS = {-1: "window underrun", -2: "token overflow", -3: "bad token",
                 -4: "fewer bytes than the count"}
@@ -509,15 +480,16 @@ def apply_round(tokens_np, addrs, pos, cap, outcnt, ck, kind: str, status):
                         status.ctypes.data)
 
 
-# qz_inflate_regions' lane statuses: 0, or why the numpy builder
-# (ops/inflate.py) raises ValueError on the lane's lengths
+# qz_inflate_regions' lane statuses: 0, or the ValueError that the
+# reference's numpy builder (qatzip_tpu/ops/pallas_inflate.py) raises on
+# the lane's lengths
 REGION_STATUS = {1: "over-subscribed Huffman code", 2: "subtable overflow",
                  3: "root/sub collision", 4: "code length outside 0..15"}
 
 
 def inflate_regions(lens, tll, td):
     """Build a lockstep round's packed table regions (ops/inflate.py's
-    layout, byte-equal to its ``build_ll_region``/``build_d_region``) in one
+    layout, byte-equal to the reference's numpy region builders) in one
     call that runs outside the interpreter lock.
 
     lens[i] is lane i's (litlen lengths, distance lengths), or None for a

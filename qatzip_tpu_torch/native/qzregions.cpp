@@ -1,11 +1,11 @@
 // Packed two-level table regions of the lockstep inflate, a round's lanes
 // in one call.
 //
-// The same function as _build_twolevel / build_ll_region / build_d_region
-// in qatzip_tpu_torch/ops/inflate.py, which the tests hold it against byte
-// for byte.  Per lane a litlen and a distance region of 512 u32 cells, seen
-// here as 1024 little-endian u16 entries: 0..511 the 9-bit root, 512..1023
-// the subtable area.
+// The same function as the reference's numpy region builders
+// (qatzip_tpu/ops/pallas_inflate.py, at its 9-bit roots), which the tests
+// hold it against byte for byte.  Per lane a litlen and a distance region
+// of 512 u32 cells, seen here as 1024 little-endian u16 entries: 0..511
+// the 9-bit root, 512..1023 the subtable area.
 //
 //   litlen u16:  clen[0:4] kind[4:6] payload[6:14]
 //      kind 0 literal (payload = byte), 1 length (payload = symbol - 257),

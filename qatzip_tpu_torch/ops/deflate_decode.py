@@ -5,26 +5,21 @@ Port of qatzip_tpu/ops/deflate_decode.py.  ``inflate_batch`` (:463-522)
 parses block headers on the host and hands each round of Huffman blocks to
 one of two engines, as ``_run_device_round`` (:562-575) picks them:
 
-* lockstep (the default): ``_lockstep_regions`` (:582-595) and
-  ``_run_device_round_lockstep`` (:633-699).  The reference sorts a batch
-  and cuts it into launches of 128 lanes; here one launch takes the whole
-  batch (the caller bounds the width: DeflateDeviceCodec.LOCKSTEP_BATCH),
-  a lane a CTA that waits for no other lane, so nothing is sorted.
-  ``pack_round`` builds the round's table regions in one call into
-  ``libqzcore`` (``qz_inflate_regions``, native/qzregions.cpp), which
-  writes every dynamic block's rows outside the interpreter lock; static
-  blocks copy the cached ``PI.static_regions()``.  Without the library
-  ``_lockstep_regions`` builds them a block with ops/inflate.py's numpy
-  builders, which are also what the tests hold the native one against.
-  ``inflate_regions_native`` and ``inflate_regions_numpy`` count the
-  regions each route built.  The device decodes tokens (ops/inflate.py)
-  and ``libqzcore``'s ``qz_apply_round`` (native/qzapply.cpp) applies
-  every lane's tokens, the LZ77 window copies, in one call a round outside
-  the interpreter lock, straight into the streams' own buffers, and
-  carries their running checksums.  Without the library
-  ``_apply_tokens_py`` applies a lane at a time; it is also what the tests
-  hold the native one against.  ``inflate_apply_native`` and
-  ``inflate_apply_python`` count the lanes each route applied;
+* lockstep (the default): ``_run_device_round_lockstep`` (the
+  reference's :633-699).  The reference sorts a batch and cuts it into
+  launches of 128 lanes; here one launch takes the whole batch (the caller
+  bounds the width: DeflateDeviceCodec.LOCKSTEP_BATCH), a lane a CTA that
+  waits for no other lane, so nothing is sorted.  ``pack_round`` builds
+  the round's table regions in one call into ``libqzcore``
+  (``qz_inflate_regions``, native/qzregions.cpp), which writes every
+  dynamic block's rows outside the interpreter lock; static blocks copy
+  the cached ``PI.static_regions()``.  The device decodes tokens
+  (ops/inflate.py) and ``libqzcore``'s ``qz_apply_round``
+  (native/qzapply.cpp) applies every lane's tokens, the LZ77 window
+  copies, in one call a round outside the interpreter lock, straight into
+  the streams' own buffers, and carries their running checksums.  Each
+  stage has this one route: the device path requires the library
+  (native/__init__.py);
 * speculative (QATZIP_TPU_INFLATE=spec, a parity engine): flat 15-bit
   tables (``build_flat_table``, :79-155), a decode at every bit position,
   the true symbol chain by a segment-entry recurrence plus segment walks,
@@ -40,10 +35,10 @@ one of two engines, as ``_run_device_round`` (:562-575) picks them:
   contiguous slice on each device.
 
 The stream state (``_Stream``: its bytes in one growing buffer with a
-cursor, whose last 32 KB are the history window), the bit reader, the
-header parsers and the Python token applier are copies of the
-reference's.  A stream the device cannot prove correct comes back as None
-and the caller inflates it on the CPU; ``failover_lanes`` counts them.
+cursor, whose last 32 KB are the history window), the bit reader and the
+header parsers are copies of the reference's.  A stream the device cannot
+prove correct comes back as None and the caller inflates it on the CPU;
+``failover_lanes`` counts them.
 
 A traced request (engine/flow.py) gets an ``inflate.batch`` span a call
 (its streams), and in each round ``inflate.parse`` (the header parse; the
@@ -62,15 +57,11 @@ import numpy as np
 import torch
 
 from qatzip_tpu_torch.engine.flow import tls
+from qatzip_tpu_torch.native import qzcore as _native
 from qatzip_tpu_torch.ops import chain
 from qatzip_tpu_torch.ops import deflate_tables as T
 from qatzip_tpu_torch.ops import inflate as PI
 from qatzip_tpu_torch.ops.deflate_encode import _take, _vsort
-
-try:  # native region builder and token applier; numpy/python fallbacks below
-    from qatzip_tpu_torch.native import qzcore as _native
-except ImportError:  # pragma: no cover - native build optional
-    _native = None
 
 MAX_PAYLOAD = 1 << 20     # payloads larger than 1 MB route to the CPU path
 MAX_OUTCAP = 1 << 20
@@ -83,14 +74,6 @@ _LOCKSTEP_STEPS = (1024, 4096, 16384, 65664)
 
 # streams handed back to the caller for CPU inflate, over the process
 failover_lanes = 0
-# dynamic blocks' table regions built, over the process: by libqzcore's
-# one call a round, or by the numpy builders (the library absent)
-inflate_regions_native = 0
-inflate_regions_numpy = 0
-# lockstep lanes whose tokens were applied, over the process: by
-# libqzcore's one call a round, or by _apply_tokens_py (the library absent)
-inflate_apply_native = 0
-inflate_apply_python = 0
 _count_lock = threading.Lock()
 
 
@@ -266,41 +249,6 @@ def _parse_one_header(s: _Stream) -> str:
     raise ValueError("reserved BTYPE")
 
 
-def _apply_tokens_py(lane_tokens: np.ndarray, window: bytes,
-                     cap: int) -> bytes:
-    """Python fallback for qz_apply_tokens (native absent)."""
-    out = bytearray()
-    wl = len(window)
-    for t in lane_tokens:
-        t = int(t)
-        if t == 0:
-            continue
-        if t & 1:
-            if len(out) >= cap:
-                raise ValueError("token overflow")
-            out.append((t >> 1) & 0xFF)
-            if t & 0x200:  # paired second literal (bits 10..17)
-                if len(out) >= cap:
-                    raise ValueError("token overflow")
-                out.append((t >> 10) & 0xFF)
-            continue
-        if not t & 2:
-            raise ValueError("bad token")
-        ln = (t >> 2) & 0x1FF
-        d = ((t >> 11) & 0x7FFF) + 1
-        if ln < 3 or ln > 258 or len(out) + ln > cap:
-            raise ValueError("bad token")
-        for _ in range(ln):
-            p = len(out) - d
-            if p >= 0:
-                out.append(out[p])
-            elif wl + p >= 0:
-                out.append(window[wl + p])
-            else:
-                raise ValueError("window underrun")
-    return bytes(out)
-
-
 # ---------------------------------------------------------------------------
 # Rounds
 # ---------------------------------------------------------------------------
@@ -359,7 +307,8 @@ def inflate_batch(payloads, hints, device: torch.device,
         else:
             results.append((s.output(), True, s.crc))
     failed = results.count(None)
-    failover_lanes += failed
+    with _count_lock:
+        failover_lanes += failed
     if span is not None:
         span.failover_lanes += failed
         rec.close(span)
@@ -374,45 +323,21 @@ def _run_device_round(batch, device: torch.device) -> None:
     return _run_device_round_lockstep(batch, device)
 
 
-def _lockstep_regions(s):
-    """Packed 9-bit table regions for one block (ops/inflate.py layout)."""
-    if getattr(s, "_lens", None) is None:
-        return PI.static_regions()
-    ll_lens, d_lens = s._lens
-    return PI.build_ll_region(ll_lens), PI.build_d_region(d_lens)
-
-
 def _round_regions(streams):
     """The table regions of a round's streams, one row a stream: (tll, td)
     uint32[len(streams), CELLS] and a bool[len(streams)], False where the
-    numpy builder raises ValueError on the stream's code (over-subscribed,
-    subtable overflow, root/sub collision), whose rows then hold nothing
-    of use.  The dynamic blocks' regions come from one ``libqzcore`` call,
-    or without the library from the numpy builders a block."""
-    global inflate_regions_native, inflate_regions_numpy
+    stream's code cannot be built (over-subscribed, subtable overflow,
+    root/sub collision), whose rows then hold nothing of use.  The dynamic
+    blocks' regions come from one ``libqzcore`` call; a static block's rows
+    are the cached ``PI.static_regions()``."""
     n = len(streams)
     tll = np.zeros((n, PI.CELLS), np.uint32)
     td = np.zeros((n, PI.CELLS), np.uint32)
-    ok = np.ones(n, bool)
     lens = [getattr(s, "_lens", None) for s in streams]
-    if _native is not None:
-        for i, p in enumerate(lens):
-            if p is None:
-                tll[i], td[i] = PI.static_regions()
-        ok = _native.inflate_regions(lens, tll, td) == 0
-    else:
-        for i, s in enumerate(streams):
-            try:
-                tll[i], td[i] = _lockstep_regions(s)
-            except ValueError:
-                ok[i] = False
-    built = 2 * (n - lens.count(None))
-    with _count_lock:
-        if _native is not None:
-            inflate_regions_native += built
-        else:
-            inflate_regions_numpy += built
-    return tll, td, ok
+    for i, p in enumerate(lens):
+        if p is None:
+            tll[i], td[i] = PI.static_regions()
+    return tll, td, _native.inflate_regions(lens, tll, td) == 0
 
 
 def pack_round(batch):
@@ -491,60 +416,33 @@ def _apply_round(live, tokens, err, outcnt, end_bit) -> None:
     bit), where it counts more bytes than the stream has left, on a bad
     token, a token past its count or a window underrun, and where its
     tokens put out other than ``outcnt`` bytes; its stream is marked
-    failed and keeps the bytes it had.  With ``libqzcore`` every lane goes
-    in one ``qz_apply_round`` call, into the streams' own buffers; without
-    it ``_apply_tokens_py`` applies a lane at a time."""
-    global inflate_apply_native, inflate_apply_python
+    failed and keeps the bytes it had.  Every lane goes in one
+    ``qz_apply_round`` call, into the streams' own buffers."""
     streams = [t[0] for t in live]
     rem = [t[3] for t in live]
     outcnt = outcnt.astype(np.int64)
     status = (err | (end_bit < 0) | (outcnt > np.array(rem, np.int64))
               ).astype(np.int32)
-    go = [st == 0 for st in status.tolist()]
-    if _native is not None:
-        for s, r, g in zip(streams, rem, go):
-            if g:
-                s.reserve(r)
-        pos = np.array([s.n for s in streams], np.int64)
-        ck = np.array([s.crc or 0 for s in streams], np.uint32)
-        _native.apply_round(tokens, np.array([s.addr for s in streams],
-                                             np.uint64),
-                            pos, np.array([len(s.buf) for s in streams],
-                                          np.int64),
-                            outcnt, ck, streams[0].kind, status)
-        for s, st, n, c in zip(streams, status.tolist(), pos.tolist(),
-                               ck.tolist()):
-            if st == 0:
-                s.n = n
-                if s.kind:
-                    s.crc = c
-    else:
-        for i, s in enumerate(streams):
-            if not go[i]:
-                continue
-            try:
-                data = _apply_tokens_py(tokens[:, i], s.window.tobytes(),
-                                        int(outcnt[i]))
-            except ValueError:
-                status[i] = -1
-                continue
-            if len(data) != int(outcnt[i]):
-                status[i] = -1
-                continue
-            s.push(data)
-    for (s, _, byte0, _, _), st, eb in zip(live, status.tolist(),
-                                           end_bit.tolist()):
+    for s, r, st in zip(streams, rem, status.tolist()):
+        if st == 0:
+            s.reserve(r)
+    pos = np.array([s.n for s in streams], np.int64)
+    ck = np.array([s.crc or 0 for s in streams], np.uint32)
+    _native.apply_round(tokens, np.array([s.addr for s in streams], np.uint64),
+                        pos, np.array([len(s.buf) for s in streams], np.int64),
+                        outcnt, ck, streams[0].kind, status)
+    for (s, _, byte0, _, _), st, n, c, eb in zip(
+            live, status.tolist(), pos.tolist(), ck.tolist(),
+            end_bit.tolist()):
         if st:
             s.failed = True
             continue
+        s.n = n
+        if s.kind:
+            s.crc = c
         s.bits.pos = (byte0 << 3) + eb
         if s.final_block:
             s.done = True
-    with _count_lock:
-        if _native is not None:
-            inflate_apply_native += sum(go)
-        else:
-            inflate_apply_python += sum(go)
 
 
 # ---------------------------------------------------------------------------

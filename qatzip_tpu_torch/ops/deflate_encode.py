@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qatzip_tpu_torch.native import qzcore as native
 from qatzip_tpu_torch.ops import chain
 from qatzip_tpu_torch.ops.codes import dist_code, length_code
 
@@ -453,7 +454,6 @@ def encode_blocks(data, lengths, depth: int, kwords: int,
     per-device tensors, each slice's on its device.  ``data`` and
     ``lengths`` may then also be lists of per-device shards already staged.
     """
-    from qatzip_tpu_torch.native import qzcore as native
     from qatzip_tpu_torch.parallel import shard
 
     if mesh is not None:

@@ -58,6 +58,7 @@ from qatzip_tpu_torch.engine.flow import tls
 from qatzip_tpu_torch.engine.health import health
 from qatzip_tpu_torch.engine.lz4_block import (lz4_block_decompress,
                                                lz4s_block_decompress)
+from qatzip_tpu_torch.native import qzcore as native
 from qatzip_tpu_torch.ops import deflate_encode as de
 from qatzip_tpu_torch.parallel import shard
 from qatzip_tpu_torch.session import InternalParams
@@ -152,7 +153,6 @@ class DeflateDeviceCodec:
         entropy-codes (qz_deflate_candidates), the split the reference
         makes between its search engine and its driver."""
         from qatzip_tpu_torch.engine import devcal
-        from qatzip_tpu_torch.native import qzcore as native
         from qatzip_tpu_torch.ops import match_finder as mf
 
         n = params.hw_buff_sz
@@ -388,7 +388,6 @@ class Lz4DeviceCodec:
         finder's stride (QATZIP_TPU_MF_STRIDE, default 1) at every level,
         as the reference does."""
         from qatzip_tpu_torch.formats.lz4_fmt import gen_lz4_block_header
-        from qatzip_tpu_torch.native import qzcore as native
         from qatzip_tpu_torch.ops import match_finder as mf
 
         n = params.hw_buff_sz

@@ -4,8 +4,8 @@ pipeline.
 Port of qatzip_tpu/ops/pallas_inflate.py.  The device decodes the serial
 Huffman half of DEFLATE for any number of independent blocks in one
 launch, one block per lane, and emits one fixed-width token per (step,
-lane); the host applies the tokens (native qz_apply_tokens, a copy of the
-reference's) and carries the 32 KB history between rounds.
+lane); the host applies the tokens (``libqzcore``'s ``qz_apply_round``,
+native/qzapply.cpp) and carries the 32 KB history between rounds.
 
 Region layout.  The port uses the reference's 9-bit/9-bit layout
 (``region_spec(False)``) for both its plain version and its kernel: per lane
@@ -23,7 +23,7 @@ layout the port's tokens equal the reference XLA driver's exactly.
   dist u16:    clen[0:4] kind[4:6] payload[6:11] = dist symbol 0..29
   u16 == 0 -> invalid (corrupt stream; the lane errors)
 
-Token format (shared with qz_apply_tokens, qatzip_tpu_torch/native/qzcore.cpp):
+Token format (shared with qz_apply_round, qatzip_tpu_torch/native/qzapply.cpp):
   0                  inactive (lane done / padding)
   bit0=1             literal, byte in bits 1..8; bit9=1 marks a paired
                      second literal, byte in bits 10..17
@@ -32,13 +32,11 @@ Token format (shared with qz_apply_tokens, qatzip_tpu_torch/native/qzcore.cpp):
 uint32 data (stream words, table cells, tokens) travels as int32 tensors
 holding the same bit pattern; the plain version computes in int64.
 
-Regions.  ``build_ll_region``/``build_d_region`` are the numpy builders
-(copies of the reference's).  The inflate rounds build their regions with
-``libqzcore``'s ``qz_inflate_regions`` (native/qzregions.cpp), the same
-function in C++, a round's lanes in one call (ops/deflate_decode.py's
-``pack_round``); the numpy builders are the route without the library and
-the version the tests hold the native one to, byte for byte and reject for
-reject.
+Regions.  ``libqzcore``'s ``qz_inflate_regions`` (native/qzregions.cpp)
+builds them, a round's lanes in one call (ops/deflate_decode.py's
+``pack_round``), and :func:`static_regions` once for the static block; the
+tests hold it to the reference's numpy builders
+(qatzip_tpu/ops/pallas_inflate.py), byte for byte and reject for reject.
 
 * :func:`_decode_ref` is the plain torch version of the reference driver
   ``_decode_xla`` (:335-387), built on :func:`decode_step` (:212-329).
@@ -53,117 +51,22 @@ import functools
 import numpy as np
 import torch
 
+from qatzip_tpu_torch.native import qzcore
 from qatzip_tpu_torch.ops import deflate_tables as T
 
 CELLS = 512          # u32 cells per region (root 256 + sub 256)
 ROOT_BITS = 9
-SUB_ENTRIES = 512    # sub-area entries (256 cells)
 _M32 = 0xFFFFFFFF
-
-
-# ---------------------------------------------------------------------------
-# Host: two-level packed table build (copy of pallas_inflate.py:98-206; a
-# test holds the regions byte-equal to the reference's)
-# ---------------------------------------------------------------------------
-def _bitrev_vec(v: np.ndarray, l: np.ndarray) -> np.ndarray:
-    """Bit-reverse each v[i] over its own length l[i] (vectorized)."""
-    out = np.zeros_like(v)
-    work = v.copy()
-    maxl = int(l.max()) if l.size else 0
-    for _ in range(maxl):
-        out = (out << 1) | (work & 1)
-        work >>= 1
-    return out >> (maxl - l)
-
-
-def _pack_cells(u16: np.ndarray) -> np.ndarray:
-    """u16[1024] -> u32[512] cells (little-endian pair packing)."""
-    return (u16[0::2].astype(np.uint32)
-            | (u16[1::2].astype(np.uint32) << 16))
-
-
-def _build_twolevel(lens: np.ndarray, entry16: np.ndarray,
-                    valid: np.ndarray, root_bits: int = ROOT_BITS,
-                    sub_entries: int = SUB_ENTRIES) -> np.ndarray:
-    """Build the packed region from per-symbol code lengths and u16 entries
-    (clen/kind/payload already packed; clen filled in here).  ``valid``
-    marks symbols legal in a stream — invalid ones (286/287, dist 30/31)
-    may own code space but decode to the 0 entry, erroring the lane per
-    RFC1951.  Raises ValueError on over-subscribed codes or subtable
-    overflow (the caller falls back to the CPU path)."""
-    lens = lens.astype(np.int64)
-    codes = T.canonical_codes(lens.astype(np.int32)).astype(np.int64)
-    if ((codes >> np.maximum(lens, 1)) != 0).any():
-        raise ValueError("over-subscribed Huffman code")
-    entries = np.where((lens > 0) & valid, entry16 | lens.astype(np.uint16),
-                       0).astype(np.uint16)
-    root = np.zeros(1 << root_bits, np.uint16)
-    sub = np.zeros(sub_entries, np.uint16)
-    for l in range(1, root_bits + 1):
-        syms = np.nonzero(lens == l)[0]
-        if syms.size == 0:
-            continue
-        rc = _bitrev_vec(codes[syms], np.full(syms.size, l, np.int64))
-        fills = np.arange(1 << (root_bits - l), dtype=np.int64) << l
-        idx = (rc[:, None] | fills[None, :]).reshape(-1)
-        root[idx] = np.repeat(entries[syms], 1 << (root_bits - l))
-    long_syms = np.nonzero(lens > root_bits)[0]
-    if long_syms.size:
-        rcf = _bitrev_vec(codes[long_syms], lens[long_syms])
-        slots = rcf & ((1 << root_bits) - 1)
-        next_free = 0
-        for slot in np.unique(slots):
-            sel = slots == slot
-            syms = long_syms[sel]
-            rcs = rcf[sel]
-            subbits = int(lens[syms].max()) - root_bits
-            size = 1 << subbits
-            if next_free + size > sub_entries:
-                raise ValueError("subtable overflow")
-            if root[slot] != 0:
-                raise ValueError("root/sub collision")  # over-subscription
-            root[slot] = np.uint16(subbits | (3 << 4) | ((next_free >> 1) << 6))
-            for l in range(root_bits + 1, 16):
-                lsel = lens[syms] == l
-                if not lsel.any():
-                    continue
-                rc = rcs[lsel] >> root_bits
-                fills = (np.arange(1 << (subbits - (l - root_bits)),
-                                   dtype=np.int64) << (l - root_bits))
-                idx = next_free + (rc[:, None] | fills[None, :]).reshape(-1)
-                sub[idx] = np.repeat(entries[syms[lsel]], fills.size)
-            next_free += size
-    return np.concatenate([_pack_cells(root), _pack_cells(sub)])
-
-
-def build_ll_region(lens: np.ndarray) -> np.ndarray:
-    """Packed litlen region from code lengths (hlit entries)."""
-    nsym = len(lens)
-    e = np.zeros(nsym, np.uint16)
-    sym = np.arange(nsym)
-    lit = sym < 256
-    e[lit] = (sym[lit].astype(np.uint16)) << 6
-    if nsym > 256:
-        e[256] = 2 << 4  # EOB
-    hi = min(nsym, 286)
-    for s in range(257, hi):
-        e[s] = (1 << 4) | ((s - 257) << 6)
-    return _build_twolevel(lens, e, sym < 286)
-
-
-def build_d_region(lens: np.ndarray) -> np.ndarray:
-    """Packed distance region from code lengths (hdist entries)."""
-    nsym = len(lens)
-    e = np.zeros(nsym, np.uint16)
-    hi = min(nsym, 30)
-    e[:hi] = (np.arange(hi, dtype=np.uint16)) << 6
-    return _build_twolevel(lens, e, np.arange(nsym) < 30)
 
 
 @functools.lru_cache(maxsize=1)
 def static_regions() -> tuple[np.ndarray, np.ndarray]:
-    return (build_ll_region(T.STATIC_LITLEN_LEN),
-            build_d_region(T.STATIC_DIST_LEN))
+    """The static block's (tll, td) regions, uint32[CELLS] each."""
+    tll = np.zeros((1, CELLS), np.uint32)
+    td = np.zeros((1, CELLS), np.uint32)
+    qzcore.inflate_regions([(T.STATIC_LITLEN_LEN, T.STATIC_DIST_LEN)], tll,
+                           td)
+    return tll[0], td[0]
 
 
 # ---------------------------------------------------------------------------

@@ -67,11 +67,7 @@ import numpy as np
 import torch
 
 from qatzip_tpu_torch.engine.flow import tls
-
-try:
-    from qatzip_tpu_torch.native import qzcore as _native
-except ImportError:   # no libqzcore: the rows are copied in numpy
-    _native = None
+from qatzip_tpu_torch.native import qzcore as _native
 
 EXT_RUN_CAP = 512     # max 0xFF-run in a length extension (len <= ~130K)
 MAX_OUT = 1 << 17
@@ -332,13 +328,9 @@ def _stage(blocks, group, device):
     n = _next_pow2(max(len(blocks[i]) for i in group) + 8, 1024)
     arr = np.zeros((len(group), n), np.uint8)
     lens = np.array([len(blocks[i]) for i in group], np.int32)
-    if _native is not None:
-        # one call outside the interpreter lock, where a copy a row would
-        # hand the lock to the other clients' threads at every row
-        _native.pack_rows([blocks[i] for i in group], arr)
-    else:
-        for row, i in enumerate(group):
-            arr[row, :lens[row]] = np.frombuffer(blocks[i], np.uint8)
+    # one call outside the interpreter lock, where a copy a row would hand
+    # the lock to the other clients' threads at every row
+    _native.pack_rows([blocks[i] for i in group], arr)
     return torch.from_numpy(arr).to(device), torch.from_numpy(lens).to(device)
 
 

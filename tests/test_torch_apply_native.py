@@ -1,5 +1,6 @@
 """The native round applier (``qz_apply_round``, native/qzapply.cpp) against
-the Python token applier ``_apply_tokens_py`` of ops/deflate_decode.py.
+the reference's Python token applier (``_apply_tokens_py`` of
+qatzip_tpu/ops/deflate_decode.py).
 
 Every lane of a token matrix must give the bytes ``_apply_tokens_py``
 gives on its column and its history window, or fail where it fails: a bad
@@ -10,11 +11,11 @@ own.  The running CRC-32 and Adler-32 carried by the call must be zlib's
 over each stream's whole output, across rounds with stored blocks between
 them.
 
-Then ``inflate_batch`` on zlib streams, on the CPU device, with the
-library and with ``deflate_decode._native`` patched to None: the same
-bytes, end flags, checksums and failed-over streams, the counters of the
-lanes each route applied, and four threads at once.
+Then ``inflate_batch`` on zlib streams, on the CPU device: the original
+bytes, end flags, zlib's checksums and the failed-over streams, the
+``inflate.device`` spans' count of the lanes, and four threads at once.
 """
+import sys
 import threading
 import zlib
 
@@ -22,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
+from qatzip_tpu.ops import deflate_decode as rdd
 from qatzip_tpu_torch import api as qt
+from qatzip_tpu_torch.engine import core
 from qatzip_tpu_torch.native import qzcore
 from qatzip_tpu_torch.ops import deflate_decode as dd
 
@@ -111,12 +114,12 @@ def _matrix(lanes, pad: int = 3):
 
 
 def _python(tokens, histories, counts):
-    """Each lane by _apply_tokens_py: its bytes, or None where it raises or
-    puts out other than its count."""
+    """Each lane by the reference's _apply_tokens_py: its bytes, or None
+    where it raises or puts out other than its count."""
     got = []
     for i, h in enumerate(histories):
         try:
-            out = dd._apply_tokens_py(tokens[:, i], h[-WIN:], counts[i])
+            out = rdd._apply_tokens_py(tokens[:, i], h[-WIN:], counts[i])
         except ValueError:
             got.append(None)
             continue
@@ -232,33 +235,21 @@ def _streams(histories, kind):
     return streams
 
 
-def _apply_both(tokens, histories, counts, kind, monkeypatch, rem=None,
-                err=None, end_bit=None):
-    """``_apply_round`` on fresh streams with the library and without it:
-    a list a route of (failed, bytes, checksum, bit position) a stream."""
-    n = len(histories)
-    rem = rem or [max(c, 1) for c in counts]
-    err = np.zeros(n, bool) if err is None else err
-    end_bit = np.arange(n, dtype=np.int32) if end_bit is None else end_bit
-    routes = []
-    for native in (True, False):
-        if not native:
-            monkeypatch.setattr(dd, "_native", None)
-        streams = _streams(histories, kind)
-        live = [(s, None, 10 + s.index, r, 0) for s, r in zip(streams, rem)]
-        dd._apply_round(live, tokens, err, np.array(counts, np.int32),
-                        end_bit)
-        routes.append([(s.failed, s.output(), s.crc, s.bits.pos)
-                       for s in streams])
-        monkeypatch.undo()
-    return routes
+def _apply(tokens, histories, counts, kind, rem, err, end_bit):
+    """``_apply_round`` on fresh streams: (failed, bytes, checksum, bit
+    position) a stream."""
+    streams = _streams(histories, kind)
+    live = [(s, None, 10 + s.index, r, 0) for s, r in zip(streams, rem)]
+    dd._apply_round(live, tokens, err, np.array(counts, np.int32), end_bit)
+    return [(s.failed, s.output(), s.crc, s.bits.pos) for s in streams]
 
 
 @pytest.mark.parametrize("kind", ["", "crc32", "adler32"])
-def test_apply_round_same_both_ways(kind, monkeypatch):
-    """The stream after the round by both routes: a failed lane keeps the
-    bytes, checksum and bit position it had, including the lanes the
-    device failed (``err``, no end bit) and a count past what is left."""
+def test_apply_round_same_both_ways(kind):
+    """The streams after the round, lane for lane those the reference's
+    applier gives: a failed lane keeps the bytes, checksum and bit position
+    it had, including the lanes the device failed (``err``, no end bit)
+    and a count past what is left."""
     lanes = _reject_lanes()
     histories = [h for _, h, _, _ in lanes]
     counts = [c for *_, c in lanes]
@@ -272,53 +263,56 @@ def test_apply_round_same_both_ways(kind, monkeypatch):
     end_bit[-2] = -1
     rem = [max(c, 1) for c in counts]
     rem[-1] = 0
-    native, python = _apply_both(tokens, histories, counts, kind,
-                                 monkeypatch, rem, err, end_bit)
-    assert native == python
-    names = [name for name, *_ in lanes] + ["err", "no_end", "past_rem"]
-    for name, h, (failed, out, crc, bitpos), i in zip(
-            names, histories, native, range(n)):
-        assert failed == (name not in ("good", "good_after"))
-        if failed:
-            assert out == h and bitpos == 0
+    got = _apply(tokens, histories, counts, kind, rem, err, end_bit)
+    start = {"adler32": 1}.get(kind, 0)
+    want = []
+    for i, (h, out) in enumerate(zip(histories,
+                                      _python(tokens, histories, counts))):
+        if out is None or err[i] or end_bit[i] < 0 or counts[i] > rem[i]:
+            want.append((True, h, _check(kind, h, start) if kind else None,
+                         0))
         else:
-            assert bitpos == ((10 + i) << 3) + i
-        assert crc == (_check(kind, out, {"adler32": 1}.get(kind, 0))
-                       if kind else None)
+            want.append((False, h + out,
+                         _check(kind, h + out, start) if kind else None,
+                         ((10 + i) << 3) + i))
+    assert got == want
+    names = [name for name, *_ in lanes] + ["err", "no_end", "past_rem"]
+    assert [name for name, (failed, *_) in zip(names, got) if not failed] \
+        == ["good", "good_after"]
 
 
 @pytest.mark.parametrize("kind", ["crc32", "adler32"])
-def test_running_checksum_over_rounds_and_stored_blocks(kind, monkeypatch):
+def test_running_checksum_over_rounds_and_stored_blocks(kind):
     """Rounds of token lanes with stored blocks pushed between them: the
-    running checksum is zlib's over each stream's whole output, by both
-    routes, and the bytes are the same."""
+    running checksum is zlib's over each stream's whole output, and the
+    bytes are the pushed parts and each round's lane by the reference's
+    applier."""
     rng = np.random.default_rng([5, len(kind)])
-    results = []
-    for native in (True, False):
-        if not native:
-            monkeypatch.setattr(dd, "_native", None)
-        rng = np.random.default_rng([5, len(kind)])
-        streams = [dd._Stream(b"\x00", 0, i, kind=kind) for i in range(6)]
-        for _ in range(4):
-            for s in streams:
-                if rng.random() < 0.6:
-                    s.push(rng.integers(0, 256, int(rng.integers(0, 5000)),
-                                        dtype=np.uint8).tobytes())
-            lanes = [_random_tokens(rng, s.n, int(rng.integers(0, 600)))
-                     for s in streams]
-            counts = [_out_len(t) for t in lanes]
-            live = [(s, None, 0, c + 7, 0) for s, c in zip(streams, counts)]
-            dd._apply_round(live, _matrix(lanes),
-                            np.zeros(len(lanes), bool),
-                            np.array(counts, np.int32),
-                            np.zeros(len(lanes), np.int32))
-        assert not any(s.failed for s in streams)
-        for s in streams:
-            assert s.crc == _check(kind, s.output(),
-                                   1 if kind == "adler32" else 0)
-        results.append([(s.output(), s.crc) for s in streams])
-        monkeypatch.undo()
-    assert results[0] == results[1]
+    streams = [dd._Stream(b"\x00", 0, i, kind=kind) for i in range(6)]
+    want = [b""] * len(streams)
+    for _ in range(4):
+        for i, s in enumerate(streams):
+            if rng.random() < 0.6:
+                part = rng.integers(0, 256, int(rng.integers(0, 5000)),
+                                    dtype=np.uint8).tobytes()
+                s.push(part)
+                want[i] += part
+        lanes = [_random_tokens(rng, s.n, int(rng.integers(0, 600)))
+                 for s in streams]
+        counts = [_out_len(t) for t in lanes]
+        tokens = _matrix(lanes)
+        outs = _python(tokens, want, counts)
+        assert None not in outs
+        want = [w + o for w, o in zip(want, outs)]
+        live = [(s, None, 0, c + 7, 0) for s, c in zip(streams, counts)]
+        dd._apply_round(live, tokens, np.zeros(len(lanes), bool),
+                        np.array(counts, np.int32),
+                        np.zeros(len(lanes), np.int32))
+    assert not any(s.failed for s in streams)
+    assert [s.output() for s in streams] == want
+    for s in streams:
+        assert s.crc == _check(kind, s.output(),
+                               1 if kind == "adler32" else 0)
 
 
 def test_round_checksums_equal_zlib():
@@ -363,7 +357,7 @@ def test_buffer_shorter_than_count_fails_the_lane():
 
 
 # ---------------------------------------------------------------------------
-# inflate_batch by both routes
+# inflate_batch
 # ---------------------------------------------------------------------------
 def _raw(data: bytes, level: int) -> bytes:
     co = zlib.compressobj(level, zlib.DEFLATED, -15)
@@ -419,30 +413,31 @@ def _counted_blocks(monkeypatch):
 
 
 def _run(payloads, hints, kind):
-    c0 = qt.qz_dump_counters()
-    res = dd.inflate_batch(payloads, hints, CPU, kind=kind)
-    c1 = qt.qz_dump_counters()
-    return res, {k: c1[k] - c0[k] for k in (
-        "failover_lanes", "inflate_apply_native", "inflate_apply_python")}
+    """``inflate_batch`` inside a traced request: its results, the streams
+    failed over and the request's spans, read back through
+    ``qz_trace_spans``."""
+    f0 = qt.qz_dump_counters()["failover_lanes"]
+    tracing = core.flow.tracing
+    qt.qz_trace(True)
+    try:
+        rec = core.flow.request()
+        with rec.traced(0):
+            res = dd.inflate_batch(payloads, hints, CPU, kind=kind)
+    finally:
+        qt.qz_trace(tracing)
+    spans = [s for s in qt.qz_trace_spans() if s["request"] == rec.id]
+    return res, qt.qz_dump_counters()["failover_lanes"] - f0, spans
 
 
 @pytest.mark.parametrize("kind", [None, "crc32", "adler32"])
 @pytest.mark.parametrize("level", [1, 6, 9])
-def test_inflate_batch_same_both_ways(corpus_factory, monkeypatch, level,
-                                      kind):
+def test_inflate_batch_same_both_ways(corpus_factory, level, kind):
+    """The original bytes, end flags and zlib's checksums; a corrupted
+    stream failed over or read as zlib reads it."""
     payloads, hints, want = _batch(corpus_factory, level)
-    runs = []
-    for native in (True, False):
-        if not native:
-            monkeypatch.setattr(dd, "_native", None)
-        runs.append(_run(payloads, hints, kind))
-        monkeypatch.undo()
-    (a, ca), (b, cb) = runs
-    assert a == b
-    assert ca["failover_lanes"] == cb["failover_lanes"] == a.count(None)
-    assert ca["inflate_apply_native"] == cb["inflate_apply_python"] > 0
-    assert ca["inflate_apply_python"] == cb["inflate_apply_native"] == 0
-    for r, w in zip(a, want):
+    res, failed, _ = _run(payloads, hints, kind)
+    assert failed == res.count(None)
+    for r, w in zip(res, want):
         if w is None:
             # corrupted: failed over, or zlib's own reading of it
             if r is not None:
@@ -454,29 +449,26 @@ def test_inflate_batch_same_both_ways(corpus_factory, monkeypatch, level,
         assert r[2] == (ck(w) if ck else None)
 
 
-@pytest.mark.parametrize("route", ["native", "python"])
-def test_apply_counters_count_the_lanes(corpus_factory, monkeypatch, route):
-    """On sound streams every Huffman block is a lane applied, by the
-    route's counter alone."""
+@pytest.mark.parametrize("kind", ["crc32", "adler32"])
+def test_apply_counters_count_the_lanes(corpus_factory, monkeypatch, kind):
+    """On sound streams every Huffman block is a lane on the
+    ``inflate.device`` spans, and none fails over."""
     payloads, hints, want = _batch(corpus_factory, 6)
     keep = [i for i, w in enumerate(want) if w is not None]
     payloads = [payloads[i] for i in keep]
     hints = [hints[i] for i in keep]
-    if route == "python":
-        monkeypatch.setattr(dd, "_native", None)
     seen = _counted_blocks(monkeypatch)
-    res, counts = _run(payloads, hints, "crc32")
+    res, failed, spans = _run(payloads, hints, kind)
     assert [r[0] for r in res] == [want[i] for i in keep]
-    other = "python" if route == "native" else "native"
     assert seen.count(1) == 3          # the multi-block stream's blocks
-    assert counts == {"failover_lanes": 0,
-                      f"inflate_apply_{route}": len(seen),
-                      f"inflate_apply_{other}": 0}
+    assert failed == 0
+    assert sum(s["value"] for s in spans
+               if s["name"] == "inflate.device") == len(seen)
 
 
 def test_threads_apply_at_once():
     """Four threads in the round call at once, outside the interpreter
-    lock, each get the Python applier's bytes."""
+    lock, each get the reference applier's bytes."""
     rng = np.random.default_rng(17)
     histories, lanes = [], []
     for _ in range(64):
@@ -526,3 +518,34 @@ def test_threads_inflate_at_once(corpus_factory):
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads) and not errors
     assert got == [want] * 4
+
+
+def test_threads_count_every_failed_stream():
+    """Four threads in inflate_batch at once, on streams that fail (empty,
+    a reserved block type, a truncated header): ``failover_lanes`` rises by
+    every one of them, none lost to a racing update."""
+    payloads = [b"", b"\x07", b"\x05\xff", b""] * 8
+    f0 = qt.qz_dump_counters()["failover_lanes"]
+    errors = []
+
+    def work():
+        try:
+            for _ in range(200):
+                res = dd.inflate_batch(payloads, [0] * len(payloads), CPU)
+                assert res == [None] * len(payloads)
+        except Exception as exc:   # reported by the main thread
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert qt.qz_dump_counters()["failover_lanes"] - f0 \
+        == 4 * 200 * len(payloads)

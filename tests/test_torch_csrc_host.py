@@ -1765,10 +1765,10 @@ def _layout(streams, lanes: int, nw: int, corrupt=(), idle=()):
     for i in range(lanes):
         s, pv = streams[i % len(streams)]
         if s._lens is None:
-            tll[i], td[i] = PI.static_regions()
+            tll[i], td[i] = RPI.static_regions()
         else:
-            tll[i] = PI.build_ll_region(s._lens[0])
-            td[i] = PI.build_d_region(s._lens[1])
+            tll[i] = RPI.build_ll_region(s._lens[0])
+            td[i] = RPI.build_d_region(s._lens[1])
         stream8[i, :len(pv)] = pv
         bit0[i] = s.bits.pos & 7
         nbits[i] = len(pv) * 8

@@ -1,6 +1,7 @@
 """The port's lockstep inflate (ops/inflate.py) against the reference.
 
-Table regions must be byte-equal to the reference builders'; the port's
+Table regions (``libqzcore``'s ``qz_inflate_regions``) must be byte-equal
+to the reference builders'; the port's
 plain torch driver must return the reference XLA driver's tokens, err,
 outcnt, end_bit and nsteps exactly (both use the 9-bit region layout); and
 per lane, outcnt and end_bit must match the reference Pallas driver run in
@@ -14,7 +15,9 @@ import torch
 
 from qatzip_tpu.ops import deflate_decode as rdd
 from qatzip_tpu.ops import pallas_inflate as RPI
+from qatzip_tpu_torch.native import qzcore
 from qatzip_tpu_torch.ops import deflate_decode as dd
+from qatzip_tpu_torch.ops import deflate_tables as T
 from qatzip_tpu_torch.ops import inflate as PI
 
 torch.set_num_threads(1)
@@ -42,7 +45,7 @@ def _round(payloads, NW=4096, max_steps=16384):
     td = np.zeros((B, PI.CELLS), np.uint32)
     active = np.zeros(B, bool)
     for i, s in enumerate(streams):
-        tll[i], td[i] = dd._lockstep_regions(s)
+        tll[i], td[i] = rdd._lockstep_regions(s, RPI.region_spec(False))
         byte0 = s.bits.pos >> 3
         pv = np.frombuffer(s.payload, np.uint8)[byte0:]
         stream8[i, :len(pv)] = pv
@@ -56,6 +59,15 @@ def _both(inputs):
     ref = RPI.decode_blocks(*inputs, use_pallas=False)
     got = PI.decode_blocks(*inputs, CPU)
     return ref, got
+
+
+def _port_regions(lens_sets):
+    """The port's regions of each (litlen, distance) length set, by one
+    ``qz_inflate_regions`` call: (tll, td, status) with a row a set."""
+    n = len(lens_sets)
+    tll = np.zeros((n, PI.CELLS), np.uint32)
+    td = np.zeros((n, PI.CELLS), np.uint32)
+    return tll, td, qzcore.inflate_regions(lens_sets, tll, td)
 
 
 def _assert_equal(ref, got):
@@ -83,11 +95,11 @@ def test_regions_byte_equal_to_reference(corpus_factory):
     assert d.tobytes() == rd.tobytes()
     lens_sets = _dynamic_lens(corpus_factory)
     assert lens_sets
-    for ll_lens, d_lens in lens_sets:
-        assert (PI.build_ll_region(ll_lens).tobytes()
-                == RPI.build_ll_region(ll_lens).tobytes())
-        assert (PI.build_d_region(d_lens).tobytes()
-                == RPI.build_d_region(d_lens).tobytes())
+    tll, td, status = _port_regions(lens_sets)
+    assert not status.any()
+    for i, (ll_lens, d_lens) in enumerate(lens_sets):
+        assert tll[i].tobytes() == RPI.build_ll_region(ll_lens).tobytes()
+        assert td[i].tobytes() == RPI.build_d_region(d_lens).tobytes()
     assert (PI.ROOT_BITS, PI.ROOT_BITS, PI.CELLS, PI.CELLS) \
         == RPI.region_spec(False)
 
@@ -95,14 +107,17 @@ def test_regions_byte_equal_to_reference(corpus_factory):
 def test_region_builders_reject_what_the_reference_rejects():
     lens = np.zeros(286, np.int32)
     lens[:4] = 1  # four 1-bit codes: Kraft violation
-    for build in (PI.build_ll_region, RPI.build_ll_region):
-        with pytest.raises(ValueError):
-            build(lens)
     dlens = np.zeros(30, np.int32)
     dlens[:3] = 1
-    for build in (PI.build_d_region, RPI.build_d_region):
-        with pytest.raises(ValueError):
-            build(dlens)
+    good_ll, good_d = T.STATIC_LITLEN_LEN[:286], T.STATIC_DIST_LEN[:30]
+    with pytest.raises(ValueError):
+        RPI.build_ll_region(lens)
+    with pytest.raises(ValueError):
+        RPI.build_d_region(dlens)
+    _, _, status = _port_regions([(lens, good_d), (good_ll, dlens),
+                                  (good_ll, good_d)])
+    assert status.tolist() == [1, 1, 0]
+    assert qzcore.REGION_STATUS[1] == "over-subscribed Huffman code"
 
 
 @pytest.mark.parametrize("level", [1, 6, 9])
@@ -202,8 +217,7 @@ def test_oversubscribed_code_fails_the_same_lanes(corpus_factory):
 
     with pytest.raises(ValueError):
         rdd._lockstep_regions(bad_stream(), RPI.region_spec(False))
-    with pytest.raises(ValueError):
-        dd._lockstep_regions(bad_stream())
+    assert dd._round_regions([bad_stream()])[2].tolist() == [False]
     good = rdd._Stream(_raw(corpus_factory(2000, "text"), 6), 0, 1)
     assert rdd._parse_one_header(good) == "huff"
     bad = bad_stream()

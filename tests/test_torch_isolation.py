@@ -180,6 +180,26 @@ def test_concurrent_native_builds_all_load_a_whole_library(tmp_path):
                                             "libqzcore.so.lock"]
 
 
+def test_a_failed_native_build_raises_with_gccs_message(tmp_path,
+                                                       monkeypatch):
+    """The build compiles every ``*.cpp`` beside it; one that does not
+    compile raises ImportError carrying g++'s message and leaves no
+    library or temporary file behind."""
+    from qatzip_tpu_torch.native import build
+
+    assert [os.path.basename(p) for p in build.SRCS] == sorted(
+        p.name for p in (ROOT / "qatzip_tpu_torch" / "native").glob("*.cpp"))
+    bad = tmp_path / "broken.cpp"
+    bad.write_text("int qz_broken( { return 0; }\n")
+    monkeypatch.setattr(build, "SRCS", [str(bad)])
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
+    monkeypatch.setattr(build, "OUT", str(tmp_path / "out" / "libqzcore.so"))
+    with pytest.raises(ImportError, match="g\\+\\+ failed") as exc:
+        build.build()
+    assert "broken.cpp" in str(exc.value) and "error" in str(exc.value)
+    assert os.listdir(tmp_path / "out") == ["libqzcore.so.lock"]
+
+
 def test_corpus_copy_equals_the_benchmark_corpus():
     assert build_corpus(1) == bench.build_corpus(1)
 

@@ -130,18 +130,21 @@ def test_decode_groups_do_not_change_bytes(corpus_factory, monkeypatch):
                             device=CPU) == datas
 
 
-def test_staging_without_the_native_library_gives_the_same_rows(
-        corpus_factory, monkeypatch):
-    """The decoder's rows, packed by the native call or by numpy (the
-    route without libqzcore), are the same bytes and decode the same."""
+def test_staging_rows_equal_numpy_padding(corpus_factory):
+    """The decoder's rows, packed by the native call, are the blocks padded
+    with zeros by numpy, and their lengths; the call refuses a block longer
+    than its row and an array that is not C-contiguous."""
     from qatzip_tpu_torch.native import qzcore
 
     blocks, datas = _lz4s_blocks(corpus_factory)
     group = [0, 1, 2, 3]
-    staged = ld._stage(blocks, group, CPU)
-    monkeypatch.setattr(ld, "_native", None)
-    plain = ld._stage(blocks, group, CPU)
-    assert all(torch.equal(a, b) for a, b in zip(staged, plain))
+    rows, lens = ld._stage(blocks, group, CPU)
+    want = np.zeros(tuple(rows.shape), np.uint8)
+    for row, i in enumerate(group):
+        want[row, :len(blocks[i])] = np.frombuffer(blocks[i], np.uint8)
+    assert rows.dtype == torch.uint8 and np.array_equal(rows.numpy(), want)
+    assert lens.tolist() == [len(blocks[i]) for i in group]
+    assert rows.shape[1] >= max(lens.tolist()) + 8
     assert ld.decode_blocks(blocks, mini_match=3, device=CPU) == datas
     with pytest.raises(ValueError, match="longer than a row"):
         qzcore.pack_rows([bytes(9)], np.zeros((1, 8), np.uint8))

@@ -1,9 +1,10 @@
 """The native region builder (``qz_inflate_regions``, native/qzregions.cpp)
-against the numpy builders of ops/inflate.py.
+against the reference's numpy builders (qatzip_tpu/ops/pallas_inflate.py,
+at the 9-bit roots the port's layout shares).
 
-Every length set must give the same region bytes as ``build_ll_region`` /
-``build_d_region``, or the same reject: the status's message is the
-ValueError the numpy builder raises.  The sets: the corpus's dynamic
+Every length set must give the same region bytes as the reference's
+``build_ll_region`` / ``build_d_region``, or the same reject: the status's
+message is the ValueError the numpy builder raises.  The sets: the corpus's dynamic
 blocks at levels 1, 6 and 9, the static lengths, and a seeded fuzz.  A
 root/sub collision cannot be built: the over-subscription test rejects
 every code that is not prefix-free first, and a prefix-free code never
@@ -12,9 +13,9 @@ more long codes than a stream's 288 symbols (at most about 400 of the 512
 sub entries), so its cases, and those that fill the area to its last
 entry, are wider sets, which both builders take.
 
-Then ``pack_round`` and ``inflate_batch`` with the library and with the
-numpy route (``deflate_decode._native`` patched to None): the same arrays,
-failed lanes and bytes, and the counters of the regions each route built.
+Then ``pack_round``, whose rows must be the reference builders', and
+``inflate_batch``: zlib's bytes and checksums, and the ``inflate.tables``
+spans' count of the regions built.
 """
 import threading
 import zlib
@@ -23,7 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+from qatzip_tpu.ops import pallas_inflate as RPI
 from qatzip_tpu_torch import api as qt
+from qatzip_tpu_torch.engine import core
 from qatzip_tpu_torch.native import qzcore
 from qatzip_tpu_torch.ops import deflate_decode as dd
 from qatzip_tpu_torch.ops import deflate_tables as T
@@ -47,9 +50,11 @@ def corpus():
 
 
 def _numpy(ll, d):
-    """(tll, td) bytes from the numpy builders, or their ValueError."""
+    """(tll, td) bytes from the reference's numpy builders, or their
+    ValueError."""
     try:
-        return PI.build_ll_region(ll).tobytes(), PI.build_d_region(d).tobytes()
+        return (RPI.build_ll_region(ll).tobytes(),
+                RPI.build_d_region(d).tobytes())
     except ValueError as exc:
         return str(exc)
 
@@ -87,8 +92,9 @@ def test_corpus_blocks_byte_equal(corpus, level):
 
 def test_static_lengths_byte_equal():
     ll, d = T.STATIC_LITLEN_LEN, T.STATIC_DIST_LEN
-    assert _native([(ll, d)]) == [tuple(r.tobytes()
-                                        for r in PI.static_regions())]
+    want = tuple(r.tobytes() for r in RPI.static_regions())
+    assert _native([(ll, d)]) == [want]
+    assert tuple(r.tobytes() for r in PI.static_regions()) == want
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +225,7 @@ def test_one_call_many_lanes_leaves_skipped_rows():
 
 def test_threads_build_at_once(corpus):
     """Four threads in the builder at once, outside the interpreter lock,
-    each get the numpy builders' bytes."""
+    each get the reference builders' bytes."""
     sets = _first_blocks(corpus, 1)
     want = [_numpy(ll, d) for ll, d in sets]
     errors = []
@@ -240,7 +246,7 @@ def test_threads_build_at_once(corpus):
 
 
 # ---------------------------------------------------------------------------
-# pack_round and inflate_batch by both routes
+# pack_round and inflate_batch
 # ---------------------------------------------------------------------------
 def _round_streams(corpus):
     """A round's streams: dynamic blocks, a static block, an over-
@@ -263,23 +269,26 @@ def _round_streams(corpus):
     return streams[:3] + [static, bad] + streams[3:] + [big]
 
 
-def test_pack_round_same_both_ways(corpus, monkeypatch):
-    rounds = []
-    for native in (True, False):
-        if not native:
-            monkeypatch.setattr(dd, "_native", None)
-        batch = _round_streams(corpus)
-        live, inputs = dd.pack_round(batch)
-        rounds.append(([s.index for s in batch if s.failed],
-                       [t[0].index for t in live], inputs))
-    (f0, l0, a), (f1, l1, b) = rounds
-    assert f0 == f1 == [7, 8]
-    assert l0 == l1 == [0, 1, 2, 6, 3, 4, 5]
-    assert a[6] == b[6]
-    for x, y in zip(a[:6], b[:6]):
-        assert x.dtype == y.dtype and np.array_equal(x, y)
-    st_ll, st_d = PI.static_regions()
-    assert (a[3][3] == st_ll).all() and (a[4][3] == st_d).all()
+def test_pack_round_same_both_ways(corpus):
+    """``pack_round``'s rows are the reference builders' rows for its live
+    streams, and its other arrays lay out each stream from its header."""
+    batch = _round_streams(corpus)
+    live, inputs = dd.pack_round(batch)
+    assert [s.index for s in batch if s.failed] == [7, 8]
+    assert [t[0].index for t in live] == [0, 1, 2, 6, 3, 4, 5]
+    words, bit0, nbits, tll, td, active, steps = inputs
+    want = [RPI.static_regions() if t[0]._lens is None else
+            (RPI.build_ll_region(t[0]._lens[0]),
+             RPI.build_d_region(t[0]._lens[1])) for t in live]
+    assert tll.dtype == td.dtype == np.uint32
+    assert np.array_equal(tll, np.stack([w[0] for w in want]))
+    assert np.array_equal(td, np.stack([w[1] for w in want]))
+    for i, (s, _, byte0, _, _) in enumerate(live):
+        pv = np.frombuffer(s.payload, np.uint8)[byte0:]
+        row = words[i].view(np.uint8)
+        assert (row[:len(pv)] == pv).all() and not row[len(pv):].any()
+        assert bit0[i] == s.bits.pos & 7 and nbits[i] == 8 * len(pv)
+    assert active.all() and steps in dd._LOCKSTEP_STEPS
 
 
 def _chunks(corpus, n=4, size=8 << 10):
@@ -305,21 +314,30 @@ def _dynamic_blocks(monkeypatch):
     return seen
 
 
-@pytest.mark.parametrize("route", ["native", "numpy"])
-def test_inflate_batch_bytes_and_region_counters(corpus, monkeypatch, route):
+def _traced_inflate(payloads, hints, kind):
+    """``inflate_batch`` inside a traced request: its results and the
+    request's spans, read back through ``qz_trace_spans``."""
+    tracing = core.flow.tracing
+    qt.qz_trace(True)
+    try:
+        rec = core.flow.request()
+        with rec.traced(0):
+            res = dd.inflate_batch(payloads, hints, CPU, kind=kind)
+    finally:
+        qt.qz_trace(tracing)
+    return res, [s for s in qt.qz_trace_spans() if s["request"] == rec.id]
+
+
+@pytest.mark.parametrize("kind", ["crc32", "adler32"])
+def test_inflate_batch_bytes_and_region_counters(corpus, monkeypatch, kind):
+    """zlib's bytes and checksums, and two regions counted a dynamic block
+    on the ``inflate.tables`` spans."""
     datas, payloads = _chunks(corpus)
-    if route == "numpy":
-        monkeypatch.setattr(dd, "_native", None)
     seen = _dynamic_blocks(monkeypatch)
-    c0 = qt.qz_dump_counters()
-    res = dd.inflate_batch(payloads, [len(d) for d in datas], CPU,
-                           kind="crc32")
-    c1 = qt.qz_dump_counters()
+    res, spans = _traced_inflate(payloads, [len(d) for d in datas], kind)
+    ck = zlib.crc32 if kind == "crc32" else zlib.adler32
     assert [r[0] for r in res] == datas
-    assert [r[2] for r in res] == [zlib.crc32(d) for d in datas]
-    built = {k: c1[k] - c0[k] for k in ("inflate_regions_native",
-                                        "inflate_regions_numpy")}
+    assert [r[2] for r in res] == [ck(d) for d in datas]
     assert len(seen) >= len(datas)
-    other = "numpy" if route == "native" else "native"
-    assert built == {f"inflate_regions_{route}": 2 * len(seen),
-                     f"inflate_regions_{other}": 0}
+    assert sum(s["value"] for s in spans
+               if s["name"] == "inflate.tables") == 2 * len(seen)
