@@ -1,10 +1,11 @@
 """The port's native (C++) host codec: a copy of qatzip_tpu/native.
 
 ``qzcore.cpp``, ``qzdeflate.cpp`` and ``qzbatch.cpp`` are the reference's
-sources as they are; ``qzregions.cpp`` (the lockstep inflate's table
-regions, a round in one call), ``qzapply.cpp`` (the same round's tokens
-applied to its streams, in one call) and ``qzrows.cpp`` (an LZ4 request's
-block staging and chunk checksums, each in one call) are the port's own.
+sources as they are; ``qzheaders.cpp`` (the lockstep inflate's block
+headers, a round's streams in one call), ``qzregions.cpp`` (the same
+round's table regions, in one call), ``qzapply.cpp`` (its tokens applied
+to its streams, in one call) and ``qzrows.cpp`` (an LZ4 request's block
+staging and chunk checksums, each in one call) are the port's own.
 ``build.py`` compiles every ``*.cpp`` here into
 ``build/qatzip_tpu_torch/libqzcore.so`` at first use and ``qzcore.py``
 binds, with ctypes, the entry points the port calls.

@@ -1,7 +1,8 @@
 """ctypes binding for the port's libqzcore.so (built on demand from the
 sources beside it): the part of qatzip_tpu/native/qzcore.py the port calls,
-and the port's own ``inflate_regions`` (qzregions.cpp), ``apply_round``
-(qzapply.cpp), ``pack_rows`` and ``xxh32_rows`` (qzrows.cpp).
+and the port's own ``inflate_headers`` (qzheaders.cpp), ``inflate_regions``
+(qzregions.cpp), ``apply_round`` (qzapply.cpp), ``pack_rows`` and
+``xxh32_rows`` (qzrows.cpp).
 Its build-or-load is the ``setup.native`` phase (engine/flow.py; 1 when it
 compiled)."""
 from __future__ import annotations
@@ -96,6 +97,9 @@ _lib.qz_inflate_regions.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                     ctypes.c_void_p, ctypes.c_void_p,
                                     ctypes.c_int64, ctypes.c_void_p,
                                     ctypes.c_void_p, ctypes.c_void_p]
+_lib.qz_inflate_headers.restype = ctypes.c_int64
+_lib.qz_inflate_headers.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] \
+    + [ctypes.c_void_p] * 7
 _lib.qz_apply_round.restype = None
 _lib.qz_apply_round.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                 ctypes.c_int64, ctypes.c_void_p,
@@ -478,6 +482,56 @@ def apply_round(tokens_np, addrs, pos, cap, outcnt, ck, kind: str, status):
                         addrs.ctypes.data, pos.ctypes.data, cap.ctypes.data,
                         outcnt.ctypes.data, ck.ctypes.data, APPLY_KIND[kind],
                         status.ctypes.data)
+
+
+# qz_inflate_headers' lane kinds, and its rejects: the exception the
+# reference's parse (qatzip_tpu/ops/deflate_decode.py) raises on the lane
+HEADER_STORED, HEADER_STATIC, HEADER_DYNAMIC = 0, 1, 2
+HEADER_REJECT = {-1: (EOFError, "deflate stream truncated"),
+                 -2: (ValueError, "bad code-length code"),
+                 -3: (ValueError, "repeat with no previous length"),
+                 -4: (ValueError, "code-length overrun"),
+                 -5: (EOFError, "truncated stored block"),
+                 -6: (ValueError, "stored block LEN/NLEN mismatch"),
+                 -7: (EOFError, "truncated stored block data"),
+                 -8: (ValueError, "reserved BTYPE")}
+HEADER_ROW = 320   # 288 litlen and 32 distance code lengths at most
+
+
+def inflate_headers(payloads, pos):
+    """Parse the block header at each lane's bit position in one call that
+    runs outside the interpreter lock (``qz_inflate_headers``,
+    qzheaders.cpp), by the reference's rules.
+
+    payloads: a ``bytes`` a lane, which the caller keeps alive; pos: int64
+    C-contiguous [lanes], written in place: a lane that parses moves past
+    its header, and past a stored block's data.  Returns (kind, final,
+    rows, nll, nd, off, length), each [lanes]: kind int32 a HEADER_ kind
+    or a key of HEADER_REJECT; final int32 the block's BFINAL; rows int32
+    [lanes, HEADER_ROW] a dynamic block's nll litlen then nd distance code
+    lengths (nll -1 on every other lane: ``qz_inflate_regions``' skipped
+    lane); off and length int64 a stored block's data in its payload.
+    """
+    import numpy as np
+
+    n = len(payloads)
+    if pos.dtype != np.int64 or not pos.flags.c_contiguous or \
+            pos.shape != (n,):
+        raise ValueError(f"inflate_headers needs C-contiguous int64 [{n}]")
+    if not all(type(p) is bytes for p in payloads):
+        raise ValueError("inflate_headers needs a bytes payload a lane")
+    addrs = np.array([ctypes.cast(p, ctypes.c_void_p).value
+                      for p in payloads], np.uint64)
+    nbytes = np.array([len(p) for p in payloads], np.int64)
+    rows = np.empty((n, HEADER_ROW), np.int32)
+    nll, nd, kind, final = (np.empty(n, np.int32) for _ in range(4))
+    off, length = np.empty(n, np.int64), np.empty(n, np.int64)
+    _lib.qz_inflate_headers(addrs.ctypes.data, nbytes.ctypes.data,
+                            pos.ctypes.data, n, rows.ctypes.data,
+                            nll.ctypes.data, nd.ctypes.data, kind.ctypes.data,
+                            final.ctypes.data, off.ctypes.data,
+                            length.ctypes.data)
+    return kind, final, rows, nll, nd, off, length
 
 
 # qz_inflate_regions' lane statuses: 0, or the ValueError that the

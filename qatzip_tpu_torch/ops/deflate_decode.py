@@ -2,8 +2,12 @@
 rounds, and the speculative decoder.
 
 Port of qatzip_tpu/ops/deflate_decode.py.  ``inflate_batch`` (:463-522)
-parses block headers on the host and hands each round of Huffman blocks to
-one of two engines, as ``_run_device_round`` (:562-575) picks them:
+moves every stream to its next Huffman block in one call into
+``libqzcore`` a pass (``qz_inflate_headers``, native/qzheaders.cpp: the
+reference's header parse, :525-559 and :157-204, outside the interpreter
+lock; a stored block's bytes are pushed between passes) and hands each
+round of Huffman blocks to one of two engines, as ``_run_device_round``
+(:562-575) picks them:
 
 * lockstep (the default): ``_run_device_round_lockstep`` (the
   reference's :633-699).  The reference sorts a batch and cuts it into
@@ -35,8 +39,8 @@ one of two engines, as ``_run_device_round`` (:562-575) picks them:
   contiguous slice on each device.
 
 The stream state (``_Stream``: its bytes in one growing buffer with a
-cursor, whose last 32 KB are the history window), the bit reader and the
-header parsers are copies of the reference's.  A stream the device cannot
+cursor, whose last 32 KB are the history window, and its bit position) is
+the reference's.  A stream the device cannot
 prove correct comes back as None and the caller inflates it on the CPU;
 ``failover_lanes`` counts them.
 
@@ -78,74 +82,16 @@ _count_lock = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
-# Host side: bit reader, header parsing, stream state (copies of the
-# reference's)
+# Host side: stream state and the header parse
 # ---------------------------------------------------------------------------
 class _Bits:
-    """LSB-first bit reader over bytes (deflate bit order, RFC1951 3.1.1)."""
+    """A stream's absolute bit position (deflate bit order, RFC1951 3.1.1),
+    which the native header parse reads and moves."""
 
-    __slots__ = ("data", "pos")
+    __slots__ = ("pos",)
 
-    def __init__(self, data: bytes, pos: int = 0):
-        self.data = data
-        self.pos = pos  # absolute bit position
-
-    def read(self, n: int) -> int:
-        v = 0
-        for i in range(n):
-            p = self.pos + i
-            byi = p >> 3
-            if byi >= len(self.data):
-                raise EOFError("deflate stream truncated")
-            v |= ((self.data[byi] >> (p & 7)) & 1) << i
-        self.pos += n
-        return v
-
-
-def parse_dynamic_header(br: _Bits) -> tuple[np.ndarray, np.ndarray]:
-    """Parse the BTYPE=10 code-length section (RFC1951 3.2.7).  Returns
-    (litlen lens[hlit], dist lens[hdist])."""
-    hlit = br.read(5) + 257
-    hdist = br.read(5) + 1
-    hclen = br.read(4) + 4
-    cl_lens = np.zeros(19, np.int32)
-    for i in range(hclen):
-        cl_lens[T.CLCODE_ORDER[i]] = br.read(3)
-    cl_codes = T.canonical_codes(cl_lens)
-    # host decode of the ~300 code lengths via a dict keyed by (len, code)
-    dec = {}
-    for s in range(19):
-        if cl_lens[s]:
-            dec[(int(cl_lens[s]), int(cl_codes[s]))] = s
-    lens = np.zeros(hlit + hdist, np.int32)
-    i = 0
-    while i < hlit + hdist:
-        code = 0
-        clen = 0
-        while True:
-            code = (code << 1) | br.read(1)
-            clen += 1
-            if clen > 15:
-                raise ValueError("bad code-length code")
-            if (clen, code) in dec:
-                sym = dec[(clen, code)]
-                break
-        if sym < 16:
-            lens[i] = sym
-            i += 1
-        elif sym == 16:
-            if i == 0:
-                raise ValueError("repeat with no previous length")
-            rep = 3 + br.read(2)
-            lens[i:i + rep] = lens[i - 1]
-            i += rep
-        elif sym == 17:
-            i += 3 + br.read(3)
-        else:
-            i += 11 + br.read(7)
-    if i != hlit + hdist:
-        raise ValueError("code-length overrun")
-    return lens[:hlit], lens[hlit:]
+    def __init__(self, pos: int = 0):
+        self.pos = pos
 
 
 _NOTHING = np.empty(0, np.uint8)
@@ -159,7 +105,7 @@ class _Stream:
                  kind: str = "crc32"):
         self.payload = payload
         self.hint = hint
-        self.bits = _Bits(payload)
+        self.bits = _Bits()
         self.buf = _NOTHING      # the bytes out are buf[:n]
         self.addr = 0            # buf's address, for libqzcore
         self.n = 0
@@ -212,41 +158,67 @@ class _Stream:
         self.n += k
 
 
+def _parse_headers(streams) -> list:
+    """Move each stream past the block header at its bit position, as the
+    reference's ``_parse_one_header`` does, in one ``qz_inflate_headers``
+    call (native/qzheaders.cpp) outside the interpreter lock.  A stream's
+    result: 'huff' (device decode needed; the code lengths stashed on the
+    stream: ``_lens`` two views of the call's row, None for a static
+    block), 'stored' or 'end' (a stored block's bytes pushed), or the
+    EOFError or ValueError the reference raises on its header, returned."""
+    pos = np.array([s.bits.pos for s in streams], np.int64)
+    kind, final, rows, nll, nd, off, length = _native.inflate_headers(
+        [s.payload for s in streams], pos)
+    out = []
+    for s, k, f, p, row, h, d, o, n in zip(
+            streams, kind.tolist(), final.tolist(), pos.tolist(), rows,
+            nll.tolist(), nd.tolist(), off.tolist(), length.tolist()):
+        if k < 0:
+            exc, why = _native.HEADER_REJECT[k]
+            out.append(exc(why))
+            continue
+        s.final_block = bool(f)
+        s.bits.pos = p
+        if k == _native.HEADER_STORED:
+            s.push(s.payload[o:o + n])
+            if f:
+                s.done = True
+            out.append("end" if f else "stored")
+        else:
+            s._lens = ((row[:h], row[h:h + d]) if k == _native.HEADER_DYNAMIC
+                       else None)  # static: engines cache their builds
+            out.append("huff")
+    return out
+
+
 def _parse_one_header(s: _Stream) -> str:
-    """Advance past one block header.  Returns 'huff' (device decode needed;
-    tables stashed on the stream), or handles a stored block / stream end
-    inline and returns 'stored' / 'end'."""
-    br = s.bits
-    bfinal = br.read(1)
-    btype = br.read(2)
-    s.final_block = bool(bfinal)
-    if btype == 0:
-        br.pos = (br.pos + 7) & ~7  # byte-align
-        byi = br.pos >> 3
-        if byi + 4 > len(s.payload):
-            raise EOFError("truncated stored block")
-        ln = int.from_bytes(s.payload[byi:byi + 2], "little")
-        nlen = int.from_bytes(s.payload[byi + 2:byi + 4], "little")
-        if ln != (~nlen & 0xFFFF):
-            raise ValueError("stored block LEN/NLEN mismatch")
-        data = s.payload[byi + 4:byi + 4 + ln]
-        if len(data) != ln:
-            raise EOFError("truncated stored block data")
-        s.push(data)
-        br.pos = (byi + 4 + ln) << 3
-        if bfinal:
-            s.done = True
-            return "end"
-        return "stored"
-    if btype == 1:
-        s._lens = None  # static tables; engines cache their builds
-        return "huff"
-    if btype == 2:
-        # stash the code lengths; each decode engine (lockstep regions /
-        # speculative flat tables) builds its own table form at round time
-        s._lens = parse_dynamic_header(br)  # type: ignore[attr-defined]
-        return "huff"
-    raise ValueError("reserved BTYPE")
+    """Advance past one block header: 'huff', 'stored' or 'end' as
+    ``_parse_headers`` gives them, from a one-lane call; a rejected
+    header raises the reference's EOFError or ValueError."""
+    kind = _parse_headers([s])[0]
+    if isinstance(kind, Exception):
+        raise kind
+    return kind
+
+
+def _next_blocks(streams) -> list:
+    """Move every stream to its next Huffman block, a ``_parse_headers``
+    call a pass: a stream at a stored block goes into the next pass, one
+    whose header is rejected is marked failed, one that ends is done.
+    Returns the streams at a Huffman block, in stream order."""
+    huff = []
+    while streams:
+        more = []
+        for s, kind in zip(streams, _parse_headers(streams)):
+            if kind == "huff":
+                huff.append(s)
+            elif kind == "stored":
+                more.append(s)
+            elif kind != "end":
+                s.failed = True
+        streams = more
+    huff.sort(key=lambda s: s.index)
+    return huff
 
 
 # ---------------------------------------------------------------------------
@@ -279,19 +251,8 @@ def inflate_batch(payloads, hints, device: torch.device,
         ran_out.clear()
     for _ in range(max_rounds):
         parse = rec.open("inflate.parse") if rec is not None else None
-        batch = []
-        for s in streams:
-            if s.done or s.failed:
-                continue
-            # parse as many host-handled (stored) blocks as possible and
-            # stop at a Huffman block or stream end
-            try:
-                while not s.done:
-                    if _parse_one_header(s) == "huff":
-                        batch.append(s)
-                        break
-            except (EOFError, ValueError):
-                s.failed = True
+        batch = _next_blocks([s for s in streams
+                              if not (s.done or s.failed)])
         if parse is not None:
             rec.close(parse, len(batch))
         if not batch:

@@ -1,7 +1,8 @@
 """DEFLATE constant tables (RFC1951) as numpy arrays: the part of
 qatzip_tpu/ops/deflate_tables.py the port's decoders reach, namely the
 length and distance code bases and extra bits, the static Huffman code of
-BTYPE=01, canonical codes and the code-length-code symbol order.
+BTYPE=01 and canonical codes.  The code-length code's symbol order lives
+with the header parse, native/qzheaders.cpp.
 """
 from __future__ import annotations
 
@@ -13,11 +14,6 @@ WINDOW_SIZE = 32768
 EOB = 256
 NUM_LITLEN = 286
 NUM_DIST = 30
-NUM_CLCODES = 19
-
-# order in which code-length-code lengths are transmitted (RFC1951 3.2.7)
-CLCODE_ORDER = np.array([16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13,
-                         2, 14, 1, 15], dtype=np.int32)
 
 # length codes 257-285 and distance codes 0-29: base value and extra bits
 _LENGTH_BASE = [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35,

@@ -28,6 +28,7 @@ from qatzip_tpu_torch import api as qt
 from qatzip_tpu_torch.engine import core
 from qatzip_tpu_torch.native import qzcore
 from qatzip_tpu_torch.ops import deflate_decode as dd
+from tests.test_torch_headers_native import walk_blocks
 
 torch.set_num_threads(1)
 
@@ -398,18 +399,11 @@ def _batch(corpus_factory, level):
             [w for _, w in cases])
 
 
-def _counted_blocks(monkeypatch):
-    seen = []
-    parse = dd._parse_one_header
-
-    def counted(s):
-        kind = parse(s)
-        if kind == "huff":
-            seen.append(s.index)
-        return kind
-
-    monkeypatch.setattr(dd, "_parse_one_header", counted)
-    return seen
+def _counted_blocks(payloads):
+    """The index of each stream once a Huffman block, by the reference's
+    walk over the streams (``walk_blocks``)."""
+    return [i for i, p in enumerate(payloads) for _, k in walk_blocks(p)
+            if k != "stored"]
 
 
 def _run(payloads, hints, kind):
@@ -450,20 +444,23 @@ def test_inflate_batch_same_both_ways(corpus_factory, level, kind):
 
 
 @pytest.mark.parametrize("kind", ["crc32", "adler32"])
-def test_apply_counters_count_the_lanes(corpus_factory, monkeypatch, kind):
+def test_apply_counters_count_the_lanes(corpus_factory, kind):
     """On sound streams every Huffman block is a lane on the
-    ``inflate.device`` spans, and none fails over."""
+    ``inflate.device`` spans and a block on the ``inflate.parse`` spans,
+    and none fails over."""
     payloads, hints, want = _batch(corpus_factory, 6)
     keep = [i for i, w in enumerate(want) if w is not None]
     payloads = [payloads[i] for i in keep]
     hints = [hints[i] for i in keep]
-    seen = _counted_blocks(monkeypatch)
+    seen = _counted_blocks(payloads)
     res, failed, spans = _run(payloads, hints, kind)
     assert [r[0] for r in res] == [want[i] for i in keep]
     assert seen.count(1) == 3          # the multi-block stream's blocks
     assert failed == 0
     assert sum(s["value"] for s in spans
                if s["name"] == "inflate.device") == len(seen)
+    assert sum(s["value"] for s in spans
+               if s["name"] == "inflate.parse") == len(seen)
 
 
 def test_threads_apply_at_once():

@@ -15,7 +15,8 @@ entry, are wider sets, which both builders take.
 
 Then ``pack_round``, whose rows must be the reference builders', and
 ``inflate_batch``: zlib's bytes and checksums, and the ``inflate.tables``
-spans' count of the regions built.
+and ``inflate.parse`` spans' counts of the regions built and the Huffman
+blocks, against the blocks the reference's parse walks.
 """
 import threading
 import zlib
@@ -32,6 +33,7 @@ from qatzip_tpu_torch.ops import deflate_decode as dd
 from qatzip_tpu_torch.ops import deflate_tables as T
 from qatzip_tpu_torch.ops import inflate as PI
 from qatzip_tpu_torch.tools.corpus import build_corpus
+from tests.test_torch_headers_native import walk_blocks
 
 torch.set_num_threads(1)
 
@@ -299,19 +301,10 @@ def _chunks(corpus, n=4, size=8 << 10):
     return datas, [_raw(d, 1) for d in datas]
 
 
-def _dynamic_blocks(monkeypatch):
-    """Count the dynamic headers the inflate parses."""
-    seen = []
-    parse = dd._parse_one_header
-
-    def counted(s):
-        kind = parse(s)
-        if kind == "huff" and s._lens is not None:
-            seen.append(s)
-        return kind
-
-    monkeypatch.setattr(dd, "_parse_one_header", counted)
-    return seen
+def _blocks(payloads, kinds):
+    """The streams' blocks of ``kinds``, counted by the reference's walk
+    over them (``walk_blocks``)."""
+    return sum(k in kinds for p in payloads for _, k in walk_blocks(p))
 
 
 def _traced_inflate(payloads, hints, kind):
@@ -329,15 +322,18 @@ def _traced_inflate(payloads, hints, kind):
 
 
 @pytest.mark.parametrize("kind", ["crc32", "adler32"])
-def test_inflate_batch_bytes_and_region_counters(corpus, monkeypatch, kind):
-    """zlib's bytes and checksums, and two regions counted a dynamic block
-    on the ``inflate.tables`` spans."""
+def test_inflate_batch_bytes_and_region_counters(corpus, kind):
+    """zlib's bytes and checksums, two regions counted a dynamic block on
+    the ``inflate.tables`` spans, and a Huffman block on the
+    ``inflate.parse`` spans."""
     datas, payloads = _chunks(corpus)
-    seen = _dynamic_blocks(monkeypatch)
+    dynamic = _blocks(payloads, {"dynamic"})
     res, spans = _traced_inflate(payloads, [len(d) for d in datas], kind)
     ck = zlib.crc32 if kind == "crc32" else zlib.adler32
     assert [r[0] for r in res] == datas
     assert [r[2] for r in res] == [ck(d) for d in datas]
-    assert len(seen) >= len(datas)
+    assert dynamic >= len(datas)
     assert sum(s["value"] for s in spans
-               if s["name"] == "inflate.tables") == 2 * len(seen)
+               if s["name"] == "inflate.tables") == 2 * dynamic
+    assert sum(s["value"] for s in spans if s["name"] == "inflate.parse") \
+        == _blocks(payloads, {"dynamic", "static"})
